@@ -1,0 +1,38 @@
+"""small_gicp_tpu_torch — the PyTorch/CUDA port of small_gicp_tpu.
+
+Runs scan-pair preprocessing (voxelgrid downsampling, exact kNN normals
+and covariances) and ICP / point-to-plane / GICP registration with GN or
+LM on an NVIDIA Hopper card, through hand-written CUDA kernels for the
+fused search + linearize (K1), the LM trial errors (K2) and the kNN
+moments (K3). Entry points run on the card unless given ``device="cpu"``,
+where every kernel runs its plain PyTorch version.
+"""
+
+from small_gicp_tpu_torch.point_cloud import PAD_SENTINEL, PointCloud, transform_points
+from small_gicp_tpu_torch.utils.lie import se3_exp, so3_exp, skew
+from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
+from small_gicp_tpu_torch.ops.knn import KdTree, knn_search, nearest_neighbor_search
+from small_gicp_tpu_torch.ops.normals import (
+    estimate_covariances,
+    estimate_normals,
+    estimate_normals_covariances,
+)
+from small_gicp_tpu_torch.models.registration import (
+    Registration,
+    RegistrationResult,
+    align_points,
+)
+from small_gicp_tpu_torch.models.helper import (
+    RegistrationSetting,
+    align,
+    preprocess_points,
+)
+from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
+
+__all__ = [
+    "PAD_SENTINEL", "PointCloud", "transform_points", "se3_exp", "so3_exp", "skew",
+    "voxelgrid_sampling", "KdTree", "knn_search", "nearest_neighbor_search",
+    "estimate_covariances", "estimate_normals", "estimate_normals_covariances",
+    "Registration", "RegistrationResult", "align_points", "RegistrationSetting",
+    "align", "preprocess_points", "cloud_from_numpy", "result_to_numpy",
+]

@@ -1,0 +1,390 @@
+// Fused GICP correspondence search + linearize (K1) and the LM trial
+// errors (K2), hand-written for Hopper (sm_90a).
+//
+// K1 replaces small_gicp_tpu/ops/gicp_fused_pallas.py
+// `_fused_kernel_listed` + `_fused_finalize`: exact 1-NN of T·p over the
+// valid target rows, then the per-point weight W (GICP (C_t + R C_s Rᵀ)⁻¹
+// by adjugate with the |det| < 1e-30 guard, plane-ICP diag(n∘n), ICP I),
+// the rejector mask d² ≤ max_d2, the optional Huber/Cauchy weight w(√e),
+// J = [R·skew(p) | −R], the per-block sums [H | b | e | inliers] and the
+// frozen correspondence rows corr = [μ 3 | W 9 | mask | d² | 0 | 0].
+//
+// What bounds it: the brute-force search, N·M pairs at ~9 f32 operations
+// each (operations, not bytes: the target tile is read from shared memory
+// by every thread of the block). The design keeps the inner loop to one
+// 16-byte shared-memory broadcast load, the distance and a compare; the
+// winner's payload is gathered once from device memory after the loop
+// (the TPU kernel carried it through a one-hot matmul); blocks whose rows
+// are all padding skip the search. One thread owns one source point, so
+// the ~150-scalar finalize stays in registers; only the 21 unique entries
+// of H are formed. Block sums go through warp
+// shuffles into a [blocks, 44] buffer that the caller sums in float64, so
+// results are deterministic (no float atomics).
+//
+// K2 replaces `_trials_kernel` (gicp_error_multi_pallas): Σ ½ rᵀWr·mask,
+// re-weighted by w(√e) at each pose, for up to 100 poses over the frozen
+// corr rows. It reads each correspondence row once (bytes-bound: 80 bytes
+// per point) and loops over the poses held in shared memory.
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+using sgt::kBig;
+
+constexpr int kLinThreads = 64;
+constexpr int kLinTile = 512;
+constexpr int kLinRed = 29;  // 21 unique H | b 6 | e | inliers
+constexpr int kLinOut = 44;  // H 36 | b 6 | e | inliers
+constexpr int kTrialThreads = 128;
+constexpr int kMaxPoses = 100;
+
+enum Factor { kGicp = 0, kPlaneIcp = 1, kIcp = 2 };
+enum Robust { kNone = 0, kHuber = 1, kCauchy = 2 };
+
+// w(√e) with e the unweighted per-point error, clamped at 0
+// (factors.robust_weight): Huber min(1, c/√e), Cauchy c/(c+e).
+template <int ROBUST>
+__device__ __forceinline__ float robust_weight(float e, float c) {
+  const float e0 = fmaxf(e, 0.f);
+  if (ROBUST == kHuber) {
+    const float x = sqrtf(e0);
+    return x < c ? 1.f : c / fmaxf(x, 1e-30f);
+  }
+  if (ROBUST == kCauchy) return c / (c + e0);
+  return 1.f;
+}
+
+// Packed index of H[lo][hi], lo ≤ hi, in the 21-entry upper triangle.
+__host__ __device__ constexpr int tri(int lo, int hi) {
+  return lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
+}
+
+// ttab [M,16]: x y z 0 | payload 9 (C_t row-major, or the normal) | 0 0 0
+// qtab [N,16]: x y z 0 | C_s 9 row-major | 0 0 0
+// pose [12]: R row-major 9 | t 3 (device memory)
+template <int FACTOR, int ROBUST>
+__global__ void __launch_bounds__(kLinThreads)
+gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tnum,
+                      const float* __restrict__ qtab, const int* __restrict__ qnum,
+                      int n, const float* __restrict__ pose, float max_d2,
+                      float robust_c, float* __restrict__ corr,
+                      float* __restrict__ partials) {
+  __shared__ float4 tile[kLinTile];
+  __shared__ float red[kLinThreads / 32][kLinRed];
+
+  const int i = blockIdx.x * kLinThreads + threadIdx.x;
+  const int m = *tnum;
+  const int nv = min(n, *qnum);
+  const bool active = i < nv;
+  const bool block_active = blockIdx.x * kLinThreads < nv;  // uniform
+
+  float r[9], t[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r[k] = pose[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = pose[9 + k];
+
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if (i < n) {
+    const float4 p4 = reinterpret_cast<const float4*>(qtab)[(size_t)i * 4];
+    px = p4.x;
+    py = p4.y;
+    pz = p4.z;
+  }
+  const float qx = sgt::affine_row(r + 0, t[0], px, py, pz);
+  const float qy = sgt::affine_row(r + 3, t[1], px, py, pz);
+  const float qz = sgt::affine_row(r + 6, t[2], px, py, pz);
+
+  // Exact 1-NN; ascending scan with strict < keeps the lower index on ties.
+  float best_d = kBig;
+  int best = -1;
+  for (int base = 0; block_active && base < m; base += kLinTile) {
+    const int cnt = min(kLinTile, m - base);
+    __syncthreads();
+    for (int j = threadIdx.x; j < cnt; j += kLinThreads)
+      tile[j] = reinterpret_cast<const float4*>(ttab)[(size_t)(base + j) * 4];
+    __syncthreads();
+    if (active) {
+#pragma unroll 4
+      for (int j = 0; j < cnt; ++j) {
+        const float4 tp = tile[j];
+        float dx, dy, dz;
+        const float d2 = sgt::sq_dist(qx, qy, qz, tp.x, tp.y, tp.z, dx, dy, dz);
+        if (d2 < best_d) {
+          best_d = d2;
+          best = base + j;
+        }
+      }
+    }
+  }
+
+  float mux = 0.f, muy = 0.f, muz = 0.f;
+  float pay[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) pay[k] = 0.f;
+  if (best >= 0) {
+    const float* row = ttab + (size_t)best * 16;
+    mux = row[0];
+    muy = row[1];
+    muz = row[2];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) pay[k] = row[4 + k];
+  }
+  const bool mask = active && best_d <= max_d2 && best_d < 0.5f * kBig;
+
+  // Per-point weight W.
+  float w[9];
+  if (FACTOR == kGicp) {
+    float cs[9];
+    if (i < n) {
+      const float* q = qtab + (size_t)i * 16 + 4;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) cs[k] = q[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) cs[k] = 0.f;
+    }
+    float a[9];  // A = R C_s
+#pragma unroll
+    for (int row = 0; row < 3; ++row)
+#pragma unroll
+      for (int col = 0; col < 3; ++col)
+        a[row * 3 + col] = r[row * 3 + 0] * cs[0 * 3 + col] +
+                           r[row * 3 + 1] * cs[1 * 3 + col] +
+                           r[row * 3 + 2] * cs[2 * 3 + col];
+    float mm[9];  // M = C_t + A Rᵀ
+#pragma unroll
+    for (int row = 0; row < 3; ++row)
+#pragma unroll
+      for (int col = 0; col < 3; ++col)
+        mm[row * 3 + col] = pay[row * 3 + col] + a[row * 3 + 0] * r[col * 3 + 0] +
+                            a[row * 3 + 1] * r[col * 3 + 1] +
+                            a[row * 3 + 2] * r[col * 3 + 2];
+    const float co00 = mm[4] * mm[8] - mm[5] * mm[7];
+    const float co01 = mm[2] * mm[7] - mm[1] * mm[8];
+    const float co02 = mm[1] * mm[5] - mm[2] * mm[4];
+    const float co10 = mm[5] * mm[6] - mm[3] * mm[8];
+    const float co11 = mm[0] * mm[8] - mm[2] * mm[6];
+    const float co12 = mm[2] * mm[3] - mm[0] * mm[5];
+    const float co20 = mm[3] * mm[7] - mm[4] * mm[6];
+    const float co21 = mm[1] * mm[6] - mm[0] * mm[7];
+    const float co22 = mm[0] * mm[4] - mm[1] * mm[3];
+    const float det = mm[0] * co00 + mm[1] * co10 + mm[2] * co20;
+    const float inv_det = fabsf(det) < 1e-30f ? 0.f : 1.f / det;
+    w[0] = co00 * inv_det;
+    w[1] = co01 * inv_det;
+    w[2] = co02 * inv_det;
+    w[3] = co10 * inv_det;
+    w[4] = co11 * inv_det;
+    w[5] = co12 * inv_det;
+    w[6] = co20 * inv_det;
+    w[7] = co21 * inv_det;
+    w[8] = co22 * inv_det;
+  } else if (FACTOR == kPlaneIcp) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) w[k] = 0.f;
+    w[0] = pay[0] * pay[0];
+    w[4] = pay[1] * pay[1];
+    w[8] = pay[2] * pay[2];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) w[k] = 0.f;
+    w[0] = w[4] = w[8] = 1.f;
+  }
+
+  float v[kLinRed];
+#pragma unroll
+  for (int c = 0; c < kLinRed; ++c) v[c] = 0.f;
+  if (mask) {
+    const float rx = mux - qx, ry = muy - qy, rz = muz - qz;
+    const float wr[3] = {w[0] * rx + w[1] * ry + w[2] * rz,
+                         w[3] * rx + w[4] * ry + w[5] * rz,
+                         w[6] * rx + w[7] * ry + w[8] * rz};
+    const float e_i = 0.5f * (rx * wr[0] + ry * wr[1] + rz * wr[2]);
+    const float wm = robust_weight<ROBUST>(e_i, robust_c);
+
+    // J = [R·skew(p) | −R]
+    float J[3][6];
+#pragma unroll
+    for (int row = 0; row < 3; ++row) {
+      const float* rr = r + row * 3;
+      J[row][0] = rr[1] * pz - rr[2] * py;
+      J[row][1] = rr[2] * px - rr[0] * pz;
+      J[row][2] = rr[0] * py - rr[1] * px;
+      J[row][3] = -rr[0];
+      J[row][4] = -rr[1];
+      J[row][5] = -rr[2];
+    }
+    float WJ[3][6];
+#pragma unroll
+    for (int row = 0; row < 3; ++row)
+#pragma unroll
+      for (int col = 0; col < 6; ++col)
+        WJ[row][col] = w[row * 3 + 0] * J[0][col] + w[row * 3 + 1] * J[1][col] +
+                       w[row * 3 + 2] * J[2][col];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+#pragma unroll
+      for (int b = a; b < 6; ++b)
+        v[tri(a, b)] = (J[0][a] * WJ[0][b] + J[1][a] * WJ[1][b] + J[2][a] * WJ[2][b]) * wm;
+      v[21 + a] = (J[0][a] * wr[0] + J[1][a] * wr[1] + J[2][a] * wr[2]) * wm;
+    }
+    v[27] = e_i * wm;
+    v[28] = 1.f;  // the inlier count stays unweighted
+  }
+
+  if (i < n) {
+    float4* out = reinterpret_cast<float4*>(corr + (size_t)i * 16);
+    out[0] = make_float4(mux, muy, muz, w[0]);
+    out[1] = make_float4(w[1], w[2], w[3], w[4]);
+    out[2] = make_float4(w[5], w[6], w[7], w[8]);
+    out[3] = make_float4(mask ? 1.f : 0.f, best_d, 0.f, 0.f);
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < kLinRed; ++c) {
+    const float s = sgt::warp_sum(v[c]);
+    if (lane == 0) red[warp][c] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < kLinOut) {
+    const int o = threadIdx.x;
+    int c;
+    if (o < 36) {
+      const int a = o / 6, b = o % 6;
+      c = a <= b ? tri(a, b) : tri(b, a);
+    } else {
+      c = 21 + (o - 36);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kLinThreads / 32; ++wi) s += red[wi][c];
+    partials[(size_t)blockIdx.x * kLinOut + o] = s;
+  }
+}
+
+// corr [N,16] from K1, src [N,4] source points, poses [K1,12] (R 9 | t 3).
+template <int ROBUST>
+__global__ void __launch_bounds__(kTrialThreads)
+gicp_error_multi_kernel(const float* __restrict__ corr, const float* __restrict__ src,
+                        const int* __restrict__ qnum, int n,
+                        const float* __restrict__ poses, int k1, float robust_c,
+                        float* __restrict__ partials) {
+  __shared__ float ps[kMaxPoses * 12];
+  __shared__ float red[kTrialThreads / 32][kMaxPoses];
+  for (int j = threadIdx.x; j < 12 * k1; j += kTrialThreads) ps[j] = poses[j];
+  __syncthreads();
+
+  const int i = blockIdx.x * kTrialThreads + threadIdx.x;
+  bool active = i < n && i < *qnum;
+  float c[16];
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if (active) {
+    const float4* c4 = reinterpret_cast<const float4*>(corr + (size_t)i * 16);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 x = c4[k];
+      c[4 * k + 0] = x.x;
+      c[4 * k + 1] = x.y;
+      c[4 * k + 2] = x.z;
+      c[4 * k + 3] = x.w;
+    }
+    const float4 p4 = reinterpret_cast<const float4*>(src)[i];
+    px = p4.x;
+    py = p4.y;
+    pz = p4.z;
+    active = c[12] > 0.5f;
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < k1; ++k) {
+    float e = 0.f;
+    if (active) {
+      const float* P = ps + 12 * k;
+      const float rx = c[0] - (P[0] * px + P[1] * py + P[2] * pz + P[9]);
+      const float ry = c[1] - (P[3] * px + P[4] * py + P[5] * pz + P[10]);
+      const float rz = c[2] - (P[6] * px + P[7] * py + P[8] * pz + P[11]);
+      const float wr0 = c[3] * rx + c[4] * ry + c[5] * rz;
+      const float wr1 = c[6] * rx + c[7] * ry + c[8] * rz;
+      const float wr2 = c[9] * rx + c[10] * ry + c[11] * rz;
+      e = 0.5f * (rx * wr0 + ry * wr1 + rz * wr2);
+      if (ROBUST != kNone) e = robust_weight<ROBUST>(e, robust_c) * e;
+    }
+    const float s = sgt::warp_sum(e);
+    if (lane == 0) red[warp][k] = s;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < k1; k += kTrialThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kTrialThreads / 32; ++wi) s += red[wi][k];
+    partials[(size_t)blockIdx.x * k1 + k] = s;
+  }
+}
+
+template <int F, int RB>
+void launch_linearize(int blocks, cudaStream_t stream, const float* ttab,
+                      const int* tnum, const float* qtab, const int* qnum, int n,
+                      const float* pose, float max_d2, float robust_c, float* corr,
+                      float* partials) {
+  gicp_linearize_kernel<F, RB><<<blocks, kLinThreads, 0, stream>>>(
+      ttab, tnum, qtab, qnum, n, pose, max_d2, robust_c, corr, partials);
+}
+
+using LinearizeLaunch = void (*)(int, cudaStream_t, const float*, const int*,
+                                 const float*, const int*, int, const float*, float,
+                                 float, float*, float*);
+
+const LinearizeLaunch kLinearize[3][3] = {
+    {launch_linearize<kGicp, kNone>, launch_linearize<kGicp, kHuber>,
+     launch_linearize<kGicp, kCauchy>},
+    {launch_linearize<kPlaneIcp, kNone>, launch_linearize<kPlaneIcp, kHuber>,
+     launch_linearize<kPlaneIcp, kCauchy>},
+    {launch_linearize<kIcp, kNone>, launch_linearize<kIcp, kHuber>,
+     launch_linearize<kIcp, kCauchy>},
+};
+
+}  // namespace
+
+extern "C" {
+
+int sgt_linearize_block_rows() { return kLinThreads; }
+int sgt_trials_block_rows() { return kTrialThreads; }
+
+// Returns cudaGetLastError() after the launch (0 on success).
+int sgt_gicp_linearize(const float* ttab, const int* tnum, const float* qtab,
+                       const int* qnum, int n, const float* pose, float max_d2,
+                       float robust_c, int factor, int robust, float* corr,
+                       float* partials, void* stream) {
+  if (factor < 0 || factor > 2 || robust < 0 || robust > 2 || n <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kLinThreads - 1) / kLinThreads;
+  kLinearize[factor][robust](blocks, (cudaStream_t)stream, ttab, tnum, qtab, qnum, n,
+                             pose, max_d2, robust_c, corr, partials);
+  return (int)cudaGetLastError();
+}
+
+int sgt_gicp_error_multi(const float* corr, const float* src, const int* qnum, int n,
+                         const float* poses, int k1, float robust_c, int robust,
+                         float* partials, void* stream) {
+  if (k1 < 1 || k1 > kMaxPoses || robust < 0 || robust > 2 || n <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kTrialThreads - 1) / kTrialThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (robust == kHuber)
+    gicp_error_multi_kernel<kHuber><<<blocks, kTrialThreads, 0, s>>>(
+        corr, src, qnum, n, poses, k1, robust_c, partials);
+  else if (robust == kCauchy)
+    gicp_error_multi_kernel<kCauchy><<<blocks, kTrialThreads, 0, s>>>(
+        corr, src, qnum, n, poses, k1, robust_c, partials);
+  else
+    gicp_error_multi_kernel<kNone><<<blocks, kTrialThreads, 0, s>>>(
+        corr, src, qnum, n, poses, k1, robust_c, partials);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,105 @@
+"""Fixed-capacity point cloud, in torch.
+
+Counterpart of ``small_gicp_tpu/point_cloud.py``. One array schema
+serves every stage:
+
+  points  [N, 4] homogeneous (x, y, z, 1); padded rows = (SENTINEL,)*3 + (0,)
+  normals [N, 4] (nx, ny, nz, 0)
+  covs    [N, 3, 3]
+  num_points: 0-d int32 tensor on the cloud's device; valid rows come first.
+
+``num_points`` stays a device tensor so that no stage has to wait for the
+device to learn how many rows are valid; the kernels read it in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Coordinate of padding rows: distances to them are ~1e18, which loses
+# every nearest-neighbour race and stays inside float32 range.
+PAD_SENTINEL = 1.0e9
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Asking for CUDA where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path"
+        )
+    return dev
+
+
+@dataclass
+class PointCloud:
+    points: torch.Tensor  # [N, 4]
+    num_points: torch.Tensor  # 0-d int32
+    normals: Optional[torch.Tensor] = None  # [N, 4]
+    covs: Optional[torch.Tensor] = None  # [N, 3, 3]
+
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.points.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    def replace(self, **changes) -> "PointCloud":
+        return dataclasses.replace(self, **changes)
+
+    def valid_mask(self) -> torch.Tensor:
+        """[N] bool — True for real points, False for padding."""
+        return torch.arange(self.capacity, device=self.device) < self.num_points
+
+    def __len__(self) -> int:
+        return int(self.num_points)
+
+    @staticmethod
+    def from_points(points, capacity: Optional[int] = None, dtype=None,
+                    device=None) -> "PointCloud":
+        """Build from an [M, 3] or [M, 4] array (numpy or torch).
+
+        Floating inputs keep their dtype unless ``dtype`` is given; other
+        inputs become float32.
+        """
+        dev = resolve_device(device)
+        pts = torch.as_tensor(np.asarray(points)) if not isinstance(
+            points, torch.Tensor) else points
+        if pts.ndim != 2 or pts.shape[1] not in (3, 4):
+            raise ValueError(f"points must be [N,3] or [N,4], got {tuple(pts.shape)}")
+        m = pts.shape[0]
+        n = capacity if capacity is not None else m
+        if n < m:
+            raise ValueError(f"capacity {n} < number of points {m}")
+        dt = dtype if dtype is not None else (
+            pts.dtype if pts.is_floating_point() else torch.float32
+        )
+        buf = torch.full((n, 4), PAD_SENTINEL, dtype=dt, device=dev)
+        buf[:, 3] = 0.0
+        buf[:m, :3] = pts[:, :3].to(device=dev, dtype=dt)
+        buf[:m, 3] = 1.0
+        return PointCloud(
+            points=buf,
+            num_points=torch.tensor(m, dtype=torch.int32, device=dev),
+        )
+
+
+def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 rigid transform to [N,4] homogeneous points.
+
+    Padding rows have w=0, so the translation is not applied and the
+    sentinel stays far away.
+    """
+    return points @ T.T
