@@ -14,7 +14,13 @@ Phases (any failure exits non-zero):
   5. e2e      — preprocess_points on both frames, then GICP/LM align within
                 2.5° / 0.2 m of ground truth, with every kernel launched;
                 registrations/s over noisy initial guesses; the card path
-                against the plain CPU path on a small pair.
+                against the plain CPU path on a small pair;
+  6. fleet    — three frames preprocessed at one capacity (two pairs); K7
+                and K8 at 32 lanes against their plain versions; align_fleet
+                over 512 noisy problems through 32 lanes, every problem
+                within the bounds or in agreement with align_impl, sampled
+                rows against align_impl, lane-count invariance, fleet
+                registrations/s and the card's busy share.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -41,13 +47,19 @@ from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_error_multi,
+    gicp_error_multi_fleet,
+    gicp_error_multi_fleet_plain,
     gicp_error_multi_plain,
+    gicp_linearize_fleet,
+    gicp_linearize_fleet_plain,
     gicp_linearize_plain,
     gicp_linearize_tables,
     gicp_prepare,
 )
+from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.normals import estimate_normals_covariances
-from small_gicp_tpu_torch.point_cloud import PointCloud
+from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
+from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
 
@@ -60,6 +72,8 @@ MAX_DIST_SQ = 1.0
 ROT_EPS = 0.1 * math.pi / 180.0
 TRANS_EPS = 1e-3
 REPS = 20
+FLEET_LANES = 32
+FLEET_PROBLEMS = 512
 
 KERNELS = {
     "gicp_linearize": ("K1", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
@@ -71,7 +85,15 @@ KERNELS = {
     "knn_moments": ("K3", "small_gicp_tpu_torch/csrc/cov_fused.cu",
                     "small_gicp_tpu/ops/cov_fused_pallas.py:171",
                     knn_moments_rows),
+    "gicp_linearize_fleet": ("K7", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+                             "small_gicp_tpu/ops/gicp_fused_pallas.py:1312",
+                             gicp_linearize_fleet),
+    "gicp_error_multi_fleet": ("K8", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+                               "small_gicp_tpu/ops/gicp_fused_pallas.py:1438",
+                               gicp_error_multi_fleet),
 }
+MAIN_KERNELS = ("gicp_linearize", "gicp_error_multi", "knn_moments")
+FLEET_KERNELS = ("gicp_linearize_fleet", "gicp_error_multi_fleet")
 
 
 def check(ok: bool, what: str) -> None:
@@ -103,12 +125,20 @@ def bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def pose_error(T: np.ndarray, T_gt: np.ndarray):
-    """(rotation error in degrees, translation error in metres), float64."""
+def pose_errors(T: np.ndarray, T_gt: np.ndarray):
+    """(rotation errors in degrees, translation errors in metres) of
+    [..., 4, 4] poses, float64 arrays."""
     T = torch.as_tensor(np.asarray(T, np.float64))
     T_gt = torch.as_tensor(np.asarray(T_gt, np.float64))
-    rot = float(rotation_error_deg(T_gt[:3, :3], T[:3, :3]))
-    return rot, float(torch.linalg.vector_norm(T[:3, 3] - T_gt[:3, 3]))
+    rot = rotation_error_deg(T_gt[..., :3, :3], T[..., :3, :3])
+    return rot.numpy(), torch.linalg.vector_norm(T[..., :3, 3] - T_gt[..., :3, 3],
+                                                 dim=-1).numpy()
+
+
+def pose_error(T: np.ndarray, T_gt: np.ndarray):
+    """(rotation error in degrees, translation error in metres), float64."""
+    rot, trans = pose_errors(T, T_gt)
+    return float(rot), float(trans)
 
 
 def noisy_guess(T_gt: np.ndarray, rng: np.random.Generator) -> np.ndarray:
@@ -228,7 +258,7 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
     res = align(target, source, tree, init_T_target_source=init)
     torch.cuda.synchronize()
     t_align = time.perf_counter() - t0
-    launches = {name: fn.launches for name, (_, _, _, fn) in KERNELS.items()}
+    launches = {name: KERNELS[name][3].launches for name in MAIN_KERNELS}
     r = result_to_numpy(res)
     rot, trans = pose_error(r["T_target_source"], T_gt)
     print(f"num_points target {int(target.num_points)} source "
@@ -252,7 +282,8 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
         check(rot < 2.5 and trans < 0.2, "a timed registration left the bounds")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print(f"registrations/s: {n_regs / dt:.3f} ({n_regs} aligns, iterations "
+    reg_per_s = n_regs / dt
+    print(f"registrations/s: {reg_per_s:.3f} ({n_regs} aligns, iterations "
           f"{iters}, preprocessing excluded) on {card}")
     # Each align runs K1 and K2 once per executed iteration.
     calls = sum(i + 1 for i in iters)
@@ -298,7 +329,205 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
     check(math.radians(d_rot) <= 2 * ROT_EPS and d_trans <= 2 * TRANS_EPS
           and abs(a["iterations"] - c["iterations"]) <= 1,
           "card and CPU paths disagree on the small pair")
-    return launches
+    return launches, reg_per_s
+
+
+def _agrees(fleet_row, ref) -> bool:
+    """A fleet row and align_impl's result for the same problem agree within
+    2× the convergence thresholds and one iteration (float32 reduction
+    order can flip a knife-edge LM accept between the two paths)."""
+    d_rot, d_trans = pose_error(fleet_row[0], ref.T_target_source.cpu().numpy())
+    return (math.radians(d_rot) <= 2 * ROT_EPS and d_trans <= 2 * TRANS_EPS
+            and abs(fleet_row[1] - int(ref.iterations)) <= 1)
+
+
+def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
+                lanes=FLEET_LANES, problems=FLEET_PROBLEMS):
+    """K7/K8 against their plain versions, then align_fleet end to end."""
+    print("== phase 6: fleet", flush=True)
+    f32 = torch.float32
+    # One capacity for every frame, as bench.py sizes it: the largest
+    # voxel count plus headroom, rounded up to 512 rows.
+    n_est = max(int(voxelgrid_sampling(PointCloud.from_points(s, device=dev),
+                                       LEAF).num_points) for s in scans)
+    cap = (n_est + 256 + 511) // 512 * 512
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clouds = [preprocess_points(s, LEAF, num_neighbors=K_NEIGHBORS, max_points=cap,
+                                device=dev)[0] for s in scans]
+    targets, sources = stack_clouds(clouds[:-1]), stack_clouds(clouds[1:])
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = fleet_prepare(targets, sources)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    gts = [np.linalg.inv(poses[u]) @ poses[u + 1] for u in range(len(scans) - 1)]
+    n_valid = [int(c.num_points) for c in clouds]
+    print(f"{len(scans)} frames → {len(gts)} pairs at capacity {cap}, valid rows "
+          f"{n_valid}; preprocess {t_pre:.3f} s, fleet_prepare {t_prep:.4f} s")
+    m_u, n_u = n_valid[:-1], n_valid[1:]  # target / source rows of each pair
+    records = {}
+
+    # K7 over `lanes` lanes on both pairs, the last two lanes inactive.
+    B = lanes
+    uid_list = [b % len(gts) for b in range(B)]
+    uids = torch.tensor(uid_list, dtype=torch.int32, device=dev)
+    active = torch.arange(B, device=dev) < B - 2
+    Ts = torch.as_tensor(np.stack([noisy_guess(gts[u], rng) for u in uid_list]),
+                         dtype=f32, device=dev)
+    H, b, inl, corr = gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active)
+    Hp, bp, inlp, corrp = gicp_linearize_fleet_plain(tables, uids, Ts, MAX_DIST_SQ,
+                                                     active)
+    mask = corr[..., 12] > 0.5
+    check(torch.equal(mask, corrp[..., 12] > 0.5), "K7 inlier masks differ")
+    check(torch.equal(inl, inlp), "K7 inlier counts differ")
+    check(torch.equal(corr[mask][:, [0, 1, 2, 13]], corrp[mask][:, [0, 1, 2, 13]]),
+          "K7 correspondences (μ, d²) differ")
+    w_err = ((corr[..., 3:12] - corrp[..., 3:12])[mask].abs()
+             / corrp[..., 3:12][mask].abs().clamp(min=1.0)).max().item()
+    h_err = ((H - Hp).abs().amax(dim=(1, 2))
+             / Hp.abs().amax(dim=(1, 2)).clamp(min=1.0)).max().item()
+    b_err = ((b - bp).abs().amax(dim=1) / bp.abs().amax(dim=1).clamp(min=1.0)).max().item()
+    idle = ~active
+    check(bool(torch.all(H[idle] == 0) & torch.all(b[idle] == 0)
+               & torch.all(inl[idle] == 0) & torch.all(corr[idle] == 0)),
+          "K7 inactive lanes are not zero")
+    print(f"K7 gicp_linearize_fleet: {B} lanes ({int(active.sum())} active), "
+          f"inliers {[int(x) for x in inl[:2]]}…, masks/μ/d² equal, W rel "
+          f"{w_err:.2e} (tol 2e-3), H scaled {h_err:.2e}, b scaled {b_err:.2e} "
+          "(tol 5e-4), inactive lanes zero")
+    check(w_err <= 2e-3, f"K7 W differs by {w_err}")
+    check(h_err <= 5e-4 and b_err <= 5e-4, "K7 H/b differ")
+    act = [u for u, a in zip(uid_list, active.tolist()) if a]
+    # Valid target rows once per active lane; every source row of every lane
+    # read (qtab) and written (corr); the [B, blocks, 44] partials.
+    ops = sum(9.0 * n_u[u] * m_u[u] + 400.0 * n_u[u] for u in act)
+    nbytes = (sum(64.0 * m_u[u] for u in act) + 64.0 * len(act) * cap
+              + 64.0 * B * cap + 4.0 * 44 * B * ((cap + 63) // 64))
+    n_max, m_max = max(n_u), max(m_u)
+    a_idx = active.nonzero()[:, 0]
+    tq = (sources.points[uids[a_idx].long(), :n_max, :3]
+          @ Ts[a_idx, :3, :3].transpose(1, 2) + Ts[a_idx, None, :3, 3])
+    tt = targets.points[uids[a_idx].long(), :m_max, :3].contiguous()
+
+    def lib_k7():
+        # cdist + min over four lanes at a time: the whole batch's distance
+        # matrix would not fit the card.
+        for s in range(0, tq.shape[0], 4):
+            torch.cdist(tq[s:s + 4], tt[s:s + 4]).min(dim=-1)
+
+    records["gicp_linearize_fleet"] = dict(
+        max_abs_err=(H - Hp).abs().max().item(),
+        ms=time_ms(lambda: gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active)),
+        plain_ms=time_ms(lambda: gicp_linearize_fleet_plain(
+            tables, uids, Ts, MAX_DIST_SQ, active), reps=3),
+        library_ms=time_ms(lib_k7, reps=3),
+        pairs=sum(n_u[u] * m_u[u] for u in act), bound=bound(ops, nbytes))
+
+    # K8 at each lane's pose plus its 10 LM trial poses.
+    lambdas = 1e-3 * 10.0 ** torch.arange(10, dtype=f32, device=dev)
+    deltas = solve6x6(H.float()[:, None], -b.float()[:, None], lambdas.expand(B, 10))
+    all_Ts = torch.cat([Ts[:, None], Ts[:, None] @ se3_exp(deltas)], dim=1)
+    e = gicp_error_multi_fleet(corr, tables, uids, all_Ts)
+    ep = gicp_error_multi_fleet_plain(corr, tables, uids, all_Ts)
+    check(bool(torch.isfinite(e).all()), "K8 errors not finite")
+    check(bool(torch.all(e[idle] == 0)), "K8 errors of inactive lanes are not zero")
+    rel = ((e - ep).abs() / ep.abs().clamp(min=1e-30)).max().item()
+    err = (e - ep).abs().max().item()
+    print(f"K8 gicp_error_multi_fleet: {B} lanes × {all_Ts.shape[1]} poses, "
+          f"max |Δe| {err:.3e}, rel {rel:.2e} (tol 1e-5)")
+    check(rel <= 1e-5, f"K8 errors differ by rel {rel}")
+    k1 = all_Ts.shape[1]
+    ops = sum(40.0 * n_u[u] * k1 for u in act)
+    nbytes = sum(80.0 * n_u[u] for u in act) + 48.0 * B * k1
+    records["gicp_error_multi_fleet"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gicp_error_multi_fleet(corr, tables, uids, all_Ts)),
+        plain_ms=time_ms(lambda: gicp_error_multi_fleet_plain(corr, tables, uids,
+                                                              all_Ts)),
+        library_ms=None, pairs=sum(n_u[u] for u in act) * k1,
+        bound=bound(ops, nbytes))
+
+    # End to end: `problems` noisy starts, pairs alternating, through B lanes.
+    P = problems
+    pair_ids = np.arange(P) % len(gts)
+    inits = np.stack([noisy_guess(gts[u], rng) for u in pair_ids]).astype(np.float32)
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = align_fleet(None, None, inits, pair_ids=pair_ids, num_lanes=B,
+                      prepared=tables)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: KERNELS[name][3].launches for name in FLEET_KERNELS}
+    r = result_to_numpy(res)
+    check(all(v > 0 for v in launches.values()), "a fleet kernel was not launched")
+    check(bool(np.isfinite(r["T_target_source"]).all()), "non-finite fleet pose")
+    rot, trans = pose_errors(r["T_target_source"], np.stack([gts[u] for u in pair_ids]))
+    iters = r["iterations"]
+    fleet_reg_per_s = P / dt
+    print(f"fleet registrations/s: {fleet_reg_per_s:.3f} ({P} problems through {B} "
+          f"lanes in {launches['gicp_linearize_fleet']} rounds, {dt:.3f} s, "
+          f"iterations mean {iters.mean() + 1:.2f} max {iters.max() + 1}, "
+          f"converged {int(r['converged'].sum())}/{P}; single-pair align "
+          f"registrations/s {align_reg_per_s:.3f} in phase 5) on {card}")
+    print(f"launches in the fleet run: {launches}")
+    print(f"pose error vs ground truth: max {rot.max():.4f} deg, {trans.max():.4f} m "
+          "(bounds 2.5 deg, 0.2 m)")
+
+    def impl(p):
+        u = int(pair_ids[p])
+        return align_impl(clouds[u], clouds[u + 1], None, inits[p])
+
+    outside = [p for p in range(P) if not (rot[p] < 2.5 and trans[p] < 0.2)]
+    for p in outside:
+        check(_agrees((r["T_target_source"][p], int(iters[p])), impl(p)),
+              f"fleet problem {p} left the bounds and disagrees with align_impl")
+    sample = rng.choice(P, size=min(16, P), replace=False)
+    for p in sample:
+        check(_agrees((r["T_target_source"][p], int(iters[p])), impl(p)),
+              f"fleet problem {p} disagrees with align_impl")
+    print(f"{len(outside)} problems outside the bounds, each in agreement with "
+          f"align_impl; {len(sample)} sampled rows agree with align_impl")
+
+    # Lane-count invariance on the card.
+    few = min(8, P)
+    one, many = (result_to_numpy(align_fleet(
+        None, None, inits[:few], pair_ids=pair_ids[:few], num_lanes=nl,
+        prepared=tables)) for nl in (1, B))
+    d_pose = np.abs(one["T_target_source"] - many["T_target_source"]).max()
+    print(f"lane-count invariance over {few} problems: B=1 vs B={B} iterations "
+          f"{one['iterations'].tolist()} vs {many['iterations'].tolist()}, max "
+          f"|ΔT| {d_pose:.2e}")
+    check(np.array_equal(one["iterations"], many["iterations"])
+          and np.array_equal(one["converged"], many["converged"]) and d_pose <= 1e-6,
+          "fleet results depend on the lane count")
+
+    # Device busy share over a quarter of the queue, from a torch.profiler
+    # trace (its own overhead lengthens the wall time a little).
+    from torch.profiler import ProfilerActivity, profile
+
+    q = max(1, P // 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        align_fleet(None, None, inits[:q], pair_ids=pair_ids[:q], num_lanes=B,
+                    prepared=tables)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events)
+    check(busy_us > 0, "the profiler saw no device time")
+    print(f"profiled fleet of {q} problems: device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% busy); "
+          f"{sum(e.count for e in events if e.key == 'cudaLaunchKernel')} kernel "
+          f"launches; top device time on {card}:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+    return records, launches
 
 
 def main() -> None:
@@ -333,14 +562,19 @@ def main() -> None:
 
     print("== phase 3: data", flush=True)
     t0 = time.perf_counter()
-    scans, poses = generate_sequence(n_frames=2, rings=64, azimuth_steps=1800)
+    # Frames 0-1 drive phases 4-5; all three drive the fleet's two pairs.
+    scans, poses = generate_sequence(n_frames=3, rings=64, azimuth_steps=1800)
     T_gt = np.linalg.inv(poses[0]) @ poses[1]
     print(f"frames of {[len(s) for s in scans]} points in "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(args.seed)
 
-    records = phase_kernels(scans, T_gt, rng, dev)
-    launches = phase_e2e(scans, T_gt, rng, dev, card, records)
+    records = phase_kernels(scans[:2], T_gt, rng, dev)
+    launches, reg_per_s = phase_e2e(scans[:2], T_gt, rng, dev, card, records)
+    fleet_records, fleet_launches = phase_fleet(scans, poses, rng, dev, card,
+                                                reg_per_s)
+    records.update(fleet_records)
+    launches.update(fleet_launches)
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

@@ -4,11 +4,18 @@ Runs scan-pair preprocessing (voxelgrid downsampling, exact kNN normals
 and covariances) and ICP / point-to-plane / GICP registration with GN or
 LM on an NVIDIA Hopper card, through hand-written CUDA kernels for the
 fused search + linearize (K1), the LM trial errors (K2) and the kNN
-moments (K3). Entry points run on the card unless given ``device="cpu"``,
+moments (K3). ``align_fleet`` registers a queue of problems through
+persistent lanes with the lane-aware K7 (linearize) and K8 (trial
+errors). Entry points run on the card unless given ``device="cpu"``,
 where every kernel runs its plain PyTorch version.
 """
 
-from small_gicp_tpu_torch.point_cloud import PAD_SENTINEL, PointCloud, transform_points
+from small_gicp_tpu_torch.point_cloud import (
+    PAD_SENTINEL,
+    PointCloud,
+    stack_clouds,
+    transform_points,
+)
 from small_gicp_tpu_torch.utils.lie import se3_exp, so3_exp, skew
 from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.knn import KdTree, knn_search, nearest_neighbor_search
@@ -27,12 +34,15 @@ from small_gicp_tpu_torch.models.helper import (
     align,
     preprocess_points,
 )
+from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
 from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
 
 __all__ = [
-    "PAD_SENTINEL", "PointCloud", "transform_points", "se3_exp", "so3_exp", "skew",
+    "PAD_SENTINEL", "PointCloud", "stack_clouds", "transform_points", "se3_exp",
+    "so3_exp", "skew",
     "voxelgrid_sampling", "KdTree", "knn_search", "nearest_neighbor_search",
     "estimate_covariances", "estimate_normals", "estimate_normals_covariances",
     "Registration", "RegistrationResult", "align_points", "RegistrationSetting",
-    "align", "preprocess_points", "cloud_from_numpy", "result_to_numpy",
+    "align", "preprocess_points", "align_fleet", "fleet_prepare",
+    "cloud_from_numpy", "result_to_numpy",
 ]

@@ -36,6 +36,10 @@ SIGNATURES = {
     "gicp_fused": {
         "sgt_gicp_linearize": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _P, _P],
         "sgt_gicp_error_multi": [_P, _P, _P, _I, _P, _I, _F, _I, _P, _P],
+        "sgt_gicp_linearize_fleet": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _F,
+                                     _F, _I, _I, _P, _P, _P],
+        "sgt_gicp_error_multi_fleet": [_P, _P, _I, _P, _I, _I, _P, _I, _F, _I, _P,
+                                       _P],
         "sgt_linearize_block_rows": [],
         "sgt_trials_block_rows": [],
     },

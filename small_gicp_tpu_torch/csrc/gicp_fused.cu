@@ -25,6 +25,16 @@
 // re-weighted by w(√e) at each pose, for up to 100 poses over the frozen
 // corr rows. It reads each correspondence row once (bytes-bound: 80 bytes
 // per point) and loops over the poses held in shared memory.
+//
+// K7 and K8 replace the fleet calls of the same two Pallas kernels
+// (`gicp_linearize_fleet`, `gicp_error_multi_fleet`): B lanes over U
+// stacked pairs. They are the same kernels with a lane grid dimension
+// (blockIdx.y = lane b): a block reads uids[b] from device memory and
+// offsets the table pointers to its pair in place, so switching a lane's
+// problem moves no table bytes (the TPU kernels did the same through a
+// scalar-prefetch index map). Blocks of an inactive lane write zero corr
+// rows and zero partials and return. The single-pair entries launch the
+// same kernels with one lane and no lane tables.
 
 #include <cuda_runtime.h>
 
@@ -62,22 +72,48 @@ __host__ __device__ constexpr int tri(int lo, int hi) {
   return lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
 }
 
-// ttab [M,16]: x y z 0 | payload 9 (C_t row-major, or the normal) | 0 0 0
-// qtab [N,16]: x y z 0 | C_s 9 row-major | 0 0 0
-// pose [12]: R row-major 9 | t 3 (device memory)
+// Lane b's pair: uids[b] clamped into [0, u), or pair 0 without uids.
+__device__ __forceinline__ int lane_pair(const int* uids, int u) {
+  return uids ? min(max(uids[blockIdx.y], 0), u - 1) : 0;
+}
+
+// ttab [U,M,16]: x y z 0 | payload 9 (C_t row-major, or the normal) | 0 0 0
+// qtab [U,N,16]: x y z 0 | C_s 9 row-major | 0 0 0
+// tnum, qnum [U]: valid rows of each pair
+// uids [B] lane → pair and active [B] (both may be null: every lane reads
+// pair 0 and is active); poses [B,12]: R row-major 9 | t 3
+// corr [B,N,16], partials [B, gridDim.x, 44]
 template <int FACTOR, int ROBUST>
 __global__ void __launch_bounds__(kLinThreads)
 gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tnum,
                       const float* __restrict__ qtab, const int* __restrict__ qnum,
-                      int n, const float* __restrict__ pose, float max_d2,
+                      int u, int m_rows, const int* __restrict__ uids,
+                      const bool* __restrict__ active_lanes, int n,
+                      const float* __restrict__ poses, float max_d2,
                       float robust_c, float* __restrict__ corr,
                       float* __restrict__ partials) {
   __shared__ float4 tile[kLinTile];
   __shared__ float red[kLinThreads / 32][kLinRed];
 
   const int i = blockIdx.x * kLinThreads + threadIdx.x;
-  const int m = *tnum;
-  const int nv = min(n, *qnum);
+  const size_t fl = blockIdx.y;  // fleet lane
+  corr += fl * n * 16;
+  partials += (fl * gridDim.x + blockIdx.x) * kLinOut;
+  if (active_lanes && !active_lanes[fl]) {
+    if (i < n) {
+      float4* out = reinterpret_cast<float4*>(corr + (size_t)i * 16);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (threadIdx.x < kLinOut) partials[threadIdx.x] = 0.f;
+    return;
+  }
+  const int pair = lane_pair(uids, u);
+  ttab += (size_t)pair * m_rows * 16;
+  qtab += (size_t)pair * n * 16;
+  const float* pose = poses + fl * 12;
+  const int m = tnum[pair];
+  const int nv = min(n, qnum[pair]);
   const bool active = i < nv;
   const bool block_active = blockIdx.x * kLinThreads < nv;  // uniform
 
@@ -263,24 +299,34 @@ gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tn
     float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kLinThreads / 32; ++wi) s += red[wi][c];
-    partials[(size_t)blockIdx.x * kLinOut + o] = s;
+    partials[o] = s;
   }
 }
 
-// corr [N,16] from K1, src [N,4] source points, poses [K1,12] (R 9 | t 3).
+// corr [B,N,16] from K1/K7; src [U,N,src_row] source xyz (K2: the points,
+// src_row 4; K8: the pair tables qtab, src_row 16), lane b reading pair
+// uids[b] (pair 0 without uids); qnum: valid source rows, or null when the
+// corr mask alone decides (it already holds validity); poses [B,K1,12]
+// (R 9 | t 3); partials [B, gridDim.x, K1].
 template <int ROBUST>
 __global__ void __launch_bounds__(kTrialThreads)
 gicp_error_multi_kernel(const float* __restrict__ corr, const float* __restrict__ src,
+                        int src_row, int u, const int* __restrict__ uids,
                         const int* __restrict__ qnum, int n,
                         const float* __restrict__ poses, int k1, float robust_c,
                         float* __restrict__ partials) {
   __shared__ float ps[kMaxPoses * 12];
   __shared__ float red[kTrialThreads / 32][kMaxPoses];
+  const size_t fl = blockIdx.y;  // fleet lane
+  corr += fl * n * 16;
+  src += (size_t)lane_pair(uids, u) * n * src_row;
+  poses += fl * k1 * 12;
+  partials += (fl * gridDim.x + blockIdx.x) * k1;
   for (int j = threadIdx.x; j < 12 * k1; j += kTrialThreads) ps[j] = poses[j];
   __syncthreads();
 
   const int i = blockIdx.x * kTrialThreads + threadIdx.x;
-  bool active = i < n && i < *qnum;
+  bool active = i < n && (qnum == nullptr || i < *qnum);
   float c[16];
   float px = 0.f, py = 0.f, pz = 0.f;
   if (active) {
@@ -293,7 +339,7 @@ gicp_error_multi_kernel(const float* __restrict__ corr, const float* __restrict_
       c[4 * k + 2] = x.z;
       c[4 * k + 3] = x.w;
     }
-    const float4 p4 = reinterpret_cast<const float4*>(src)[i];
+    const float4 p4 = *reinterpret_cast<const float4*>(src + (size_t)i * src_row);
     px = p4.x;
     py = p4.y;
     pz = p4.z;
@@ -322,22 +368,25 @@ gicp_error_multi_kernel(const float* __restrict__ corr, const float* __restrict_
     float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kTrialThreads / 32; ++wi) s += red[wi][k];
-    partials[(size_t)blockIdx.x * k1 + k] = s;
+    partials[k] = s;
   }
 }
 
 template <int F, int RB>
-void launch_linearize(int blocks, cudaStream_t stream, const float* ttab,
-                      const int* tnum, const float* qtab, const int* qnum, int n,
-                      const float* pose, float max_d2, float robust_c, float* corr,
+void launch_linearize(dim3 grid, cudaStream_t stream, const float* ttab,
+                      const int* tnum, const float* qtab, const int* qnum, int u,
+                      int m_rows, const int* uids, const bool* active, int n,
+                      const float* poses, float max_d2, float robust_c, float* corr,
                       float* partials) {
-  gicp_linearize_kernel<F, RB><<<blocks, kLinThreads, 0, stream>>>(
-      ttab, tnum, qtab, qnum, n, pose, max_d2, robust_c, corr, partials);
+  gicp_linearize_kernel<F, RB><<<grid, kLinThreads, 0, stream>>>(
+      ttab, tnum, qtab, qnum, u, m_rows, uids, active, n, poses, max_d2, robust_c,
+      corr, partials);
 }
 
-using LinearizeLaunch = void (*)(int, cudaStream_t, const float*, const int*,
-                                 const float*, const int*, int, const float*, float,
-                                 float, float*, float*);
+using LinearizeLaunch = void (*)(dim3, cudaStream_t, const float*, const int*,
+                                 const float*, const int*, int, int, const int*,
+                                 const bool*, int, const float*, float, float, float*,
+                                 float*);
 
 const LinearizeLaunch kLinearize[3][3] = {
     {launch_linearize<kGicp, kNone>, launch_linearize<kGicp, kHuber>,
@@ -348,6 +397,42 @@ const LinearizeLaunch kLinearize[3][3] = {
      launch_linearize<kIcp, kCauchy>},
 };
 
+constexpr int kMaxLanes = 65535;  // gridDim.y
+
+int linearize(const float* ttab, const int* tnum, const float* qtab, const int* qnum,
+              int u, int m_rows, const int* uids, const bool* active, int b, int n,
+              const float* poses, float max_d2, float robust_c, int factor,
+              int robust, float* corr, float* partials, void* stream) {
+  if (factor < 0 || factor > 2 || robust < 0 || robust > 2 || n <= 0 || u < 1 ||
+      m_rows < 0 || b < 1 || b > kMaxLanes)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kLinThreads - 1) / kLinThreads, b);
+  kLinearize[factor][robust](grid, (cudaStream_t)stream, ttab, tnum, qtab, qnum, u,
+                             m_rows, uids, active, n, poses, max_d2, robust_c, corr,
+                             partials);
+  return (int)cudaGetLastError();
+}
+
+int error_multi(const float* corr, const float* src, int src_row, int u,
+                const int* uids, const int* qnum, int b, int n, const float* poses,
+                int k1, float robust_c, int robust, float* partials, void* stream) {
+  if (k1 < 1 || k1 > kMaxPoses || robust < 0 || robust > 2 || n <= 0 || u < 1 ||
+      b < 1 || b > kMaxLanes)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTrialThreads - 1) / kTrialThreads, b);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (robust == kHuber)
+    gicp_error_multi_kernel<kHuber><<<grid, kTrialThreads, 0, s>>>(
+        corr, src, src_row, u, uids, qnum, n, poses, k1, robust_c, partials);
+  else if (robust == kCauchy)
+    gicp_error_multi_kernel<kCauchy><<<grid, kTrialThreads, 0, s>>>(
+        corr, src, src_row, u, uids, qnum, n, poses, k1, robust_c, partials);
+  else
+    gicp_error_multi_kernel<kNone><<<grid, kTrialThreads, 0, s>>>(
+        corr, src, src_row, u, uids, qnum, n, poses, k1, robust_c, partials);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,36 +440,45 @@ extern "C" {
 int sgt_linearize_block_rows() { return kLinThreads; }
 int sgt_trials_block_rows() { return kTrialThreads; }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Each launch entry returns cudaGetLastError() after its launch (0 on
+// success).
+
+// K1: one pair, one pose; partials [blocks, 44].
 int sgt_gicp_linearize(const float* ttab, const int* tnum, const float* qtab,
                        const int* qnum, int n, const float* pose, float max_d2,
                        float robust_c, int factor, int robust, float* corr,
                        float* partials, void* stream) {
-  if (factor < 0 || factor > 2 || robust < 0 || robust > 2 || n <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kLinThreads - 1) / kLinThreads;
-  kLinearize[factor][robust](blocks, (cudaStream_t)stream, ttab, tnum, qtab, qnum, n,
-                             pose, max_d2, robust_c, corr, partials);
-  return (int)cudaGetLastError();
+  return linearize(ttab, tnum, qtab, qnum, 1, 0, nullptr, nullptr, 1, n, pose,
+                   max_d2, robust_c, factor, robust, corr, partials, stream);
 }
 
+// K7: b lanes over u pairs of m_rows target and n source rows each;
+// partials [b, blocks, 44].
+int sgt_gicp_linearize_fleet(const float* ttab, const int* tnum, const float* qtab,
+                             const int* qnum, int u, int m_rows, const int* uids,
+                             const bool* active, int b, int n, const float* poses,
+                             float max_d2, float robust_c, int factor, int robust,
+                             float* corr, float* partials, void* stream) {
+  return linearize(ttab, tnum, qtab, qnum, u, m_rows, uids, active, b, n, poses,
+                   max_d2, robust_c, factor, robust, corr, partials, stream);
+}
+
+// K2: one pair; src [N,4]; partials [blocks, k1].
 int sgt_gicp_error_multi(const float* corr, const float* src, const int* qnum, int n,
                          const float* poses, int k1, float robust_c, int robust,
                          float* partials, void* stream) {
-  if (k1 < 1 || k1 > kMaxPoses || robust < 0 || robust > 2 || n <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kTrialThreads - 1) / kTrialThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (robust == kHuber)
-    gicp_error_multi_kernel<kHuber><<<blocks, kTrialThreads, 0, s>>>(
-        corr, src, qnum, n, poses, k1, robust_c, partials);
-  else if (robust == kCauchy)
-    gicp_error_multi_kernel<kCauchy><<<blocks, kTrialThreads, 0, s>>>(
-        corr, src, qnum, n, poses, k1, robust_c, partials);
-  else
-    gicp_error_multi_kernel<kNone><<<blocks, kTrialThreads, 0, s>>>(
-        corr, src, qnum, n, poses, k1, robust_c, partials);
-  return (int)cudaGetLastError();
+  return error_multi(corr, src, 4, 1, nullptr, qnum, 1, n, poses, k1, robust_c,
+                     robust, partials, stream);
+}
+
+// K8: b lanes; source xyz from qtab [u,N,16] of pair uids[b]; partials
+// [b, blocks, k1].
+int sgt_gicp_error_multi_fleet(const float* corr, const float* qtab, int u,
+                               const int* uids, int b, int n, const float* poses,
+                               int k1, float robust_c, int robust, float* partials,
+                               void* stream) {
+  return error_multi(corr, qtab, 16, u, uids, nullptr, b, n, poses, k1, robust_c,
+                     robust, partials, stream);
 }
 
 }  // extern "C"

@@ -41,13 +41,20 @@ def cloud_from_numpy(points, num_points, normals=None, covs=None,
 
 
 def result_to_numpy(result: RegistrationResult) -> dict:
-    """RegistrationResult → dict of numpy arrays and Python scalars."""
+    """RegistrationResult → dict of numpy arrays and Python scalars; a
+    fleet's [P]-batched result gives [P] arrays in place of the scalars."""
+    batched = result.T_target_source.dim() == 3
+
+    def get(t, scalar):
+        a = t.detach().cpu().numpy()
+        return a if batched else scalar(a)
+
     return {
         "T_target_source": result.T_target_source.detach().cpu().numpy(),
-        "converged": bool(result.converged),
-        "iterations": int(result.iterations),
-        "num_inliers": int(result.num_inliers),
+        "converged": get(result.converged, bool),
+        "iterations": get(result.iterations, int),
+        "num_inliers": get(result.num_inliers, int),
         "H": result.H.detach().cpu().numpy(),
         "b": result.b.detach().cpu().numpy(),
-        "error": float(result.error),
+        "error": get(result.error, float),
     }

@@ -46,6 +46,8 @@ _NOT_PORTED = ("voxel-map targets (GaussianVoxelMap, IncrementalVoxelMap) and "
 
 @dataclass
 class RegistrationResult:
+    """One registration's result; ``align_fleet`` adds a leading [P] axis."""
+
     T_target_source: torch.Tensor  # [4,4]
     converged: torch.Tensor  # 0-d bool
     iterations: torch.Tensor  # 0-d int32

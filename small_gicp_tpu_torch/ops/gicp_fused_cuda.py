@@ -1,4 +1,5 @@
-"""Fused correspondence search + linearize (K1) and LM trial errors (K2).
+"""Fused correspondence search + linearize (K1, K7) and LM trial errors
+(K2, K8).
 
 Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
 
@@ -12,10 +13,18 @@ Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
   * ``gicp_error_multi`` → [K1] float64: Σ ½ rᵀWr·mask at each of up to
     100 poses over frozen corr rows, re-weighted by w(√e) at each pose.
 
+The fleet variants serve B lanes over U prepared pairs
+(``parallel/fleet.py``): ``gicp_fleet_prepare`` stacks the tables of U
+pairs, ``gicp_linearize_fleet`` (K7) is K1 for lane b on pair uids[b] at
+pose Ts[b], and ``gicp_error_multi_fleet`` (K8) is K2 for each lane. A
+lane reads its pair's tables in place; an inactive lane returns zero sums
+and all-zero corr rows.
+
 Per-point terms are float32 on the card; sums across blocks are float64
 and are handed on un-truncated. On a CUDA tensor the wrappers launch the
 kernels of ``csrc/gicp_fused.cu``; on a CPU tensor they run the plain
-versions below, which repeat the kernels' arithmetic.
+versions below, which repeat the kernels' arithmetic. The single-pair
+plain versions are the fleet ones at one lane.
 """
 
 from __future__ import annotations
@@ -33,6 +42,10 @@ _BIG = 3.0e38
 FACTORS = ("gicp", "plane_icp", "icp")
 ROBUST_KERNELS = ("huber", "cauchy")
 MAX_POSES = 100
+# The JAX fleet kernels keep each pair's target table resident in TPU
+# memory and reject larger targets (gicp_fused_pallas.py:1343-1348); the
+# port keeps the same contract.
+MAX_FLEET_TARGET_ROWS = 65536
 
 
 @dataclass
@@ -41,12 +54,14 @@ class GicpTables:
 
     ttab [M,16]: x y z 0 | payload 9 (C_t row-major, or the target normal
     in 0-2, or zeros) | 0 0 0.  qtab [N,16]: x y z 0 | C_s 9 | 0 0 0.
+    Fleet tables (``gicp_fleet_prepare``) carry a leading [U] pair axis
+    on all four tensors.
     """
 
     ttab: torch.Tensor
-    tnum: torch.Tensor  # 0-d int32, valid target rows
+    tnum: torch.Tensor  # int32, valid target rows (0-d, or [U])
     qtab: torch.Tensor
-    qnum: torch.Tensor  # 0-d int32, valid source rows
+    qnum: torch.Tensor  # int32, valid source rows (0-d, or [U])
     factor: str
 
 
@@ -56,27 +71,56 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
                  source_covs: Optional[torch.Tensor] = None,
                  target_normals: Optional[torch.Tensor] = None) -> GicpTables:
     """Build the tables of one registration (no sort: the search is brute
-    force, so the clouds keep their row order)."""
+    force, so the clouds keep their row order). Leading dimensions of the
+    clouds carry over to the tables."""
     if factor not in FACTORS:
         raise ValueError(f"unknown fused factor {factor!r}")
-    m, n = target_points.shape[0], source_points.shape[0]
     dt = source_points.dtype
-    ttab = target_points.new_zeros((m, 16), dtype=dt)
-    ttab[:, 0:3] = target_points[:, :3]
+    ttab = target_points.new_zeros(target_points.shape[:-1] + (16,), dtype=dt)
+    ttab[..., 0:3] = target_points[..., :3]
     if factor == "gicp":
         if target_covs is None or source_covs is None:
             raise ValueError("GICP requires source and target covariances")
-        ttab[:, 4:13] = target_covs.reshape(m, 9)
+        ttab[..., 4:13] = target_covs.flatten(-2)
     elif factor == "plane_icp":
         if target_normals is None:
             raise ValueError("point-to-plane ICP requires target normals")
-        ttab[:, 4:7] = target_normals[:, :3]
-    qtab = source_points.new_zeros((n, 16))
-    qtab[:, 0:3] = source_points[:, :3]
+        ttab[..., 4:7] = target_normals[..., :3]
+    qtab = source_points.new_zeros(source_points.shape[:-1] + (16,))
+    qtab[..., 0:3] = source_points[..., :3]
     if factor == "gicp":
-        qtab[:, 4:13] = source_covs.reshape(n, 9)
+        qtab[..., 4:13] = source_covs.flatten(-2)
     return GicpTables(ttab=ttab, tnum=target_num.to(torch.int32), qtab=qtab,
                       qnum=source_num.to(torch.int32), factor=factor)
+
+
+def gicp_fleet_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
+                       source_points: torch.Tensor, source_num: torch.Tensor,
+                       factor: str = "gicp",
+                       target_covs: Optional[torch.Tensor] = None,
+                       source_covs: Optional[torch.Tensor] = None,
+                       target_normals: Optional[torch.Tensor] = None) -> GicpTables:
+    """``gicp_prepare`` over U stacked pairs: targets [U,M,4], sources
+    [U,N,4], counts [U] (or one count for every pair) → tables with
+    ttab [U,M,16], qtab [U,N,16], tnum and qnum [U] int32."""
+    if target_points.dim() != 3 or source_points.dim() != 3:
+        raise ValueError("fleet tables take [U,M,4] targets and [U,N,4] sources")
+    u = target_points.shape[0]
+    if source_points.shape[0] != u:
+        raise ValueError(f"{u} targets but {source_points.shape[0]} sources")
+    if factor == "gicp" and (target_covs is None or source_covs is None):
+        raise ValueError("GICP fleet registration: both clouds need covs")
+    if factor == "plane_icp" and target_normals is None:
+        raise ValueError("plane-ICP fleet registration: targets need normals")
+    if target_points.dtype != torch.float32 or source_points.dtype != torch.float32:
+        raise ValueError("fleet registration runs the f32 fused kernels")
+
+    def per_pair(num):
+        return torch.as_tensor(num).reshape(-1).expand(u).to(torch.int32).contiguous()
+
+    return gicp_prepare(target_points, per_pair(target_num), source_points,
+                        per_pair(source_num), factor, target_covs, source_covs,
+                        target_normals)
 
 
 def _pose12(T: torch.Tensor, dtype) -> torch.Tensor:
@@ -103,73 +147,101 @@ def _robust_w(robust: Optional[str], c: float, e: torch.Tensor) -> torch.Tensor:
 
 
 def _finish(sums: torch.Tensor):
-    """[44] float64 sums → (H [6,6], b [6], inliers)."""
-    return sums[:36].reshape(6, 6), sums[36:42], sums[43]
+    """[..., 44] float64 sums → (H [..., 6, 6], b [..., 6], inliers [...])."""
+    return sums[..., :36].unflatten(-1, (6, 6)), sums[..., 36:42], sums[..., 43]
 
 
-# ---------------------------------------------------------------- K1 ----
+def _require_fleet(tables: GicpTables) -> None:
+    if tables.ttab.dim() != 3:
+        raise ValueError("fleet kernels take the [U]-stacked tables of "
+                         "gicp_fleet_prepare")
 
-def gicp_linearize_plain(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
-                         robust: Optional[str] = None, robust_c: float = 1.0):
-    """Plain PyTorch version of K1; same outputs as ``gicp_linearize_tables``."""
-    _robust_code(robust)
-    ttab, qtab = tables.ttab, tables.qtab
+
+def _lane_pairs(tables: GicpTables, uids: torch.Tensor) -> torch.Tensor:
+    """Each lane's pair index, clamped into [0, U) as the kernels clamp it."""
+    _require_fleet(tables)
+    return uids.to(device=tables.qtab.device, dtype=torch.int64).clamp(
+        0, tables.ttab.shape[0] - 1)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ------------------------------------------------------------ K1, K7 ----
+
+def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
+                           robust_c, factor):
+    """K1's arithmetic over B lanes: ttab [B,M,16], tnum [B], qtab [B,N,16],
+    qnum [B], pose [B,12] → (sums [B,44] float64, corr [B,N,16])."""
     dt, dev = qtab.dtype, qtab.device
-    n, m = qtab.shape[0], ttab.shape[0]
-    pose = _pose12(T, dt)
-    r, t = pose[:9], pose[9:]
-    px, py, pz = qtab[:, 0], qtab[:, 1], qtab[:, 2]
-    q = torch.stack([r[0] * px + r[1] * py + r[2] * pz + t[0],
-                     r[3] * px + r[4] * py + r[5] * pz + t[1],
-                     r[6] * px + r[7] * py + r[8] * pz + t[2]], dim=1)
+    bsz, n, m = qtab.shape[0], qtab.shape[1], ttab.shape[1]
+    r, t = pose[:, :9, None], pose[:, 9:, None]  # [B,9,1], [B,3,1]
+    px, py, pz = qtab[..., 0], qtab[..., 1], qtab[..., 2]  # [B,N]
+    q = torch.stack([r[:, 0] * px + r[:, 1] * py + r[:, 2] * pz + t[:, 0],
+                     r[:, 3] * px + r[:, 4] * py + r[:, 5] * pz + t[:, 1],
+                     r[:, 6] * px + r[:, 7] * py + r[:, 8] * pz + t[:, 2]], dim=-1)
 
-    active = torch.arange(n, device=dev) < tables.qnum
-    best_d = torch.full((n,), _BIG, dtype=dt, device=dev)
-    best = torch.zeros((n,), dtype=torch.int64, device=dev)
+    active = torch.arange(n, device=dev) < qnum[:, None]
+    best_d = torch.full((bsz, n), _BIG, dtype=dt, device=dev)
+    best = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
     if m > 0:
-        tcol = torch.arange(m, device=dev) < tables.tnum
-        for s in range(0, n, QUERY_BLOCK):
-            d2 = torch.where(tcol[None, :],
-                             sq_dists(q[s:s + QUERY_BLOCK], ttab[:, :3]), _BIG)
-            dmin, imin = torch.min(d2, dim=1)  # first minimum on ties
-            best_d[s:s + QUERY_BLOCK] = dmin
-            best[s:s + QUERY_BLOCK] = imin
+        tcol = (torch.arange(m, device=dev) < tnum[:, None])[:, None, :]
+        step = max(1, QUERY_BLOCK // max(bsz, 1))
+        for s in range(0, n, step):
+            d2 = torch.where(tcol, sq_dists(q[:, s:s + step], ttab[..., :3]), _BIG)
+            # first minimum on ties
+            best_d[:, s:s + step], best[:, s:s + step] = torch.min(d2, dim=-1)
     found = active & (best_d < _BIG)
     best_d = torch.where(active, best_d, _BIG)
-    rows = torch.where(found[:, None], ttab[best], 0.0)
-    mu, pay = rows[:, 0:3], rows[:, 4:13]
+    rows = torch.where(found[..., None],
+                       torch.gather(ttab, 1, best[..., None].expand(-1, -1, 16)), 0.0)
+    mu, pay = rows[..., 0:3], rows[..., 4:13]
     mask = found & (best_d <= max_dist_sq) & (best_d < 0.5 * _BIG)
 
-    R = r.reshape(3, 3)
-    if tables.factor == "gicp":
-        W = inv3x3(pay.reshape(n, 3, 3) + R @ qtab[:, 4:13].reshape(n, 3, 3) @ R.T)
-    elif tables.factor == "plane_icp":
-        W = torch.diag_embed(pay[:, 0:3] ** 2)
+    R = pose[:, :9].reshape(bsz, 1, 3, 3)
+    if factor == "gicp":
+        W = inv3x3(pay.reshape(bsz, n, 3, 3)
+                   + R @ qtab[..., 4:13].reshape(bsz, n, 3, 3) @ R.transpose(-1, -2))
+    elif factor == "plane_icp":
+        W = torch.diag_embed(pay[..., 0:3] ** 2)
     else:
-        W = torch.eye(3, dtype=dt, device=dev).expand(n, 3, 3)
+        W = torch.eye(3, dtype=dt, device=dev).expand(bsz, n, 3, 3)
 
     res = mu - q
     Wr = (W @ res[..., None])[..., 0]
     e_i = 0.5 * torch.sum(res * Wr, dim=-1)
     wm = torch.ones_like(e_i) if robust is None else _robust_w(robust, robust_c, e_i)
     Jr = torch.stack([
-        torch.stack([R[k, 1] * pz - R[k, 2] * py,
-                     R[k, 2] * px - R[k, 0] * pz,
-                     R[k, 0] * py - R[k, 1] * px], dim=-1)
+        torch.stack([R[..., k, 1] * pz - R[..., k, 2] * py,
+                     R[..., k, 2] * px - R[..., k, 0] * pz,
+                     R[..., k, 0] * py - R[..., k, 1] * px], dim=-1)
         for k in range(3)
-    ], dim=1)  # R·skew(p), [N,3,3]
-    J = torch.cat([Jr, (-R).expand(n, 3, 3)], dim=-1)  # [N,3,6]
-    Jt = J.transpose(1, 2)
-    H_i = (Jt @ (W @ J)) * wm[:, None, None]
-    b_i = (Jt @ Wr[..., None])[..., 0] * wm[:, None]
-    per_point = torch.cat([H_i.reshape(n, 36), b_i, (e_i * wm)[:, None],
-                           torch.ones_like(e_i)[:, None]], dim=1)
-    per_point = torch.where(mask[:, None], per_point, 0.0)
-    sums = per_point.to(torch.float64).sum(0)
+    ], dim=-2)  # R·skew(p), [B,N,3,3]
+    J = torch.cat([Jr, (-R).expand(bsz, n, 3, 3)], dim=-1)  # [B,N,3,6]
+    Jt = J.transpose(-1, -2)
+    H_i = (Jt @ (W @ J)) * wm[..., None, None]
+    b_i = (Jt @ Wr[..., None])[..., 0] * wm[..., None]
+    per_point = torch.cat([H_i.reshape(bsz, n, 36), b_i, (e_i * wm)[..., None],
+                           torch.ones_like(e_i)[..., None]], dim=-1)
+    per_point = torch.where(mask[..., None], per_point, 0.0)
+    sums = per_point.to(torch.float64).sum(1)
 
-    corr = torch.cat([mu, W.reshape(n, 9), mask.to(dt)[:, None], best_d[:, None],
-                      torch.zeros((n, 2), dtype=dt, device=dev)], dim=1)
-    return (*_finish(sums), corr)
+    corr = torch.cat([mu, W.reshape(bsz, n, 9), mask.to(dt)[..., None],
+                      best_d[..., None], torch.zeros((bsz, n, 2), dtype=dt, device=dev)],
+                     dim=-1)
+    return sums, corr
+
+
+def gicp_linearize_plain(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                         robust: Optional[str] = None, robust_c: float = 1.0):
+    """Plain PyTorch version of K1; same outputs as ``gicp_linearize_tables``."""
+    _robust_code(robust)
+    sums, corr = _linearize_plain_lanes(
+        tables.ttab[None], tables.tnum.reshape(1), tables.qtab[None],
+        tables.qnum.reshape(1), _pose12(T, tables.qtab.dtype)[None], max_dist_sq,
+        robust, robust_c, tables.factor)
+    return (*_finish(sums[0]), corr[0])
 
 
 def _gicp_linearize_cuda(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
@@ -193,8 +265,7 @@ def _gicp_linearize_cuda(tables: GicpTables, T: torch.Tensor, max_dist_sq: float
             tables.ttab.data_ptr(), tables.tnum.data_ptr(), tables.qtab.data_ptr(),
             tables.qnum.data_ptr(), n, pose.data_ptr(), float(max_dist_sq),
             float(robust_c), FACTORS.index(tables.factor), _robust_code(robust),
-            corr.data_ptr(), partials.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            corr.data_ptr(), partials.data_ptr(), _stream(),
         )
     _build.check(rc, "gicp_linearize")
     gicp_linearize_tables.launches += 1
@@ -214,29 +285,112 @@ def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: floa
 gicp_linearize_tables.launches = 0
 
 
-# ---------------------------------------------------------------- K2 ----
+def gicp_linearize_fleet_plain(tables: GicpTables, uids: torch.Tensor,
+                               Ts: torch.Tensor, max_dist_sq: float,
+                               active: torch.Tensor, robust: Optional[str] = None,
+                               robust_c: float = 1.0):
+    """Plain PyTorch version of K7; same outputs as ``gicp_linearize_fleet``."""
+    _robust_code(robust)
+    u = _lane_pairs(tables, uids)
+    act = active.to(device=u.device, dtype=torch.bool)
+    sums, corr = _linearize_plain_lanes(
+        tables.ttab[u], tables.tnum[u], tables.qtab[u],
+        torch.where(act, tables.qnum[u], 0), _pose12(Ts, tables.qtab.dtype),
+        max_dist_sq, robust, robust_c, tables.factor)
+    return (*_finish(sums), torch.where(act[:, None, None], corr, 0.0))
+
+
+def _gicp_linearize_fleet_cuda(tables: GicpTables, uids: torch.Tensor,
+                               Ts: torch.Tensor, max_dist_sq: float,
+                               active: torch.Tensor, robust: Optional[str],
+                               robust_c: float):
+    f32 = torch.float32
+    _build.require(tables.ttab, "ttab", f32, (None, None, 16))
+    u, m = tables.ttab.shape[:2]
+    _build.require(tables.qtab, "qtab", f32, (u, None, 16))
+    _build.require(tables.tnum, "tnum", torch.int32, (u,))
+    _build.require(tables.qnum, "qnum", torch.int32, (u,))
+    dev, n = tables.qtab.device, tables.qtab.shape[1]
+    uids = uids.to(device=dev, dtype=torch.int32).contiguous()
+    bsz = uids.shape[0]
+    active = active.to(device=dev, dtype=torch.bool).contiguous()
+    _build.require(active, "active", torch.bool, (bsz,))
+    poses = _pose12(Ts.to(dev), f32)
+    _build.require(poses, "Ts", f32, (bsz, 12))
+    corr = torch.empty((bsz, n, 16), dtype=f32, device=dev)
+    if n == 0 or bsz == 0:
+        return (*_finish(torch.zeros((bsz, 44), dtype=torch.float64, device=dev)),
+                corr)
+    lib = _build.library("gicp_fused")
+    rows = lib.sgt_linearize_block_rows()
+    partials = torch.empty((bsz, (n + rows - 1) // rows, 44), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sgt_gicp_linearize_fleet(
+            tables.ttab.data_ptr(), tables.tnum.data_ptr(), tables.qtab.data_ptr(),
+            tables.qnum.data_ptr(), u, m, uids.data_ptr(), active.data_ptr(), bsz, n,
+            poses.data_ptr(), float(max_dist_sq), float(robust_c),
+            FACTORS.index(tables.factor), _robust_code(robust), corr.data_ptr(),
+            partials.data_ptr(), _stream(),
+        )
+    _build.check(rc, "gicp_linearize_fleet")
+    gicp_linearize_fleet.launches += 1
+    return (*_finish(partials.to(torch.float64).sum(1)), corr)
+
+
+def gicp_linearize_fleet(tables: GicpTables, uids: torch.Tensor, Ts: torch.Tensor,
+                         max_dist_sq: float, active: torch.Tensor,
+                         robust: Optional[str] = None, robust_c: float = 1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """K1 for B lanes over fleet tables: lane b linearizes pair uids[b] at
+    Ts[b] ([B,4,4]) unless active[b] is False. The factor rides in the
+    tables. Returns (H [B,6,6] f64, b [B,6] f64, inliers [B] f64,
+    corr [B,N,16]); an inactive lane gets zero sums and zero corr rows."""
+    _require_fleet(tables)
+    if tables.ttab.shape[1] > MAX_FLEET_TARGET_ROWS:
+        raise ValueError(
+            f"fleet registration takes at most {MAX_FLEET_TARGET_ROWS} target "
+            f"rows per pair, got {tables.ttab.shape[1]} (use align for "
+            "map-scale targets)")
+    if tables.qtab.device.type == "cpu":
+        return gicp_linearize_fleet_plain(tables, uids, Ts, max_dist_sq, active,
+                                          robust, robust_c)
+    return _gicp_linearize_fleet_cuda(tables, uids, Ts, max_dist_sq, active,
+                                      robust, robust_c)
+
+
+gicp_linearize_fleet.launches = 0
+
+
+# ------------------------------------------------------------ K2, K8 ----
+
+def _error_multi_plain_lanes(corr, src, P, live, robust, robust_c):
+    """K2's arithmetic over B lanes: corr [B,N,16], src [B,N,≥3] source
+    xyz, P [B,K1,12] poses, live [B,N] → [B,K1] float64."""
+    px, py, pz = src[:, None, :, 0], src[:, None, :, 1], src[:, None, :, 2]
+    col = lambda j: P[:, :, j, None]  # noqa: E731
+    c = lambda j: corr[:, None, :, j]  # noqa: E731
+    rx = c(0) - (col(0) * px + col(1) * py + col(2) * pz + col(9))
+    ry = c(1) - (col(3) * px + col(4) * py + col(5) * pz + col(10))
+    rz = c(2) - (col(6) * px + col(7) * py + col(8) * pz + col(11))
+    wr0 = c(3) * rx + c(4) * ry + c(5) * rz
+    wr1 = c(6) * rx + c(7) * ry + c(8) * rz
+    wr2 = c(9) * rx + c(10) * ry + c(11) * rz
+    e = 0.5 * (rx * wr0 + ry * wr1 + rz * wr2)  # [B,K1,N]
+    if robust is not None:
+        e = _robust_w(robust, robust_c, e) * e
+    return torch.where(live[:, None, :], e, 0.0).to(torch.float64).sum(-1)
+
 
 def gicp_error_multi_plain(corr: torch.Tensor, src: torch.Tensor, Ts: torch.Tensor,
                            num_points: torch.Tensor, robust: Optional[str] = None,
                            robust_c: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of K2; same output as ``gicp_error_multi``."""
     _robust_code(robust)
-    n = corr.shape[0]
-    P = _pose12(Ts, corr.dtype)  # [K1,12]
-    px, py, pz = src[None, :, 0], src[None, :, 1], src[None, :, 2]
-    col = lambda j: P[:, j, None]  # noqa: E731
-    rx = corr[None, :, 0] - (col(0) * px + col(1) * py + col(2) * pz + col(9))
-    ry = corr[None, :, 1] - (col(3) * px + col(4) * py + col(5) * pz + col(10))
-    rz = corr[None, :, 2] - (col(6) * px + col(7) * py + col(8) * pz + col(11))
-    w = [corr[None, :, 3 + j] for j in range(9)]
-    wr0 = w[0] * rx + w[1] * ry + w[2] * rz
-    wr1 = w[3] * rx + w[4] * ry + w[5] * rz
-    wr2 = w[6] * rx + w[7] * ry + w[8] * rz
-    e = 0.5 * (rx * wr0 + ry * wr1 + rz * wr2)  # [K1,N]
-    if robust is not None:
-        e = _robust_w(robust, robust_c, e) * e
-    live = (torch.arange(n, device=corr.device) < num_points) & (corr[:, 12] > 0.5)
-    return torch.where(live[None, :], e, 0.0).to(torch.float64).sum(1)
+    live = (torch.arange(corr.shape[0], device=corr.device) < num_points) & (
+        corr[:, 12] > 0.5)
+    return _error_multi_plain_lanes(corr[None], src[None], _pose12(Ts, corr.dtype)[None],
+                                    live[None], robust, robust_c)[0]
 
 
 def _gicp_error_multi_cuda(corr, src, Ts, num_points, robust, robust_c):
@@ -257,7 +411,7 @@ def _gicp_error_multi_cuda(corr, src, Ts, num_points, robust, robust_c):
         rc = lib.sgt_gicp_error_multi(
             corr.data_ptr(), src.data_ptr(), num_points.data_ptr(), n,
             poses.data_ptr(), k1, float(robust_c), _robust_code(robust),
-            partials.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            partials.data_ptr(), _stream(),
         )
     _build.check(rc, "gicp_error_multi")
     gicp_error_multi.launches += 1
@@ -276,3 +430,58 @@ def gicp_error_multi(corr: torch.Tensor, src: torch.Tensor, Ts: torch.Tensor,
 
 
 gicp_error_multi.launches = 0
+
+
+def gicp_error_multi_fleet_plain(corr: torch.Tensor, tables: GicpTables,
+                                 uids: torch.Tensor, Ts: torch.Tensor,
+                                 robust: Optional[str] = None,
+                                 robust_c: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of K8; same output as ``gicp_error_multi_fleet``."""
+    _robust_code(robust)
+    u = _lane_pairs(tables, uids)
+    return _error_multi_plain_lanes(corr, tables.qtab[u], _pose12(Ts, corr.dtype),
+                                    corr[..., 12] > 0.5, robust, robust_c)
+
+
+def _gicp_error_multi_fleet_cuda(corr, tables, uids, Ts, robust, robust_c):
+    f32 = torch.float32
+    _build.require(tables.qtab, "qtab", f32, (None, None, 16))
+    u, n = tables.qtab.shape[:2]
+    dev = corr.device
+    uids = uids.to(device=dev, dtype=torch.int32).contiguous()
+    bsz, k1 = uids.shape[0], Ts.shape[1]
+    _build.require(corr, "corr", f32, (bsz, n, 16))
+    poses = _pose12(Ts.to(dev), f32)
+    _build.require(poses, "Ts", f32, (bsz, k1, 12))
+    if n == 0 or bsz == 0:
+        return torch.zeros((bsz, k1), dtype=torch.float64, device=dev)
+    lib = _build.library("gicp_fused")
+    rows = lib.sgt_trials_block_rows()
+    partials = torch.empty((bsz, (n + rows - 1) // rows, k1), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sgt_gicp_error_multi_fleet(
+            corr.data_ptr(), tables.qtab.data_ptr(), u, uids.data_ptr(), bsz, n,
+            poses.data_ptr(), k1, float(robust_c), _robust_code(robust),
+            partials.data_ptr(), _stream(),
+        )
+    _build.check(rc, "gicp_error_multi_fleet")
+    gicp_error_multi_fleet.launches += 1
+    return partials.to(torch.float64).sum(1)
+
+
+def gicp_error_multi_fleet(corr: torch.Tensor, tables: GicpTables, uids: torch.Tensor,
+                           Ts: torch.Tensor, robust: Optional[str] = None,
+                           robust_c: float = 1.0) -> torch.Tensor:
+    """K2 for B lanes: [B,K1] float64 errors of lane b's frozen corr rows
+    [B,N,16] at its poses Ts [B,K1,4,4] (K1 ≤ 100), with the source xyz of
+    pair uids[b]. The mask in corr row 12 already holds validity."""
+    _require_fleet(tables)
+    if Ts.dim() != 4 or not 1 <= Ts.shape[1] <= MAX_POSES:
+        raise ValueError(f"Ts must be [B,K1,4,4] with 1 to {MAX_POSES} poses per "
+                         f"lane, got {tuple(Ts.shape)}")
+    if corr.device.type == "cpu":
+        return gicp_error_multi_fleet_plain(corr, tables, uids, Ts, robust, robust_c)
+    return _gicp_error_multi_fleet_cuda(corr, tables, uids, Ts, robust, robust_c)
+
+
+gicp_error_multi_fleet.launches = 0

@@ -23,14 +23,15 @@ QUERY_BLOCK = 2048
 
 
 def sq_dists(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """[Q,3] × [M,3] → [Q,M] squared distances in difference form.
+    """[..., Q,3] × [..., M,3] → [..., Q,M] squared distances in difference
+    form (leading dimensions broadcast).
 
     The sum is written out as (dx² + dy²) + dz² so that it rounds exactly
     like the kernels' distance loop.
     """
-    dx = q[:, None, 0] - t[None, :, 0]
-    dy = q[:, None, 1] - t[None, :, 1]
-    dz = q[:, None, 2] - t[None, :, 2]
+    dx = q[..., :, None, 0] - t[..., None, :, 0]
+    dy = q[..., :, None, 1] - t[..., None, :, 1]
+    dz = q[..., :, None, 2] - t[..., None, :, 2]
     return dx * dx + dy * dy + dz * dz
 
 

@@ -95,6 +95,54 @@ class PointCloud:
             num_points=torch.tensor(m, dtype=torch.int32, device=dev),
         )
 
+    def with_capacity(self, capacity: int) -> "PointCloud":
+        """Grow or shrink the capacity (keeps the first ``capacity`` rows);
+        grown rows are padding."""
+        n = self.capacity
+        if capacity == n:
+            return self
+
+        def pad_or_trim(a, fill):
+            if a is None:
+                return None
+            if capacity <= n:
+                return a[:capacity]
+            return torch.cat([a, a.new_full((capacity - n,) + a.shape[1:], fill)])
+
+        pts = pad_or_trim(self.points, PAD_SENTINEL)
+        if capacity > n:
+            pts[n:, 3] = 0.0
+        return PointCloud(
+            points=pts,
+            num_points=torch.clamp(self.num_points, max=capacity).to(torch.int32),
+            normals=pad_or_trim(self.normals, 0.0),
+            covs=pad_or_trim(self.covs, 0.0),
+        )
+
+
+def stack_clouds(clouds) -> PointCloud:
+    """Stack clouds of one capacity into a PointCloud whose tensors carry a
+    leading [U] axis (points [U,N,4], num_points [U], ...): the layout of
+    ``align_fleet``'s targets and sources. Pad with ``with_capacity`` first.
+    """
+    clouds = list(clouds)
+    if not clouds:
+        raise ValueError("stack_clouds needs at least one cloud")
+    if len({c.capacity for c in clouds}) != 1:
+        raise ValueError("clouds must share one capacity; pad them with "
+                         "PointCloud.with_capacity")
+
+    def stack(name):
+        parts = [getattr(c, name) for c in clouds]
+        if all(p is None for p in parts):
+            return None
+        if any(p is None for p in parts):
+            raise ValueError(f"either every cloud carries {name} or none does")
+        return torch.stack(parts)
+
+    return PointCloud(points=stack("points"), num_points=stack("num_points"),
+                      normals=stack("normals"), covs=stack("covs"))
+
 
 def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply a 4x4 rigid transform to [N,4] homogeneous points.
