@@ -20,7 +20,18 @@ Phases (any failure exits non-zero):
                 over 512 noisy problems through 32 lanes, every problem
                 within the bounds or in agreement with align_impl, sampled
                 rows against align_impl, lane-count invariance, fleet
-                registrations/s and the card's busy share.
+                registrations/s and the card's busy share;
+  7. search   — K9 (both variants) at the registration shape and K10, K11,
+                K12 at the covariance shape (k = 10, 20) and at raw-scan
+                scale (≈108k × 108k, k = 20) against their plain versions
+                and each other; K9's and K12's launches timed apart from
+                their wrappers' prologues, K12 bounded by the pairs this
+                data leaves a pruned search; K10 against K11 by query
+                count; then the
+                neighbour-search path with the counts at 0: KdTree searches,
+                knn_T, knn_pruned, the unfused align_impl (within the bounds,
+                in agreement with the fused one, K9 once per linearization
+                and no K1/K2) and the kdtree_benchmark CLI in process.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -37,6 +48,7 @@ import numpy as np
 import torch
 
 from small_gicp_tpu_torch import _build
+from small_gicp_tpu_torch.apps import kdtree_benchmark
 from small_gicp_tpu_torch.interop import result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
@@ -57,6 +69,21 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_prepare,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
+from small_gicp_tpu_torch.ops.knn import KdTree
+from small_gicp_tpu_torch.ops.knn_cuda import (
+    BLOCK_QUERIES,
+    TILE_ROWS,
+    knn,
+    knn_plain,
+    knn_pruned,
+    knn_pruned_launch,
+    knn_pruned_plain,
+    knn_T,
+    nearest_neighbor,
+    nearest_neighbor_plain,
+    pruned_prepare_queries,
+    pruned_prepare_target,
+)
 from small_gicp_tpu_torch.ops.normals import estimate_normals_covariances
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
@@ -91,9 +118,18 @@ KERNELS = {
     "gicp_error_multi_fleet": ("K8", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
                                "small_gicp_tpu/ops/gicp_fused_pallas.py:1438",
                                gicp_error_multi_fleet),
+    "nearest_neighbor": ("K9", "small_gicp_tpu_torch/csrc/knn.cu",
+                         "small_gicp_tpu/ops/knn_pallas.py:35", nearest_neighbor),
+    "knn": ("K10", "small_gicp_tpu_torch/csrc/knn.cu",
+            "small_gicp_tpu/ops/knn_pallas.py:513", knn),
+    "knn_T": ("K11", "small_gicp_tpu_torch/csrc/knn.cu",
+              "small_gicp_tpu/ops/knn_pallas.py:378", knn_T),
+    "knn_pruned": ("K12", "small_gicp_tpu_torch/csrc/knn.cu",
+                   "small_gicp_tpu/ops/knn_pallas.py:117", knn_pruned),
 }
 MAIN_KERNELS = ("gicp_linearize", "gicp_error_multi", "knn_moments")
 FLEET_KERNELS = ("gicp_linearize_fleet", "gicp_error_multi_fleet")
+SEARCH_KERNELS = ("nearest_neighbor", "knn", "knn_T", "knn_pruned")
 
 
 def check(ok: bool, what: str) -> None:
@@ -530,6 +566,266 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     return records, launches
 
 
+def search_bound(nq: int, m: int, k: int, pairs=None):
+    """Bound of an exact k-nearest search: 9 operations a pair over
+    ``pairs`` (brute force: all nq·m); every query and valid target row
+    read once, (d², index) written."""
+    pairs = nq * m if pairs is None else pairs
+    return bound(9.0 * pairs, 16.0 * (nq + m) + 8.0 * k * nq)
+
+
+def pruned_pairs(target, queries, query, d_k, m: int) -> int:
+    """Pairs the pruned search cannot avoid on this data: for every block of
+    64 Morton-sorted queries, the rows of the tiles whose box lies within
+    the block's true kth distance (the largest over its queries, ``d_k``
+    [Q] in query order) of the block's query box. The kernel scans at least
+    these; with a bound looser than the true one it scans more."""
+    dev = query.device
+    nq = query.shape[0]
+    nb = (nq + BLOCK_QUERIES - 1) // BLOCK_QUERIES
+    ntiles = (m + TILE_ROWS - 1) // TILE_ROWS
+    order = queries.qperm.long()
+    pad = nb * BLOCK_QUERIES - nq
+    qs = torch.cat([query[order, :3], query[order[-1:], :3].expand(pad, 3)])
+    qs = qs.view(nb, BLOCK_QUERIES, 3)
+    lo, hi = qs.amin(dim=1), qs.amax(dim=1)
+    reach = torch.cat([d_k[order], d_k.new_zeros(pad)]).view(nb, BLOCK_QUERIES).amax(1)
+    box = target.tbox[:ntiles]
+    gap = torch.clamp(torch.maximum(box[None, :, 0:3] - hi[:, None],
+                                    lo[:, None] - box[None, :, 4:7]), min=0.0)
+    needed = (gap * gap).sum(dim=-1) <= reach[:, None]  # [nb, ntiles]
+    rows = torch.clamp(m - TILE_ROWS * torch.arange(ntiles, device=dev),
+                       max=TILE_ROWS).double()
+    in_block = torch.clamp(nq - BLOCK_QUERIES * torch.arange(nb, device=dev),
+                           max=BLOCK_QUERIES).double()
+    return int((needed.double() @ rows * in_block).sum().item())
+
+
+def phase_search(scans, T_gt, rng, dev, card):
+    """K9-K12 against their plain versions, then the neighbour-search path."""
+    print("== phase 7: search", flush=True)
+    target, tree = preprocess_points(scans[0], LEAF, num_neighbors=K_NEIGHBORS,
+                                     device=dev)
+    source, _ = preprocess_points(scans[1], LEAF, num_neighbors=K_NEIGHBORS,
+                                  device=dev)
+    m, n = int(target.num_points), int(source.num_points)
+    tpts, tnum = target.points, target.num_points
+    records = {}
+
+    # K9 at the registration shape: T·source against the downsampled target.
+    T = torch.as_tensor(noisy_guess(T_gt, rng), dtype=torch.float32, device=dev)
+    q = (source.points @ T.T)[:n, :3]  # a [n,3] view of [n,4] rows
+    dv, iv = nearest_neighbor(tpts, tnum, q, "vpu")
+    dvp, ivp = nearest_neighbor_plain(tpts, tnum, q, "vpu")
+    check(torch.equal(iv, ivp) and torch.equal(dv, dvp),
+          "K9 (vpu) differs from its plain version")
+    dm, im = nearest_neighbor(tpts, tnum, q, "mxu")
+    dmp, imp = nearest_neighbor_plain(tpts, tnum, q, "mxu")
+    check(torch.equal(im, imp) and torch.equal(dm, dmp),
+          "K9 (mxu) differs from its plain version")
+    # Score form against difference form. The score |t|² − 2 q·t of a row
+    # carries a rounding error of up to 2·2⁻²³·(|q| + |t|)² in the centred
+    # frame, so between two rows it may prefer the one whose true d² is larger
+    # by twice that. Each query gets that tolerance from its own reach and
+    # its winners' (the farther of the two variants' rows): the winners' d²
+    # agree within it, and the rows are equal wherever the runner-up (K10,
+    # k = 2) is farther than it.
+    centre = tree.centre()
+    q_reach = (q - centre).norm(dim=1)
+    t_reach = torch.maximum((tpts[iv.long(), :3] - centre).norm(dim=1),
+                            (tpts[im.long(), :3] - centre).norm(dim=1))
+    tol = 4.0 * 2.0 ** -23 * (q_reach + t_reach) ** 2  # [n]
+    d2nd, _ = knn(tpts, tnum, q, 2)
+    clear = d2nd[:, 1] - d2nd[:, 0] > tol
+    delta = (dm - dv).abs()
+    worst = int((delta / tol).argmax())
+    check(bool((delta <= tol).all()),
+          f"K9 mxu d² differs from vpu d² by {delta[worst].item()} at query {worst} "
+          f"(tolerance {tol[worst].item()})")
+    check(torch.equal(iv[clear], im[clear]), "K9 variants pick different rows")
+    clear_share = clear.float().mean().item()
+    check(clear_share >= 0.9, f"only {clear_share:.3f} of the queries have a clear "
+          "runner-up: the row comparison covers too few")
+    print(f"K9 score-form tolerance per query 4·2⁻²³·(|q−c|+|t−c|)²: median "
+          f"{tol.median().item():.3e}, max {tol.max().item():.3e}; largest "
+          f"|Δd²|/tolerance {(delta / tol).max().item():.3f}")
+    print(f"K9 nearest_neighbor: {n} queries × {m} rows; vpu and mxu equal to their "
+          f"plain versions (d², idx); mxu vs vpu max |Δd²| {delta.max().item():.3e}, "
+          f"rows equal on {int(clear.sum())} queries with a clear runner-up "
+          f"({100 * clear_share:.1f} %), {int((iv != im).sum())} differ in all")
+    tt = tpts[:m, :3].contiguous()
+    qc = q.contiguous()
+    # The launch alone (the centre given, as KdTree gives it) is the kernel's
+    # time; the wrapper without a centre adds the torch ops that compute it.
+    mxu_ms = time_ms(lambda: nearest_neighbor(tpts, tnum, q, "mxu", centre))
+    whole_ms = time_ms(lambda: nearest_neighbor(tpts, tnum, q, "vpu"))
+    records["nearest_neighbor"] = dict(
+        max_abs_err=(dv - dvp).abs().max().item(),
+        ms=time_ms(lambda: nearest_neighbor(tpts, tnum, q, "vpu", centre)),
+        plain_ms=time_ms(lambda: nearest_neighbor_plain(tpts, tnum, q, "vpu"), reps=3),
+        library_ms=time_ms(lambda: torch.cdist(qc, tt).min(dim=1), reps=3),
+        pairs=n * m, bound=search_bound(n, m, 1))
+    print(f"K9 launch alone: vpu {records['nearest_neighbor']['ms']:.4f} ms, mxu "
+          f"{mxu_ms:.4f} ms; whole wrapper (centre computed per call) vpu "
+          f"{whole_ms:.4f} ms on {card}")
+
+    # K10, K11, K12 at the covariance shape: self-kNN of the downsampled target.
+    qs = tpts[:m, :3]
+    searches = (("knn", knn), ("knn_T", knn_T), ("knn_pruned", knn_pruned))
+    results, errs = {}, {}
+    for k in (K_NEIGHBORS, 20):
+        ref = knn_plain(tpts, tnum, qs, k)
+        pruned_ref = knn_pruned_plain(tpts, tnum, qs, k)
+        check(torch.equal(ref[0], pruned_ref[0]) and torch.equal(ref[1], pruned_ref[1]),
+              f"the plain versions of K10 and K12 differ at k={k}")
+        for name, fn in searches:
+            d, i = fn(tpts, tnum, qs, k)
+            check(torch.equal(d, ref[0]) and torch.equal(i, ref[1]),
+                  f"{name} differs from its plain version at k={k}")
+            errs[name] = (d - ref[0]).abs().max().item()
+            results[name, k] = time_ms(lambda: fn(tpts, tnum, qs, k))
+        print(f"K10/K11/K12 at {m} × {m}, k={k}: (d², idx) equal to the plain "
+              f"versions and to each other; ms "
+              f"{ {name: round(results[name, k], 4) for name, _ in searches} }")
+    k = K_NEIGHBORS
+    lib_ms = time_ms(lambda: torch.topk(torch.cdist(tt, tt), k, largest=False), reps=3)
+    plain_ms = time_ms(lambda: knn_plain(tpts, tnum, qs, k), reps=3)
+    for name, _ in searches:
+        records[name] = dict(
+            max_abs_err=errs[name], ms=results[name, k], plain_ms=plain_ms,
+            library_ms=lib_ms, pairs=m * m, bound=search_bound(m, m, k))
+    # K12's record is the launch alone over a finished prologue, against the
+    # pairs this data leaves a pruned search; the wrapper's times (with the
+    # target half kept, as KdTree keeps it, and whole) stand beside it.
+    ptgt = tree.pruned_target()
+    pqry = pruned_prepare_queries(ptgt, qs)
+    d12, i12 = knn_pruned_launch(ptgt, tnum, qs, pqry, k)
+    ref = knn_plain(tpts, tnum, qs, k)
+    check(torch.equal(d12, ref[0]) and torch.equal(i12, ref[1]),
+          "K12's launch over kept tables differs from the plain version")
+    need = pruned_pairs(ptgt, pqry, qs, d12[:, k - 1], m)
+    pruned_ms = {
+        "launch": time_ms(lambda: knn_pruned_launch(ptgt, tnum, qs, pqry, k)),
+        "kept": time_ms(lambda: knn_pruned(tpts, tnum, qs, k, target=ptgt)),
+        "whole": results["knn_pruned", k],
+        "target": time_ms(lambda: pruned_prepare_target(tpts, tnum)),
+        "queries": time_ms(lambda: pruned_prepare_queries(ptgt, qs)),
+    }
+    records["knn_pruned"].update(
+        ms=pruned_ms["launch"], pairs=need, bound=search_bound(m, m, k, need),
+        plain_ms=time_ms(lambda: knn_pruned_plain(tpts, tnum, qs, k), reps=3))
+    print(f"K12 at {m} × {m}, k={k}: launch alone {pruned_ms['launch']:.4f} ms over "
+          f"{need} needed pairs ({100 * need / (m * m):.2f} % of Q·M); wrapper with "
+          f"the target half kept {pruned_ms['kept']:.4f} ms, whole "
+          f"{pruned_ms['whole']:.4f} ms; prologue alone: target half "
+          f"{pruned_ms['target']:.4f} ms, query half {pruned_ms['queries']:.4f} ms "
+          f"on {card}")
+
+    # K10 against K11 by query count (k = 10, the first Q rows as queries).
+    for nq in (1, 64, 4096, m):
+        sub = qs[:nq]
+        t10 = time_ms(lambda: knn(tpts, tnum, sub, k))
+        t11 = time_ms(lambda: knn_T(tpts, tnum, sub, k))
+        print(f"K10 vs K11 at Q={nq}, M={m}, k={k}: knn {t10:.4f} ms, knn_T "
+              f"{t11:.4f} ms ({'knn_T' if t11 < t10 else 'knn'} wins) on {card}")
+
+    # Raw-scan scale: the whole first frame against itself, k = 20.
+    raw = PointCloud.from_points(scans[0], device=dev)
+    rpts, rnum, nr = raw.points, raw.num_points, len(scans[0])
+    rq = rpts[:, :3]
+    d10, i10 = knn(rpts, rnum, rq, 20)
+    d12, i12 = knn_pruned(rpts, rnum, rq, 20)
+    check(torch.equal(d10, d12) and torch.equal(i10, i12),
+          "K12 differs from K10 at raw-scan scale")
+    pick = torch.as_tensor(np.sort(rng.choice(nr, size=min(8192, nr), replace=False)), device=dev)
+    dp, ip = knn_plain(rpts, rnum, rq[pick].contiguous(), 20)
+    check(torch.equal(d10[pick], dp) and torch.equal(i10[pick], ip),
+          "K10 differs from its plain version at raw-scan scale")
+    d11, i11 = knn_T(rpts, rnum, rq, 20)
+    check(torch.equal(d10, d11) and torch.equal(i10, i11),
+          "K11 differs from K10 at raw-scan scale")
+    raw_ms = {name: time_ms(lambda: fn(rpts, rnum, rq, 20), reps=3)
+              for name, fn in searches}
+    raw_tree = KdTree(points=rpts, num_points=rnum)
+    rtgt = raw_tree.pruned_target()
+    rqry = pruned_prepare_queries(rtgt, rq)
+    need = pruned_pairs(rtgt, rqry, rq, d12[:, 19], nr)
+    raw_ms["launch"] = time_ms(lambda: knn_pruned_launch(rtgt, rnum, rq, rqry, 20),
+                               reps=3)
+    raw_ms["kept"] = time_ms(lambda: knn_pruned(rpts, rnum, rq, 20, target=rtgt), reps=3)
+    b_ms, b_by = search_bound(nr, nr, 20)
+    p_ms, p_by = search_bound(nr, nr, 20, need)
+    print(f"raw-scan scale, {nr} × {nr}, k=20: K11 and K12 equal to K10, K10 equal "
+          f"to its plain version on {len(pick)} sampled queries; knn "
+          f"{raw_ms['knn']:.3f} ms, knn_T {raw_ms['knn_T']:.3f} ms (bound "
+          f"{b_ms:.4f} ms by {b_by}); knn_pruned launch alone "
+          f"{raw_ms['launch']:.3f} ms, with the target half kept "
+          f"{raw_ms['kept']:.3f} ms, whole {raw_ms['knn_pruned']:.3f} ms over {need} "
+          f"needed pairs, {100 * need / (nr * nr):.2f} % of Q·M (bound {p_ms:.4f} ms "
+          f"by {p_by}) on {card}")
+
+    # The neighbour-search path, counted from zero.
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+    d, i = tree.nearest_neighbor_search(q)
+    check(torch.equal(i, iv) and torch.equal(d, dv), "KdTree 1-NN differs from K9")
+    d, i = tree.knn_search(qs, 20)
+    check(bool(torch.isfinite(d).all()) and torch.equal(i[:, 0].long(),
+                                                        torch.arange(m, device=dev)),
+          "KdTree self-kNN does not find each point first")
+    d1, i1 = tree.knn_search(qs[7], 20)
+    check(d1.shape == (20,) and torch.equal(i1, i[7]), "single-query kNN differs")
+    dT, iT = knn_T(tpts, tnum, qs[:64], 20)
+    check(torch.equal(iT, i[:64]) and torch.equal(dT, d[:64]), "knn_T differs from knn")
+    dP, iP = knn_pruned(rpts, rnum, rq, 20, target=raw_tree.pruned_target())
+    check(torch.equal(iP, i10) and torch.equal(dP, d10), "knn_pruned differs from knn")
+
+    init = noisy_guess(T_gt, rng)
+    res = align_impl(target, source, tree, init, use_fused="never")
+    torch.cuda.synchronize()
+    r = result_to_numpy(res)
+    rot, trans = pose_error(r["T_target_source"], T_gt)
+    counts = {name: KERNELS[name][3].launches for name in KERNELS}
+    print(f"unfused align: iterations {r['iterations']} converged {r['converged']} "
+          f"inliers {r['num_inliers']}; pose error {rot:.4f} deg, {trans:.4f} m "
+          "(bounds 2.5 deg, 0.2 m)")
+    check(np.isfinite(r["T_target_source"]).all(), "non-finite unfused pose")
+    check(rot < 2.5 and trans < 0.2, "unfused registration outside the bounds")
+    check(counts["nearest_neighbor"] == 1 + r["iterations"] + 1,
+          f"K9 launches {counts['nearest_neighbor']} != 1 + iterations + 1")
+    check(counts["gicp_linearize"] == 0 and counts["gicp_error_multi"] == 0,
+          "the unfused route launched a fused kernel")
+    fused = align_impl(target, source, tree, init)
+    check(_agrees((r["T_target_source"], r["iterations"]), fused),
+          "unfused and fused align disagree")
+    for fn in (gicp_linearize_tables, gicp_error_multi):
+        fn.launches = 0  # the fused comparison is not part of this path
+    n_regs = 5
+    per_reg = {}
+    for mode in ("never", "auto"):
+        inits = [noisy_guess(T_gt, rng) for _ in range(n_regs)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in inits:
+            out = align_impl(target, source, tree, g, use_fused=mode)
+            rot, trans = pose_error(out.T_target_source.cpu().numpy(), T_gt)
+            check(rot < 2.5 and trans < 0.2,
+                  f"a timed {mode} registration left the bounds")
+        torch.cuda.synchronize()
+        per_reg[mode] = (time.perf_counter() - t0) * 1e3 / n_regs
+        if mode == "never":
+            for fn in (gicp_linearize_tables, gicp_error_multi):
+                check(fn.launches == 0, "the unfused route launched a fused kernel")
+    print(f"time per registration: unfused {per_reg['never']:.2f} ms, fused "
+          f"{per_reg['auto']:.2f} ms ({n_regs} aligns each) on {card}")
+
+    check(kdtree_benchmark.main([]) == 0, "kdtree_benchmark failed")
+    launches = {name: KERNELS[name][3].launches for name in SEARCH_KERNELS}
+    print(f"launches on the search path: {launches}")
+    check(all(v > 0 for v in launches.values()), "a search kernel was not launched")
+    return records, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -575,6 +871,9 @@ def main() -> None:
                                                 reg_per_s)
     records.update(fleet_records)
     launches.update(fleet_launches)
+    search_records, search_launches = phase_search(scans[:2], T_gt, rng, dev, card)
+    records.update(search_records)
+    launches.update(search_launches)
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

@@ -6,7 +6,10 @@ LM on an NVIDIA Hopper card, through hand-written CUDA kernels for the
 fused search + linearize (K1), the LM trial errors (K2) and the kNN
 moments (K3). ``align_fleet`` registers a queue of problems through
 persistent lanes with the lane-aware K7 (linearize) and K8 (trial
-errors). Entry points run on the card unless given ``device="cpu"``,
+errors). ``KdTree`` searches through the standalone 1-NN (K9) and kNN
+(K10) kernels; ``ops.knn_cuda.knn_T`` (K11) and ``knn_pruned`` (K12) are
+the warp-per-query and the Morton-pruned forms of the same search.
+``read_ply`` and ``read_kitti_bin`` load scans. Entry points run on the card unless given ``device="cpu"``,
 where every kernel runs its plain PyTorch version.
 """
 
@@ -36,6 +39,7 @@ from small_gicp_tpu_torch.models.helper import (
 )
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
 from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
+from small_gicp_tpu_torch.utils.io import read_kitti_bin, read_ply
 
 __all__ = [
     "PAD_SENTINEL", "PointCloud", "stack_clouds", "transform_points", "se3_exp",
@@ -44,5 +48,5 @@ __all__ = [
     "estimate_covariances", "estimate_normals", "estimate_normals_covariances",
     "Registration", "RegistrationResult", "align_points", "RegistrationSetting",
     "align", "preprocess_points", "align_fleet", "fleet_prepare",
-    "cloud_from_numpy", "result_to_numpy",
+    "cloud_from_numpy", "result_to_numpy", "read_kitti_bin", "read_ply",
 ]

@@ -30,8 +30,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points of each library: name → argument types. All return int:
-# a launch entry returns cudaGetLastError() after its launch, a
-# *_block_rows entry the rows per block that sizes the partials buffer.
+# a launch entry returns cudaGetLastError() after its launch, a *_rows entry
+# a tile size of its kernels that the wrapper sizes a buffer by, and
+# sgt_knn_geometry 0 after writing the pruned search's constants.
 SIGNATURES = {
     "gicp_fused": {
         "sgt_gicp_linearize": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _P, _P],
@@ -45,6 +46,13 @@ SIGNATURES = {
     },
     "cov_fused": {
         "sgt_knn_moments": [_P, _P, _I, _I, _P, _P],
+    },
+    "knn": {
+        "sgt_nn1": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P],
+        "sgt_knn": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+        "sgt_knn_warp": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+        "sgt_knn_pruned": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+        "sgt_knn_geometry": [_P],
     },
 }
 

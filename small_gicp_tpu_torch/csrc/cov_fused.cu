@@ -11,9 +11,9 @@
 // What bounds it: the search, N² pairs at ~9 f32 operations each
 // (operations; the moments are k·9 operations per row). One thread owns
 // one query and keeps a sorted top-k list of (d², dx, dy, dz) in
-// registers; the block streams the cloud through shared memory in
-// 16-byte rows, so the inner loop is one broadcast load, the distance
-// and one compare. Ties keep the lower row index (strict < against the
+// registers (sgt::TopK of common.cuh, shared with the search kernels);
+// the block streams the cloud through shared memory in 16-byte rows, so
+// the inner loop is one broadcast load, the distance and one compare. Ties keep the lower row index (strict < against the
 // kth, insertion after equal entries, rows visited in ascending order),
 // which is the order a stable sort of (d², index) gives.
 //
@@ -45,31 +45,6 @@ constexpr int kMomTile = 512;
 constexpr int kWindow = 32;
 constexpr float kValidSq = 1e16f;
 
-// kth smallest d² from q over rows [lo, hi) (kBig if fewer than k rows).
-template <int KMAX>
-__device__ float window_bound(const float4* __restrict__ pts, int lo, int hi,
-                              int k, float qx, float qy, float qz) {
-  float sd[KMAX];
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s) sd[s] = kBig;
-  float kth = kBig;
-  for (int j = lo; j < hi; ++j) {
-    const float4 p = pts[j];
-    float dx, dy, dz;
-    const float d2 = sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
-    if (d2 < kth) {
-#pragma unroll
-      for (int s = KMAX - 1; s > 0; --s)
-        if (s < k) sd[s] = sd[s - 1] > d2 ? sd[s - 1] : fminf(sd[s], d2);
-      sd[0] = fminf(sd[0], d2);
-#pragma unroll
-      for (int s = 0; s < KMAX; ++s)
-        if (s == k - 1) kth = sd[s];
-    }
-  }
-  return kth;
-}
-
 template <int KMAX>
 __global__ void __launch_bounds__(kMomThreads)
 knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
@@ -90,16 +65,12 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
     qz = q.z;
     const int lo = max(0, min(i - kWindow, m - (2 * kWindow + 1)));
     const int hi = min(m, lo + 2 * kWindow + 1);
-    bound = window_bound<KMAX>(p4, lo, hi, k, qx, qy, qz);
+    bound = sgt::kth_bound<KMAX>(p4, lo, hi, 1, k, qx, qy, qz);
   }
 
-  float bd[KMAX], bx[KMAX], by[KMAX], bz[KMAX];
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    bd[s] = kBig;
-    bx[s] = by[s] = bz[s] = 0.f;
-  }
-  float kth = kBig;
+  // (d², dx, dy, dz) of the k nearest rows so far.
+  sgt::TopK<KMAX, 3> best;
+  best.clear(0u);  // offsets 0.0f
 
   for (int base = 0; block_active && base < m; base += kMomTile) {
     const int cnt = min(kMomTile, m - base);
@@ -111,33 +82,9 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
       const float4 p = tile[j];
       float dx, dy, dz;
       const float d2 = sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
-      if (d2 < kth && d2 <= bound) {
-        // Insert after every entry ≤ d2, shifting the larger ones down.
-#pragma unroll
-        for (int s = KMAX - 1; s > 0; --s) {
-          if (s < k) {
-            if (bd[s - 1] > d2) {
-              bd[s] = bd[s - 1];
-              bx[s] = bx[s - 1];
-              by[s] = by[s - 1];
-              bz[s] = bz[s - 1];
-            } else if (bd[s] > d2) {
-              bd[s] = d2;
-              bx[s] = dx;
-              by[s] = dy;
-              bz[s] = dz;
-            }
-          }
-        }
-        if (bd[0] > d2) {
-          bd[0] = d2;
-          bx[0] = dx;
-          by[0] = dy;
-          bz[0] = dz;
-        }
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s)
-          if (s == k - 1) kth = bd[s];
+      if (d2 < best.kth && d2 <= bound) {
+        best.insert(k, d2, __float_as_uint(dx), __float_as_uint(dy),
+                    __float_as_uint(dz));
       }
     }
   }
@@ -149,20 +96,23 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
   if (active) {
 #pragma unroll
     for (int s = 0; s < KMAX; ++s) {
-      if (s < k && bd[s] < kValidSq) {
-        o[0] += bx[s];
-        o[1] += by[s];
-        o[2] += bz[s];
-        o[3] += bx[s] * bx[s];
-        o[4] += bx[s] * by[s];
-        o[5] += bx[s] * bz[s];
-        o[6] += by[s] * by[s];
-        o[7] += by[s] * bz[s];
-        o[8] += bz[s] * bz[s];
+      if (s < k && best.d[s] < kValidSq) {
+        const float bx = __uint_as_float(best.p0[s]);
+        const float by = __uint_as_float(best.p1[s]);
+        const float bz = __uint_as_float(best.p2[s]);
+        o[0] += bx;
+        o[1] += by;
+        o[2] += bz;
+        o[3] += bx * bx;
+        o[4] += bx * by;
+        o[5] += bx * bz;
+        o[6] += by * by;
+        o[7] += by * bz;
+        o[8] += bz * bz;
         o[9] += 1.f;
       }
     }
-    o[10] = kth;
+    o[10] = best.kth;
   }
   float4* row = reinterpret_cast<float4*>(out + (size_t)i * 16);
 #pragma unroll

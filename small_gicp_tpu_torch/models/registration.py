@@ -14,10 +14,19 @@ targets. Semantics kept from the reference:
     GN applies the update on the converging iteration too;
   * result.iterations is the index of the last executed iteration.
 
-Every linearization goes through ``gicp_linearize_tables`` (kernel K1 on
-the card) and every error evaluation through ``gicp_error_multi`` (K2);
-on CPU tensors those run their plain versions. The loop state stays on
-the device; the host reads one stop flag per outer iteration.
+Two routes, chosen as the JAX package chooses them (``use_fused``):
+  * fused ("auto", for a PointCloud target, a KdTree or no searcher and
+    float32 clouds): every linearization goes through
+    ``gicp_linearize_tables`` (kernel K1 on the card) and every error
+    evaluation through ``gicp_error_multi`` (K2); on CPU tensors those run
+    their plain versions;
+  * unfused ("never", or float64 clouds): ``search_correspondences`` —
+    transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on the card),
+    gather of the winners' payload, ``make_weights``, rejector mask — feeds
+    ``factors.linearize`` and ``factors.error_multi``, plain torch ops as
+    they are XLA ops in the JAX package.
+The loop state stays on the device; the host reads one stop flag per outer
+iteration.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
 )
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.utils.lie import se3_exp
-from small_gicp_tpu_torch.models.factors import GICP, ICP, PLANE_ICP
+from small_gicp_tpu_torch.models import factors
+from small_gicp_tpu_torch.models.factors import GICP, ICP, PLANE_ICP, Correspondences
 
 _NOT_PORTED = ("voxel-map targets (GaussianVoxelMap, IncrementalVoxelMap) and "
                "VGICP wait for ROADMAP item A6")
@@ -62,6 +72,27 @@ def _converged(delta, rot_eps, trans_eps):
             & (torch.linalg.vector_norm(delta[3:]) <= trans_eps))
 
 
+def search_correspondences(factor_type: str, target: PointCloud, target_tree,
+                           source_points: torch.Tensor, source_num: torch.Tensor,
+                           source_covs: Optional[torch.Tensor], T: torch.Tensor,
+                           max_dist_sq: float) -> Correspondences:
+    """Nearest target row of every transformed source point, with the
+    factor's weight matrices and the rejector mask (the point-cloud branch
+    of the JAX package's ``_search_correspondences``)."""
+    transed = source_points @ T.T  # [N,4]
+    n = source_points.shape[0]
+    tree = target_tree if target_tree is not None else KdTree.build(target)
+    sq_dists, idx = tree.nearest_neighbor_search(transed[:, :3])
+    idx = idx.long()
+    mu = target.points[idx, :3]
+    t_normals = target.normals[idx] if target.normals is not None else None
+    t_covs = target.covs[idx] if target.covs is not None else None
+    mask = (sq_dists <= max_dist_sq) & (
+        torch.arange(n, device=source_points.device) < source_num)
+    W = factors.make_weights(factor_type, T, n, source_covs, t_normals, t_covs)
+    return Correspondences(target_mu=mu, W=W, mask=mask, target_idx=idx)
+
+
 def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                registration_type: str = GICP, optimizer: str = "lm",
                robust_kernel: Optional[str] = None, robust_c: float = 1.0,
@@ -71,8 +102,14 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                translation_eps: float = 1e-3, init_lambda: float = 1e-3,
                lambda_factor: float = 10.0, gn_lambda: float = 1e-6,
                dof_mask=None, dof_lambda: float = 1e9,
+               use_fused: str = "auto",
                solve_dtype: str = "same") -> RegistrationResult:
-    """Register ``source`` to ``target``; both clouds on the same device."""
+    """Register ``source`` to ``target``; both clouds on the same device.
+
+    ``use_fused``: "auto" takes the fused kernels for float32 clouds;
+    "never" keeps the unfused search + linearize route, which float64
+    clouds always take.
+    """
     if not isinstance(target, PointCloud):
         raise NotImplementedError(_NOT_PORTED)
     if target_tree is not None and not isinstance(target_tree, KdTree):
@@ -87,6 +124,8 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         raise ValueError(f"unknown robust kernel {robust_kernel!r}")
     if solve_dtype not in ("same", "float64"):
         raise ValueError(f"solve_dtype must be 'same' or 'float64', got {solve_dtype!r}")
+    if use_fused not in ("auto", "never"):
+        raise ValueError(f"use_fused must be 'auto' or 'never', got {use_fused!r}")
 
     dt, dev = source.dtype, source.device
     solve_dt = dt if solve_dtype == "same" else torch.float64
@@ -97,25 +136,45 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         dof = dof_lambda * torch.diag(torch.abs(
             torch.as_tensor(dof_mask, dtype=solve_dt, device=dev) - 1.0))
 
-    tables = gicp_prepare(
-        target.points, target.num_points, source.points, source.num_points,
-        factor=registration_type,
-        target_covs=target.covs if registration_type == GICP else None,
-        source_covs=source.covs if registration_type == GICP else None,
-        target_normals=target.normals if registration_type == PLANE_ICP else None,
-    )
+    if use_fused == "auto" and dt == torch.float32:
+        tables = gicp_prepare(
+            target.points, target.num_points, source.points, source.num_points,
+            factor=registration_type,
+            target_covs=target.covs if registration_type == GICP else None,
+            source_covs=source.covs if registration_type == GICP else None,
+            target_normals=target.normals if registration_type == PLANE_ICP else None,
+        )
 
-    def linearize(T):
-        H, b, inliers, corr = gicp_linearize_tables(
-            tables, T, max_dist_sq, robust_kernel, robust_c)
+        def linearize(T):
+            """(H, b, inliers, frozen correspondences) at T."""
+            H, b, inliers, corr = gicp_linearize_tables(
+                tables, T, max_dist_sq, robust_kernel, robust_c)
+            return H, b, inliers.to(torch.int32), corr
+
+        def errors(corr, Ts):
+            return gicp_error_multi(corr, source.points, Ts, source.num_points,
+                                    robust_kernel, robust_c)
+    else:
+        source_covs = source.covs if registration_type == GICP else None
+
+        def linearize(T):
+            corr = search_correspondences(
+                registration_type, target, target_tree, source.points,
+                source.num_points, source_covs, T, max_dist_sq)
+            H, b, _ = factors.linearize(corr, T, source.points, robust_kernel,
+                                        robust_c)
+            return H, b, corr.mask.sum().to(torch.int32), corr
+
+        def errors(corr, Ts):
+            return factors.error_multi(corr, Ts, source.points, robust_kernel,
+                                       robust_c)
+
+    def linearize_for_solve(T):
+        H, b, inliers, corr = linearize(T)
         H = H.to(solve_dt)
         if dof is not None:
             H = H + dof
-        return H, b.to(solve_dt), inliers.to(torch.int32), corr
-
-    def errors(corr, Ts):
-        return gicp_error_multi(corr, source.points, Ts, source.num_points,
-                                robust_kernel, robust_c)
+        return H, b.to(solve_dt), inliers, corr
 
     lam = torch.tensor(init_lambda, dtype=dt, device=dev)
     H = torch.zeros((6, 6), dtype=dt, device=dev)
@@ -130,7 +189,7 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
 
     for i in range(max_iterations):
         iterations = i
-        Hs, bs, num_inliers, corr = linearize(T)
+        Hs, bs, num_inliers, corr = linearize_for_solve(T)
         if optimizer == "gn":
             e = errors(corr, T[None])[0]
             delta = solve6x6(Hs, -bs, gn_damping).to(dt)

@@ -1,8 +1,12 @@
 """Normal and covariance estimation from k nearest neighbours, in torch.
 
-Counterpart of ``small_gicp_tpu/ops/normals.py``, exact mode. The
-neighbour moments come from ``knn_moments`` (kernel K3 on the card),
-then:
+Counterpart of ``small_gicp_tpu/ops/normals.py``. The neighbour moments
+come from one of two routes, chosen as the JAX package chooses them:
+  * float32 points, k ≤ 64 and at most 1,048,576 rows: ``knn_moments``
+    (kernel K3 on the card), which never materialises the neighbours;
+  * anything else (float64, k > 64): ``KdTree.knn_search`` and
+    query-centred moment sums over the gathered neighbours.
+Then:
   * fewer than 5 neighbours → invalid: normal 0, covariance I;
   * cov = E[ddᵀ] − E[d]E[d]ᵀ over the query-centred offsets d (biased);
   * normal = smallest-eigenvalue eigenvector, flipped so normal·p ≤ 0;
@@ -11,24 +15,56 @@ then:
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from small_gicp_tpu_torch.point_cloud import PointCloud
-from small_gicp_tpu_torch.ops.cov_fused_cuda import knn_moments
+from small_gicp_tpu_torch.ops.cov_fused_cuda import MAX_K, knn_moments
 from small_gicp_tpu_torch.ops.eigh3 import smallest_eigvec3x3
+from small_gicp_tpu_torch.ops.knn import KdTree
 
+# Squared distances above this are hits on padding rows: the neighbour
+# does not exist (cloud smaller than k).
+_VALID_NEIGHBOR_SQ_DIST = 1e16
 _MIN_NEIGHBORS = 5
+_MAX_FUSED_ROWS = 1_048_576
+
+
+def _searched_moments(points: torch.Tensor, num_points: torch.Tensor, k: int):
+    """(Σd [N,3], Σddᵀ [N,3,3], counts [N]) through ``KdTree.knn_search``."""
+    xyz = points[:, :3]
+    sq_dists, idx = KdTree(points=points, num_points=num_points).knn_search(xyz, k)
+    neighbor_valid = sq_dists < _VALID_NEIGHBOR_SQ_DIST  # [N,k]
+    counts = neighbor_valid.to(points.dtype).sum(dim=-1)
+    # Centred on the query: the covariance is translation-invariant, and
+    # float32 would cancel in E[ppᵀ] − μμᵀ.
+    neigh = xyz[idx.long()] - xyz[:, None, :]  # [N,k,3]
+    neigh = torch.where(neighbor_valid[..., None], neigh, 0.0)
+    return neigh.sum(dim=1), torch.einsum("nkd,nke->nde", neigh, neigh), counts
 
 
 def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
-                   num_neighbors: int, need_normals: bool, need_covs: bool):
+                   num_neighbors: int, need_normals: bool, need_covs: bool,
+                   neighbor_mode: str = "exact"):
     n = points.shape[0]
     dt, dev = points.dtype, points.device
     xyz = points[:, :3]
 
-    m1, m2, counts = knn_moments(points, num_points, num_neighbors)
+    fused_ok = dt == torch.float32 and num_neighbors <= MAX_K
+    if neighbor_mode == "exact" and fused_ok and n <= _MAX_FUSED_ROWS:
+        neighbor_mode = "fused"
+    if neighbor_mode == "fused":
+        if not fused_ok:
+            raise ValueError("neighbor_mode='fused' needs f32 points and k<=64")
+        m1, m2, counts = knn_moments(points, num_points, num_neighbors)
+    elif neighbor_mode == "window":
+        raise NotImplementedError(
+            "neighbor_mode='window' (ops/knn_window.knn_windowed) waits for "
+            "ROADMAP item A9")
+    elif neighbor_mode == "exact":
+        m1, m2, counts = _searched_moments(points, num_points, num_neighbors)
+    else:
+        raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}; "
+                         "have 'exact', 'window', 'fused'")
     safe = torch.clamp(counts, min=1.0)
     mean = m1 / safe[:, None]
     cov = m2 / safe[:, None, None] - mean[:, :, None] * mean[:, None, :]

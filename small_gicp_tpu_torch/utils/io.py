@@ -1,0 +1,69 @@
+"""Point-cloud file readers (host side, numpy).
+
+Counterpart of the readers in ``small_gicp_tpu/utils/io.py`` that the
+CLIs need: the KITTI float4 ``.bin`` loader and an xyz-only PLY reader
+(ascii and binary, arbitrary scalar vertex properties).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_PLY_DTYPES = {
+    "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
+    "short": "i2", "int16": "i2", "ushort": "u2", "uint16": "u2",
+    "int": "i4", "int32": "i4", "uint": "u4", "uint32": "u4",
+    "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+}
+_BYTE_ORDER = {"binary_little_endian": "<", "binary_big_endian": ">"}
+
+
+def read_kitti_bin(path: str) -> np.ndarray:
+    """A KITTI velodyne scan (float32 x, y, z, intensity rows) → [N,3] xyz."""
+    raw = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    return raw[:, :3].copy()
+
+
+def read_ply(path: str) -> np.ndarray:
+    """The vertex positions of a PLY file → [N,3] float32 xyz."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path} is not a PLY file")
+        fmt = n_vertex = None
+        props = []  # (name, numpy dtype) of the vertex element
+        in_vertex = False
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError("unexpected end of file in the PLY header")
+            tokens = line.decode("ascii", "replace").split()
+            if not tokens:
+                continue
+            if tokens[0] == "format":
+                fmt = tokens[1]
+            elif tokens[0] == "element":
+                in_vertex = tokens[1] == "vertex"
+                if in_vertex:
+                    n_vertex = int(tokens[2])
+            elif tokens[0] == "property" and in_vertex:
+                if tokens[1] == "list":
+                    raise ValueError("list properties on the vertex element are "
+                                     "not supported")
+                props.append((tokens[2], _PLY_DTYPES[tokens[1]]))
+            elif tokens[0] == "end_header":
+                break
+        if fmt is None or n_vertex is None:
+            raise ValueError("malformed PLY header")
+        names = [name for name, _ in props]
+        if any(axis not in names for axis in "xyz"):
+            raise ValueError(f"{path} has no x/y/z vertex properties")
+        if fmt in _BYTE_ORDER:
+            dtype = np.dtype([(n, _BYTE_ORDER[fmt] + d) for n, d in props])
+            data = np.frombuffer(f.read(dtype.itemsize * n_vertex), dtype=dtype)
+            cols = [data[axis] for axis in "xyz"]
+        elif fmt == "ascii":
+            rows = np.loadtxt(f, max_rows=n_vertex, ndmin=2)
+            cols = [rows[:, names.index(axis)] for axis in "xyz"]
+        else:
+            raise ValueError(f"unsupported PLY format {fmt}")
+    return np.stack(cols, axis=1).astype(np.float32)

@@ -2,8 +2,10 @@
 
 Every compiled instance runs here — K1 and K7 for each factor × robust
 kernel, K2 and K8 for each robust kernel and pose count, K3 for both top-k
-bounds — at small shapes with padding rows, plus one small registration
-and one small fleet on the card against the CPU path. The tests need an NVIDIA card and skip without one.
+bounds, both K9 variants, the three list bounds of K10 and K12 and K11 below
+and above 32 neighbours — at small shapes with padding rows, plus one small
+registration (fused and unfused) and one small fleet on the card against
+the CPU path. The tests need an NVIDIA card and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
 without the repository's conftest:
 
@@ -36,6 +38,20 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_tables,
     gicp_prepare,
 )
+from small_gicp_tpu_torch.models.registration import align_impl
+from small_gicp_tpu_torch.ops.knn import KdTree
+from small_gicp_tpu_torch.ops.knn_cuda import (
+    knn,
+    knn_plain,
+    knn_pruned,
+    knn_pruned_launch,
+    knn_T,
+    nearest_neighbor,
+    nearest_neighbor_plain,
+    pruned_prepare_queries,
+    target_centre,
+)
+from small_gicp_tpu_torch.ops.normals import estimate_covariances
 from small_gicp_tpu_torch.parallel.fleet import align_fleet
 from small_gicp_tpu_torch.point_cloud import stack_clouds
 from small_gicp_tpu_torch.utils.lie import se3_exp
@@ -290,3 +306,164 @@ def test_small_fleet_card_matches_cpu(dev):
         assert np.linalg.norm(dT[:3, 3]) <= 2e-3
         assert np.linalg.norm(dT[[2, 0, 1], [1, 2, 0]]) <= 2 * 0.1 * math.pi / 180.0
         assert abs(int(a["iterations"][p]) - int(c["iterations"][p])) <= 1
+
+
+# ----------------------------------------------------------- K9-K12 ----
+
+def _search_clouds(dev, kind):
+    """(target [cap,4], num_points, queries [Q,3]) on the card. ``scan``: a
+    coherent 3,000-point surface in a 3,100-row table, 1,234 jittered
+    queries taken as a [Q,3] view of [Q,4] rows; ``grid``: 1,000 points on
+    an 8³ integer grid (exact distance ties), queried with themselves;
+    ``tiny``: 3 valid rows; ``empty``: no valid row."""
+    rng = np.random.default_rng(21)
+    if kind == "grid":
+        tp = rng.integers(0, 8, (1000, 3)).astype(np.float32)
+        qp, cap = tp[:700], 1000
+    else:
+        tp = rng.uniform(-20, 20, size=(3000, 3)).astype(np.float32)
+        tp[:, 2] = np.sin(tp[:, 0] * 0.4) + 0.05 * rng.normal(size=3000)
+        qp = tp[rng.permutation(3000)[:1234]] + rng.normal(
+            scale=0.05, size=(1234, 3)).astype(np.float32)
+        cap = 3100
+    n = {"tiny": 3, "empty": 0}.get(kind, len(tp))
+    tgt = torch.as_tensor(_padded(tp[:n], cap), device=dev)
+    num = torch.tensor(n, dtype=torch.int32, device=dev)
+    q4 = torch.as_tensor(_padded(qp, len(qp)), device=dev)
+    return tgt, num, q4[:, :3]
+
+
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_nearest_neighbor_kernel_matches_plain(dev, variant):
+    for kind in ("scan", "grid", "tiny", "empty"):
+        tgt, num, q = _search_clouds(dev, kind)
+        before = nearest_neighbor.launches
+        d, i = nearest_neighbor(tgt, num, q, variant)
+        dp, ip = nearest_neighbor_plain(tgt, num, q, variant)
+        torch.cuda.synchronize()
+        assert nearest_neighbor.launches == before + 1
+        # Same centre, same operation order, first index on ties: exact.
+        assert i.dtype == torch.int32 and torch.equal(i, ip), (variant, kind)
+        assert torch.equal(d, dp), (variant, kind)
+    # The score |t|² − 2 q·t of a row carries a rounding error of up to
+    # 2·2⁻²³·(|q| + |t|)² in the centred frame, twice that between two rows.
+    # Per query, from its own reach and its winners': the two variants agree
+    # on d² within that, and on the rows wherever the runner-up is farther.
+    tgt, num, q = _search_clouds(dev, "scan")
+    c = target_centre(tgt)
+    dv, iv = nearest_neighbor(tgt, num, q, "vpu", c)
+    dm, im = nearest_neighbor(tgt, num, q, "mxu", c)
+    t_reach = torch.maximum((tgt[iv.long(), :3] - c).norm(dim=1),
+                            (tgt[im.long(), :3] - c).norm(dim=1))
+    tol = 4.0 * 2.0 ** -23 * ((q - c).norm(dim=1) + t_reach) ** 2
+    d2, _ = knn(tgt, num, q, 2)
+    clear = d2[:, 1] - d2[:, 0] > tol
+    assert torch.equal(iv[clear], im[clear]) and int(clear.sum()) > 0.9 * len(q)
+    assert bool(((dm - dv).abs() <= tol).all())
+
+
+# K10 and K12 have list bounds 16, 32 and 64 (the smallest that holds k);
+# K11 runs four warps per block up to k = 32 and two above.
+@pytest.mark.parametrize("ks", [(1, 10, 16), (17, 32, 33, 64)])
+@pytest.mark.parametrize("search", [knn, knn_T, knn_pruned])
+def test_knn_kernels_match_plain(dev, search, ks):
+    for kind in ("scan", "grid", "tiny", "empty"):
+        tgt, num, q = _search_clouds(dev, kind)
+        for k in ks:
+            before = search.launches
+            d, i = search(tgt, num, q, k)
+            dp, ip = knn_plain(tgt, num, q, k)
+            torch.cuda.synchronize()
+            what = (search.__name__, kind, k)
+            assert search.launches == before + 1, what
+            assert d.shape == (q.shape[0], k) and i.dtype == torch.int32, what
+            # Bitwise-equal d² and (d², index) order in all three kernels
+            # and the plain version: exact, ties included.
+            assert torch.equal(d, dp), what
+            assert torch.equal(i, ip), what
+            if kind == "tiny":
+                assert torch.all(d[:, 3:] == 3e38) and torch.all(i[:, 3:] == 0), what
+
+
+def test_search_wrappers_edges(dev):
+    tgt, num, q = _search_clouds(dev, "scan")
+    for fn in (knn, knn_T, knn_pruned):
+        d, i = fn(tgt, num, q[:0], 5)
+        assert d.shape == (0, 5) and i.shape == (0, 5)
+        with pytest.raises(ValueError, match="k <= 64"):
+            fn(tgt, num, q, 65)
+        with pytest.raises(ValueError, match="float32"):
+            fn(tgt.double(), num, q.double(), 5)
+    assert nearest_neighbor(tgt, num, q[:0])[0].shape == (0,)
+    # Contiguous [Q,3] queries and one query give the same rows as the view.
+    d, i = knn(tgt, num, q, 7)
+    dc, ic = knn(tgt, num, q.contiguous(), 7)
+    d1, i1 = knn_pruned(tgt, num, q[5:6], 7)
+    assert torch.equal(i, ic) and torch.equal(d, dc)
+    assert torch.equal(i1[0], i[5]) and torch.equal(d1[0], d[5])
+
+
+def test_kdtree_routes_to_the_kernels(dev):
+    tgt, num, q = _search_clouds(dev, "scan")
+    tree = KdTree(points=tgt, num_points=num)
+    before = (nearest_neighbor.launches, knn.launches)
+    d1, i1 = tree.nearest_neighbor_search(q)
+    dk, ik = tree.knn_search(q, 10)
+    ds, is_ = tree.knn_search(q[3], 10)
+    d80, i80 = tree.knn_search(q[:50], 80)  # torch brute force, no kernel
+    assert (nearest_neighbor.launches, knn.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(i1, ik[:, 0]) and torch.equal(is_, ik[3])
+    assert torch.equal(i80[:, :10], ik[:50]) and i80.dtype == torch.int32
+    cpu = KdTree(points=tgt.cpu(), num_points=num.cpu())
+    dc, ic = cpu.knn_search(q.cpu(), 10)
+    assert torch.equal(ik.cpu(), ic) and torch.equal(dk.cpu(), dc)
+    # The tree keeps K9's centre and the target half of K12's prologue.
+    assert tree.centre() is tree.centre() and tree.pruned_target() is tree.pruned_target()
+    assert torch.equal(tree.centre(), target_centre(tgt))
+    dn, in_ = nearest_neighbor(tgt, num, q)
+    assert torch.equal(i1, in_) and torch.equal(d1, dn)
+    before = knn_pruned.launches
+    tables = tree.pruned_target()
+    dp, ip = knn_pruned(tgt, num, q, 10, target=tables)
+    dl, il = knn_pruned_launch(tables, num, q, pruned_prepare_queries(tables, q), 10)
+    assert knn_pruned.launches == before + 2
+    assert torch.equal(ip, ik) and torch.equal(dp, dk)
+    assert torch.equal(il, ik) and torch.equal(dl, dk)
+
+
+def test_unfused_registration_card_matches_cpu(dev):
+    scans, poses = generate_sequence(n_frames=2, rings=16, azimuth_steps=256)
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    init = T_gt @ se3_exp(torch.tensor([0.01, -0.02, 0.02, 0.1, -0.15, 0.05],
+                                       dtype=torch.float64)).numpy()
+    out = {}
+    for where in (dev, "cpu"):
+        tgt, tree = preprocess_points(scans[0], 0.25, device=where)
+        src, _ = preprocess_points(scans[1], 0.25, device=where)
+        before = (nearest_neighbor.launches, gicp_linearize_tables.launches)
+        out[where] = result_to_numpy(align_impl(tgt, src, tree, init,
+                                                use_fused="never"))
+        if where == dev:
+            assert nearest_neighbor.launches == before[0] + out[dev]["iterations"] + 1
+            assert gicp_linearize_tables.launches == before[1]
+    a, c = out[dev], out["cpu"]
+    dT = np.linalg.inv(c["T_target_source"].astype(np.float64)) @ a["T_target_source"]
+    assert np.linalg.norm(dT[:3, 3]) <= 2e-3
+    assert np.linalg.norm(dT[[2, 0, 1], [1, 2, 0]]) <= 2 * 0.1 * math.pi / 180.0
+    assert abs(a["iterations"] - c["iterations"]) <= 1
+
+
+def test_unfused_covariances_on_the_card(dev):
+    """k > 64 and float64 clouds take the searched route instead of raising."""
+    scans, _ = generate_sequence(n_frames=1, rings=16, azimuth_steps=256)
+    pts = _padded(scans[0][:2000], 2100)
+    for dtype, k in ((np.float32, 80), (np.float64, 10)):
+        on_card = estimate_covariances(
+            cloud_from_numpy(pts.astype(dtype), 2000, device=dev), num_neighbors=k)
+        on_cpu = estimate_covariances(
+            cloud_from_numpy(pts.astype(dtype), 2000, device="cpu"), num_neighbors=k)
+        # The same neighbours, float sums in another order: the regularised
+        # covariances agree to 1e-3 except where two eigenvalues nearly tie.
+        diff = (on_card.covs.cpu() - on_cpu.covs).abs().amax(dim=(1, 2))
+        assert float((diff <= 1e-3).float().mean()) >= 0.99, (dtype, k)
+        assert torch.all(on_card.covs[2000:].cpu() == torch.eye(3, dtype=diff.dtype))
