@@ -31,7 +31,20 @@ Phases (any failure exits non-zero):
                 neighbour-search path with the counts at 0: KdTree searches,
                 knn_T, knn_pruned, the unfused align_impl (within the bounds,
                 in agreement with the fused one, K9 once per linearization
-                and no K1/K2) and the kdtree_benchmark CLI in process.
+                and no K1/K2) and the kdtree_benchmark CLI in process;
+  8. map      — 17 frames: two submaps of 8 raw frames each in the world
+                frame (≈864k rows) and their union, the map (≈1.73 M rows).
+                K4 on a submap against its plain version on 8,192 sampled
+                rows and against K3 forced; K5 against its plain version and
+                K3 at the scan shape and at raw-scan scale; K6 on the map
+                against its plain version and against K1 forced on the same
+                tables, with the share of (block, tile) pairs it skips; K1's
+                score form against its plain version and the difference form;
+                K3/K4 and K1/K6 timed at both sizes; then, with the counts at
+                0, the map-scale path: covariances of both submaps (K4), the
+                align of frame 16 against the map (K6 per linearization, K2
+                per iteration, K1 never) within 2.5° / 0.2 m, a layout "q"
+                call (K5) and a score-form linearization.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -52,8 +65,14 @@ from small_gicp_tpu_torch.apps import kdtree_benchmark
 from small_gicp_tpu_torch.interop import result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    auto_layout as cov_layout,
+    knn_moments,
     knn_moments_rows,
     knn_moments_rows_plain,
+    knn_moments_rows_q,
+    knn_moments_rows_q_plain,
+    knn_topk_idx,
+    knn_topk_idx_plain,
 )
 from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
@@ -65,14 +84,19 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_fleet,
     gicp_linearize_fleet_plain,
     gicp_linearize_plain,
+    gicp_linearize_score,
+    gicp_linearize_score_plain,
+    gicp_linearize_swept,
+    gicp_linearize_swept_plain,
     gicp_linearize_tables,
     gicp_prepare,
+    swept_live_tiles,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops.knn_cuda import (
     BLOCK_QUERIES,
-    TILE_ROWS,
+    PrunedQueries,
     knn,
     knn_plain,
     knn_pruned,
@@ -82,9 +106,12 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
     nearest_neighbor,
     nearest_neighbor_plain,
     pruned_prepare_queries,
-    pruned_prepare_target,
 )
-from small_gicp_tpu_torch.ops.normals import estimate_normals_covariances
+from small_gicp_tpu_torch.ops.morton_boxes import TILE_ROWS, pruned_prepare_target
+from small_gicp_tpu_torch.ops.normals import (
+    estimate_covariances,
+    estimate_normals_covariances,
+)
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
@@ -112,6 +139,18 @@ KERNELS = {
     "knn_moments": ("K3", "small_gicp_tpu_torch/csrc/cov_fused.cu",
                     "small_gicp_tpu/ops/cov_fused_pallas.py:171",
                     knn_moments_rows),
+    "knn_topk_idx": ("K4", "small_gicp_tpu_torch/csrc/cov_fused.cu",
+                     "small_gicp_tpu/ops/cov_fused_pallas.py:282", knn_topk_idx),
+    "knn_moments_q": ("K5", "small_gicp_tpu_torch/csrc/cov_fused.cu",
+                      "small_gicp_tpu/ops/cov_fused_pallas.py:67",
+                      knn_moments_rows_q),
+    "gicp_linearize_swept": ("K6", "small_gicp_tpu_torch/csrc/gicp_swept.cu",
+                             "small_gicp_tpu/ops/gicp_fused_pallas.py:92",
+                             gicp_linearize_swept),
+    "gicp_linearize_score": ("K1 score form",
+                             "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+                             "small_gicp_tpu/ops/gicp_fused_pallas.py:521",
+                             gicp_linearize_score),
     "gicp_linearize_fleet": ("K7", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
                              "small_gicp_tpu/ops/gicp_fused_pallas.py:1312",
                              gicp_linearize_fleet),
@@ -130,6 +169,9 @@ KERNELS = {
 MAIN_KERNELS = ("gicp_linearize", "gicp_error_multi", "knn_moments")
 FLEET_KERNELS = ("gicp_linearize_fleet", "gicp_error_multi_fleet")
 SEARCH_KERNELS = ("nearest_neighbor", "knn", "knn_T", "knn_pruned")
+MAP_KERNELS = ("knn_topk_idx", "knn_moments_q", "gicp_linearize_swept",
+               "gicp_linearize_score")
+SUBMAP_FRAMES = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -137,10 +179,16 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
-    fn()
+def time_ms(fn, reps: int = REPS, warm: bool = True) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
+    after one run that is not timed (unless ``warm`` is False);
+    ``reps=None``: 3 runs if the first timed one takes over 100 ms, else
+    ``REPS``."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
+    if reps is None:
+        reps = 3 if time_ms(fn, reps=1) > 100.0 else REPS
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -826,6 +874,410 @@ def phase_search(scans, T_gt, rng, dev, card):
     return records, launches
 
 
+def world_cloud(scans, poses) -> np.ndarray:
+    """Raw frames moved into the world frame by their poses, concatenated."""
+    return np.concatenate([
+        (s.astype(np.float64) @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        for s, T in zip(scans, poses)])
+
+
+def swept_pairs(tables, live) -> int:
+    """Pairs the swept search cannot avoid on this data: for every block of
+    64 sorted source rows, its valid rows times the valid rows of the tiles
+    within the rejector radius of the block (``live``)."""
+    dev = live.device
+    nb, ntiles = live.shape
+    m, nv = int(tables.tnum), int(tables.qnum)
+    rows = torch.clamp(m - TILE_ROWS * torch.arange(ntiles, device=dev), min=0,
+                       max=TILE_ROWS).double()
+    in_block = torch.clamp(nv - 64 * torch.arange(nb, device=dev), min=0,
+                           max=64).double()
+    return int((live.double() @ rows * in_block).sum().item())
+
+
+def check_linearize(name, got, ref, n, exact_rows: bool) -> float:
+    """A linearize kernel's (H, b, inliers, corr) against a reference on the
+    same tables: masks and inliers equal; μ and d² equal bit for bit on
+    inlier rows (on every row if ``exact_rows``); W within 2e-3 relative; H
+    and b within 5e-4 of their largest entry. Returns max |ΔH|."""
+    (H, b, inl, corr), (Hp, bp, inlp, corrp) = got, ref
+    mask = corr[:n, 12] > 0.5
+    check(torch.equal(mask, corrp[:n, 12] > 0.5), f"{name} inlier masks differ")
+    check(int(inl) == int(inlp), f"{name} inlier counts differ")
+    sel = torch.ones_like(mask) if exact_rows else mask
+    check(torch.equal(corr[:n][sel][:, [0, 1, 2, 13]], corrp[:n][sel][:, [0, 1, 2, 13]]),
+          f"{name} correspondences (μ, d²) differ")
+    w_err = ((corr[:n, 3:12] - corrp[:n, 3:12])[sel].abs()
+             / torch.clamp(corrp[:n, 3:12][sel].abs(), min=1.0)).max().item()
+    h_err = (H - Hp).abs().max().item()
+    h_rel = h_err / max(1.0, Hp.abs().max().item())
+    b_rel = (b - bp).abs().max().item() / max(1.0, bp.abs().max().item())
+    print(f"{name}: {int(inl)} inliers, masks/μ/d² equal, W rel {w_err:.2e} "
+          f"(tol 2e-3), H scaled {h_rel:.2e}, b scaled {b_rel:.2e} (tol 5e-4)")
+    check(w_err <= 2e-3, f"{name} W differs by {w_err}")
+    check(h_rel <= 5e-4 and b_rel <= 5e-4, f"{name} H/b differ")
+    return h_err
+
+
+def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
+    """K4, K5, K6 and K1's score form against their plain versions and their
+    scan-scale siblings, then the map-scale path."""
+    print("== phase 8: map", flush=True)
+    k = K_NEIGHBORS
+    nf = SUBMAP_FRAMES
+    records = {}
+    subs = [PointCloud.from_points(world_cloud(scans[i * nf:(i + 1) * nf],
+                                               poses[i * nf:(i + 1) * nf]), device=dev)
+            for i in range(2)]
+    sub = subs[0]
+    pts, num, ns = sub.points, sub.num_points, int(sub.num_points)
+    print(f"submaps of {[int(s.num_points) for s in subs]} rows ({nf} raw frames each "
+          "in the world frame)")
+    check(cov_layout(ns) == "ti" and ns <= 1_048_576, "a submap is not at K4's scale")
+
+    # K4 on a submap (with the sort given the wrapper is the launch alone)
+    # against the plain version on sampled rows, 256 at a time: a
+    # [rows, 864k] distance block.
+    ptgt = pruned_prepare_target(pts, num)
+    d4, i4 = knn_topk_idx(pts, num, k, target=ptgt)
+    pick = torch.as_tensor(np.sort(rng.choice(ns, size=min(sample, ns), replace=False)),
+                           device=dev)
+    k4_err = 0.0  # max |Δd²| over the sampled rows
+    for s in range(0, len(pick), 256):
+        rows = pick[s:s + 256]
+        dp, ip = knn_topk_idx_plain(pts, num, k, rows=rows)
+        k4_err = max(k4_err, (d4[rows] - dp).abs().max().item())
+        check(torch.equal(d4[rows], dp) and torch.equal(i4[rows], ip),
+              "K4 differs from its plain version on a submap")
+    check(bool((i4[:, 0].long() == torch.arange(ns, device=dev)).all()),
+          "K4 does not find each row first")
+    # Against K3 forced on the same submap: the same neighbours (counts and,
+    # through the kth distance, the lists' ends), the sums in another order.
+    t0 = time.perf_counter()
+    kept = []
+    k3_big_ms = time_ms(lambda: kept.append(knn_moments_rows(pts, num, k)), reps=1,
+                        warm=False)
+    rows3 = kept.pop()
+    m1, m2, cnt = knn_moments(pts, num, k, layout="ti")
+    check(torch.equal(cnt, rows3[:, 9]) and torch.equal(d4[:, k - 1], rows3[:, 10]),
+          "K4 and K3 choose different neighbours on a submap")
+    got9 = torch.cat([m1, m2.reshape(-1, 9)[:, [0, 1, 2, 4, 5, 8]]], dim=1)
+    diff = (got9 - rows3[:, :9]).abs()
+    excess = (diff - 1e-5 * rows3[:, :9].abs()).max().item()
+    print(f"K4 knn_topk_idx at {ns} rows, k={k}: (d², idx) equal to the plain version "
+          f"on {len(pick)} sampled rows (max |Δd²| {k4_err:.1e} there, the record's "
+          f"max_abs_err); against K3 forced (one run, {k3_big_ms:.1f} ms, "
+          f"{time.perf_counter() - t0:.1f} s wall): counts and d_k equal, max |Δ moments| "
+          f"{diff.max().item():.3e} (tolerance 1e-4 + 1e-5·|m|: float32 sums of k products)")
+    check(excess <= 1e-4, "K4's moments differ from K3's")
+    del rows3, m1, m2, got9, diff
+    self_q = PrunedQueries(qperm=ptgt.tperm[:ns].to(torch.int32), qpos=None)
+    need = pruned_pairs(ptgt, self_q, pts[:ns], d4[:, k - 1], ns)
+    chunk = pts[:lib_chunk, :3].contiguous()
+    all_rows = pts[:ns, :3].contiguous()
+    lib_ms = time_ms(lambda: torch.topk(torch.cdist(chunk, all_rows), k, largest=False),
+                     reps=3) * ns / lib_chunk
+    plain_ms = time_ms(lambda: knn_topk_idx_plain(pts, num, k, rows=pick[:256]),
+                       reps=3) * ns / 256
+    k4 = {
+        "launch": time_ms(lambda: knn_topk_idx(pts, num, k, target=ptgt), reps=None),
+        "search": time_ms(lambda: knn_topk_idx(pts, num, k), reps=None),
+        "moments": time_ms(lambda: knn_moments(pts, num, k, layout="ti"), reps=None),
+    }
+    full_ms, full_by = search_bound(ns, ns, k)
+    records["knn_topk_idx"] = dict(
+        max_abs_err=k4_err, ms=k4["launch"], plain_ms=plain_ms, library_ms=lib_ms,
+        pairs=need, bound=search_bound(ns, ns, k, need))
+    print(f"K4 at {ns} rows: launch alone {k4['launch']:.3f} ms over {need} needed pairs "
+          f"({100 * need / (ns * ns):.3f} % of N², bound "
+          f"{records['knn_topk_idx']['bound'][0]:.4f} ms; over all N² pairs "
+          f"{full_ms:.3f} ms by {full_by}); with its sort {k4['search']:.3f} ms, "
+          f"with the torch moment sums {k4['moments']:.3f} ms; K3 forced "
+          f"{k3_big_ms:.1f} ms; plain and library (cdist + topk) timed on 256 / "
+          f"{lib_chunk} queries and scaled: {plain_ms:.0f} / {lib_ms:.0f} ms on {card}")
+    before = (knn_topk_idx.launches, knn_moments_rows.launches)
+    sub_covs = [estimate_covariances(s, num_neighbors=k) for s in subs]
+    check(knn_topk_idx.launches == before[0] + 2
+          and knn_moments_rows.launches == before[1],
+          "estimate_covariances of a submap does not go through K4 alone")
+
+    # K5 at the scan shape and at raw-scan scale against its plain version
+    # and K3; K3 against K4 at the scan shape.
+    scan_t, tree = preprocess_points(scans[2 * nf - 1], LEAF, num_neighbors=k, device=dev)
+    raw = PointCloud.from_points(scans[0], device=dev)
+    for cloud, label in ((scan_t, "scan shape"), (raw, "raw-scan scale")):
+        cp, cn, m = cloud.points, cloud.num_points, int(cloud.num_points)
+        rows = None if m <= 32768 else torch.as_tensor(
+            np.sort(rng.choice(m, size=sample, replace=False)), device=dev)
+        for kk in (k, 20):
+            got = knn_moments_rows_q(cp, cn, kk)
+            ref = knn_moments_rows_q_plain(cp, cn, kk, rows=rows)
+            k3 = knn_moments_rows(cp, cn, kk)
+            sel = got if rows is None else got[rows]
+            check(torch.equal(sel[:, 9:11], ref[:, 9:11]),
+                  f"K5 neighbour counts or kth distances differ at {label}, k={kk}")
+            err = (sel[:, :9] - ref[:, :9]).abs()
+            check((err - 1e-5 * ref[:, :9].abs()).max().item() <= 1e-4,
+                  f"K5 moments differ from the plain version at {label}, k={kk}")
+            check(torch.equal(got[:, 9:11], k3[:, 9:11]),
+                  f"K5 and K3 choose different neighbours at {label}, k={kk}")
+            d3 = (got[:, :9] - k3[:, :9]).abs().max().item()
+            check(d3 <= 1e-5, f"K5's rows differ from K3's by {d3} at {label}, k={kk}")
+            check(bool(torch.all(got[m:] == 0)), "K5 padding rows are not zero")
+            t5 = time_ms(lambda: knn_moments_rows_q(cp, cn, kk), reps=None)
+            t3 = time_ms(lambda: knn_moments_rows(cp, cn, kk), reps=None)
+            print(f"K5 knn_moments_q at {label} ({m} rows), k={kk}: counts and d_k "
+                  f"equal to the plain version"
+                  f"{'' if rows is None else f' on {len(rows)} sampled rows'}, max "
+                  f"|Δ moments| {err.max().item():.3e}; against K3: counts and d_k "
+                  f"equal, max |Δ| {d3:.2e}; K5 {t5:.3f} ms, K3 {t3:.3f} ms on {card}")
+            if label == "scan shape" and kk == k:
+                t1 = cp[:m, :3].contiguous()
+                records["knn_moments_q"] = dict(
+                    max_abs_err=err.max().item(), ms=t5,
+                    plain_ms=time_ms(lambda: knn_moments_rows_q_plain(cp, cn, kk), reps=3),
+                    library_ms=time_ms(
+                        lambda: torch.topk(torch.cdist(t1, t1), kk, largest=False), reps=3),
+                    pairs=m * m,
+                    bound=bound(9.0 * m * m, 16.0 * m + 64.0 * cloud.capacity))
+    m = int(scan_t.num_points)
+    stgt = pruned_prepare_target(scan_t.points, scan_t.num_points)
+    print(f"K3 against K4 at the scan shape ({m} rows, k={k}): K3 "
+          f"{time_ms(lambda: knn_moments_rows(scan_t.points, scan_t.num_points, k)):.3f} "
+          f"ms; K4 launch alone "
+          f"{time_ms(lambda: knn_topk_idx(scan_t.points, scan_t.num_points, k, target=stgt)):.3f} ms, "
+          f"with its sort and the moment sums "
+          f"{time_ms(lambda: knn_moments(scan_t.points, scan_t.num_points, k, layout='ti')):.3f}"
+          f" ms on {card}")
+
+    # The map and the scan to register against it.
+    map_cloud = PointCloud(
+        points=torch.cat([c.points[:int(c.num_points)] for c in sub_covs]),
+        num_points=sum(c.num_points for c in sub_covs).to(torch.int32),
+        covs=torch.cat([c.covs[:int(c.num_points)] for c in sub_covs]))
+    mm = int(map_cloud.num_points)
+    source, _ = preprocess_points(scans[2 * nf], LEAF, num_neighbors=k, device=dev)
+    n = int(source.num_points)
+    T_map = poses[2 * nf]  # the map is in the world frame
+    T = torch.as_tensor(noisy_guess(T_map, rng), dtype=torch.float32, device=dev)
+    print(f"map of {mm} rows ({mm * 64 / 1e6:.0f} MB of table); source frame "
+          f"{2 * nf}: {n} points")
+
+    # K6 on the map against its plain version and against K1 forced.
+    tables = gicp_prepare(map_cloud.points, map_cloud.num_points, source.points,
+                          source.num_points, "gicp", map_cloud.covs, source.covs)
+    check(tables.route == "swept", "a 1.7 M-row target does not take the swept route")
+    out6 = gicp_linearize_tables(tables, T, MAX_DIST_SQ)
+    t0 = time.perf_counter()
+    ref6 = gicp_linearize_swept_plain(tables, T, MAX_DIST_SQ)
+    torch.cuda.synchronize()
+    plain6_ms = (time.perf_counter() - t0) * 1e3
+    h_err = check_linearize("K6 gicp_linearize_swept (map)", out6, ref6, n, True)
+    out1 = gicp_linearize_tables(tables, T, MAX_DIST_SQ, route="listed")
+    mask = out6[3][:, 12] > 0.5
+    check(torch.equal(mask, out1[3][:, 12] > 0.5) and int(out6[2]) == int(out1[2]),
+          "K6 and K1 accept different rows on the map")
+    check(torch.equal(out6[3][mask], out1[3][mask]),
+          "K6's μ, W, d² differ from K1's on accepted rows")
+    check(bool(torch.all(out6[3][~mask][:, :13] == 0)),
+          "K6's rows without a correspondence are not zero")
+    # Block sums: 64 float32 additions per block, over other groups of rows.
+    h61 = ((out6[0] - out1[0]).abs().max() / out1[0].abs().max().clamp(min=1.0)).item()
+    b61 = ((out6[1] - out1[1]).abs().max() / out1[1].abs().max().clamp(min=1.0)).item()
+    check(h61 <= 1e-5 and b61 <= 1e-5, f"K6's H or b differ from K1's ({h61}, {b61})")
+    live = swept_live_tiles(tables, T, MAX_DIST_SQ)
+    need = swept_pairs(tables, live)
+    print(f"K6 against K1 forced on the same tables: masks equal, μ/W/d² equal on "
+          f"{int(mask.sum())} accepted rows, H scaled {h61:.2e}, b scaled {b61:.2e} "
+          f"(tol 1e-5: float32 block sums); {100 * (1 - live.float().mean().item()):.2f} "
+          f"% of {live.numel()} (block, tile) pairs skipped; needed pairs {need} = "
+          f"{100 * need / (n * mm):.3f} % of Q·M")
+    tq = (source.points[:lib_chunk, :3] @ T[:3, :3].T + T[:3, 3]).contiguous()
+    tt = map_cloud.points[:mm, :3].contiguous()
+    ops = 9.0 * need + 400.0 * n
+    # the sorted rows and boxes of the live tiles once; every source row read
+    # (qtab) and written (corr); one payload row per accepted source row
+    live_rows = float((live.any(dim=0).double() * TILE_ROWS).sum().item())
+    nbytes = (16.0 + 32.0 / TILE_ROWS) * live_rows + 64.0 * 2 * source.capacity \
+        + 64.0 * n + 4.0 * source.capacity + 4.0 * 44 * ((source.capacity + 63) // 64)
+    k6_ms = time_ms(lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ))
+    k1_map_ms = time_ms(lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ,
+                                                      route="listed"), reps=None)
+    full_ms, full_by = bound(9.0 * n * mm + 400.0 * n, 64.0 * (mm + 2 * source.capacity))
+    records["gicp_linearize_swept"] = dict(
+        max_abs_err=h_err, ms=k6_ms, plain_ms=plain6_ms,
+        library_ms=time_ms(lambda: torch.cdist(tq, tt).min(dim=1), reps=3) * n / lib_chunk,
+        pairs=need, bound=bound(ops, nbytes))
+    print(f"K6 on the map ({n} × {mm}): {k6_ms:.4f} ms (bound "
+          f"{records['gicp_linearize_swept']['bound'][0]:.4f} ms by "
+          f"{records['gicp_linearize_swept']['bound'][1]} over the needed pairs; over "
+          f"all Q·M pairs {full_ms:.3f} ms by {full_by}); K1 forced {k1_map_ms:.3f} ms; "
+          f"plain {plain6_ms:.0f} ms (one run, host clock); library cdist + min timed "
+          f"on {lib_chunk} queries and scaled on {card}")
+    del tt, out1, ref6
+    # What gicp_prepare costs an align against the map, and how much of it
+    # the target's kept sort and boxes save.
+    prep_args = (map_cloud.points, map_cloud.num_points, source.points,
+                 source.num_points, "gicp", map_cloud.covs, source.covs)
+    map_sorted = pruned_prepare_target(map_cloud.points, map_cloud.num_points)
+    with_kept = gicp_prepare(*prep_args, target=map_sorted)
+    check(with_kept.route == "swept" and all(
+        torch.equal(getattr(with_kept, f), getattr(tables, f))
+        for f in ("ttab", "qtab", "tsorted", "tbox", "sperm")),
+        "gicp_prepare with the target's kept sort builds other tables")
+    prep = {
+        "whole": time_ms(lambda: gicp_prepare(*prep_args)),
+        "target's sort and boxes": time_ms(
+            lambda: pruned_prepare_target(map_cloud.points, map_cloud.num_points)),
+        "with them kept": time_ms(lambda: gicp_prepare(*prep_args, target=map_sorted)),
+        "listed route": time_ms(lambda: gicp_prepare(*prep_args, route="listed")),
+    }
+    print(f"gicp_prepare against the map ({mm} rows): "
+          + ", ".join(f"{key} {v:.3f} ms" for key, v in prep.items())
+          + f" (CUDA events, median of {REPS}) on {card}")
+    del with_kept, map_sorted
+
+    # K1 and K6 at the scan shape, and K1's score form there.
+    scan_tables = gicp_prepare(scan_t.points, scan_t.num_points, source.points,
+                               source.num_points, "gicp", scan_t.covs, source.covs,
+                               route="swept")
+    T_rel = np.linalg.inv(poses[2 * nf - 1]) @ poses[2 * nf]
+    Ts = torch.as_tensor(noisy_guess(T_rel, rng), dtype=torch.float32, device=dev)
+    o6 = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ)
+    o1 = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route="listed")
+    msk = o1[3][:, 12] > 0.5
+    check(torch.equal(msk, o6[3][:, 12] > 0.5) and torch.equal(o6[3][msk], o1[3][msk]),
+          "K6 and K1 differ at the scan shape")
+    s_live = swept_live_tiles(scan_tables, Ts, MAX_DIST_SQ)
+    print(f"K1 against K6 at the scan shape ({n} × {m}): K1 "
+          f"{time_ms(lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route='listed')):.4f}"
+          f" ms, K6 "
+          f"{time_ms(lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ)):.4f} ms "
+          f"({100 * (1 - s_live.float().mean().item()):.1f} % of (block, tile) pairs "
+          f"skipped) on {card}")
+
+    outs = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route="listed",
+                                 mxu_dist=True)
+    refs = gicp_linearize_score_plain(scan_tables, Ts, MAX_DIST_SQ)
+    h_err = check_linearize("K1 score form", outs, refs, n, False)
+    # Score form against difference form. The uncentred score ‖t‖² − 2 t·q of
+    # a row carries a rounding error of up to 2·2⁻²³·(|q| + |t|)², so between
+    # two rows it may prefer the one whose true d² is larger by twice that.
+    # Each query gets that tolerance from its own norm and its winners': the
+    # winners' d² agree within it, and the rows are equal wherever the
+    # runner-up (K10, k = 2) is farther than it.
+    q = (source.points @ Ts.T)[:n, :3].contiguous()
+    mu_s, mu_d = outs[3][:n, :3], o1[3][:n, :3]
+    found = (outs[3][:n, 13] < 1e16) & (o1[3][:n, 13] < 1e16)
+    tol = 4.0 * 2.0 ** -23 * (q.norm(dim=1) + torch.maximum(mu_s.norm(dim=1),
+                                                           mu_d.norm(dim=1))) ** 2
+    delta = (outs[3][:n, 13] - o1[3][:n, 13]).abs()
+    check(bool((delta[found] <= tol[found]).all()),
+          "the score form's d² differs from the difference form's beyond its rounding")
+    d2nd, _ = knn(scan_t.points, scan_t.num_points, q, 2)
+    clear = found & (d2nd[:, 1] - d2nd[:, 0] > tol)
+    same = (mu_s == mu_d).all(dim=1)
+    check(bool(same[clear].all()), "score and difference form pick different rows")
+    check(clear.float().mean().item() >= 0.9, "too few rows have a clear runner-up")
+    check(abs(int(outs[2]) - int(o1[2])) <= 0.001 * int(o1[2]),
+          "score and difference form disagree on the inliers")
+    print(f"score form against difference form, tolerance per query "
+          f"4·2⁻²³·(|q|+|t|)² (median {tol.median().item():.3e}, max "
+          f"{tol.max().item():.3e}): largest |Δd²|/tolerance "
+          f"{(delta[found] / tol[found]).max().item():.3f}; rows equal on "
+          f"{int(clear.sum())} queries with a clear runner-up "
+          f"({100 * clear.float().mean().item():.1f} %); {int((~same & found).sum())} of "
+          f"{n} rows differ ({100 * (~same & found).float().mean().item():.3f} %); "
+          f"inliers {int(outs[2])} against {int(o1[2])}")
+    ttq = scan_t.points[:m, :3].contiguous()
+    records["gicp_linearize_score"] = dict(
+        max_abs_err=h_err,
+        ms=time_ms(lambda: gicp_linearize_score(scan_tables, Ts, MAX_DIST_SQ)),
+        plain_ms=time_ms(lambda: gicp_linearize_score_plain(scan_tables, Ts, MAX_DIST_SQ),
+                         reps=3),
+        library_ms=time_ms(lambda: torch.cdist(q, ttq).min(dim=1), reps=3),
+        pairs=n * m,
+        bound=bound(9.0 * n * m + 400.0 * n, 64.0 * (m + 2 * source.capacity)
+                    + 4.0 * 44 * ((source.capacity + 63) // 64)))
+
+    # The map-scale path, counted from zero.
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    covs = [estimate_covariances(s, num_neighbors=k) for s in subs]
+    torch.cuda.synchronize()
+    t_cov = time.perf_counter() - t0
+    check(knn_topk_idx.launches == 2 and knn_moments_rows.launches == 0,
+          "the submaps' covariances did not go through K4")
+    the_map = PointCloud(
+        points=torch.cat([c.points[:int(c.num_points)] for c in covs]),
+        num_points=sum(c.num_points for c in covs).to(torch.int32),
+        covs=torch.cat([c.covs[:int(c.num_points)] for c in covs]))
+    init = noisy_guess(T_map, rng)
+    t0 = time.perf_counter()
+    res = align(the_map, source, init_T_target_source=init)
+    torch.cuda.synchronize()
+    t_align = time.perf_counter() - t0
+    r = result_to_numpy(res)
+    rot, trans = pose_error(r["T_target_source"], T_map)
+    counts = {name: KERNELS[name][3].launches for name in KERNELS}
+    print(f"covariances of two submaps {t_cov:.3f} s; align against the map "
+          f"{t_align:.3f} s: iterations {r['iterations']} converged {r['converged']} "
+          f"inliers {r['num_inliers']}; pose error {rot:.4f} deg, {trans:.4f} m "
+          "(bounds 2.5 deg, 0.2 m)")
+    check(np.isfinite(r["T_target_source"]).all(), "non-finite pose against the map")
+    check(rot < 2.5 and trans < 0.2, "registration against the map outside the bounds")
+    check(counts["gicp_linearize_swept"] == r["iterations"] + 1,
+          f"K6 launches {counts['gicp_linearize_swept']} != iterations + 1")
+    check(counts["gicp_error_multi"] == r["iterations"] + 1,
+          f"K2 launches {counts['gicp_error_multi']} != iterations + 1")
+    check(counts["gicp_linearize"] == 0, "the map align launched K1")
+    m1q, _, _ = knn_moments(scan_t.points, scan_t.num_points, k, layout="q")
+    check(bool(torch.isfinite(m1q).all()), "layout q moments not finite")
+    Hs, _, inl_s, _ = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ,
+                                            route="listed", mxu_dist=True)
+    check(bool(torch.isfinite(Hs).all()) and int(inl_s) > n // 2,
+          "the score-form linearization is off")
+    launches = {name: KERNELS[name][3].launches for name in MAP_KERNELS}
+    print(f"launches on the map-scale path: {launches}, gicp_error_multi "
+          f"{counts['gicp_error_multi']}, gicp_linearize {counts['gicp_linearize']}")
+    check(all(v > 0 for v in launches.values()), "a map-scale kernel was not launched")
+
+    # ms per registration against the map: swept (the default: the map
+    # sorted and boxed anew by every align), swept with a KdTree over the map
+    # that keeps its sort and boxes, and K1 forced.
+    n_regs = 3
+    map_tree = KdTree.build(the_map)
+    map_tree.pruned_target()
+    routes = {"swept": {}, "swept, sort kept": {"target_tree": map_tree},
+              "listed": {"fused_route": "listed"}}
+    per_reg = {route: [] for route in routes}
+    for _ in range(n_regs):
+        g = noisy_guess(T_map, rng)
+        poses_out = {}
+        for route, kwargs in routes.items():
+            before = gicp_linearize_swept.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = align(the_map, source, init_T_target_source=g, **kwargs)
+            torch.cuda.synchronize()
+            per_reg[route].append((time.perf_counter() - t0) * 1e3)
+            poses_out[route] = out.T_target_source
+            rot, trans = pose_error(out.T_target_source.cpu().numpy(), T_map)
+            check(rot < 2.5 and trans < 0.2,
+                  f"a timed {route} registration against the map left the bounds")
+            check((gicp_linearize_swept.launches > before) == (route != "listed"),
+                  f"a timed {route} registration took the other route")
+        check(torch.equal(poses_out["swept"], poses_out["swept, sort kept"]),
+              "the kept sort changes the registration")
+    print("time per registration against the map (host clock, table preparation "
+          "included): "
+          + ", ".join(f"{route} {np.median(v):.2f} ms" for route, v in per_reg.items())
+          + f" ({n_regs} aligns each, alternating) on {card}")
+    return records, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -858,8 +1310,10 @@ def main() -> None:
 
     print("== phase 3: data", flush=True)
     t0 = time.perf_counter()
-    # Frames 0-1 drive phases 4-5; all three drive the fleet's two pairs.
-    scans, poses = generate_sequence(n_frames=3, rings=64, azimuth_steps=1800)
+    # Frames 0-1 drive phases 4-5 and 7, frames 0-2 the fleet's two pairs, all
+    # 17 the map: two submaps of 8 frames and the scan registered against them.
+    scans, poses = generate_sequence(n_frames=2 * SUBMAP_FRAMES + 1, rings=64,
+                                     azimuth_steps=1800)
     T_gt = np.linalg.inv(poses[0]) @ poses[1]
     print(f"frames of {[len(s) for s in scans]} points in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -867,13 +1321,16 @@ def main() -> None:
 
     records = phase_kernels(scans[:2], T_gt, rng, dev)
     launches, reg_per_s = phase_e2e(scans[:2], T_gt, rng, dev, card, records)
-    fleet_records, fleet_launches = phase_fleet(scans, poses, rng, dev, card,
+    fleet_records, fleet_launches = phase_fleet(scans[:3], poses[:3], rng, dev, card,
                                                 reg_per_s)
     records.update(fleet_records)
     launches.update(fleet_launches)
     search_records, search_launches = phase_search(scans[:2], T_gt, rng, dev, card)
     records.update(search_records)
     launches.update(search_launches)
+    map_records, map_launches = phase_map(scans, poses, rng, dev, card)
+    records.update(map_records)
+    launches.update(map_launches)
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

@@ -30,12 +30,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points of each library: name → argument types. All return int:
-# a launch entry returns cudaGetLastError() after its launch, a *_rows entry
-# a tile size of its kernels that the wrapper sizes a buffer by, and
-# sgt_knn_geometry 0 after writing the pruned search's constants.
+# a launch entry returns cudaGetLastError() after its launch, a *_rows or
+# *_tiles entry a constant of its kernels that the wrapper repeats, and
+# sgt_box_geometry 0 after writing the box constants of csrc/common.cuh.
 SIGNATURES = {
     "gicp_fused": {
         "sgt_gicp_linearize": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _P, _P],
+        "sgt_gicp_linearize_score": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _P,
+                                     _P],
         "sgt_gicp_error_multi": [_P, _P, _P, _I, _P, _I, _F, _I, _P, _P],
         "sgt_gicp_linearize_fleet": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _F,
                                      _F, _I, _I, _P, _P, _P],
@@ -44,15 +46,24 @@ SIGNATURES = {
         "sgt_linearize_block_rows": [],
         "sgt_trials_block_rows": [],
     },
+    "gicp_swept": {
+        "sgt_gicp_linearize_swept": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F,
+                                     _I, _I, _P, _P, _P],
+        "sgt_box_geometry": [_P],
+    },
     "cov_fused": {
         "sgt_knn_moments": [_P, _P, _I, _I, _P, _P],
+        "sgt_knn_topk_idx": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+        "sgt_knn_moments_warp": [_P, _P, _I, _I, _P, _P],
+        "sgt_box_geometry": [_P],
     },
     "knn": {
         "sgt_nn1": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P],
         "sgt_knn": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
         "sgt_knn_warp": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
         "sgt_knn_pruned": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
-        "sgt_knn_geometry": [_P],
+        "sgt_box_geometry": [_P],
+        "sgt_knn_seed_tiles": [],
     },
 }
 
@@ -128,6 +139,26 @@ def library(name: str) -> ctypes.CDLL:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         _libs[name] = lib
+    return lib
+
+
+_geometry_checked = set()
+
+
+def library_with_geometry(name: str, entry: str, expected: tuple) -> ctypes.CDLL:
+    """``library(name)``; on the first call the tile constants that the C
+    entry ``entry`` writes are held against ``expected``, the values the
+    wrapper's prologue and plain version repeat, so that the two cannot
+    drift apart unnoticed."""
+    lib = library(name)
+    if (name, entry) not in _geometry_checked:
+        got = (ctypes.c_int * len(expected))()
+        getattr(lib, entry)(got)
+        if tuple(got) != tuple(expected):
+            raise RuntimeError(
+                f"csrc/{name}.cu was compiled with tile constants {tuple(got)} "
+                f"({entry}); the Python wrapper has {tuple(expected)}")
+        _geometry_checked.add((name, entry))
     return lib
 
 

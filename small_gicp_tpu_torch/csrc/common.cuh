@@ -42,92 +42,113 @@ __device__ __forceinline__ bool lex_before(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
-// One thread's sorted list of its k nearest candidates so far: d[s] is the
-// squared distance of slot s, ascending, and p0[s] (p1[s], p2[s]) its NPAY
-// 32-bit payload words (the neighbour's offsets for the moments kernel, its
-// row index for the searches). KMAX bounds the length at compile time and
-// k ≤ KMAX is the length in use; every loop is unrolled over KMAX with
-// constant slot indices, so a short list lives in registers. `kth` is
-// d[k-1], the distance a candidate has to beat, and `kth0` the first
-// payload word of that slot.
-template <int KMAX, int NPAY>
-struct TopK {
-  static_assert(NPAY >= 1 && NPAY <= 3, "one to three payload words");
-  float d[KMAX];
-  unsigned p0[KMAX];
-  unsigned p1[NPAY > 1 ? KMAX : 1];
-  unsigned p2[NPAY > 2 ? KMAX : 1];
-  float kth;
-  unsigned kth0;
+// One thread's sorted list of its k nearest candidates so far, kept in
+// plain arrays that the kernel declares: d[s] is the squared distance of
+// slot s, ascending, and p0[s] (p1[s], p2[s]) its 32-bit payload words (the
+// neighbour's offsets for the moments kernel, its row index for the
+// searches). KMAX bounds the length at compile time and k ≤ KMAX is the
+// length in use; every loop is unrolled over KMAX with constant slot
+// indices, so a short list lives in registers. (Gathered into one struct the
+// arrays are placed in local memory as a whole: ptxas gave the 16-slot
+// moments kernel a 264-byte stack frame and 167 registers against none and
+// 105 for these functions over separate arrays.) The kernel keeps `kth` =
+// d[k-1], the distance a candidate has to beat, and where ties are broken by
+// index `kth0` = p0[k-1], both refreshed by topk_slot after an insertion.
 
-  __device__ __forceinline__ void set(int s, float d2, unsigned v0, unsigned v1,
-                                      unsigned v2) {
-    d[s] = d2;
-    p0[s] = v0;
-    if constexpr (NPAY > 1) p1[s] = v1;
-    if constexpr (NPAY > 2) p2[s] = v2;
-  }
-
-  __device__ __forceinline__ void shift_down(int s) {  // slot s-1 → slot s
-    d[s] = d[s - 1];
-    p0[s] = p0[s - 1];
-    if constexpr (NPAY > 1) p1[s] = p1[s - 1];
-    if constexpr (NPAY > 2) p2[s] = p2[s - 1];
-  }
-
-  // Empty list: every slot at kBig with payload `fill`.
-  __device__ __forceinline__ void clear(unsigned fill) {
+template <int KMAX, typename T>
+__device__ __forceinline__ void topk_fill(T (&a)[KMAX], T v) {
 #pragma unroll
-    for (int s = 0; s < KMAX; ++s) set(s, kBig, fill, fill, fill);
-    kth = kBig;
-    kth0 = fill;
-  }
+  for (int s = 0; s < KMAX; ++s) a[s] = v;
+}
 
-  __device__ __forceinline__ void refresh_kth(int k) {
+// a[s] for a run-time slot s, by constant indices.
+template <int KMAX, typename T>
+__device__ __forceinline__ T topk_slot(const T (&a)[KMAX], int s) {
+  T v = a[0];
 #pragma unroll
-    for (int s = 0; s < KMAX; ++s)
-      if (s == k - 1) {
-        kth = d[s];
-        kth0 = p0[s];
-      }
-  }
+  for (int j = 1; j < KMAX; ++j)
+    if (j == s) v = a[j];
+  return v;
+}
 
-  // Insert after every entry ≤ d2, shifting the larger ones down: among
-  // equal distances the earlier arrival stays ahead. The caller has
-  // checked d2 < kth.
-  __device__ __forceinline__ void insert(int k, float d2, unsigned v0,
-                                         unsigned v1 = 0u, unsigned v2 = 0u) {
+// Insert after every entry ≤ d2, shifting the larger ones down: among equal
+// distances the earlier arrival stays ahead. The caller has checked
+// d2 < d[k-1].
+template <int KMAX>
+__device__ __forceinline__ void topk_insert(float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                            int k, float d2, unsigned v0) {
 #pragma unroll
-    for (int s = KMAX - 1; s > 0; --s) {
-      if (s < k) {
-        if (d[s - 1] > d2)
-          shift_down(s);
-        else if (d[s] > d2)
-          set(s, d2, v0, v1, v2);
+  for (int s = KMAX - 1; s > 0; --s) {
+    if (s < k) {
+      if (d[s - 1] > d2) {
+        d[s] = d[s - 1];
+        p0[s] = p0[s - 1];
+      } else if (d[s] > d2) {
+        d[s] = d2;
+        p0[s] = v0;
       }
     }
-    if (d[0] > d2) set(0, d2, v0, v1, v2);
-    refresh_kth(k);
   }
+  if (d[0] > d2) {
+    d[0] = d2;
+    p0[0] = v0;
+  }
+}
 
-  // Insert (d2, idx) in (d², index) order, p0 holding the index, so the
-  // list does not depend on the order of arrival. The caller has checked
-  // lex_before(d2, idx, kth, kth0).
-  __device__ __forceinline__ void insert_lex(int k, float d2, int idx) {
-    static_assert(NPAY == 1, "the lexicographic list carries the index only");
+// The same with three payload words.
+template <int KMAX>
+__device__ __forceinline__ void topk_insert3(float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                             unsigned (&p1)[KMAX],
+                                             unsigned (&p2)[KMAX], int k, float d2,
+                                             unsigned v0, unsigned v1, unsigned v2) {
 #pragma unroll
-    for (int s = KMAX - 1; s > 0; --s) {
-      if (s < k) {
-        if (lex_before(d2, idx, d[s - 1], (int)p0[s - 1]))
-          shift_down(s);
-        else if (lex_before(d2, idx, d[s], (int)p0[s]))
-          set(s, d2, (unsigned)idx, 0u, 0u);
+  for (int s = KMAX - 1; s > 0; --s) {
+    if (s < k) {
+      if (d[s - 1] > d2) {
+        d[s] = d[s - 1];
+        p0[s] = p0[s - 1];
+        p1[s] = p1[s - 1];
+        p2[s] = p2[s - 1];
+      } else if (d[s] > d2) {
+        d[s] = d2;
+        p0[s] = v0;
+        p1[s] = v1;
+        p2[s] = v2;
       }
     }
-    if (lex_before(d2, idx, d[0], (int)p0[0])) set(0, d2, (unsigned)idx, 0u, 0u);
-    refresh_kth(k);
   }
-};
+  if (d[0] > d2) {
+    d[0] = d2;
+    p0[0] = v0;
+    p1[0] = v1;
+    p2[0] = v2;
+  }
+}
+
+// Insert (d2, idx) in (d², index) order, p0 holding the index, so the list
+// does not depend on the order of arrival. The caller has checked
+// lex_before(d2, idx, d[k-1], p0[k-1]).
+template <int KMAX>
+__device__ __forceinline__ void topk_insert_lex(float (&d)[KMAX],
+                                                unsigned (&p0)[KMAX], int k,
+                                                float d2, int idx) {
+#pragma unroll
+  for (int s = KMAX - 1; s > 0; --s) {
+    if (s < k) {
+      if (lex_before(d2, idx, d[s - 1], (int)p0[s - 1])) {
+        d[s] = d[s - 1];
+        p0[s] = p0[s - 1];
+      } else if (lex_before(d2, idx, d[s], (int)p0[s])) {
+        d[s] = d2;
+        p0[s] = (unsigned)idx;
+      }
+    }
+  }
+  if (lex_before(d2, idx, d[0], (int)p0[0])) {
+    d[0] = d2;
+    p0[0] = (unsigned)idx;
+  }
+}
 
 // kth smallest d² from (qx, qy, qz) over rows lo, lo + step, ... below hi
 // of a table of 16-byte rows (kBig if these are fewer than k rows): an
@@ -157,4 +178,165 @@ __device__ float kth_bound(const float4* __restrict__ pts, int lo, int hi, int s
   return kth;
 }
 
+// ------------------------------------------------------------------------
+// Box-pruned search over a Morton-sorted table (K12, K4, K6): rows
+// (x y z | original index as int32 bits), kBoxRows sorted rows per box
+// (lo 3, 0, hi 3, 0 over the valid rows), blocks of kPrunedThreads queries.
+
+constexpr int kBoxRows = 256;
+constexpr int kPrunedThreads = 64;
+constexpr int kNoIndex = 0x7fffffff;
+
+// Maximum of v over a block of kPrunedThreads; sw holds one float per warp.
+__device__ __forceinline__ float block_max(float v, float* sw) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // earlier readers of sw are done
+  if ((threadIdx.x & 31) == 0) sw[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = sw[0];
+#pragma unroll
+  for (int w = 1; w < kPrunedThreads / 32; ++w) r = fmaxf(r, sw[w]);
+  return r;
+}
+
+// The box of the block's `active` points: lo[3], hi[3]. A block without an
+// active point gets the inverted box (kBig, -kBig), which lies infinitely
+// far from every other box.
+__device__ __forceinline__ void block_box(bool active, float x, float y, float z,
+                                          float* sw, float (&lo)[3], float (&hi)[3]) {
+  lo[0] = -block_max(active ? -x : -kBig, sw);
+  lo[1] = -block_max(active ? -y : -kBig, sw);
+  lo[2] = -block_max(active ? -z : -kBig, sw);
+  hi[0] = block_max(active ? x : -kBig, sw);
+  hi[1] = block_max(active ? y : -kBig, sw);
+  hi[2] = block_max(active ? z : -kBig, sw);
+}
+
+// gap² between the box b (lo 3, 0, hi 3, 0) and the box [lo, hi] (a point if
+// lo = hi), in the operation order of sq_dist and without fused
+// multiply-add, so that it never exceeds the d² of a pair of points inside
+// the two boxes: subtraction, squaring and the sums are monotone under
+// round-to-nearest.
+__device__ __forceinline__ float box_gap2(const float* __restrict__ b, float lox,
+                                          float loy, float loz, float hix, float hiy,
+                                          float hiz) {
+  const float gx = fmaxf(0.f, fmaxf(__fsub_rn(b[0], hix), __fsub_rn(lox, b[4])));
+  const float gy = fmaxf(0.f, fmaxf(__fsub_rn(b[1], hiy), __fsub_rn(loy, b[5])));
+  const float gz = fmaxf(0.f, fmaxf(__fsub_rn(b[2], hiz), __fsub_rn(loz, b[6])));
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
+}
+
+// Stage sorted tile t and offer its rows to the queries of the block that
+// can still use them, lists in (d², original index) order. Called by all
+// threads of the block or by none. A warp none of whose queries can use the
+// tile (its box lies farther from each than that query's kth distance, or
+// than its `reach` where BOUNDED) skips the rows. Where BOUNDED, a row needs
+// d² ≤ reach, an upper bound of the query's kth distance that the caller
+// knows beforehand.
+template <int KMAX, bool BOUNDED>
+__device__ __forceinline__ void scan_tile(const float4* __restrict__ t4,
+                                          const float* __restrict__ tbox, int m,
+                                          int t, float4* tile, bool active, float qx,
+                                          float qy, float qz, int k, float reach,
+                                          float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                          float& kth, unsigned& kth0) {
+  const int base = t * kBoxRows;
+  const int cnt = min(kBoxRows, m - base);
+  __syncthreads();
+  for (int j = threadIdx.x; j < cnt; j += kPrunedThreads) tile[j] = t4[base + j];
+  __syncthreads();
+  const float limit = BOUNDED ? fminf(kth, reach) : kth;
+  const bool wanted =
+      active && !(box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > limit);
+  if (!__any_sync(0xffffffffu, wanted)) return;
+  if (!wanted) return;
+  for (int j = 0; j < cnt; ++j) {
+    const float4 p = tile[j];
+    float dx, dy, dz;
+    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
+    const int idx = __float_as_int(p.w);  // original row index
+    if (BOUNDED && d2 > reach) continue;
+    if (d2 < kBig && lex_before(d2, idx, kth, (int)kth0)) {
+      topk_insert_lex<KMAX>(d, p0, k, d2, idx);
+      kth = topk_slot<KMAX>(d, k - 1);
+      kth0 = topk_slot<KMAX>(p0, k - 1);
+    }
+  }
+}
+
+// Write a list to row `row` of [rows, k] outputs; empty slots get index 0.
+template <int KMAX>
+__device__ __forceinline__ void store_list(const float (&d)[KMAX],
+                                           const unsigned (&p0)[KMAX], int k,
+                                           float* __restrict__ out_d,
+                                           int* __restrict__ out_i, size_t row) {
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) {
+    if (s < k) {
+      out_d[row * k + s] = d[s];
+      out_i[row * k + s] = d[s] < kBig ? (int)p0[s] : 0;
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// One warp per query (K11, K5): every lane keeps a private sorted list of
+// (d², row) in shared memory, ld / li [k][32] with one bank per lane, over
+// the rows it visits in index order; k rounds of a warp-wide arg-min on
+// (d², row) merge the 32 lists.
+
+__device__ __forceinline__ void lane_list_clear(float* ld, int* li, int lane, int k) {
+  for (int s = 0; s < k; ++s) {
+    ld[s * 32 + lane] = kBig;
+    li[s * 32 + lane] = kNoIndex;
+  }
+}
+
+// Insertion sort in the lane's column: entries ≤ d2 stay ahead. The caller
+// has checked d2 < kth, the lane's d[k-1], which is refreshed here.
+__device__ __forceinline__ void lane_list_insert(float* ld, int* li, int lane, int k,
+                                                 float d2, int idx, float& kth) {
+  int s = k - 1;
+  while (s > 0 && ld[(s - 1) * 32 + lane] > d2) {
+    ld[s * 32 + lane] = ld[(s - 1) * 32 + lane];
+    li[s * 32 + lane] = li[(s - 1) * 32 + lane];
+    --s;
+  }
+  ld[s * 32 + lane] = d2;
+  li[s * 32 + lane] = idx;
+  kth = ld[(k - 1) * 32 + lane];
+}
+
+// The smallest head over the lanes in (d², row) order, to every lane; the
+// lane that held it advances its head. Exhausted: (kBig, kNoIndex).
+__device__ __forceinline__ void lane_lists_pop(const float* ld, const int* li,
+                                               int lane, int k, int& head, float& bd,
+                                               int& bi) {
+  const int hi = head < k ? li[head * 32 + lane] : kNoIndex;
+  bd = head < k ? ld[head * 32 + lane] : kBig;
+  bi = hi;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (lex_before(od, oi, bd, bi)) {
+      bd = od;
+      bi = oi;
+    }
+  }
+  // Row indices are unique, so exactly one lane holds a real winner.
+  if (bi != kNoIndex && hi == bi) ++head;
+}
+
 }  // namespace sgt
+
+// The box geometry that the Python prologue and plain versions repeat
+// (ops/morton_boxes.py): out[0..1] = sorted rows per box, queries per block.
+// Every library built on this header exports it.
+extern "C" int sgt_box_geometry(int* out) {
+  out[0] = sgt::kBoxRows;
+  out[1] = sgt::kPrunedThreads;
+  return 0;
+}

@@ -1,21 +1,28 @@
-// Exact self-kNN covariance moments (K3), hand-written for Hopper (sm_90a).
+// Exact self-kNN for the covariance stage, hand-written for Hopper (sm_90a):
+// K3 and K5 return neighbour moments, K4 the neighbours themselves. They
+// replace the three Pallas kernels of small_gicp_tpu/ops/cov_fused_pallas.py
+// (knn_moments_pallas):
 //
-// Replaces small_gicp_tpu/ops/cov_fused_pallas.py `_make_moments_kernel_T`
-// (knn_moments_pallas, layout "t"): for every valid row q, the k nearest
-// valid rows p (self included) by exact difference-form d², and the
-// query-centred moments of d = p − q over those neighbours:
+//   knn_moments_kernel<KMAX>       `_make_moments_kernel_T`   (layout "t")
+//   knn_topk_idx_kernel<KMAX>      `_make_topk_idx_kernel_T`  (layout "ti")
+//   knn_moments_warp_kernel        `_make_moments_kernel`     (layout "q")
+//
+// K3 and K5: for every valid row q, the k nearest valid rows p (self
+// included) by exact difference-form d², and the query-centred moments of
+// d = p − q over those neighbours:
 //   out[q] = [Σd 3 | Σddᵀ upper 6 (xx xy xz yy yz zz) | count | d_k | 0 ×5]
 // where count is the number of slots with d² < 1e16 and d_k the kth d².
-// Rows at or beyond num_points get zeros.
+// Rows at or beyond num_points get zeros. Ties keep the lower row index.
 //
-// What bounds it: the search, N² pairs at ~9 f32 operations each
-// (operations; the moments are k·9 operations per row). One thread owns
-// one query and keeps a sorted top-k list of (d², dx, dy, dz) in
-// registers (sgt::TopK of common.cuh, shared with the search kernels);
-// the block streams the cloud through shared memory in 16-byte rows, so
-// the inner loop is one broadcast load, the distance and one compare. Ties keep the lower row index (strict < against the
-// kth, insertion after equal entries, rows visited in ascending order),
-// which is the order a stable sort of (d², index) gives.
+// K3 (scan scale). What bounds it: the search, N² pairs at ~9 f32
+// operations each (operations; the moments are k·9 operations per row). One
+// thread owns one query and keeps a sorted top-k list of (d², dx, dy, dz) in
+// registers (common.cuh's list, shared with the search kernels); the block
+// streams the cloud through shared memory in 16-byte rows, so the inner loop
+// is one broadcast load, the distance and one compare. Ties keep the lower
+// row index (strict < against the kth, insertion after equal entries, rows
+// visited in ascending order), which is the order a stable sort of
+// (d², index) gives.
 //
 // An insertion shifts four register arrays and, taken by one lane,
 // stalls its whole warp; scanning from a cold list inserts hundreds of
@@ -31,6 +38,37 @@
 // The list length is a template bound KMAX ∈ {16, 64} with k ≤ KMAX
 // chosen at run time: KMAX = 16 keeps k = 10 (the main path) in
 // registers; KMAX = 64 serves 16 < k ≤ 64 and spills to local memory.
+//
+// K4 (map scale: clouds of hundreds of thousands of rows, where N² pairs
+// cost seconds). It returns, for every valid row, the original indices and
+// d² of its k nearest valid rows, ascending by (d², original index); the
+// wrapper gathers the winners and forms the moments in torch. What bounds
+// it: the pairs a pruned search cannot avoid on the data (operations), a few
+// per cent of N² and fewer as the cloud grows. The wrapper sorts the cloud by
+// Morton code into rows (x y z | original index) and boxes every 256 sorted
+// rows (the prologue it shares with K12). A block owns 64 consecutive sorted
+// rows as its queries. Each query first takes the kth smallest d² over the
+// `window` sorted rows around it — Morton neighbours are spatial neighbours,
+// and the kth best of any k rows bounds the true kth distance from above, in
+// float32 too: it is the d² of a real row in the kernel's own rounding. The
+// block reduces R = the largest bound over its queries, walks the tiles in
+// order and branches past every tile whose box lies farther than R from the
+// block's box; within a scanned tile a warp skips the rows if the tile's box
+// is beyond each of its queries' own bounds, and a row enters a list only
+// with d² ≤ its query's bound. R tightens after every scanned tile. The gap²
+// between boxes never exceeds the d² of a pair inside them (common.cuh), so
+// no neighbour is skipped. The self-search needs one sort and no insertion
+// positions, and its bound is there before the first tile: that is what K12,
+// which seeds from five tiles, does not have. Instances KMAX ∈ {16, 32, 64}
+// as K10: 32 keeps k = 20 out of local memory.
+//
+// K5 (the other work mapping of K3, as K11 is to K10): one warp per query.
+// Lanes stride the rows, each lane keeps a private sorted list of (d², row)
+// in shared memory, k rounds of a shuffle arg-min on (d², row) merge them
+// (common.cuh), and the warp gathers the k winners' rows and sums their
+// offsets in slot order, in K3's operation order. It picks the neighbours K3
+// picks. It fills the card where queries are few; at scan sizes it pays
+// 32 lanes' insertions for every query.
 
 #include <cuda_runtime.h>
 
@@ -43,7 +81,33 @@ using sgt::kBig;
 constexpr int kMomThreads = 64;
 constexpr int kMomTile = 512;
 constexpr int kWindow = 32;
+constexpr int kWarpTile = 256;  // rows staged at once (K5)
 constexpr float kValidSq = 1e16f;
+
+// Add one neighbour's offset d = p − q to the moment row o.
+__device__ __forceinline__ void add_offset(float (&o)[16], float dx, float dy,
+                                           float dz) {
+  o[0] += dx;
+  o[1] += dy;
+  o[2] += dz;
+  o[3] += dx * dx;
+  o[4] += dx * dy;
+  o[5] += dx * dz;
+  o[6] += dy * dy;
+  o[7] += dy * dz;
+  o[8] += dz * dz;
+  o[9] += 1.f;
+}
+
+__device__ __forceinline__ void store_row(float* __restrict__ out, int i,
+                                          const float (&o)[16]) {
+  float4* row = reinterpret_cast<float4*>(out + (size_t)i * 16);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    row[c] = make_float4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]);
+}
+
+// ---------------------------------------------------------------- K3 ----
 
 template <int KMAX>
 __global__ void __launch_bounds__(kMomThreads)
@@ -68,9 +132,14 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
     bound = sgt::kth_bound<KMAX>(p4, lo, hi, 1, k, qx, qy, qz);
   }
 
-  // (d², dx, dy, dz) of the k nearest rows so far.
-  sgt::TopK<KMAX, 3> best;
-  best.clear(0u);  // offsets 0.0f
+  // (d², dx, dy, dz) of the k nearest rows so far; empty slots hold offsets 0.0f.
+  float bd[KMAX];
+  unsigned bx[KMAX], by[KMAX], bz[KMAX];
+  sgt::topk_fill<KMAX>(bd, kBig);
+  sgt::topk_fill<KMAX>(bx, 0u);
+  sgt::topk_fill<KMAX>(by, 0u);
+  sgt::topk_fill<KMAX>(bz, 0u);
+  float kth = kBig;
 
   for (int base = 0; block_active && base < m; base += kMomTile) {
     const int cnt = min(kMomTile, m - base);
@@ -82,9 +151,10 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
       const float4 p = tile[j];
       float dx, dy, dz;
       const float d2 = sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
-      if (d2 < best.kth && d2 <= bound) {
-        best.insert(k, d2, __float_as_uint(dx), __float_as_uint(dy),
-                    __float_as_uint(dz));
+      if (d2 < kth && d2 <= bound) {
+        sgt::topk_insert3<KMAX>(bd, bx, by, bz, k, d2, __float_as_uint(dx),
+                                __float_as_uint(dy), __float_as_uint(dz));
+        kth = sgt::topk_slot<KMAX>(bd, k - 1);
       }
     }
   }
@@ -96,28 +166,139 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
   if (active) {
 #pragma unroll
     for (int s = 0; s < KMAX; ++s) {
-      if (s < k && best.d[s] < kValidSq) {
-        const float bx = __uint_as_float(best.p0[s]);
-        const float by = __uint_as_float(best.p1[s]);
-        const float bz = __uint_as_float(best.p2[s]);
-        o[0] += bx;
-        o[1] += by;
-        o[2] += bz;
-        o[3] += bx * bx;
-        o[4] += bx * by;
-        o[5] += bx * bz;
-        o[6] += by * by;
-        o[7] += by * bz;
-        o[8] += bz * bz;
-        o[9] += 1.f;
+      if (s < k && bd[s] < kValidSq)
+        add_offset(o, __uint_as_float(bx[s]), __uint_as_float(by[s]),
+                   __uint_as_float(bz[s]));
+    }
+    o[10] = kth;
+  }
+  store_row(out, i, o);
+}
+
+// ---------------------------------------------------------------- K4 ----
+
+// tsorted [n,4]: Morton-sorted rows x y z | original index, the first *num
+// valid; tbox [ceil(n / 256), 8]; out_d / out_i [n,k] in original row order.
+template <int KMAX>
+__global__ void __launch_bounds__(sgt::kPrunedThreads)
+knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ num,
+                    int n, const float* __restrict__ tbox, int k, int window,
+                    float* __restrict__ out_d, int* __restrict__ out_i) {
+  __shared__ float4 tile[sgt::kBoxRows];
+  __shared__ float sw[sgt::kPrunedThreads / 32];
+  const int i = blockIdx.x * sgt::kPrunedThreads + threadIdx.x;  // sorted position
+  const int m = min(*num, n);
+  const bool active = i < m;
+  const float4* t4 = reinterpret_cast<const float4*>(tsorted);
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  int row = 0;
+  if (i < n) {
+    const float4 q = t4[i];
+    qx = q.x;
+    qy = q.y;
+    qz = q.z;
+    row = __float_as_int(q.w);
+  }
+
+  float bd[KMAX];
+  unsigned bi[KMAX];
+  sgt::topk_fill<KMAX>(bd, kBig);
+  sgt::topk_fill<KMAX>(bi, (unsigned)sgt::kNoIndex);
+  float kth = kBig;
+  unsigned kth0 = (unsigned)sgt::kNoIndex;
+
+  // A block of padding rows only (the same for all its threads) has nothing
+  // to search; its rows get empty lists.
+  if (blockIdx.x * sgt::kPrunedThreads < m) {
+    // The query's bound: the kth smallest d² over its Morton window.
+    float reach = kBig;
+    if (active) {
+      const int lo = max(0, min(i - window / 2, m - window));
+      reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
+    }
+    float lo[3], hi[3];  // the block's query box
+    sgt::block_box(active, qx, qy, qz, sw, lo, hi);
+    float bound = sgt::block_max(active ? reach : 0.f, sw);
+
+    const int ntiles = (m + sgt::kBoxRows - 1) / sgt::kBoxRows;
+    for (int t = 0; t < ntiles; ++t) {
+      const float gap2 = sgt::box_gap2(tbox + (size_t)t * 8, lo[0], lo[1], lo[2],
+                                       hi[0], hi[1], hi[2]);
+      if (gap2 > bound) continue;  // the same for every thread of the block
+      sgt::scan_tile<KMAX, true>(t4, tbox, m, t, tile, active, qx, qy, qz, k, reach,
+                                 bd, bi, kth, kth0);
+      bound = sgt::block_max(active ? fminf(kth, reach) : 0.f, sw);
+    }
+  }
+  if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
+}
+
+// ---------------------------------------------------------------- K5 ----
+
+__global__ void __launch_bounds__(128)
+knn_moments_warp_kernel(const float* __restrict__ pts, const int* __restrict__ num,
+                        int n, int k, float* __restrict__ out) {
+  // tile [kWarpTile] float4 | per warp: d [k][32] float, row [k][32] int
+  extern __shared__ float4 smem[];
+  float4* tile = smem;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ld = reinterpret_cast<float*>(smem + kWarpTile) + (size_t)warp * k * 64;
+  int* li = reinterpret_cast<int*>(ld + (size_t)k * 32);
+  const int i = blockIdx.x * warps + warp;  // this warp's query row
+  const int m = min(*num, n);
+  const bool active = i < m;
+  const bool block_active = blockIdx.x * warps < m;  // uniform
+  const float4* p4 = reinterpret_cast<const float4*>(pts);
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    const float4 q = p4[i];
+    qx = q.x;
+    qy = q.y;
+    qz = q.z;
+  }
+  sgt::lane_list_clear(ld, li, lane, k);
+  float kth = kBig;  // this lane's d[k-1]
+
+  for (int base = 0; block_active && base < m; base += kWarpTile) {
+    const int cnt = min(kWarpTile, m - base);
+    __syncthreads();
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) tile[j] = p4[base + j];
+    __syncthreads();
+    if (!active) continue;
+    for (int j = lane; j < cnt; j += 32) {
+      const float4 p = tile[j];
+      float dx, dy, dz;
+      const float d2 = sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
+      // A lane sees its rows in index order, so ties keep the lower row.
+      if (d2 < kth) sgt::lane_list_insert(ld, li, lane, k, d2, base + j, kth);
+    }
+  }
+  if (i >= n) return;  // uniform over the warp
+
+  // Merge, and sum the winners' offsets in slot order (every lane alike).
+  float o[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) o[c] = 0.f;
+  if (active) {
+    int head = 0;
+    float d_k = kBig;
+    for (int r = 0; r < k; ++r) {
+      int bi;
+      sgt::lane_lists_pop(ld, li, lane, k, head, d_k, bi);
+      if (d_k < kValidSq) {
+        const float4 p = p4[bi];
+        float dx, dy, dz;
+        sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
+        add_offset(o, dx, dy, dz);
       }
     }
-    o[10] = best.kth;
+    o[10] = d_k;
   }
-  float4* row = reinterpret_cast<float4*>(out + (size_t)i * 16);
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    row[c] = make_float4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]);
+  if (lane == 0) store_row(out, i, o);
 }
 
 }  // namespace
@@ -135,6 +316,39 @@ int sgt_knn_moments(const float* pts, const int* num, int n, int k, float* out,
     knn_moments_kernel<16><<<blocks, kMomThreads, 0, s>>>(pts, num, n, k, out);
   else
     knn_moments_kernel<64><<<blocks, kMomThreads, 0, s>>>(pts, num, n, k, out);
+  return (int)cudaGetLastError();
+}
+
+// K4. tsorted [n,4] and tbox [ceil(n / 256), 8] from the wrapper's sort,
+// num: device int32 count of valid rows, window: sorted rows a query takes
+// its bound from (≥ k), out_d / out_i [n,k].
+int sgt_knn_topk_idx(const float* tsorted, const int* num, int n, const float* tbox,
+                     int k, int window, float* out_d, int* out_i, void* stream) {
+  if (k < 1 || k > 64 || n <= 0 || window < k) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + sgt::kPrunedThreads - 1) / sgt::kPrunedThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16)
+    knn_topk_idx_kernel<16><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        tsorted, num, n, tbox, k, window, out_d, out_i);
+  else if (k <= 32)
+    knn_topk_idx_kernel<32><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        tsorted, num, n, tbox, k, window, out_d, out_i);
+  else
+    knn_topk_idx_kernel<64><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        tsorted, num, n, tbox, k, window, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
+// K5. Arguments as K3's. Four queries (warps) per block up to k = 32, two
+// above, so the lists stay within 32 KB of shared memory.
+int sgt_knn_moments_warp(const float* pts, const int* num, int n, int k, float* out,
+                         void* stream) {
+  if (k < 1 || k > 64 || n <= 0) return (int)cudaErrorInvalidValue;
+  const int warps = k <= 32 ? 4 : 2;
+  const int blocks = (n + warps - 1) / warps;
+  const size_t shared = kWarpTile * sizeof(float4) + (size_t)warps * k * 32 * 8;
+  knn_moments_warp_kernel<<<blocks, warps * 32, shared, (cudaStream_t)stream>>>(
+      pts, num, n, k, out);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 // errors (K2), hand-written for Hopper (sm_90a).
 //
 // K1 replaces small_gicp_tpu/ops/gicp_fused_pallas.py
-// `_fused_kernel_listed` + `_fused_finalize`: exact 1-NN of T·p over the
+// `_fused_kernel_listed` + `_fused_finalize` (the finalize is in
+// gicp_common.cuh, shared with the swept kernel of gicp_swept.cu; the
+// `mxu_dist` branch is the SCORE instance below): exact 1-NN of T·p over the
 // valid target rows, then the per-point weight W (GICP (C_t + R C_s Rᵀ)⁻¹
 // by adjugate with the |det| < 1e-30 guard, plane-ICP diag(n∘n), ICP I),
 // the rejector mask d² ≤ max_d2, the optional Huber/Cauchy weight w(√e),
@@ -38,39 +40,14 @@
 
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "gicp_common.cuh"
 
 namespace {
 
-using sgt::kBig;
+using namespace sgt;
 
-constexpr int kLinThreads = 64;
-constexpr int kLinTile = 512;
-constexpr int kLinRed = 29;  // 21 unique H | b 6 | e | inliers
-constexpr int kLinOut = 44;  // H 36 | b 6 | e | inliers
 constexpr int kTrialThreads = 128;
 constexpr int kMaxPoses = 100;
-
-enum Factor { kGicp = 0, kPlaneIcp = 1, kIcp = 2 };
-enum Robust { kNone = 0, kHuber = 1, kCauchy = 2 };
-
-// w(√e) with e the unweighted per-point error, clamped at 0
-// (factors.robust_weight): Huber min(1, c/√e), Cauchy c/(c+e).
-template <int ROBUST>
-__device__ __forceinline__ float robust_weight(float e, float c) {
-  const float e0 = fmaxf(e, 0.f);
-  if (ROBUST == kHuber) {
-    const float x = sqrtf(e0);
-    return x < c ? 1.f : c / fmaxf(x, 1e-30f);
-  }
-  if (ROBUST == kCauchy) return c / (c + e0);
-  return 1.f;
-}
-
-// Packed index of H[lo][hi], lo ≤ hi, in the 21-entry upper triangle.
-__host__ __device__ constexpr int tri(int lo, int hi) {
-  return lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
-}
 
 // Lane b's pair: uids[b] clamped into [0, u), or pair 0 without uids.
 __device__ __forceinline__ int lane_pair(const int* uids, int u) {
@@ -83,7 +60,11 @@ __device__ __forceinline__ int lane_pair(const int* uids, int u) {
 // uids [B] lane → pair and active [B] (both may be null: every lane reads
 // pair 0 and is active); poses [B,12]: R row-major 9 | t 3
 // corr [B,N,16], partials [B, gridDim.x, 44]
-template <int FACTOR, int ROBUST>
+// SCORE: rank the targets by ‖t‖² − 2 t·q with ‖t‖² read from ttab column 13
+// (uncentred, as the Pallas kernel's mxu_dist branch forms it; ‖q‖² is the
+// same for every target of one query) and take the winner's exact d²
+// afterwards. On CUDA cores: the tensor-core form is later work.
+template <int FACTOR, int ROBUST, bool SCORE>
 __global__ void __launch_bounds__(kLinThreads)
 gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tnum,
                       const float* __restrict__ qtab, const int* __restrict__ qnum,
@@ -140,15 +121,25 @@ gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tn
   for (int base = 0; block_active && base < m; base += kLinTile) {
     const int cnt = min(kLinTile, m - base);
     __syncthreads();
-    for (int j = threadIdx.x; j < cnt; j += kLinThreads)
-      tile[j] = reinterpret_cast<const float4*>(ttab)[(size_t)(base + j) * 4];
+    for (int j = threadIdx.x; j < cnt; j += kLinThreads) {
+      float4 tp = reinterpret_cast<const float4*>(ttab)[(size_t)(base + j) * 4];
+      if (SCORE) tp.w = ttab[(size_t)(base + j) * 16 + 13];
+      tile[j] = tp;
+    }
     __syncthreads();
     if (active) {
 #pragma unroll 4
       for (int j = 0; j < cnt; ++j) {
         const float4 tp = tile[j];
-        float dx, dy, dz;
-        const float d2 = sgt::sq_dist(qx, qy, qz, tp.x, tp.y, tp.z, dx, dy, dz);
+        float d2;
+        if (SCORE) {
+          const float dot = __fadd_rn(
+              __fadd_rn(__fmul_rn(qx, tp.x), __fmul_rn(qy, tp.y)), __fmul_rn(qz, tp.z));
+          d2 = __fsub_rn(tp.w, __fmul_rn(2.f, dot));
+        } else {
+          float dx, dy, dz;
+          d2 = sgt::sq_dist(qx, qy, qz, tp.x, tp.y, tp.z, dx, dy, dz);
+        }
         if (d2 < best_d) {
           best_d = d2;
           best = base + j;
@@ -157,150 +148,16 @@ gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tn
     }
   }
 
-  float mux = 0.f, muy = 0.f, muz = 0.f;
-  float pay[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) pay[k] = 0.f;
-  if (best >= 0) {
+  if (SCORE && best >= 0) {
+    // The score only ranks; the rejector and corr take the winner's exact d².
     const float* row = ttab + (size_t)best * 16;
-    mux = row[0];
-    muy = row[1];
-    muz = row[2];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) pay[k] = row[4 + k];
+    float dx, dy, dz;
+    best_d = sgt::sq_dist(qx, qy, qz, row[0], row[1], row[2], dx, dy, dz);
   }
-  const bool mask = active && best_d <= max_d2 && best_d < 0.5f * kBig;
-
-  // Per-point weight W.
-  float w[9];
-  if (FACTOR == kGicp) {
-    float cs[9];
-    if (i < n) {
-      const float* q = qtab + (size_t)i * 16 + 4;
-#pragma unroll
-      for (int k = 0; k < 9; ++k) cs[k] = q[k];
-    } else {
-#pragma unroll
-      for (int k = 0; k < 9; ++k) cs[k] = 0.f;
-    }
-    float a[9];  // A = R C_s
-#pragma unroll
-    for (int row = 0; row < 3; ++row)
-#pragma unroll
-      for (int col = 0; col < 3; ++col)
-        a[row * 3 + col] = r[row * 3 + 0] * cs[0 * 3 + col] +
-                           r[row * 3 + 1] * cs[1 * 3 + col] +
-                           r[row * 3 + 2] * cs[2 * 3 + col];
-    float mm[9];  // M = C_t + A Rᵀ
-#pragma unroll
-    for (int row = 0; row < 3; ++row)
-#pragma unroll
-      for (int col = 0; col < 3; ++col)
-        mm[row * 3 + col] = pay[row * 3 + col] + a[row * 3 + 0] * r[col * 3 + 0] +
-                            a[row * 3 + 1] * r[col * 3 + 1] +
-                            a[row * 3 + 2] * r[col * 3 + 2];
-    const float co00 = mm[4] * mm[8] - mm[5] * mm[7];
-    const float co01 = mm[2] * mm[7] - mm[1] * mm[8];
-    const float co02 = mm[1] * mm[5] - mm[2] * mm[4];
-    const float co10 = mm[5] * mm[6] - mm[3] * mm[8];
-    const float co11 = mm[0] * mm[8] - mm[2] * mm[6];
-    const float co12 = mm[2] * mm[3] - mm[0] * mm[5];
-    const float co20 = mm[3] * mm[7] - mm[4] * mm[6];
-    const float co21 = mm[1] * mm[6] - mm[0] * mm[7];
-    const float co22 = mm[0] * mm[4] - mm[1] * mm[3];
-    const float det = mm[0] * co00 + mm[1] * co10 + mm[2] * co20;
-    const float inv_det = fabsf(det) < 1e-30f ? 0.f : 1.f / det;
-    w[0] = co00 * inv_det;
-    w[1] = co01 * inv_det;
-    w[2] = co02 * inv_det;
-    w[3] = co10 * inv_det;
-    w[4] = co11 * inv_det;
-    w[5] = co12 * inv_det;
-    w[6] = co20 * inv_det;
-    w[7] = co21 * inv_det;
-    w[8] = co22 * inv_det;
-  } else if (FACTOR == kPlaneIcp) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) w[k] = 0.f;
-    w[0] = pay[0] * pay[0];
-    w[4] = pay[1] * pay[1];
-    w[8] = pay[2] * pay[2];
-  } else {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) w[k] = 0.f;
-    w[0] = w[4] = w[8] = 1.f;
-  }
-
-  float v[kLinRed];
-#pragma unroll
-  for (int c = 0; c < kLinRed; ++c) v[c] = 0.f;
-  if (mask) {
-    const float rx = mux - qx, ry = muy - qy, rz = muz - qz;
-    const float wr[3] = {w[0] * rx + w[1] * ry + w[2] * rz,
-                         w[3] * rx + w[4] * ry + w[5] * rz,
-                         w[6] * rx + w[7] * ry + w[8] * rz};
-    const float e_i = 0.5f * (rx * wr[0] + ry * wr[1] + rz * wr[2]);
-    const float wm = robust_weight<ROBUST>(e_i, robust_c);
-
-    // J = [R·skew(p) | −R]
-    float J[3][6];
-#pragma unroll
-    for (int row = 0; row < 3; ++row) {
-      const float* rr = r + row * 3;
-      J[row][0] = rr[1] * pz - rr[2] * py;
-      J[row][1] = rr[2] * px - rr[0] * pz;
-      J[row][2] = rr[0] * py - rr[1] * px;
-      J[row][3] = -rr[0];
-      J[row][4] = -rr[1];
-      J[row][5] = -rr[2];
-    }
-    float WJ[3][6];
-#pragma unroll
-    for (int row = 0; row < 3; ++row)
-#pragma unroll
-      for (int col = 0; col < 6; ++col)
-        WJ[row][col] = w[row * 3 + 0] * J[0][col] + w[row * 3 + 1] * J[1][col] +
-                       w[row * 3 + 2] * J[2][col];
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-#pragma unroll
-      for (int b = a; b < 6; ++b)
-        v[tri(a, b)] = (J[0][a] * WJ[0][b] + J[1][a] * WJ[1][b] + J[2][a] * WJ[2][b]) * wm;
-      v[21 + a] = (J[0][a] * wr[0] + J[1][a] * wr[1] + J[2][a] * wr[2]) * wm;
-    }
-    v[27] = e_i * wm;
-    v[28] = 1.f;  // the inlier count stays unweighted
-  }
-
-  if (i < n) {
-    float4* out = reinterpret_cast<float4*>(corr + (size_t)i * 16);
-    out[0] = make_float4(mux, muy, muz, w[0]);
-    out[1] = make_float4(w[1], w[2], w[3], w[4]);
-    out[2] = make_float4(w[5], w[6], w[7], w[8]);
-    out[3] = make_float4(mask ? 1.f : 0.f, best_d, 0.f, 0.f);
-  }
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < kLinRed; ++c) {
-    const float s = sgt::warp_sum(v[c]);
-    if (lane == 0) red[warp][c] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kLinOut) {
-    const int o = threadIdx.x;
-    int c;
-    if (o < 36) {
-      const int a = o / 6, b = o % 6;
-      c = a <= b ? tri(a, b) : tri(b, a);
-    } else {
-      c = 21 + (o - 36);
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kLinThreads / 32; ++wi) s += red[wi][c];
-    partials[o] = s;
-  }
+  linearize_finalize<FACTOR, ROBUST, false>(
+      ttab, i < n ? qtab + (size_t)i * 16 : nullptr, active, best, best_d, r, qx, qy,
+      qz, px, py, pz, max_d2, robust_c, i < n ? corr + (size_t)i * 16 : nullptr,
+      partials, red);
 }
 
 // corr [B,N,16] from K1/K7; src [U,N,src_row] source xyz (K2: the points,
@@ -372,13 +229,13 @@ gicp_error_multi_kernel(const float* __restrict__ corr, const float* __restrict_
   }
 }
 
-template <int F, int RB>
+template <int F, int RB, bool SCORE>
 void launch_linearize(dim3 grid, cudaStream_t stream, const float* ttab,
                       const int* tnum, const float* qtab, const int* qnum, int u,
                       int m_rows, const int* uids, const bool* active, int n,
                       const float* poses, float max_d2, float robust_c, float* corr,
                       float* partials) {
-  gicp_linearize_kernel<F, RB><<<grid, kLinThreads, 0, stream>>>(
+  gicp_linearize_kernel<F, RB, SCORE><<<grid, kLinThreads, 0, stream>>>(
       ttab, tnum, qtab, qnum, u, m_rows, uids, active, n, poses, max_d2, robust_c,
       corr, partials);
 }
@@ -388,26 +245,29 @@ using LinearizeLaunch = void (*)(dim3, cudaStream_t, const float*, const int*,
                                  const bool*, int, const float*, float, float, float*,
                                  float*);
 
-const LinearizeLaunch kLinearize[3][3] = {
-    {launch_linearize<kGicp, kNone>, launch_linearize<kGicp, kHuber>,
-     launch_linearize<kGicp, kCauchy>},
-    {launch_linearize<kPlaneIcp, kNone>, launch_linearize<kPlaneIcp, kHuber>,
-     launch_linearize<kPlaneIcp, kCauchy>},
-    {launch_linearize<kIcp, kNone>, launch_linearize<kIcp, kHuber>,
-     launch_linearize<kIcp, kCauchy>},
+#define SGT_LINEARIZE_ROW(F, S)                                          \
+  {launch_linearize<F, kNone, S>, launch_linearize<F, kHuber, S>,        \
+   launch_linearize<F, kCauchy, S>}
+// [score form][factor][robust]
+const LinearizeLaunch kLinearize[2][3][3] = {
+    {SGT_LINEARIZE_ROW(kGicp, false), SGT_LINEARIZE_ROW(kPlaneIcp, false),
+     SGT_LINEARIZE_ROW(kIcp, false)},
+    {SGT_LINEARIZE_ROW(kGicp, true), SGT_LINEARIZE_ROW(kPlaneIcp, true),
+     SGT_LINEARIZE_ROW(kIcp, true)},
 };
+#undef SGT_LINEARIZE_ROW
 
 constexpr int kMaxLanes = 65535;  // gridDim.y
 
 int linearize(const float* ttab, const int* tnum, const float* qtab, const int* qnum,
               int u, int m_rows, const int* uids, const bool* active, int b, int n,
               const float* poses, float max_d2, float robust_c, int factor,
-              int robust, float* corr, float* partials, void* stream) {
+              int robust, bool score, float* corr, float* partials, void* stream) {
   if (factor < 0 || factor > 2 || robust < 0 || robust > 2 || n <= 0 || u < 1 ||
       m_rows < 0 || b < 1 || b > kMaxLanes)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kLinThreads - 1) / kLinThreads, b);
-  kLinearize[factor][robust](grid, (cudaStream_t)stream, ttab, tnum, qtab, qnum, u,
+  kLinearize[score][factor][robust](grid, (cudaStream_t)stream, ttab, tnum, qtab, qnum, u,
                              m_rows, uids, active, n, poses, max_d2, robust_c, corr,
                              partials);
   return (int)cudaGetLastError();
@@ -449,7 +309,16 @@ int sgt_gicp_linearize(const float* ttab, const int* tnum, const float* qtab,
                        float robust_c, int factor, int robust, float* corr,
                        float* partials, void* stream) {
   return linearize(ttab, tnum, qtab, qnum, 1, 0, nullptr, nullptr, 1, n, pose,
-                   max_d2, robust_c, factor, robust, corr, partials, stream);
+                   max_d2, robust_c, factor, robust, false, corr, partials, stream);
+}
+
+// K1's score-form instance: the same arguments; ttab column 13 holds ‖t‖².
+int sgt_gicp_linearize_score(const float* ttab, const int* tnum, const float* qtab,
+                             const int* qnum, int n, const float* pose, float max_d2,
+                             float robust_c, int factor, int robust, float* corr,
+                             float* partials, void* stream) {
+  return linearize(ttab, tnum, qtab, qnum, 1, 0, nullptr, nullptr, 1, n, pose,
+                   max_d2, robust_c, factor, robust, true, corr, partials, stream);
 }
 
 // K7: b lanes over u pairs of m_rows target and n source rows each;
@@ -460,7 +329,7 @@ int sgt_gicp_linearize_fleet(const float* ttab, const int* tnum, const float* qt
                              float max_d2, float robust_c, int factor, int robust,
                              float* corr, float* partials, void* stream) {
   return linearize(ttab, tnum, qtab, qnum, u, m_rows, uids, active, b, n, poses,
-                   max_d2, robust_c, factor, robust, corr, partials, stream);
+                   max_d2, robust_c, factor, robust, false, corr, partials, stream);
 }
 
 // K2: one pair; src [N,4]; partials [blocks, k1].

@@ -33,9 +33,9 @@
 // (|q|² is constant per query) and returns the winner's d² recomputed from
 // the uncentred inputs.
 //
-// K10 (kNN, one thread per query): a sorted top-k list per thread
-// (common.cuh, KMAX ∈ {16, 32, 64}, k at run time; 32 keeps k = 20, the
-// covariance default, in registers). An insertion taken by one
+// K10 (kNN, one thread per query): a sorted top-k list per thread, in
+// local memory (KMAX ∈ {16, 32, 64} sizes it and the bound's sample list,
+// k at run time). An insertion taken by one
 // lane stalls its warp, and a cloud in scan or voxel order approaches a
 // query gradually, so a cold list would insert at most rows. Each query
 // therefore first takes the kth smallest d² over a strided sample of about
@@ -80,9 +80,10 @@ constexpr int kKnnThreads = 64;    // queries per block (K9, K10, K12)
 constexpr int kKnnTile = 512;      // target rows staged at once (K9, K10)
 constexpr int kSampleRows = 2048;  // rows of K10's bound sample
 constexpr int kWarpTile = 256;     // target rows staged at once (K11)
-constexpr int kTile = 256;         // sorted rows per box (K12)
+constexpr int kTile = sgt::kBoxRows;  // sorted rows per box (K12)
 constexpr int kSeedTiles = 5;      // tiles around the anchor scanned first
-constexpr int kNoIndex = 0x7fffffff;
+using sgt::kNoIndex;
+static_assert(kKnnThreads == sgt::kPrunedThreads, "K12 blocks use common.cuh's helpers");
 
 __device__ __forceinline__ void load_query(const float* __restrict__ qry,
                                            int qstride, int row, float& x,
@@ -164,19 +165,14 @@ nn1_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap
 
 // --------------------------------------------------------------- K10 ----
 
-template <int KMAX>
-__device__ __forceinline__ void store_list(const sgt::TopK<KMAX, 1>& best, int k,
-                                           float* __restrict__ out_d,
-                                           int* __restrict__ out_i, size_t row) {
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    if (s < k) {
-      out_d[row * k + s] = best.d[s];
-      out_i[row * k + s] = best.d[s] < kBig ? (int)best.p0[s] : 0;
-    }
-  }
-}
-
+// K10's list lives in local memory (L1), indexed at run time: its sampled
+// bound is loose, so a query inserts some fifty times, and an insertion
+// sort that stops where the new entry belongs costs its shift distance,
+// while common.cuh's register list costs every insertion a pass over all
+// KMAX slots, taken by the whole warp. On 108,043 × 108,043 points, k = 20,
+// the search takes 17.9 ms this way against 50.1 ms with the register list
+// (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3, 700 W). K3, K4 and K12
+// bound their lists tightly, insert rarely and keep them in registers.
 template <int KMAX>
 __global__ void __launch_bounds__(kKnnThreads)
 knn_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap,
@@ -196,8 +192,13 @@ knn_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap
     bound = sgt::kth_bound<KMAX>(t4, 0, m, step, k, qx, qy, qz);
   }
 
-  sgt::TopK<KMAX, 1> best;
-  best.clear((unsigned)kNoIndex);
+  float bd[KMAX];
+  int bi[KMAX];
+  for (int s = 0; s < k; ++s) {
+    bd[s] = kBig;
+    bi[s] = 0;
+  }
+  float kth = kBig;  // bd[k-1], the distance a candidate has to beat
 
   for (int base = 0; base < m; base += kKnnTile) {
     const int cnt = min(kKnnTile, m - base);
@@ -209,14 +210,26 @@ knn_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap
       const float4 p = tile[j];
       float dx, dy, dz;
       const float d2 = sgt::sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
-      if (d2 < best.kth && d2 <= bound) {
+      if (d2 < kth && d2 <= bound) {
         // Rows arrive in index order, so inserting after equal entries
         // keeps ties at the lower index.
-        best.insert(k, d2, (unsigned)(base + j));
+        int s = k - 1;
+        while (s > 0 && bd[s - 1] > d2) {
+          bd[s] = bd[s - 1];
+          bi[s] = bi[s - 1];
+          --s;
+        }
+        bd[s] = d2;
+        bi[s] = base + j;
+        kth = bd[k - 1];
       }
     }
   }
-  if (active) store_list<KMAX>(best, k, out_d, out_i, (size_t)i);
+  if (!active) return;
+  for (int s = 0; s < k; ++s) {
+    out_d[(size_t)i * k + s] = bd[s];
+    out_i[(size_t)i * k + s] = bi[s];  // 0 in a slot no row has filled
+  }
 }
 
 // --------------------------------------------------------------- K11 ----
@@ -240,10 +253,7 @@ knn_warp_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
 
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (active) load_query(qry, qstride, i, qx, qy, qz);
-  for (int s = 0; s < k; ++s) {
-    ld[s * 32 + lane] = kBig;
-    li[s * 32 + lane] = kNoIndex;
-  }
+  sgt::lane_list_clear(ld, li, lane, k);
   float kth = kBig;  // this lane's d[k-1]
 
   for (int base = 0; base < m; base += kWarpTile) {
@@ -256,19 +266,8 @@ knn_warp_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
       const float4 p = tile[j];
       float dx, dy, dz;
       const float d2 = sgt::sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
-      if (d2 < kth) {
-        // Insertion sort in the lane's column: entries ≤ d2 stay ahead,
-        // and a lane sees its rows in index order.
-        int s = k - 1;
-        while (s > 0 && ld[(s - 1) * 32 + lane] > d2) {
-          ld[s * 32 + lane] = ld[(s - 1) * 32 + lane];
-          li[s * 32 + lane] = li[(s - 1) * 32 + lane];
-          --s;
-        }
-        ld[s * 32 + lane] = d2;
-        li[s * 32 + lane] = base + j;
-        kth = ld[(k - 1) * 32 + lane];
-      }
+      // A lane sees its rows in index order, so ties keep the lower row.
+      if (d2 < kth) sgt::lane_list_insert(ld, li, lane, k, d2, base + j, kth);
     }
   }
   if (!active) return;  // uniform over the warp
@@ -276,21 +275,9 @@ knn_warp_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
   // Merge: k rounds of the smallest head over the lanes.
   int head = 0;
   for (int r = 0; r < k; ++r) {
-    const float hd = head < k ? ld[head * 32 + lane] : kBig;
-    const int hi = head < k ? li[head * 32 + lane] : kNoIndex;
-    float bd = hd;
-    int bi = hi;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (sgt::lex_before(od, oi, bd, bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
-    // Row indices are unique, so exactly one lane holds a real winner.
-    if (bi != kNoIndex && hi == bi) ++head;
+    float bd;
+    int bi;
+    sgt::lane_lists_pop(ld, li, lane, k, head, bd, bi);
     if (lane == 0) {
       out_d[(size_t)i * k + r] = bd;
       out_i[(size_t)i * k + r] = bd < kBig ? bi : 0;
@@ -299,63 +286,6 @@ knn_warp_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
 }
 
 // --------------------------------------------------------------- K12 ----
-
-// Maximum of v over the block; sw holds one float per warp.
-__device__ __forceinline__ float block_max(float v, float* sw) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // earlier readers of sw are done
-  if ((threadIdx.x & 31) == 0) sw[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = sw[0];
-#pragma unroll
-  for (int w = 1; w < kKnnThreads / 32; ++w) r = fmaxf(r, sw[w]);
-  return r;
-}
-
-// gap² between the box b (lo 3, 0, hi 3, 0) and the box [lo, hi] (a point if
-// lo = hi), in the operation order of sq_dist and without fused
-// multiply-add, so that it never exceeds the d² of a pair of points inside
-// the two boxes: subtraction, squaring and the sums are monotone under
-// round-to-nearest.
-__device__ __forceinline__ float box_gap2(const float* __restrict__ b, float lox,
-                                          float loy, float loz, float hix, float hiy,
-                                          float hiz) {
-  const float gx = fmaxf(0.f, fmaxf(__fsub_rn(b[0], hix), __fsub_rn(lox, b[4])));
-  const float gy = fmaxf(0.f, fmaxf(__fsub_rn(b[1], hiy), __fsub_rn(loy, b[5])));
-  const float gz = fmaxf(0.f, fmaxf(__fsub_rn(b[2], hiz), __fsub_rn(loz, b[6])));
-  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
-}
-
-// K12: stage sorted tile t and offer its rows to the queries of the block
-// that can still use them. Called by all threads of the block or by none.
-// A warp none of whose queries can use the tile (its box lies farther from
-// each than that query's kth distance) skips the rows.
-template <int KMAX>
-__device__ __forceinline__ void scan_tile(const float4* __restrict__ t4,
-                                          const float* __restrict__ tbox, int m,
-                                          int t, float4* tile, bool active, float qx,
-                                          float qy, float qz, int k,
-                                          sgt::TopK<KMAX, 1>& best) {
-  const int base = t * kTile;
-  const int cnt = min(kTile, m - base);
-  __syncthreads();
-  for (int j = threadIdx.x; j < cnt; j += kKnnThreads) tile[j] = t4[base + j];
-  __syncthreads();
-  const bool wanted =
-      active && !(box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > best.kth);
-  if (!__any_sync(0xffffffffu, wanted)) return;
-  if (!wanted) return;
-  for (int j = 0; j < cnt; ++j) {
-    const float4 p = tile[j];
-    float dx, dy, dz;
-    const float d2 = sgt::sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
-    const int idx = __float_as_int(p.w);  // original row index
-    if (d2 < kBig && sgt::lex_before(d2, idx, best.kth, (int)best.kth0))
-      best.insert_lex(k, d2, idx);
-  }
-}
 
 template <int KMAX>
 __global__ void __launch_bounds__(kKnnThreads)
@@ -378,16 +308,15 @@ knn_pruned_kernel(const float* __restrict__ tsorted, const int* __restrict__ tnu
     row = qperm[i];
     load_query(qry, qstride, row, qx, qy, qz);
   }
-  // The block's query box.
-  const float lox = -block_max(active ? -qx : -kBig, sw);
-  const float loy = -block_max(active ? -qy : -kBig, sw);
-  const float loz = -block_max(active ? -qz : -kBig, sw);
-  const float hix = block_max(active ? qx : -kBig, sw);
-  const float hiy = block_max(active ? qy : -kBig, sw);
-  const float hiz = block_max(active ? qz : -kBig, sw);
+  float lo[3], hi[3];  // the block's query box
+  sgt::block_box(active, qx, qy, qz, sw, lo, hi);
 
-  sgt::TopK<KMAX, 1> best;
-  best.clear((unsigned)kNoIndex);
+  float bd[KMAX];
+  unsigned bi[KMAX];
+  sgt::topk_fill<KMAX>(bd, kBig);
+  sgt::topk_fill<KMAX>(bi, (unsigned)kNoIndex);
+  float kth = kBig;
+  unsigned kth0 = (unsigned)kNoIndex;
 
   // Seed: the tiles around the median query's position in the sorted target.
   int seed_lo = 0, seed_hi = -1;
@@ -397,19 +326,22 @@ knn_pruned_kernel(const float* __restrict__ tsorted, const int* __restrict__ tnu
     seed_lo = max(0, anchor - kSeedTiles / 2);
     seed_hi = min(ntiles - 1, anchor + kSeedTiles / 2);
     for (int t = seed_lo; t <= seed_hi; ++t)
-      scan_tile<KMAX>(t4, tbox, m, t, tile, active, qx, qy, qz, k, best);
+      sgt::scan_tile<KMAX, false>(t4, tbox, m, t, tile, active, qx, qy, qz, k, kBig,
+                                  bd, bi, kth, kth0);
   }
-  float bound = block_max(active ? best.kth : 0.f, sw);
+  float bound = sgt::block_max(active ? kth : 0.f, sw);
 
   // Completion: every other tile whose box is within the bound.
   for (int t = 0; t < ntiles; ++t) {
     if (t >= seed_lo && t <= seed_hi) continue;
-    const float gap2 = box_gap2(tbox + (size_t)t * 8, lox, loy, loz, hix, hiy, hiz);
+    const float gap2 =
+        sgt::box_gap2(tbox + (size_t)t * 8, lo[0], lo[1], lo[2], hi[0], hi[1], hi[2]);
     if (gap2 > bound) continue;  // the same for every thread of the block
-    scan_tile<KMAX>(t4, tbox, m, t, tile, active, qx, qy, qz, k, best);
-    bound = block_max(active ? best.kth : 0.f, sw);
+    sgt::scan_tile<KMAX, false>(t4, tbox, m, t, tile, active, qx, qy, qz, k, kBig, bd,
+                                bi, kth, kth0);
+    bound = sgt::block_max(active ? kth : 0.f, sw);
   }
-  if (active) store_list<KMAX>(best, k, out_d, out_i, (size_t)row);
+  if (active) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
 }
 
 inline bool bad_search(int mcap, int qstride, int nq) {
@@ -499,13 +431,8 @@ int sgt_knn_pruned(const float* tsorted, const int* tnum, int mcap,
   return (int)cudaGetLastError();
 }
 
-// The pruned search's geometry, which the wrapper's prologue and plain
-// version repeat: out[0..2] = rows per box, queries per block, seed tiles.
-int sgt_knn_geometry(int* out) {
-  out[0] = kTile;
-  out[1] = kKnnThreads;
-  out[2] = kSeedTiles;
-  return 0;
-}
+// Tiles around the anchor that K12 scans first, which the wrapper's plain
+// version repeats (rows per box and queries per block: sgt_box_geometry).
+int sgt_knn_seed_tiles() { return kSeedTiles; }
 
 }  // extern "C"

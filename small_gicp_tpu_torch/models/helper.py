@@ -60,9 +60,11 @@ def align(target, source, target_tree: Optional[KdTree] = None,
           max_correspondence_distance: float = 1.0, max_iterations: int = 20,
           rotation_eps: float = 0.1 * _M_PI / 180.0, translation_eps: float = 1e-3,
           max_points: Optional[int] = None, optimizer: str = "lm",
-          device=None) -> RegistrationResult:
+          device=None, fused_route: Optional[str] = None) -> RegistrationResult:
     """One-shot align of raw [N,3] arrays (preprocessed here, with k=10
-    neighbours) or of preprocessed PointClouds.
+    neighbours) or of preprocessed PointClouds. A preprocessed target may be
+    a map of millions of rows: above 1,572,864 the fused search sweeps its
+    Morton-sorted tiles (``fused_route`` forces "listed" or "swept").
 
     ``device`` places raw arrays (default: the card); preprocessed clouds
     stay where they are.
@@ -90,6 +92,7 @@ def align(target, source, target_tree: Optional[KdTree] = None,
         rotation_eps=rotation_eps,
         translation_eps=translation_eps,
         max_iterations=max_iterations,
+        fused_route=fused_route,
     )
     return reg.align(target, source, target_tree, init_T_target_source)
 

@@ -16,10 +16,15 @@ targets. Semantics kept from the reference:
 
 Two routes, chosen as the JAX package chooses them (``use_fused``):
   * fused ("auto", for a PointCloud target, a KdTree or no searcher and
-    float32 clouds): every linearization goes through
-    ``gicp_linearize_tables`` (kernel K1 on the card) and every error
-    evaluation through ``gicp_error_multi`` (K2); on CPU tensors those run
-    their plain versions;
+    float32 clouds): the tables are prepared once before the loop
+    (``gicp_prepare``), every linearization goes through
+    ``gicp_linearize_tables`` — kernel K1 on the card, or for targets above
+    1,572,864 rows the swept kernel K6 over the Morton-sorted, boxed
+    target (``fused_route`` forces either; a ``KdTree`` built over the
+    target keeps that sort and those boxes from one align to the next,
+    without it they are made anew) — and every error evaluation
+    through ``gicp_error_multi`` (K2); on CPU tensors those run their
+    plain versions;
   * unfused ("never", or float64 clouds): ``search_correspondences`` —
     transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on the card),
     gather of the winners' payload, ``make_weights``, rejector mask — feeds
@@ -41,6 +46,8 @@ from small_gicp_tpu_torch.point_cloud import PointCloud
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     ROBUST_KERNELS,
+    ROUTES,
+    auto_route,
     gicp_error_multi,
     gicp_linearize_tables,
     gicp_prepare,
@@ -103,12 +110,14 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                lambda_factor: float = 10.0, gn_lambda: float = 1e-6,
                dof_mask=None, dof_lambda: float = 1e9,
                use_fused: str = "auto",
-               solve_dtype: str = "same") -> RegistrationResult:
+               solve_dtype: str = "same",
+               fused_route: Optional[str] = None) -> RegistrationResult:
     """Register ``source`` to ``target``; both clouds on the same device.
 
     ``use_fused``: "auto" takes the fused kernels for float32 clouds;
     "never" keeps the unfused search + linearize route, which float64
-    clouds always take.
+    clouds always take. ``fused_route``: "listed" or "swept" forces the
+    fused search's route; None chooses by the target's size.
     """
     if not isinstance(target, PointCloud):
         raise NotImplementedError(_NOT_PORTED)
@@ -126,6 +135,9 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         raise ValueError(f"solve_dtype must be 'same' or 'float64', got {solve_dtype!r}")
     if use_fused not in ("auto", "never"):
         raise ValueError(f"use_fused must be 'auto' or 'never', got {use_fused!r}")
+    if fused_route is not None and fused_route not in ROUTES:
+        raise ValueError(f"fused_route must be None, 'listed' or 'swept', got "
+                         f"{fused_route!r}")
 
     dt, dev = source.dtype, source.device
     solve_dt = dt if solve_dtype == "same" else torch.float64
@@ -137,12 +149,18 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
             torch.as_tensor(dof_mask, dtype=solve_dt, device=dev) - 1.0))
 
     if use_fused == "auto" and dt == torch.float32:
+        route = fused_route or auto_route(target.points)
+        # A tree over this very target keeps its sort and boxes across aligns.
+        kept = (target_tree.pruned_target()
+                if route == "swept" and isinstance(target_tree, KdTree)
+                and target_tree.points is target.points else None)
         tables = gicp_prepare(
             target.points, target.num_points, source.points, source.num_points,
             factor=registration_type,
             target_covs=target.covs if registration_type == GICP else None,
             source_covs=source.covs if registration_type == GICP else None,
             target_normals=target.normals if registration_type == PLANE_ICP else None,
+            route=route, target=kept,
         )
 
         def linearize(T):
@@ -237,7 +255,8 @@ class Registration:
                  max_correspondence_distance: float = 1.0,
                  rotation_eps: float = 0.1 * math.pi / 180.0,
                  translation_eps: float = 1e-3, dof_rotation_mask=None,
-                 dof_translation_mask=None, solve_dtype: str = "same"):
+                 dof_translation_mask=None, solve_dtype: str = "same",
+                 fused_route: Optional[str] = None):
         if registration_type == "vgicp":
             raise NotImplementedError(_NOT_PORTED)
         if registration_type not in (ICP, PLANE_ICP, GICP):
@@ -255,6 +274,7 @@ class Registration:
         self.rotation_eps = rotation_eps
         self.translation_eps = translation_eps
         self.solve_dtype = solve_dtype
+        self.fused_route = fused_route
         self.dof_mask = None
         if dof_rotation_mask is not None or dof_translation_mask is not None:
             rm = [1.0] * 3 if dof_rotation_mask is None else list(dof_rotation_mask)
@@ -276,6 +296,7 @@ class Registration:
             translation_eps=self.translation_eps,
             dof_mask=self.dof_mask,
             solve_dtype=self.solve_dtype,
+            fused_route=self.fused_route,
         )
 
 

@@ -1,43 +1,99 @@
-"""Exact self-kNN covariance moments: kernel K3 and its plain version.
+"""Exact self-kNN covariance moments: kernels K3, K4, K5 and their plain
+versions.
 
 Counterpart of ``small_gicp_tpu/ops/cov_fused_pallas.py``
-(``knn_moments_pallas``). ``knn_moments_rows`` returns one row per point,
+(``knn_moments_pallas``). ``knn_moments`` returns, in original row order,
+(m1 [N,3] = Σd, m2 [N,3,3] = Σddᵀ, counts [N]) with d = p − q over the k
+nearest valid rows p of every valid row q (self included; a neighbour
+counts if its d² < 1e16). Rows at or beyond ``num_points`` are zero. Ties
+go to the lower row index in every layout, so the three layouts choose the
+same neighbours.
+
+Three layouts, named as the JAX package names them:
+
+  * ``"t"`` (K3): one thread per query, brute force over the cloud, the
+    moment rows formed in the kernel — the default up to ``TI_MIN_ROWS``
+    rows;
+  * ``"ti"`` (K4): the kernel returns the neighbours only (``knn_topk_idx``:
+    indices and d², through a Morton-sorted, box-pruned search whose bound
+    comes from each row's Morton window); the winners are gathered and
+    summed here with torch ops — the default above ``TI_MIN_ROWS`` rows,
+    where brute force costs seconds;
+  * ``"q"`` (K5): K3's moment rows by the other work mapping, one warp per
+    query; by request only.
+
+``knn_moments_rows`` returns the [N,16] rows of ``"t"`` and ``"q"``,
 
   [Σd 3 | Σddᵀ upper 6 (xx xy xz yy yz zz) | count | d_k | 0 ×5]
 
-with d = p − q over the k nearest valid rows p of the query q (self
-included), count the neighbours with d² < 1e16 and d_k the kth d². Rows
-at or beyond ``num_points`` are zero. Ties keep the lower row index, so
-the kernel and the plain version choose the same neighbours.
+with d_k the kth d². The routing thresholds are the JAX package's; they
+were set by TPU memory and bind nothing on this card, and moving them is a
+measured decision for later.
 
-On a CUDA tensor the wrapper launches the CUDA kernel
-(``csrc/cov_fused.cu``); on a CPU tensor it runs the plain version.
+On a CUDA tensor every wrapper launches its kernel (``csrc/cov_fused.cu``)
+or raises; on a CPU tensor it runs the plain version beside it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from small_gicp_tpu_torch import _build
+from small_gicp_tpu_torch.ops import morton_boxes
 from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK
+from small_gicp_tpu_torch.ops.knn_cuda import knn_plain
+from small_gicp_tpu_torch.ops.morton_boxes import PrunedTarget, pruned_prepare_target
 
 _BIG = 3.0e38
 _VALID_SQ = 1e16
 MAX_K = 64
+LAYOUTS = ("t", "ti", "q")
+# knn_moments_pallas' routing (cov_fused_pallas.py:402-415): "t" up to this
+# many rows, "ti" above, nothing above MAX_ROWS.
+TI_MIN_ROWS = 262_144
+MAX_ROWS = 1_048_576
 
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_moments supports 1 <= k <= {MAX_K}, got {k}")
+
+
+def _library():
+    return morton_boxes.library("cov_fused")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def bound_window(k: int) -> int:
+    """Sorted rows around a query from which K4 takes its kth-distance
+    bound (``w`` of cov_fused_pallas.py:431)."""
+    return max(64, 2 * k + 24)
+
+
+# ------------------------------------------------------------ K3, K5 ----
 
 def knn_moments_rows_plain(points: torch.Tensor, num_points: torch.Tensor,
-                           k: int) -> torch.Tensor:
-    """Plain PyTorch version of K3: [N,4] points → [N,16] moment rows."""
+                           k: int, rows: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of K3: [N,4] points → [N,16] moment rows.
+    ``rows`` [R] int64 restricts the queries to those rows ([R,16] output),
+    for clouds whose N² distances are out of reach."""
     n = points.shape[0]
     dev, dt = points.device, points.dtype
     xyz = points[:, :3]
     cols = torch.arange(n, device=dev)
-    out = torch.zeros((n, 16), dtype=dt, device=dev)
-    for s in range(0, n, QUERY_BLOCK):
-        q = xyz[s:s + QUERY_BLOCK]
+    rows = cols if rows is None else rows
+    out = torch.zeros((len(rows), 16), dtype=dt, device=dev)
+    for s in range(0, len(rows), QUERY_BLOCK):
+        ids = rows[s:s + QUERY_BLOCK]
+        q = xyz[ids]
         dx = xyz[None, :, 0] - q[:, None, 0]  # p − q, [B, N]
         dy = xyz[None, :, 1] - q[:, None, 1]
         dz = xyz[None, :, 2] - q[:, None, 2]
@@ -50,54 +106,170 @@ def knn_moments_rows_plain(points: torch.Tensor, num_points: torch.Tensor,
         gx, gy, gz = (torch.gather(a, 1, idx) for a in (dx, dy, dz))
         v = d_k < _VALID_SQ
         vx, vy, vz = (torch.where(v, g, 0.0) for g in (gx, gy, gz))
-        rows = torch.stack(
+        moments = torch.stack(
             [vx.sum(1), vy.sum(1), vz.sum(1),
              (vx * gx).sum(1), (vx * gy).sum(1), (vx * gz).sum(1),
              (vy * gy).sum(1), (vy * gz).sum(1), (vz * gz).sum(1),
              v.sum(1).to(dt), d_k[:, k - 1]],
             dim=1,
         )
-        live = (s + torch.arange(rows.shape[0], device=dev)) < num_points
-        out[s:s + QUERY_BLOCK, :11] = torch.where(live[:, None], rows, 0.0)
+        out[s:s + QUERY_BLOCK, :11] = torch.where((ids < num_points)[:, None],
+                                                  moments, 0.0)
     return out
 
 
-def _knn_moments_rows_cuda(points: torch.Tensor, num_points: torch.Tensor,
-                           k: int) -> torch.Tensor:
+def knn_moments_rows_q_plain(points: torch.Tensor, num_points: torch.Tensor,
+                             k: int, rows: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of K5: the same function as K3's, so the same
+    body (the two kernels differ in their work mapping only)."""
+    return knn_moments_rows_plain(points, num_points, k, rows)
+
+
+def _launch_rows(wrapper, entry: str, points: torch.Tensor,
+                 num_points: torch.Tensor, k: int) -> torch.Tensor:
+    """Launch the K3 / K5 entry ``entry`` and count it on ``wrapper``."""
     _build.require(points, "points", torch.float32, (None, 4))
     _build.require(num_points, "num_points", torch.int32, ())
     n = points.shape[0]
     out = torch.empty((n, 16), dtype=torch.float32, device=points.device)
     if n == 0:
         return out
-    lib = _build.library("cov_fused")
+    lib = _library()
     with torch.cuda.device(points.device):
-        rc = lib.sgt_knn_moments(
-            points.data_ptr(), num_points.data_ptr(), n, k, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(rc, "knn_moments")
-    knn_moments_rows.launches += 1
+        rc = getattr(lib, entry)(points.data_ptr(), num_points.data_ptr(), n, k,
+                                 out.data_ptr(), _stream())
+    _build.check(rc, entry)
+    wrapper.launches += 1
     return out
 
 
-def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor,
-                     k: int) -> torch.Tensor:
-    """[N,4] padded cloud → [N,16] moment rows (kernel on CUDA, plain on CPU)."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_moments supports 1 <= k <= {MAX_K}, got {k}")
+def knn_moments_rows_q(points: torch.Tensor, num_points: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """[N,4] padded cloud → [N,16] moment rows, one warp per query (kernel
+    K5 on CUDA, plain version on the CPU)."""
+    _check_k(k)
+    if points.device.type == "cpu":
+        return knn_moments_rows_q_plain(points, num_points, k)
+    return _launch_rows(knn_moments_rows_q, "sgt_knn_moments_warp", points,
+                        num_points, k)
+
+
+knn_moments_rows_q.launches = 0
+
+
+def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                     layout: str = "t") -> torch.Tensor:
+    """[N,4] padded cloud → [N,16] moment rows: layout ``"t"`` (kernel K3 on
+    CUDA, plain version on the CPU) or ``"q"`` (``knn_moments_rows_q``).
+    Layout ``"ti"`` forms no rows: see ``knn_topk_idx``."""
+    _check_k(k)
+    if layout == "q":
+        return knn_moments_rows_q(points, num_points, k)
+    if layout != "t":
+        raise ValueError(f"moment rows come in layout 't' or 'q', got {layout!r}")
     if points.device.type == "cpu":
         return knn_moments_rows_plain(points, num_points, k)
-    return _knn_moments_rows_cuda(points, num_points, k)
+    return _launch_rows(knn_moments_rows, "sgt_knn_moments", points, num_points, k)
 
 
 knn_moments_rows.launches = 0
 
 
-def knn_moments(points: torch.Tensor, num_points: torch.Tensor, k: int
+# ---------------------------------------------------------------- K4 ----
+
+def knn_topk_idx_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                       rows: Optional[torch.Tensor] = None) -> Pair:
+    """Plain PyTorch version of K4: brute-force self-kNN by stable sort
+    (ties to the lower row), (d² [N,k] ascending, idx [N,k] int32); rows at
+    or beyond ``num_points`` and slots without a neighbour hold d² = 3e38
+    and index 0. ``rows`` [R] int64 restricts the queries to those rows
+    ([R,k] outputs): brute force over a map-scale cloud is out of reach."""
+    n = points.shape[0]
+    rows = torch.arange(n, device=points.device) if rows is None else rows
+    d, i = knn_plain(points, num_points, points[rows, :3], k)
+    live = (rows < num_points)[:, None]
+    return torch.where(live, d, _BIG), torch.where(live, i, 0)
+
+
+def knn_topk_idx_launch(target: PrunedTarget, num_points: torch.Tensor, k: int
+                        ) -> Pair:
+    """Kernel K4 alone, over the finished sort and boxes of the cloud."""
+    _check_k(k)
+    _build.require(target.tsorted, "sorted rows", torch.float32, (None, 4))
+    _build.require(num_points, "num_points", torch.int32, ())
+    n = target.tsorted.shape[0]
+    dev = target.tsorted.device
+    d = torch.empty((n, k), dtype=torch.float32, device=dev)
+    i = torch.empty((n, k), dtype=torch.int32, device=dev)
+    if n == 0:
+        return d, i
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.sgt_knn_topk_idx(
+            target.tsorted.data_ptr(), num_points.data_ptr(), n, target.tbox.data_ptr(),
+            k, bound_window(k), d.data_ptr(), i.data_ptr(), _stream())
+    _build.check(rc, "knn_topk_idx")
+    knn_topk_idx.launches += 1
+    return d, i
+
+
+def knn_topk_idx(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                 target: Optional[PrunedTarget] = None) -> Pair:
+    """Indices and d² of every valid row's k nearest valid rows (self
+    included): (d² [N,k] ascending, idx [N,k] int32), ties to the lower row;
+    padding rows and empty slots hold d² = 3e38 and index 0. Kernel K4 on
+    CUDA (over ``pruned_prepare_target``'s sort and boxes, which ``target``
+    passes in when the caller has them), plain version on the CPU."""
+    _check_k(k)
+    if points.device.type == "cpu":
+        return knn_topk_idx_plain(points, num_points, k)
+    _build.require(points, "points", torch.float32, (None, 4))
+    if target is None:
+        target = pruned_prepare_target(points, num_points)
+    return knn_topk_idx_launch(target, num_points, k)
+
+
+knn_topk_idx.launches = 0
+
+
+def moments_from_neighbors(points: torch.Tensor, sq_dists: torch.Tensor,
+                           idx: torch.Tensor):
+    """(m1, m2, counts) from gathered winners, query-centred, slots with
+    d² ≥ 1e16 dropped (cov_fused_pallas.py:537-551)."""
+    xyz = points[:, :3]
+    nb = xyz[idx.long()] - xyz[:, None, :]  # [N,k,3]
+    v = (sq_dists < _VALID_SQ).to(points.dtype)
+    nbv = nb * v[:, :, None]
+    return nbv.sum(dim=1), torch.einsum("nka,nkb->nab", nbv, nb), v.sum(dim=1)
+
+
+# ---------------------------------------------------------- the entry ----
+
+def auto_layout(num_rows: int) -> str:
+    """The layout ``knn_moments(layout=None)`` takes for a cloud of
+    ``num_rows`` rows (capacity, not valid rows)."""
+    return "t" if num_rows <= TI_MIN_ROWS else "ti"
+
+
+def knn_moments(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                layout: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(m1 [N,3] = Σd, m2 [N,3,3] = Σddᵀ, counts [N]) in original row order."""
-    rows = knn_moments_rows(points, num_points, k)
+    if layout is None:
+        layout = auto_layout(points.shape[0])
+    if k > MAX_K:
+        raise ValueError(f"knn_moments supports k<={MAX_K}, got {k}")
+    if points.shape[0] > MAX_ROWS:
+        raise ValueError(
+            f"knn_moments serves clouds of at most {MAX_ROWS} rows, got "
+            f"{points.shape[0]} (use the searched path, KdTree.knn_search, for "
+            "larger clouds)")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r} (use 't', 'ti' or 'q')")
+    if layout == "ti":
+        return moments_from_neighbors(points, *knn_topk_idx(points, num_points, k))
+    rows = knn_moments_rows(points, num_points, k, layout)
     m1 = rows[:, 0:3]
     m2 = rows[:, [3, 4, 5, 4, 6, 7, 5, 7, 8]].reshape(-1, 3, 3)
     return m1, m2, rows[:, 9]

@@ -1,15 +1,29 @@
-"""Fused correspondence search + linearize (K1, K7) and LM trial errors
+"""Fused correspondence search + linearize (K1, K6, K7) and LM trial errors
 (K2, K8).
 
 Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
 
-  * ``gicp_prepare`` builds the per-align tables once;
+  * ``gicp_prepare`` builds the per-align tables once, for one of two
+    routes: ``"listed"`` (K1, brute force over the valid target rows; the
+    default up to ``LISTED_MP_CAP`` target rows) or ``"swept"`` (K6, for
+    map-scale targets: it adds the Morton-sorted target rows, their tile
+    boxes and the source's Morton order, all from ``ops/morton_boxes.py``;
+    the target's half depends on the target alone and can be passed in).
+    The threshold is the JAX package's, set by TPU memory; either route
+    can be forced;
   * ``gicp_linearize_tables`` → (H [6,6], b [6], inliers, corr [N,16]):
     exact 1-NN of T·p over the valid target rows (ties to the lower
     index), the factor's weight W, the rejector mask d² ≤ max_d2, the
     optional Huber/Cauchy weight and the sums of J_iᵀW_iJ_i, J_iᵀW_ir_i,
     e_i and the inlier count. corr rows are [μ 3 | W 9 | mask | d² | 0 0]
-    in original source order;
+    in original source order. It follows the tables' route; on the listed
+    route ``mxu_dist=True`` ranks the targets by the score ‖t‖² − 2 t·q
+    (``gicp_linearize_score``) instead of the difference form. The swept
+    route (``gicp_linearize_swept``) only visits target tiles within the
+    rejector radius of a block of source rows; H, b and the inliers are
+    K1's, and so are the corr rows with mask = 1, while a row without an
+    accepted correspondence holds zeros and d² = 3e38 (its nearest row may
+    lie in a tile that was never visited);
   * ``gicp_error_multi`` → [K1] float64: Σ ½ rᵀWr·mask at each of up to
     100 poses over frozen corr rows, re-weighted by w(√e) at each pose.
 
@@ -35,10 +49,24 @@ from typing import Optional, Tuple
 import torch
 
 from small_gicp_tpu_torch import _build
+from small_gicp_tpu_torch.ops import morton_boxes
 from small_gicp_tpu_torch.ops.eigh3 import inv3x3
 from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK, sq_dists
+from small_gicp_tpu_torch.ops.morton_boxes import (
+    TILE_ROWS,
+    PrunedTarget,
+    morton_order,
+    pruned_prepare_target,
+)
 
 _BIG = 3.0e38
+_NO_INDEX = 2 ** 31 - 1
+ROUTES = ("listed", "swept")
+# Targets above this many rows take the swept route by default
+# (_LISTED_MP_CAP of gicp_fused_pallas.py).
+LISTED_MP_CAP = 1_572_864
+# Source rows per block of the swept kernel.
+SWEPT_BLOCK_ROWS = morton_boxes.BLOCK_ROWS
 FACTORS = ("gicp", "plane_icp", "icp")
 ROBUST_KERNELS = ("huber", "cauchy")
 MAX_POSES = 100
@@ -53,9 +81,10 @@ class GicpTables:
     """Per-align kernel tables (built once by ``gicp_prepare``).
 
     ttab [M,16]: x y z 0 | payload 9 (C_t row-major, or the target normal
-    in 0-2, or zeros) | 0 0 0.  qtab [N,16]: x y z 0 | C_s 9 | 0 0 0.
-    Fleet tables (``gicp_fleet_prepare``) carry a leading [U] pair axis
-    on all four tensors.
+    in 0-2, or zeros) | ‖t‖² 0 0.  qtab [N,16]: x y z 0 | C_s 9 | 0 0 0.
+    Both stay in the clouds' row order on either route. Fleet tables
+    (``gicp_fleet_prepare``) carry a leading [U] pair axis on the first
+    four tensors. The swept route adds the last three.
     """
 
     ttab: torch.Tensor
@@ -63,18 +92,43 @@ class GicpTables:
     qtab: torch.Tensor
     qnum: torch.Tensor  # int32, valid source rows (0-d, or [U])
     factor: str
+    route: str = "listed"
+    tsorted: Optional[torch.Tensor] = None  # [M,4] Morton-sorted x y z | row
+    tbox: Optional[torch.Tensor] = None  # [ceil(M/256), 8] lo 3, 0, hi 3, 0
+    sperm: Optional[torch.Tensor] = None  # [N] int32, sorted position → source row
+
+
+def auto_route(target_points: torch.Tensor) -> str:
+    """The route ``gicp_prepare(route=None)`` takes for this target: listed
+    up to ``LISTED_MP_CAP`` rows (capacity, not valid rows) and for stacked
+    tables, swept above."""
+    return ("swept" if target_points.dim() == 2
+            and target_points.shape[0] > LISTED_MP_CAP else "listed")
 
 
 def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
                  source_points: torch.Tensor, source_num: torch.Tensor,
                  factor: str = "gicp", target_covs: Optional[torch.Tensor] = None,
                  source_covs: Optional[torch.Tensor] = None,
-                 target_normals: Optional[torch.Tensor] = None) -> GicpTables:
-    """Build the tables of one registration (no sort: the search is brute
-    force, so the clouds keep their row order). Leading dimensions of the
-    clouds carry over to the tables."""
+                 target_normals: Optional[torch.Tensor] = None,
+                 route: Optional[str] = None,
+                 target: Optional[PrunedTarget] = None) -> GicpTables:
+    """Build the tables of one registration, once before the optimizer's
+    loop. ``route``: ``"listed"``, ``"swept"`` or None for ``auto_route``.
+    The tables keep the clouds' row order; the swept route adds the sorted
+    target rows, their boxes and the source's order. ``target`` is
+    ``pruned_prepare_target(target_points, target_num)`` when the caller
+    has it already (``KdTree`` keeps it): the swept route then sorts the
+    source only. Leading dimensions of the clouds carry over to the tables
+    (listed route only)."""
     if factor not in FACTORS:
         raise ValueError(f"unknown fused factor {factor!r}")
+    if route is None:
+        route = auto_route(target_points)
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r} (use 'listed' or 'swept')")
+    if route == "swept" and (target_points.dim() != 2 or source_points.dim() != 2):
+        raise ValueError("the swept route serves one pair, not stacked tables")
     dt = source_points.dtype
     ttab = target_points.new_zeros(target_points.shape[:-1] + (16,), dtype=dt)
     ttab[..., 0:3] = target_points[..., :3]
@@ -86,12 +140,26 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
         if target_normals is None:
             raise ValueError("point-to-plane ICP requires target normals")
         ttab[..., 4:7] = target_normals[..., :3]
+    # ‖t‖² for the score form, in the order its kernel and plain version add.
+    x, y, z = ttab[..., 0], ttab[..., 1], ttab[..., 2]
+    ttab[..., 13] = x * x + y * y + z * z
     qtab = source_points.new_zeros(source_points.shape[:-1] + (16,))
     qtab[..., 0:3] = source_points[..., :3]
     if factor == "gicp":
         qtab[..., 4:13] = source_covs.flatten(-2)
-    return GicpTables(ttab=ttab, tnum=target_num.to(torch.int32), qtab=qtab,
-                      qnum=source_num.to(torch.int32), factor=factor)
+    tables = GicpTables(ttab=ttab, tnum=target_num.to(torch.int32), qtab=qtab,
+                        qnum=source_num.to(torch.int32), factor=factor, route=route)
+    if route == "swept":
+        if target is None:
+            target = pruned_prepare_target(target_points.to(dt), tables.tnum)
+        elif (target.tsorted.shape[0] != target_points.shape[0]
+              or target.tsorted.dtype != dt):
+            raise ValueError("target= was not prepared from these target points")
+        n = source_points.shape[0]
+        valid = torch.arange(n, device=source_points.device) < source_num
+        tables.tsorted, tables.tbox = target.tsorted, target.tbox
+        tables.sperm = morton_order(source_points[:, :3], valid)[1].to(torch.int32)
+    return tables
 
 
 def gicp_fleet_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
@@ -170,28 +238,25 @@ def _stream() -> int:
 
 # ------------------------------------------------------------ K1, K7 ----
 
-def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
-                           robust_c, factor):
-    """K1's arithmetic over B lanes: ttab [B,M,16], tnum [B], qtab [B,N,16],
-    qnum [B], pose [B,12] → (sums [B,44] float64, corr [B,N,16])."""
-    dt, dev = qtab.dtype, qtab.device
-    bsz, n, m = qtab.shape[0], qtab.shape[1], ttab.shape[1]
+def _transform_lanes(qtab, pose):
+    """T·p of the source rows in the kernels' order: qtab [B,N,16], pose
+    [B,12] → [B,N,3]."""
     r, t = pose[:, :9, None], pose[:, 9:, None]  # [B,9,1], [B,3,1]
     px, py, pz = qtab[..., 0], qtab[..., 1], qtab[..., 2]  # [B,N]
-    q = torch.stack([r[:, 0] * px + r[:, 1] * py + r[:, 2] * pz + t[:, 0],
-                     r[:, 3] * px + r[:, 4] * py + r[:, 5] * pz + t[:, 1],
-                     r[:, 6] * px + r[:, 7] * py + r[:, 8] * pz + t[:, 2]], dim=-1)
+    return torch.stack([r[:, 0] * px + r[:, 1] * py + r[:, 2] * pz + t[:, 0],
+                        r[:, 3] * px + r[:, 4] * py + r[:, 5] * pz + t[:, 1],
+                        r[:, 6] * px + r[:, 7] * py + r[:, 8] * pz + t[:, 2]], dim=-1)
 
-    active = torch.arange(n, device=dev) < qnum[:, None]
-    best_d = torch.full((bsz, n), _BIG, dtype=dt, device=dev)
-    best = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
-    if m > 0:
-        tcol = (torch.arange(m, device=dev) < tnum[:, None])[:, None, :]
-        step = max(1, QUERY_BLOCK // max(bsz, 1))
-        for s in range(0, n, step):
-            d2 = torch.where(tcol, sq_dists(q[:, s:s + step], ttab[..., :3]), _BIG)
-            # first minimum on ties
-            best_d[:, s:s + step], best[:, s:s + step] = torch.min(d2, dim=-1)
+
+def _finalize_plain_lanes(ttab, qtab, pose, q, active, best, best_d, max_dist_sq,
+                          robust, robust_c, factor, zero_unmatched=False):
+    """The kernels' finalize over B lanes: winners ``best`` [B,N] (rows of
+    ttab; any row where ``best_d`` is 3e38) at ``best_d`` [B,N] for the
+    transformed points q [B,N,3] → (sums [B,44] float64, corr [B,N,16]).
+    ``zero_unmatched``: rows with mask = 0 hold zeros and d² = 3e38."""
+    dt, dev = qtab.dtype, qtab.device
+    bsz, n = qtab.shape[0], qtab.shape[1]
+    px, py, pz = qtab[..., 0], qtab[..., 1], qtab[..., 2]
     found = active & (best_d < _BIG)
     best_d = torch.where(active, best_d, _BIG)
     rows = torch.where(found[..., None],
@@ -207,6 +272,10 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
         W = torch.diag_embed(pay[..., 0:3] ** 2)
     else:
         W = torch.eye(3, dtype=dt, device=dev).expand(bsz, n, 3, 3)
+    if zero_unmatched:
+        mu = torch.where(mask[..., None], mu, 0.0)
+        W = torch.where(mask[..., None, None], W, 0.0)
+        best_d = torch.where(mask, best_d, _BIG)
 
     res = mu - q
     Wr = (W @ res[..., None])[..., 0]
@@ -233,19 +302,68 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
     return sums, corr
 
 
+def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
+                           robust_c, factor, score=False):
+    """K1's arithmetic over B lanes: ttab [B,M,16], tnum [B], qtab [B,N,16],
+    qnum [B], pose [B,12] → (sums [B,44] float64, corr [B,N,16]). ``score``:
+    rank the targets by ‖t‖² − 2 t·q (‖t‖² from ttab column 13) and take
+    the winner's difference-form d² afterwards."""
+    dt, dev = qtab.dtype, qtab.device
+    bsz, n, m = qtab.shape[0], qtab.shape[1], ttab.shape[1]
+    q = _transform_lanes(qtab, pose)
+
+    active = torch.arange(n, device=dev) < qnum[:, None]
+    best_d = torch.full((bsz, n), _BIG, dtype=dt, device=dev)
+    best = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
+    if m > 0:
+        tcol = (torch.arange(m, device=dev) < tnum[:, None])[:, None, :]
+        step = max(1, QUERY_BLOCK // max(bsz, 1))
+        txyz = ttab[..., :3]
+        for s in range(0, n, step):
+            qs = q[:, s:s + step]
+            if score:
+                dot = (qs[..., None, 0] * txyz[:, None, :, 0]
+                       + qs[..., None, 1] * txyz[:, None, :, 1]
+                       + qs[..., None, 2] * txyz[:, None, :, 2])
+                d2 = ttab[:, None, :, 13] - 2.0 * dot
+                d2 = torch.where(tcol & (d2 < _BIG), d2, _BIG)
+            else:
+                d2 = torch.where(tcol, sq_dists(qs, txyz), _BIG)
+            # first minimum on ties
+            best_d[:, s:s + step], best[:, s:s + step] = torch.min(d2, dim=-1)
+        if score:
+            mu = torch.gather(txyz, 1, best[..., None].expand(-1, -1, 3))
+            diff = q - mu
+            exact = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+                     + diff[..., 2] * diff[..., 2])
+            best_d = torch.where(best_d < _BIG, exact, _BIG)
+    return _finalize_plain_lanes(ttab, qtab, pose, q, active, best, best_d,
+                                 max_dist_sq, robust, robust_c, factor)
+
+
 def gicp_linearize_plain(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
-                         robust: Optional[str] = None, robust_c: float = 1.0):
-    """Plain PyTorch version of K1; same outputs as ``gicp_linearize_tables``."""
+                         robust: Optional[str] = None, robust_c: float = 1.0,
+                         score: bool = False):
+    """Plain PyTorch version of K1 (``score``: of its score-form instance);
+    same outputs as ``gicp_linearize_tables`` on the listed route."""
     _robust_code(robust)
     sums, corr = _linearize_plain_lanes(
         tables.ttab[None], tables.tnum.reshape(1), tables.qtab[None],
         tables.qnum.reshape(1), _pose12(T, tables.qtab.dtype)[None], max_dist_sq,
-        robust, robust_c, tables.factor)
+        robust, robust_c, tables.factor, score)
     return (*_finish(sums[0]), corr[0])
 
 
-def _gicp_linearize_cuda(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
-                         robust: Optional[str], robust_c: float):
+def gicp_linearize_score_plain(tables: GicpTables, T: torch.Tensor,
+                               max_dist_sq: float, robust: Optional[str] = None,
+                               robust_c: float = 1.0):
+    """Plain PyTorch version of K1's score-form instance."""
+    return gicp_linearize_plain(tables, T, max_dist_sq, robust, robust_c, score=True)
+
+
+def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tensor,
+                         max_dist_sq: float, robust: Optional[str], robust_c: float):
+    """Launch the K1 entry ``entry`` and count it on ``wrapper``."""
     f32 = torch.float32
     _build.require(tables.ttab, "ttab", f32, (None, 16))
     _build.require(tables.qtab, "qtab", f32, (None, 16))
@@ -261,25 +379,183 @@ def _gicp_linearize_cuda(tables: GicpTables, T: torch.Tensor, max_dist_sq: float
     rows = lib.sgt_linearize_block_rows()
     partials = torch.empty(((n + rows - 1) // rows, 44), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.sgt_gicp_linearize(
+        rc = getattr(lib, entry)(
             tables.ttab.data_ptr(), tables.tnum.data_ptr(), tables.qtab.data_ptr(),
             tables.qnum.data_ptr(), n, pose.data_ptr(), float(max_dist_sq),
             float(robust_c), FACTORS.index(tables.factor), _robust_code(robust),
             corr.data_ptr(), partials.data_ptr(), _stream(),
         )
-    _build.check(rc, "gicp_linearize")
-    gicp_linearize_tables.launches += 1
+    _build.check(rc, entry)
+    wrapper.launches += 1
     return (*_finish(partials.to(torch.float64).sum(0)), corr)
 
 
+def gicp_linearize_score(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                         robust: Optional[str] = None, robust_c: float = 1.0):
+    """K1 with the targets ranked by the score ‖t‖² − 2 t·q (uncentred,
+    ‖t‖² from the table) and the winner's exact d² taken afterwards: the
+    ``mxu_dist=True`` branch of the JAX kernel, on CUDA cores. Near-exact:
+    between two targets whose d² differ by less than the score's float32
+    rounding (~‖q‖²·2⁻²³) it may pick the other. Same outputs as
+    ``gicp_linearize_tables``; plain version on the CPU."""
+    if tables.qtab.device.type == "cpu":
+        return gicp_linearize_score_plain(tables, T, max_dist_sq, robust, robust_c)
+    return _gicp_linearize_cuda(gicp_linearize_score, "sgt_gicp_linearize_score",
+                                tables, T, max_dist_sq, robust, robust_c)
+
+
+gicp_linearize_score.launches = 0
+
+
+# ---------------------------------------------------------------- K6 ----
+
+def _require_swept(tables: GicpTables) -> None:
+    if tables.tsorted is None or tables.tbox is None or tables.sperm is None:
+        raise ValueError("the swept route needs tables from "
+                         "gicp_prepare(..., route='swept')")
+
+
+def swept_live_tiles(tables: GicpTables, T: torch.Tensor, max_dist_sq: float
+                     ) -> torch.Tensor:
+    """[blocks, tiles] bool: the target tiles that the swept search stages
+    for each block of 64 Morton-sorted source rows at pose T — those whose
+    box gap² to the box of the block's transformed valid rows does not
+    exceed ``max_dist_sq`` (a NaN gap keeps the tile) and that hold a
+    valid row."""
+    _require_swept(tables)
+    qtab, dev = tables.qtab, tables.qtab.device
+    n = qtab.shape[0]
+    nb = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
+    q = _transform_lanes(qtab[None], _pose12(T.to(dev), qtab.dtype)[None])[0]
+    pos = torch.arange(nb * SWEPT_BLOCK_ROWS, device=dev)
+    order = torch.cat([tables.sperm.long(),
+                       tables.sperm.new_zeros(len(pos) - n, dtype=torch.int64)])
+    valid = (pos < torch.clamp(tables.qnum, max=n)).view(nb, SWEPT_BLOCK_ROWS, 1)
+    qs = q[order].view(nb, SWEPT_BLOCK_ROWS, 3)
+    lo = torch.where(valid, qs, _BIG).amin(dim=1)  # [nb,3]
+    hi = torch.where(valid, qs, -_BIG).amax(dim=1)
+    box = tables.tbox
+    g = torch.clamp(torch.maximum(box[None, :, 0:3] - hi[:, None],
+                                  lo[:, None] - box[None, :, 4:7]), min=0.0)
+    gap2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+    holds_row = torch.arange(box.shape[0], device=dev) * TILE_ROWS < tables.tnum
+    return ~(gap2 > max_dist_sq) & holds_row[None, :] & valid[:, :1, 0]
+
+
+def gicp_linearize_swept_plain(tables: GicpTables, T: torch.Tensor,
+                               max_dist_sq: float, robust: Optional[str] = None,
+                               robust_c: float = 1.0):
+    """Plain PyTorch version of K6: for every block of 64 Morton-sorted
+    source rows, the live tiles by their boxes, the distances to the sorted
+    rows of those tiles, the nearest with d² ≤ max_dist_sq in (d², original
+    row) order, then K1's finalize with unmatched rows zeroed. (The kernel
+    also skips, warp by warp, staged tiles that cannot improve on a row's
+    best so far; the rows it skips beyond these cannot win either.)"""
+    _robust_code(robust)
+    _require_swept(tables)
+    qtab, dev, dt = tables.qtab, tables.qtab.device, tables.qtab.dtype
+    n = qtab.shape[0]
+    pose = _pose12(T.to(dev), dt)[None]
+    q = _transform_lanes(qtab[None], pose)[0]
+    live = swept_live_tiles(tables, T, max_dist_sq)
+    m = min(int(tables.tnum), tables.tsorted.shape[0])
+    tile_of_row = torch.arange(m, device=dev) // TILE_ROWS
+    if dt != torch.float32:
+        raise ValueError("the swept route runs float32 tables")
+    orig = tables.tsorted[:, 3].contiguous().view(torch.int32).long()
+    best_d = torch.full((n,), _BIG, dtype=dt, device=dev)
+    best = torch.zeros(n, dtype=torch.int64, device=dev)
+    sperm = tables.sperm.long()
+    for b in range(live.shape[0]):
+        sel = live[b, tile_of_row].nonzero()[:, 0]
+        if len(sel) == 0:
+            continue
+        rows = sperm[b * SWEPT_BLOCK_ROWS:(b + 1) * SWEPT_BLOCK_ROWS]
+        # Columns in ascending original row, so that the first minimum is
+        # the lower original row among equal distances.
+        ids, by_id = torch.sort(orig[sel])
+        d2 = sq_dists(q[rows], tables.tsorted[sel[by_id], :3])
+        d2 = torch.where(d2 <= max_dist_sq, d2, _BIG)
+        best_d[rows], j = torch.min(d2, dim=1)
+        best[rows] = ids[j]
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    active[sperm] = torch.arange(n, device=dev) < tables.qnum
+    sums, corr = _finalize_plain_lanes(
+        tables.ttab[None], qtab[None], pose, q[None], active[None], best[None],
+        best_d[None], max_dist_sq, robust, robust_c, tables.factor,
+        zero_unmatched=True)
+    return (*_finish(sums[0]), corr[0])
+
+
+def _gicp_linearize_swept_cuda(tables: GicpTables, T: torch.Tensor,
+                               max_dist_sq: float, robust: Optional[str],
+                               robust_c: float):
+    f32 = torch.float32
+    _build.require(tables.ttab, "ttab", f32, (None, 16))
+    m = tables.ttab.shape[0]
+    _build.require(tables.tsorted, "tsorted", f32, (m, 4))
+    _build.require(tables.tbox, "tbox", f32, ((m + TILE_ROWS - 1) // TILE_ROWS, 8))
+    _build.require(tables.qtab, "qtab", f32, (None, 16))
+    n = tables.qtab.shape[0]
+    _build.require(tables.sperm, "sperm", torch.int32, (n,))
+    _build.require(tables.tnum, "tnum", torch.int32, ())
+    _build.require(tables.qnum, "qnum", torch.int32, ())
+    dev = tables.qtab.device
+    pose = _pose12(T.to(dev), f32)
+    corr = torch.empty((n, 16), dtype=f32, device=dev)
+    if n == 0:
+        return (*_finish(torch.zeros(44, dtype=torch.float64, device=dev)), corr)
+    lib = morton_boxes.library("gicp_swept")
+    blocks = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
+    partials = torch.empty((blocks, 44), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sgt_gicp_linearize_swept(
+            tables.ttab.data_ptr(), tables.tsorted.data_ptr(), tables.tbox.data_ptr(),
+            tables.tnum.data_ptr(), m, tables.qtab.data_ptr(), tables.sperm.data_ptr(),
+            tables.qnum.data_ptr(), n, pose.data_ptr(), float(max_dist_sq),
+            float(robust_c), FACTORS.index(tables.factor), _robust_code(robust),
+            corr.data_ptr(), partials.data_ptr(), _stream(),
+        )
+    _build.check(rc, "gicp_linearize_swept")
+    gicp_linearize_swept.launches += 1
+    return (*_finish(partials.to(torch.float64).sum(0)), corr)
+
+
+def gicp_linearize_swept(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                         robust: Optional[str] = None, robust_c: float = 1.0):
+    """One linearization at T over swept tables: kernel K6 on CUDA, plain
+    version on the CPU. Same outputs as ``gicp_linearize_tables``."""
+    _require_swept(tables)
+    if tables.qtab.device.type == "cpu":
+        return gicp_linearize_swept_plain(tables, T, max_dist_sq, robust, robust_c)
+    return _gicp_linearize_swept_cuda(tables, T, max_dist_sq, robust, robust_c)
+
+
+gicp_linearize_swept.launches = 0
+
+
 def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
-                          robust: Optional[str] = None, robust_c: float = 1.0
+                          robust: Optional[str] = None, robust_c: float = 1.0,
+                          mxu_dist: bool = False, route: Optional[str] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """One linearization at T: (H [6,6] f64, b [6] f64, inliers f64, corr [N,16])."""
+    """One linearization at T: (H [6,6] f64, b [6] f64, inliers f64, corr [N,16]).
+
+    ``route`` overrides the tables' own (``"listed"`` works on any tables,
+    ``"swept"`` on tables prepared for it). ``mxu_dist`` takes the score
+    form on the listed route and is ignored on the swept one, as the JAX
+    flag is off its row-major listed path."""
+    route = tables.route if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r} (use 'listed' or 'swept')")
+    if route == "swept":
+        return gicp_linearize_swept(tables, T, max_dist_sq, robust, robust_c)
+    if mxu_dist:
+        return gicp_linearize_score(tables, T, max_dist_sq, robust, robust_c)
     if tables.qtab.device.type == "cpu":
         return gicp_linearize_plain(tables, T, max_dist_sq, robust, robust_c)
-    return _gicp_linearize_cuda(tables, T, max_dist_sq, robust, robust_c)
+    return _gicp_linearize_cuda(gicp_linearize_tables, "sgt_gicp_linearize", tables, T,
+                                max_dist_sq, robust, robust_c)
 
 
 gicp_linearize_tables.launches = 0

@@ -68,8 +68,9 @@ class KdTree:
     """Searcher over a cloud's rows (API parity with the reference KdTree).
 
     The rows are taken as fixed once the tree is built: what the card's
-    searches derive from the target alone (K9's centre, K12's sorted rows
-    and boxes) is computed at the first search that needs it and kept.
+    searches derive from the target alone (K9's centre, the sorted rows
+    and boxes of K12 and K6) is computed at the first search that needs it
+    and kept.
     """
 
     points: torch.Tensor  # [M,4], padded with the sentinel
@@ -106,11 +107,11 @@ class KdTree:
         return self._centre
 
     def pruned_target(self):
-        """The target half of K12's prologue (Morton-sorted rows, tile
-        boxes), for ``knn_cuda.knn_pruned(..., target=...)``; computed
-        once."""
+        """The cloud Morton-sorted and boxed for the pruned searches
+        (``knn_cuda.knn_pruned(..., target=...)``, the swept route of
+        ``gicp_prepare``); computed once."""
         if self._pruned is None:
-            from small_gicp_tpu_torch.ops.knn_cuda import pruned_prepare_target
+            from small_gicp_tpu_torch.ops.morton_boxes import pruned_prepare_target
 
             self._pruned = pruned_prepare_target(self.points, self.num_points)
         return self._pruned

@@ -40,8 +40,9 @@ insertions stay few; K12 skips whole tiles by a block-uniform branch.
 See ``csrc/knn.cu``.
 
 What a search derives from the target alone — K9's centre, the target
-half of K12's prologue — can be passed in (``centre=``, ``target=``);
-``KdTree`` computes each once and keeps it.
+half of K12's prologue (the sort and boxes of ``ops/morton_boxes.py``) —
+can be passed in (``centre=``, ``target=``); ``KdTree`` computes each once
+and keeps it.
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it, which repeats the kernel's
@@ -50,23 +51,27 @@ arithmetic (and, for K12, its sort, boxes, seed and pruning rule).
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from small_gicp_tpu_torch import _build
+from small_gicp_tpu_torch.ops import morton_boxes
 from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK, sq_dists
 from small_gicp_tpu_torch.ops.knn_window import morton_codes32
+from small_gicp_tpu_torch.ops.morton_boxes import (
+    TILE_ROWS,
+    PrunedTarget,
+    pruned_prepare_target,
+)
 
 _BIG = 3.0e38
 MAX_K = 64
 VARIANTS = ("vpu", "mxu")
-# Geometry of the pruned search: kTile, kKnnThreads and kSeedTiles of
-# csrc/knn.cu, held against the compiled values when the library loads.
-TILE_ROWS = 256
-BLOCK_QUERIES = 64
+BLOCK_QUERIES = morton_boxes.BLOCK_ROWS
+# Tiles around a block's anchor that K12 scans first (kSeedTiles of
+# csrc/knn.cu, held against the compiled value when the library loads).
 SEED_TILES = 5
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -123,24 +128,13 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-_geometry_checked = False
-
-
 def _library():
-    """The knn library; on its first load the pruned search's geometry is
-    read back so that the prologue and the plain version cannot drift from
-    the compiled kernel unnoticed."""
-    global _geometry_checked
-    lib = _build.library("knn")
-    if not _geometry_checked:
-        got = (ctypes.c_int * 3)()
-        lib.sgt_knn_geometry(got)
-        if tuple(got) != (TILE_ROWS, BLOCK_QUERIES, SEED_TILES):
-            raise RuntimeError(
-                f"csrc/knn.cu was compiled with (tile rows, block queries, seed "
-                f"tiles) = {tuple(got)}; ops/knn_cuda.py has "
-                f"{(TILE_ROWS, BLOCK_QUERIES, SEED_TILES)}")
-        _geometry_checked = True
+    """The knn library, its pruned-search constants held against the
+    Python side's."""
+    lib = morton_boxes.library("knn")
+    if lib.sgt_knn_seed_tiles() != SEED_TILES:
+        raise RuntimeError(f"csrc/knn.cu scans {lib.sgt_knn_seed_tiles()} seed "
+                           f"tiles; the Python wrapper has {SEED_TILES}")
     return lib
 
 
@@ -298,59 +292,11 @@ knn_T.launches = 0
 # ----------------------------------------------------------------- K12 ----
 
 @dataclass
-class PrunedTarget:
-    """The target half of the pruned search's prologue. It depends on the
-    target alone, so a caller that searches one target repeatedly builds it
-    once (``KdTree.pruned_target``)."""
-
-    tsorted: torch.Tensor  # [M,4] Morton-sorted x y z | original row (int32 bits)
-    tperm: torch.Tensor  # [M] int64, sorted position → original row
-    tbox: torch.Tensor  # [ceil(M/256), 8]: lo 3, 0, hi 3, 0 over valid rows
-    tkey: torch.Tensor  # [M] int64 sorted keys: the code, 2³¹ for padding rows
-    origin: torch.Tensor  # [3] min corner of the valid rows, the codes' origin
-
-
-@dataclass
 class PrunedQueries:
     """The query half: it changes with every query set."""
 
     qperm: torch.Tensor  # [Q] int32, sorted position → query row
     qpos: torch.Tensor  # [Q] int32, sorted position → position in tsorted
-
-
-def pruned_prepare_target(target_points: torch.Tensor, num_points: torch.Tensor
-                          ) -> PrunedTarget:
-    """Sort the target by Morton code (cell 1.0, origin at the valid rows'
-    min corner) and box every 256 sorted rows. Valid rows sort first,
-    whatever their code. No host read of ``num_points``."""
-    dev, dt = target_points.device, target_points.dtype
-    t = target_points[:, :3]
-    m = t.shape[0]
-    valid = torch.arange(m, device=dev) < num_points
-    if m > 0:
-        origin = torch.where(valid[:, None], t, torch.inf).amin(dim=0)
-        origin = torch.where(torch.isfinite(origin), origin, 0.0)
-    else:
-        origin = torch.zeros(3, dtype=dt, device=dev)
-    codes = morton_codes32(t, 1.0, origin).to(torch.int64)
-    tkey, tperm = torch.sort(torch.where(valid, codes, 2 ** 31), stable=True)
-    tsorted = torch.empty((m, 4), dtype=dt, device=dev)
-    tsorted[:, :3] = t[tperm]
-    if dt == torch.float32:
-        tsorted[:, 3] = tperm.to(torch.int32).view(torch.float32)
-    else:
-        tsorted[:, 3] = 0.0
-
-    ntiles = (m + TILE_ROWS - 1) // TILE_ROWS
-    padded = torch.zeros((ntiles * TILE_ROWS, 3), dtype=dt, device=dev)
-    padded[:m] = tsorted[:, :3]
-    live = (torch.arange(ntiles * TILE_ROWS, device=dev) < num_points)[:, None]
-    tbox = torch.zeros((ntiles, 8), dtype=dt, device=dev)
-    if ntiles > 0:
-        tbox[:, 0:3] = torch.where(live, padded, _BIG).view(ntiles, TILE_ROWS, 3).amin(1)
-        tbox[:, 4:7] = torch.where(live, padded, -_BIG).view(ntiles, TILE_ROWS, 3).amax(1)
-    return PrunedTarget(tsorted=tsorted, tperm=tperm, tbox=tbox, tkey=tkey,
-                        origin=origin)
 
 
 def pruned_prepare_queries(target: PrunedTarget, query: torch.Tensor) -> PrunedQueries:

@@ -3,9 +3,13 @@
 Counterpart of ``small_gicp_tpu/ops/normals.py``. The neighbour moments
 come from one of two routes, chosen as the JAX package chooses them:
   * float32 points, k ≤ 64 and at most 1,048,576 rows: ``knn_moments``
-    (kernel K3 on the card), which never materialises the neighbours;
-  * anything else (float64, k > 64): ``KdTree.knn_search`` and
-    query-centred moment sums over the gathered neighbours.
+    in its own choice of layout — kernel K3 on the card up to 262,144
+    rows, which never materialises the neighbours, and above that the
+    pruned search K4 with the moments summed over its gathered winners;
+  * anything else (float64, k > 64, larger clouds): ``KdTree.knn_search``
+    and query-centred moment sums over the gathered neighbours.
+``neighbor_mode="fused"`` insists on the first route and raises where it
+does not apply.
 Then:
   * fewer than 5 neighbours → invalid: normal 0, covariance I;
   * cov = E[ddᵀ] − E[d]E[d]ᵀ over the query-centred offsets d (biased);
@@ -18,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from small_gicp_tpu_torch.point_cloud import PointCloud
-from small_gicp_tpu_torch.ops.cov_fused_cuda import MAX_K, knn_moments
+from small_gicp_tpu_torch.ops.cov_fused_cuda import MAX_K, MAX_ROWS, knn_moments
 from small_gicp_tpu_torch.ops.eigh3 import smallest_eigvec3x3
 from small_gicp_tpu_torch.ops.knn import KdTree
 
@@ -26,7 +30,6 @@ from small_gicp_tpu_torch.ops.knn import KdTree
 # does not exist (cloud smaller than k).
 _VALID_NEIGHBOR_SQ_DIST = 1e16
 _MIN_NEIGHBORS = 5
-_MAX_FUSED_ROWS = 1_048_576
 
 
 def _searched_moments(points: torch.Tensor, num_points: torch.Tensor, k: int):
@@ -50,7 +53,7 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
     xyz = points[:, :3]
 
     fused_ok = dt == torch.float32 and num_neighbors <= MAX_K
-    if neighbor_mode == "exact" and fused_ok and n <= _MAX_FUSED_ROWS:
+    if neighbor_mode == "exact" and fused_ok and n <= MAX_ROWS:
         neighbor_mode = "fused"
     if neighbor_mode == "fused":
         if not fused_ok:

@@ -1,11 +1,11 @@
 """On-card checks of the port's CUDA kernels against their plain versions.
 
-Every compiled instance runs here — K1 and K7 for each factor × robust
-kernel, K2 and K8 for each robust kernel and pose count, K3 for both top-k
-bounds, both K9 variants, the three list bounds of K10 and K12 and K11 below
-and above 32 neighbours — at small shapes with padding rows, plus one small
-registration (fused and unfused) and one small fleet on the card against
-the CPU path. The tests need an NVIDIA card and skip without one.
+Every compiled instance runs here — K1 (difference and score form), K6 and
+K7 for each factor × robust kernel, K2 and K8 for each robust kernel and pose
+count, K3 for both top-k bounds, the three list bounds of K4, K10 and K12,
+K5 and K11 below and above 32 neighbours, both K9 variants — at small shapes
+with padding rows, plus one small registration (fused on both routes and
+unfused) and one small fleet on the card against the CPU path. The tests need an NVIDIA card and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
 without the repository's conftest:
 
@@ -21,8 +21,13 @@ import torch
 from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    knn_moments,
     knn_moments_rows,
     knn_moments_rows_plain,
+    knn_moments_rows_q,
+    knn_moments_rows_q_plain,
+    knn_topk_idx,
+    knn_topk_idx_plain,
 )
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
@@ -35,8 +40,13 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_fleet,
     gicp_linearize_fleet_plain,
     gicp_linearize_plain,
+    gicp_linearize_score,
+    gicp_linearize_score_plain,
+    gicp_linearize_swept,
+    gicp_linearize_swept_plain,
     gicp_linearize_tables,
     gicp_prepare,
+    swept_live_tiles,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.knn import KdTree
@@ -467,3 +477,166 @@ def test_unfused_covariances_on_the_card(dev):
         diff = (on_card.covs.cpu() - on_cpu.covs).abs().amax(dim=(1, 2))
         assert float((diff <= 1e-3).float().mean()) >= 0.99, (dtype, k)
         assert torch.all(on_card.covs[2000:].cpu() == torch.eye(3, dtype=diff.dtype))
+
+
+# ---- the map-scale kernels: K4, K5, K6 and K1's score form -----------------
+
+@pytest.fixture(scope="module")
+def scan_cloud(dev):
+    scans, _ = generate_sequence(n_frames=1, rings=16, azimuth_steps=256)
+    pts = torch.as_tensor(_padded(scans[0][:3000], 3100), device=dev)
+    return pts, torch.tensor(3000, dtype=torch.int32, device=dev)
+
+
+# The three list bounds of K4: k ≤ 16, ≤ 32, ≤ 64.
+@pytest.mark.parametrize("ks", [(1, 10, 16), (17, 20, 32), (33, 64)])
+def test_topk_idx_kernel_matches_plain_and_k3(dev, scan_cloud, ks):
+    pts, num = scan_cloud
+    for k in ks:
+        before = knn_topk_idx.launches
+        d, i = knn_topk_idx(pts, num, k)
+        dp, ip = knn_topk_idx_plain(pts, num, k)
+        torch.cuda.synchronize()
+        assert knn_topk_idx.launches == before + 1
+        assert torch.equal(d, dp) and torch.equal(i, ip), k
+        assert torch.all(d[3000:] == 3.0e38) and torch.all(i[3000:] == 0), k
+        # Through the entry: K3's neighbours, the sums in another order.
+        m1, m2, cnt = knn_moments(pts, num, k, layout="ti")
+        a1, a2, acnt = knn_moments(pts, num, k, layout="t")
+        assert torch.equal(cnt, acnt), k
+        torch.testing.assert_close(m1, a1, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(m2, a2, rtol=1e-5, atol=1e-4)
+
+
+def test_topk_idx_kernel_with_fewer_rows_than_k(dev):
+    pts = torch.as_tensor(_padded(np.random.default_rng(3).normal(size=(7, 3)), 300),
+                          device=dev).float()
+    num = torch.tensor(7, dtype=torch.int32, device=dev)
+    d, i = knn_topk_idx(pts, num, 10)
+    dp, ip = knn_topk_idx_plain(pts, num, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert torch.all(d[:7, 7:] == 3.0e38) and torch.all(d[:7, :7] < 1e16)
+
+
+# K5's two block shapes: four warps up to k = 32, two above.
+@pytest.mark.parametrize("ks", [(1, 10, 20, 32), (33, 64)])
+def test_moments_warp_kernel_matches_plain_and_k3(dev, scan_cloud, ks):
+    pts, num = scan_cloud
+    for k in ks:
+        before = knn_moments_rows_q.launches
+        got = knn_moments_rows_q(pts, num, k)
+        ref = knn_moments_rows_q_plain(pts, num, k)
+        k3 = knn_moments_rows(pts, num, k)
+        torch.cuda.synchronize()
+        assert knn_moments_rows_q.launches == before + 1
+        assert torch.equal(got[:, 9:11], ref[:, 9:11]), k
+        torch.testing.assert_close(got[:, :9], ref[:, :9], rtol=1e-5, atol=1e-4)
+        # The same neighbours summed in the same order as K3.
+        assert torch.equal(got[:, 9:11], k3[:, 9:11]), k
+        torch.testing.assert_close(got[:, :9], k3[:, :9], rtol=1e-6, atol=1e-5)
+        assert torch.all(got[3000:] == 0), k
+
+
+def _far_pair(dev):
+    """A target of 5,000 rows spread over 60 m, so that most tiles are out
+    of a source block's reach, and 700 shuffled source rows near some."""
+    rng = np.random.default_rng(11)
+    n, m = 700, 5000
+    tp = rng.uniform(-30, 30, size=(m, 3)).astype(np.float32)
+    tp[:, 2] = np.sin(tp[:, 0] * 0.3) * 0.5
+    sp = tp[rng.permutation(m)[:n]] + rng.normal(scale=0.05, size=(n, 3)).astype(
+        np.float32)
+
+    def covs(k, cap):
+        a = rng.normal(size=(k, 3, 3)).astype(np.float32) * 0.05
+        c = np.zeros((cap, 3, 3), np.float32)
+        c[:k] = np.einsum("nij,nkj->nik", a, a) + np.eye(3, dtype=np.float32) * 0.01
+        return c
+
+    nrm = rng.normal(size=(m, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    normals = np.zeros((m + 20, 4), np.float32)
+    normals[:m, :3] = nrm
+    tgt = cloud_from_numpy(_padded(tp, m + 20), m, normals=normals,
+                           covs=covs(m, m + 20), device=dev)
+    src = cloud_from_numpy(_padded(sp, n + 12), n, covs=covs(n, n + 12), device=dev)
+    return tgt, src
+
+
+@pytest.mark.parametrize("factor", ["gicp", "plane_icp", "icp"])
+def test_swept_kernel_matches_plain_and_k1(dev, pair, factor):
+    T = pair[2]
+    tgt, src = _far_pair(dev)
+    tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                          factor, tgt.covs, src.covs, tgt.normals, route="swept")
+    assert swept_live_tiles(tables, T, 1.0).float().mean().item() < 0.5
+    for robust, c in ROBUST:
+        before = gicp_linearize_swept.launches
+        H, b, inl, corr = gicp_linearize_tables(tables, T, 1.0, robust, c)
+        Hp, bp, inlp, corrp = gicp_linearize_swept_plain(tables, T, 1.0, robust, c)
+        H1, b1, inl1, corr1 = gicp_linearize_tables(tables, T, 1.0, robust, c,
+                                                    route="listed")
+        torch.cuda.synchronize()
+        assert gicp_linearize_swept.launches == before + 1
+        mask = corr[:, 12] > 0.5
+        assert torch.equal(mask, corrp[:, 12] > 0.5) and int(inl) == int(inlp)
+        assert torch.equal(corr[:, [0, 1, 2, 13]], corrp[:, [0, 1, 2, 13]])
+        torch.testing.assert_close(corr[:, 3:12], corrp[:, 3:12], rtol=2e-3, atol=2e-3)
+        assert torch.all(corr[~mask][:, :13] == 0)
+        scale = max(1.0, Hp.abs().max().item())
+        torch.testing.assert_close(H / scale, Hp / scale, rtol=0, atol=5e-4)
+        bscale = max(1.0, bp.abs().max().item())
+        torch.testing.assert_close(b / bscale, bp / bscale, rtol=0, atol=5e-4)
+        # Against K1 on the same tables: the same winners on accepted rows,
+        # the same finalize, float32 block sums over other groups of 64 rows
+        # (64·2⁻²⁴ ≈ 4e-6 of the summed magnitudes).
+        assert torch.equal(mask, corr1[:, 12] > 0.5) and int(inl) == int(inl1)
+        assert torch.equal(corr[mask], corr1[mask])
+        torch.testing.assert_close(H / scale, H1 / scale, rtol=0, atol=1e-5)
+        torch.testing.assert_close(b / bscale, b1 / bscale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("factor", ["gicp", "plane_icp", "icp"])
+def test_score_form_kernel_matches_plain(dev, pair, factor):
+    tgt, src, T = pair
+    tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                          factor, tgt.covs, src.covs, tgt.normals)
+    for robust, c in ROBUST:
+        before = gicp_linearize_score.launches
+        H, b, inl, corr = gicp_linearize_tables(tables, T, 1.0, robust, c,
+                                                mxu_dist=True)
+        Hp, bp, inlp, corrp = gicp_linearize_score_plain(tables, T, 1.0, robust, c)
+        torch.cuda.synchronize()
+        assert gicp_linearize_score.launches == before + 1
+        mask = corr[:, 12] > 0.5
+        assert torch.equal(mask, corrp[:, 12] > 0.5) and int(inl) == int(inlp)
+        assert torch.equal(corr[mask][:, [0, 1, 2, 13]], corrp[mask][:, [0, 1, 2, 13]])
+        torch.testing.assert_close(corr[mask][:, 3:12], corrp[mask][:, 3:12],
+                                   rtol=2e-3, atol=2e-3)
+        scale = max(1.0, Hp.abs().max().item())
+        torch.testing.assert_close(H / scale, Hp / scale, rtol=0, atol=5e-4)
+        bscale = max(1.0, bp.abs().max().item())
+        torch.testing.assert_close(b / bscale, bp / bscale, rtol=0, atol=5e-4)
+
+
+def test_small_registration_swept_route_matches_listed(dev):
+    scans, poses = generate_sequence(n_frames=2, rings=16, azimuth_steps=256)
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    init = T_gt @ se3_exp(torch.tensor([0.01, -0.02, 0.02, 0.1, -0.15, 0.05],
+                                       dtype=torch.float64)).numpy()
+    target, tree = preprocess_points(scans[0], device=dev)
+    source, _ = preprocess_points(scans[1], device=dev)
+    before = (gicp_linearize_swept.launches, gicp_linearize_tables.launches)
+    a = result_to_numpy(align_impl(target, source, tree, init, fused_route="swept"))
+    assert gicp_linearize_swept.launches == before[0] + a["iterations"] + 1
+    assert gicp_linearize_tables.launches == before[1]
+    # the tree's kept sort and boxes serve the swept tables: the same result
+    # as tables that are sorted and boxed anew
+    bare = result_to_numpy(align_impl(target, source, None, init, fused_route="swept"))
+    assert np.array_equal(bare["T_target_source"], a["T_target_source"])
+    c = result_to_numpy(align_impl(target, source, tree, init))
+    dT = np.linalg.inv(c["T_target_source"].astype(np.float64)) @ a["T_target_source"]
+    assert np.linalg.norm(dT[:3, 3]) <= 2e-3
+    assert np.linalg.norm(dT[[2, 0, 1], [1, 2, 0]]) <= 2 * 0.1 * math.pi / 180.0
+    assert abs(a["iterations"] - c["iterations"]) <= 1
