@@ -16,11 +16,16 @@ Phases (any failure exits non-zero):
                 registrations/s over noisy initial guesses; the card path
                 against the plain CPU path on a small pair;
   6. fleet    — three frames preprocessed at one capacity (two pairs); K7
-                and K8 at 32 lanes against their plain versions; align_fleet
-                over 512 noisy problems through 32 lanes, every problem
-                within the bounds or in agreement with align_impl, sampled
-                rows against align_impl, lane-count invariance, fleet
-                registrations/s and the card's busy share;
+                (box-pruned) and K8 at 32 lanes against their plain versions,
+                K7 against the brute-force lane kernel it replaced and K8
+                against K2's lane kernel, each pair timed in turns (CUDA
+                events around one wrapper call, and the kernel alone from
+                the profiler's device time over 20 calls), K7 bounded by the
+                pairs the box cull cannot avoid; align_fleet over 512 noisy
+                problems through 32 lanes, every problem within the bounds
+                or in agreement with align_impl, sampled rows against
+                align_impl, lane-count invariance, fleet registrations/s and
+                the card's busy share;
   7. search   — K9 (both variants) at the registration shape and K10, K11,
                 K12 at the covariance shape (k = 10, 20) and at raw-scan
                 scale (≈108k × 108k, k = 20) against their plain versions
@@ -81,6 +86,9 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_error_multi_fleet,
     gicp_error_multi_fleet_plain,
     gicp_error_multi_plain,
+    _gicp_error_multi_fleet_k2,
+    _gicp_linearize_fleet_brute,
+    fleet_live_tiles,
     gicp_linearize_fleet,
     gicp_linearize_fleet_plain,
     gicp_linearize_plain,
@@ -151,10 +159,10 @@ KERNELS = {
                              "small_gicp_tpu_torch/csrc/gicp_fused.cu",
                              "small_gicp_tpu/ops/gicp_fused_pallas.py:521",
                              gicp_linearize_score),
-    "gicp_linearize_fleet": ("K7", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+    "gicp_linearize_fleet": ("K7", "small_gicp_tpu_torch/csrc/gicp_fleet.cu",
                              "small_gicp_tpu/ops/gicp_fused_pallas.py:1312",
                              gicp_linearize_fleet),
-    "gicp_error_multi_fleet": ("K8", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+    "gicp_error_multi_fleet": ("K8", "small_gicp_tpu_torch/csrc/gicp_fleet.cu",
                                "small_gicp_tpu/ops/gicp_fused_pallas.py:1438",
                                gicp_error_multi_fleet),
     "nearest_neighbor": ("K9", "small_gicp_tpu_torch/csrc/knn.cu",
@@ -199,6 +207,78 @@ def time_ms(fn, reps: int = REPS, warm: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def time_turns(fns: dict, reps: int = REPS) -> dict:
+    """{name: median ms} of each function by CUDA events around one call,
+    the functions taking turns in each of ``reps`` rounds, after one
+    untimed call each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(v)) for name, v in times.items()}
+
+
+def device_events(prof) -> list:
+    """The profiler's averages of work on the card (kernels, copies,
+    memsets): what its own table totals as device time. A torch op's
+    average carries the time of the kernels it launched as well, so a sum
+    over every event counts those kernels twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def kernel_ms(fn, name: str, reps: int = REPS):
+    """The kernel alone: (ms per call that the card spends in kernels whose
+    name holds ``name``, their count, {other device work: count}) over
+    ``reps`` calls of ``fn`` under torch.profiler, after one untimed call.
+    The profiler's view of so short a window came back empty once in
+    seven runs: it is taken up to three times, and if it stays empty the
+    ``reps`` calls are timed back to back by CUDA events (count None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            ours = [e for e in events if name in e.key]
+            others = {e.key[:60]: e.count for e in events if name not in e.key}
+            return (sum(e.self_device_time_total for e in ours) / 1e3 / reps,
+                    sum(e.count for e in ours), others)
+    print(f"the profiler saw no device work in {reps} calls ({name}), three times: "
+          "timing them back to back by CUDA events")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, None, {}
+
+
+def launches_per_call(wrapper, fn) -> int:
+    """How many launches one call of ``fn`` adds to ``wrapper``'s count."""
+    before = wrapper.launches
+    fn()
+    return wrapper.launches - before
 
 
 def bound(ops: float, nbytes: float):
@@ -388,13 +468,14 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
             align(target, source, tree, init_T_target_source=init)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    launches_seen = sum(e.count for e in prof.key_averages()
+                        if e.key == "cudaLaunchKernel")
+    events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     check(busy_us > 0, "the profiler saw no device time")
     print(f"profiled 3 aligns: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% busy); "
-          f"{sum(e.count for e in events if e.key == 'cudaLaunchKernel')} "
-          "kernel launches; top device time:")
+          f"{launches_seen} kernel launches; top device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
@@ -448,8 +529,12 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     t_prep = time.perf_counter() - t0
     gts = [np.linalg.inv(poses[u]) @ poses[u + 1] for u in range(len(scans) - 1)]
     n_valid = [int(c.num_points) for c in clouds]
+    # The tables (with every pair's Morton sort and boxes) are built once per
+    # fleet, outside the fleet's registrations/s.
+    prep_ms = time_ms(lambda: fleet_prepare(targets, sources))
     print(f"{len(scans)} frames → {len(gts)} pairs at capacity {cap}, valid rows "
-          f"{n_valid}; preprocess {t_pre:.3f} s, fleet_prepare {t_prep:.4f} s")
+          f"{n_valid}; preprocess {t_pre:.3f} s, fleet_prepare {t_prep:.4f} s (first "
+          f"call), {prep_ms:.3f} ms (CUDA events, median of {REPS})")
     m_u, n_u = n_valid[:-1], n_valid[1:]  # target / source rows of each pair
     records = {}
 
@@ -468,6 +553,10 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     check(torch.equal(inl, inlp), "K7 inlier counts differ")
     check(torch.equal(corr[mask][:, [0, 1, 2, 13]], corrp[mask][:, [0, 1, 2, 13]]),
           "K7 correspondences (μ, d²) differ")
+    unmatched = ~mask & active[:, None]
+    check(bool(torch.all(corr[unmatched][:, :13] == 0)
+               & torch.all(corr[unmatched][:, 13] == 3.0e38)),
+          "K7 rows without a correspondence are not zero with d² = 3e38")
     w_err = ((corr[..., 3:12] - corrp[..., 3:12])[mask].abs()
              / corrp[..., 3:12][mask].abs().clamp(min=1.0)).max().item()
     h_err = ((H - Hp).abs().amax(dim=(1, 2))
@@ -480,15 +569,55 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     print(f"K7 gicp_linearize_fleet: {B} lanes ({int(active.sum())} active), "
           f"inliers {[int(x) for x in inl[:2]]}…, masks/μ/d² equal, W rel "
           f"{w_err:.2e} (tol 2e-3), H scaled {h_err:.2e}, b scaled {b_err:.2e} "
-          "(tol 5e-4), inactive lanes zero")
+          f"(tol 5e-4), {int(unmatched.sum())} unmatched rows zero with d² 3e38, "
+          "inactive lanes zero")
     check(w_err <= 2e-3, f"K7 W differs by {w_err}")
     check(h_err <= 5e-4 and b_err <= 5e-4, "K7 H/b differ")
+    # Against the brute-force lane kernel on the same tables: the same
+    # winners on accepted rows; block sums over other groups of 64 rows.
+    H1, b1, inl1, corr1 = _gicp_linearize_fleet_brute(tables, uids, Ts, MAX_DIST_SQ,
+                                                      active)
+    check(torch.equal(mask, corr1[..., 12] > 0.5) and torch.equal(inl, inl1),
+          "K7 and the brute-force lane kernel accept different rows")
+    check(torch.equal(corr[mask][:, [0, 1, 2, 13]], corr1[mask][:, [0, 1, 2, 13]]),
+          "K7's μ or d² differ from the brute-force lane kernel's on accepted rows")
+    w_same = bool(torch.equal(corr[mask], corr1[mask]))
+    h_b = ((H - H1).abs().amax(dim=(1, 2))
+           / H1.abs().amax(dim=(1, 2)).clamp(min=1.0)).max().item()
+    b_b = ((b - b1).abs().amax(dim=1) / b1.abs().amax(dim=1).clamp(min=1.0)).max().item()
+    print(f"K7 against the brute-force lane kernel: masks equal, μ/d² equal on "
+          f"{int(mask.sum())} accepted rows (whole rows, W included, "
+          f"{'equal' if w_same else 'not equal'}), H scaled {h_b:.2e}, b scaled "
+          f"{b_b:.2e} (tol 5e-4)")
+    check(h_b <= 5e-4 and b_b <= 5e-4, "K7's H/b differ from the brute-force kernel's")
+
+    # The pairs the box cull cannot avoid: for every block of 64 sorted
+    # source rows of an active lane, its valid rows times the valid rows of
+    # the tiles within the rejector radius of the block.
+    live = fleet_live_tiles(tables, uids, Ts, MAX_DIST_SQ) & active[:, None, None]
+    u_of = uids.long()
+    nb, ntiles = live.shape[1:]
+    t_rows = torch.clamp(tables.tnum[u_of, None] - TILE_ROWS * torch.arange(
+        ntiles, device=dev), min=0, max=TILE_ROWS).double()  # [B,T]
+    q_rows = torch.clamp(tables.qnum[u_of, None] - 64 * torch.arange(
+        nb, device=dev), min=0, max=64).double()  # [B,nb]
+    need = int(torch.einsum("bjt,bt,bj->", live.double(), t_rows, q_rows).item())
+    live_rows = float((live.any(dim=1).double() * t_rows).sum().item())
     act = [u for u, a in zip(uid_list, active.tolist()) if a]
-    # Valid target rows once per active lane; every source row of every lane
-    # read (qtab) and written (corr); the [B, blocks, 44] partials.
-    ops = sum(9.0 * n_u[u] * m_u[u] + 400.0 * n_u[u] for u in act)
-    nbytes = (sum(64.0 * m_u[u] for u in act) + 64.0 * len(act) * cap
-              + 64.0 * B * cap + 4.0 * 44 * B * ((cap + 63) // 64))
+    all_pairs = sum(n_u[u] * m_u[u] for u in act)
+    # All-pairs bound: valid target rows once per active lane; every source
+    # row of every lane read (qtab) and written (corr); the [B, blocks, 44]
+    # partials (the brute-force kernel's).
+    full_ms, full_by = bound(
+        sum(9.0 * n_u[u] * m_u[u] + 400.0 * n_u[u] for u in act),
+        sum(64.0 * m_u[u] for u in act) + 64.0 * len(act) * cap + 64.0 * B * cap
+        + 4.0 * 44 * B * ((cap + 63) // 64))
+    # Pruned bound: the sorted rows and boxes of the live tiles once per
+    # lane; qtab and the source order read and one payload row gathered per
+    # active lane; corr written for every lane; the sums.
+    ops = 9.0 * need + sum(400.0 * n_u[u] for u in act)
+    nbytes = ((16.0 + 32.0 / TILE_ROWS) * live_rows + len(act) * (64.0 + 4.0) * cap
+              + sum(64.0 * n_u[u] for u in act) + 64.0 * B * cap + 8.0 * 44 * B)
     n_max, m_max = max(n_u), max(m_u)
     a_idx = active.nonzero()[:, 0]
     tq = (sources.points[uids[a_idx].long(), :n_max, :3]
@@ -501,13 +630,36 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
         for s in range(0, tq.shape[0], 4):
             torch.cdist(tq[s:s + 4], tt[s:s + 4]).min(dim=-1)
 
+    k7 = time_turns({
+        "pruned": lambda: gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active),
+        "brute": lambda: _gicp_linearize_fleet_brute(tables, uids, Ts, MAX_DIST_SQ,
+                                                     active)})
+    k7_alone, k7_count, k7_other = kernel_ms(
+        lambda: gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active),
+        "gicp_linearize_fleet_kernel")
+    brute_alone, _, _ = kernel_ms(
+        lambda: _gicp_linearize_fleet_brute(tables, uids, Ts, MAX_DIST_SQ, active),
+        "gicp_linearize_kernel")
+    check(k7_count in (REPS, None) and not k7_other,
+          f"K7's wrapper ran {k7_count} K7 kernels in {REPS} calls and also {k7_other}")
+    check(launches_per_call(gicp_linearize_fleet, lambda: gicp_linearize_fleet(
+        tables, uids, Ts, MAX_DIST_SQ, active)) == 1, "K7's wrapper does not launch once")
     records["gicp_linearize_fleet"] = dict(
-        max_abs_err=(H - Hp).abs().max().item(),
-        ms=time_ms(lambda: gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active)),
+        max_abs_err=(H - Hp).abs().max().item(), ms=k7_alone,
         plain_ms=time_ms(lambda: gicp_linearize_fleet_plain(
             tables, uids, Ts, MAX_DIST_SQ, active), reps=3),
-        library_ms=time_ms(lib_k7, reps=3),
-        pairs=sum(n_u[u] * m_u[u] for u in act), bound=bound(ops, nbytes))
+        library_ms=time_ms(lib_k7, reps=3), pairs=need, bound=bound(ops, nbytes))
+    k7_bound = records["gicp_linearize_fleet"]["bound"]
+    print(f"K7 kernel alone (profiler, {REPS} calls, no other device work) "
+          f"{k7_alone:.4f} ms ({k7_count} kernels), the brute-force lane kernel alone "
+          f"{brute_alone:.4f} ms; "
+          f"their wrappers in turns (CUDA events around one call, median of {REPS}): "
+          f"pruned {k7['pruned']:.4f} ms, brute force {k7['brute']:.4f} ms; "
+          f"{100 * (1 - live[active].float().mean().item()):.2f} % of "
+          f"{live[active].numel()} (block, tile) pairs culled; needed pairs {need} = "
+          f"{100 * need / all_pairs:.3f} % of {all_pairs}; bound {k7_bound[0]:.4f} ms by "
+          f"{k7_bound[1]} over them, {full_ms:.4f} ms by {full_by} over all pairs; "
+          f"on {card}")
 
     # K8 at each lane's pose plus its 10 LM trial poses.
     lambdas = 1e-3 * 10.0 ** torch.arange(10, dtype=f32, device=dev)
@@ -515,23 +667,46 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     all_Ts = torch.cat([Ts[:, None], Ts[:, None] @ se3_exp(deltas)], dim=1)
     e = gicp_error_multi_fleet(corr, tables, uids, all_Ts)
     ep = gicp_error_multi_fleet_plain(corr, tables, uids, all_Ts)
+    e2 = _gicp_error_multi_fleet_k2(corr, tables, uids, all_Ts)
     check(bool(torch.isfinite(e).all()), "K8 errors not finite")
     check(bool(torch.all(e[idle] == 0)), "K8 errors of inactive lanes are not zero")
     rel = ((e - ep).abs() / ep.abs().clamp(min=1e-30)).max().item()
+    rel2 = ((e - e2).abs() / e2.abs().clamp(min=1e-30)).max().item()
     err = (e - ep).abs().max().item()
     print(f"K8 gicp_error_multi_fleet: {B} lanes × {all_Ts.shape[1]} poses, "
-          f"max |Δe| {err:.3e}, rel {rel:.2e} (tol 1e-5)")
+          f"max |Δe| {err:.3e}, rel {rel:.2e} (tol 1e-5); against K2's lane kernel rel "
+          f"{rel2:.2e}")
     check(rel <= 1e-5, f"K8 errors differ by rel {rel}")
+    check(rel2 <= 1e-5, f"K8 errors differ from K2's lane kernel's by rel {rel2}")
     k1 = all_Ts.shape[1]
     ops = sum(40.0 * n_u[u] * k1 for u in act)
-    nbytes = sum(80.0 * n_u[u] for u in act) + 48.0 * B * k1
+    nbytes = sum(80.0 * n_u[u] for u in act) + 64.0 * B * k1
+    k8 = time_turns({
+        "new": lambda: gicp_error_multi_fleet(corr, tables, uids, all_Ts),
+        "k2": lambda: _gicp_error_multi_fleet_k2(corr, tables, uids, all_Ts)})
+    k8_alone, k8_count, k8_other = kernel_ms(
+        lambda: gicp_error_multi_fleet(corr, tables, uids, all_Ts),
+        "gicp_error_multi_fleet_kernel")
+    k2_alone, k2_count, k2_other = kernel_ms(
+        lambda: _gicp_error_multi_fleet_k2(corr, tables, uids, all_Ts),
+        "gicp_error_multi_kernel")
+    check(k8_count in (REPS, None) and not k8_other,
+          f"K8's wrapper ran {k8_count} K8 kernels in {REPS} calls and also {k8_other}")
+    check(launches_per_call(gicp_error_multi_fleet, lambda: gicp_error_multi_fleet(
+        corr, tables, uids, all_Ts)) == 1, "K8's wrapper does not launch once")
     records["gicp_error_multi_fleet"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: gicp_error_multi_fleet(corr, tables, uids, all_Ts)),
+        max_abs_err=err, ms=k8_alone,
         plain_ms=time_ms(lambda: gicp_error_multi_fleet_plain(corr, tables, uids,
                                                               all_Ts)),
         library_ms=None, pairs=sum(n_u[u] for u in act) * k1,
         bound=bound(ops, nbytes))
+    print(f"K8 kernel alone (profiler, {REPS} calls) {k8_alone:.4f} ms ({k8_count} "
+          f"kernels), its wrapper "
+          f"(CUDA events around one call, median of {REPS}, in turns) {k8['new']:.4f} "
+          f"ms; K2's lane kernel alone {k2_alone:.4f} ms ({k2_count} in {REPS} calls), "
+          f"its wrapper {k8['k2']:.4f} ms (other device work in those calls: "
+          f"{k2_other}); bound {records['gicp_error_multi_fleet']['bound'][0]:.4f} ms "
+          f"by {records['gicp_error_multi_fleet']['bound'][1]} on {card}")
 
     # End to end: `problems` noisy starts, pairs alternating, through B lanes.
     P = problems
@@ -555,8 +730,9 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     print(f"fleet registrations/s: {fleet_reg_per_s:.3f} ({P} problems through {B} "
           f"lanes in {launches['gicp_linearize_fleet']} rounds, {dt:.3f} s, "
           f"iterations mean {iters.mean() + 1:.2f} max {iters.max() + 1}, "
-          f"converged {int(r['converged'].sum())}/{P}; single-pair align "
-          f"registrations/s {align_reg_per_s:.3f} in phase 5) on {card}")
+          f"converged {int(r['converged'].sum())}/{P}; fleet_prepare {prep_ms:.3f} ms "
+          f"once, outside; single-pair align registrations/s {align_reg_per_s:.3f} in "
+          f"phase 5) on {card}")
     print(f"launches in the fleet run: {launches}")
     print(f"pose error vs ground truth: max {rot.max():.4f} deg, {trans.max():.4f} m "
           "(bounds 2.5 deg, 0.2 m)")
@@ -601,13 +777,14 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
                     prepared=tables)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    launches_seen = sum(e.count for e in prof.key_averages()
+                        if e.key == "cudaLaunchKernel")
+    events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     check(busy_us > 0, "the profiler saw no device time")
     print(f"profiled fleet of {q} problems: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% busy); "
-          f"{sum(e.count for e in events if e.key == 'cudaLaunchKernel')} kernel "
-          f"launches; top device time on {card}:")
+          f"{launches_seen} kernel launches; top device time on {card}:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")

@@ -46,6 +46,14 @@ SIGNATURES = {
         "sgt_linearize_block_rows": [],
         "sgt_trials_block_rows": [],
     },
+    "gicp_fleet": {
+        "sgt_fleet_linearize": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P,
+                                _F, _F, _I, _I, _P, _P, _P, _P, _P],
+        "sgt_fleet_error_multi": [_P, _P, _I, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P,
+                                  _P],
+        "sgt_fleet_trial_block_rows": [],
+        "sgt_box_geometry": [_P],
+    },
     "gicp_swept": {
         "sgt_gicp_linearize_swept": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F,
                                      _I, _I, _P, _P, _P],

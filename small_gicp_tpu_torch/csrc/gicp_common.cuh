@@ -1,6 +1,6 @@
-// What the fused linearize kernels share (K1/K7 of gicp_fused.cu, K6 of
-// gicp_swept.cu): the factor and robust-kernel switches and the per-point
-// finalize that follows the correspondence search.
+// What the fused linearize kernels share (K1 of gicp_fused.cu, K6 of
+// gicp_swept.cu, K7 of gicp_fleet.cu): the factor and robust-kernel switches
+// and the per-point finalize that follows the correspondence search.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -28,15 +28,14 @@
 // corr rows. It reads each correspondence row once (bytes-bound: 80 bytes
 // per point) and loops over the poses held in shared memory.
 //
-// K7 and K8 replace the fleet calls of the same two Pallas kernels
-// (`gicp_linearize_fleet`, `gicp_error_multi_fleet`): B lanes over U
-// stacked pairs. They are the same kernels with a lane grid dimension
-// (blockIdx.y = lane b): a block reads uids[b] from device memory and
-// offsets the table pointers to its pair in place, so switching a lane's
-// problem moves no table bytes (the TPU kernels did the same through a
-// scalar-prefetch index map). Blocks of an inactive lane write zero corr
-// rows and zero partials and return. The single-pair entries launch the
-// same kernels with one lane and no lane tables.
+// The lane entries run the same two kernels with a lane grid dimension
+// (blockIdx.y = lane b) over U stacked pairs: a block reads uids[b] from
+// device memory and offsets the table pointers to its pair in place, and
+// blocks of an inactive lane write zero corr rows and zero partials and
+// return. They are the brute-force forms of the fleet kernels K7 and K8,
+// which gicp_fleet.cu holds (box-pruned, sums finished in the launch);
+// chip_smoke.py times K7 and K8 against them. The single-pair entries
+// launch the same kernels with one lane and no lane tables.
 
 #include <cuda_runtime.h>
 
@@ -321,8 +320,8 @@ int sgt_gicp_linearize_score(const float* ttab, const int* tnum, const float* qt
                    max_d2, robust_c, factor, robust, true, corr, partials, stream);
 }
 
-// K7: b lanes over u pairs of m_rows target and n source rows each;
-// partials [b, blocks, 44].
+// K1 over b lanes of u pairs of m_rows target and n source rows each (the
+// brute-force form of K7); partials [b, blocks, 44].
 int sgt_gicp_linearize_fleet(const float* ttab, const int* tnum, const float* qtab,
                              const int* qnum, int u, int m_rows, const int* uids,
                              const bool* active, int b, int n, const float* poses,
@@ -340,8 +339,8 @@ int sgt_gicp_error_multi(const float* corr, const float* src, const int* qnum, i
                      robust, partials, stream);
 }
 
-// K8: b lanes; source xyz from qtab [u,N,16] of pair uids[b]; partials
-// [b, blocks, k1].
+// K2 over b lanes (the form of K8 that leaves the sums to the caller);
+// source xyz from qtab [u,N,16] of pair uids[b]; partials [b, blocks, k1].
 int sgt_gicp_error_multi_fleet(const float* corr, const float* qtab, int u,
                                const int* uids, int b, int n, const float* poses,
                                int k1, float robust_c, int robust, float* partials,

@@ -29,22 +29,27 @@ Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
 
 The fleet variants serve B lanes over U prepared pairs
 (``parallel/fleet.py``): ``gicp_fleet_prepare`` stacks the tables of U
-pairs, ``gicp_linearize_fleet`` (K7) is K1 for lane b on pair uids[b] at
-pose Ts[b], and ``gicp_error_multi_fleet`` (K8) is K2 for each lane. A
-lane reads its pair's tables in place; an inactive lane returns zero sums
-and all-zero corr rows.
+pairs and adds, per pair, the swept route's sorted target rows, boxes and
+source order; ``gicp_linearize_fleet`` (K7) is the swept search for lane b
+on pair uids[b] at pose Ts[b] — K1's H, b, inliers and accepted corr rows,
+unmatched rows zero with d² = 3e38 — and ``gicp_error_multi_fleet`` (K8)
+is K2 for each lane. A lane reads its pair's tables in place; an inactive
+lane returns zero sums and all-zero corr rows. Each fleet wrapper launches
+one kernel of ``csrc/gicp_fleet.cu``, which finishes the float64 sums
+itself.
 
 Per-point terms are float32 on the card; sums across blocks are float64
 and are handed on un-truncated. On a CUDA tensor the wrappers launch the
-kernels of ``csrc/gicp_fused.cu``; on a CPU tensor they run the plain
-versions below, which repeat the kernels' arithmetic. The single-pair
-plain versions are the fleet ones at one lane.
+kernels of ``csrc/gicp_fused.cu``, ``csrc/gicp_swept.cu`` and
+``csrc/gicp_fleet.cu``; on a CPU tensor they run the plain versions below,
+which repeat the kernels' arithmetic. The single-pair plain versions are
+the fleet ones at one lane.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -82,9 +87,9 @@ class GicpTables:
 
     ttab [M,16]: x y z 0 | payload 9 (C_t row-major, or the target normal
     in 0-2, or zeros) | ‖t‖² 0 0.  qtab [N,16]: x y z 0 | C_s 9 | 0 0 0.
-    Both stay in the clouds' row order on either route. Fleet tables
-    (``gicp_fleet_prepare``) carry a leading [U] pair axis on the first
-    four tensors. The swept route adds the last three.
+    Both stay in the clouds' row order on either route. The swept route
+    adds the last three. Fleet tables (``gicp_fleet_prepare``) carry a
+    leading [U] pair axis on every tensor, the last three included.
     """
 
     ttab: torch.Tensor
@@ -170,7 +175,10 @@ def gicp_fleet_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
                        target_normals: Optional[torch.Tensor] = None) -> GicpTables:
     """``gicp_prepare`` over U stacked pairs: targets [U,M,4], sources
     [U,N,4], counts [U] (or one count for every pair) → tables with
-    ttab [U,M,16], qtab [U,N,16], tnum and qnum [U] int32."""
+    ttab [U,M,16], qtab [U,N,16], tnum and qnum [U] int32, and the swept
+    route's fields of each pair as ``pruned_prepare_target`` and
+    ``morton_order`` give them for that pair alone: tsorted [U,M,4], tbox
+    [U,ceil(M/256),8], sperm [U,N] int32. No host read of the counts."""
     if target_points.dim() != 3 or source_points.dim() != 3:
         raise ValueError("fleet tables take [U,M,4] targets and [U,N,4] sources")
     u = target_points.shape[0]
@@ -186,9 +194,16 @@ def gicp_fleet_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
     def per_pair(num):
         return torch.as_tensor(num).reshape(-1).expand(u).to(torch.int32).contiguous()
 
-    return gicp_prepare(target_points, per_pair(target_num), source_points,
-                        per_pair(source_num), factor, target_covs, source_covs,
-                        target_normals)
+    tables = gicp_prepare(target_points, per_pair(target_num), source_points,
+                          per_pair(source_num), factor, target_covs, source_covs,
+                          target_normals)
+    # Each pair sorted and boxed on its own, by one sort over all pairs.
+    target = pruned_prepare_target(target_points, tables.tnum)
+    tables.tsorted, tables.tbox = target.tsorted, target.tbox
+    dev, n = source_points.device, source_points.shape[1]
+    valid = torch.arange(n, device=dev) < tables.qnum.to(dev)[:, None]
+    tables.sperm = morton_order(source_points[..., :3], valid)[1].to(torch.int32)
+    return tables
 
 
 def _pose12(T: torch.Tensor, dtype) -> torch.Tensor:
@@ -303,11 +318,12 @@ def _finalize_plain_lanes(ttab, qtab, pose, q, active, best, best_d, max_dist_sq
 
 
 def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
-                           robust_c, factor, score=False):
+                           robust_c, factor, score=False, zero_unmatched=False):
     """K1's arithmetic over B lanes: ttab [B,M,16], tnum [B], qtab [B,N,16],
     qnum [B], pose [B,12] → (sums [B,44] float64, corr [B,N,16]). ``score``:
     rank the targets by ‖t‖² − 2 t·q (‖t‖² from ttab column 13) and take
-    the winner's difference-form d² afterwards."""
+    the winner's difference-form d² afterwards. ``zero_unmatched``: see
+    ``_finalize_plain_lanes``."""
     dt, dev = qtab.dtype, qtab.device
     bsz, n, m = qtab.shape[0], qtab.shape[1], ttab.shape[1]
     q = _transform_lanes(qtab, pose)
@@ -338,7 +354,7 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
                      + diff[..., 2] * diff[..., 2])
             best_d = torch.where(best_d < _BIG, exact, _BIG)
     return _finalize_plain_lanes(ttab, qtab, pose, q, active, best, best_d,
-                                 max_dist_sq, robust, robust_c, factor)
+                                 max_dist_sq, robust, robust_c, factor, zero_unmatched)
 
 
 def gicp_linearize_plain(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
@@ -415,6 +431,29 @@ def _require_swept(tables: GicpTables) -> None:
                          "gicp_prepare(..., route='swept')")
 
 
+def _live_tiles_lanes(qtab, sperm, qnum, pose, tbox, tnum, max_dist_sq):
+    """Over B lanes: qtab [B,N,16], sperm [B,N], qnum [B], pose [B,12], tbox
+    [B,T,8], tnum [B] → [B, blocks, T] bool, the tiles that a block of 64
+    Morton-sorted source rows stages (see ``swept_live_tiles``)."""
+    dev = qtab.device
+    bsz, n = qtab.shape[:2]
+    nb = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
+    q = _transform_lanes(qtab, pose)  # [B,N,3]
+    pos = torch.arange(nb * SWEPT_BLOCK_ROWS, device=dev)
+    order = torch.cat([sperm.long(), sperm.new_zeros((bsz, len(pos) - n),
+                                                      dtype=torch.int64)], dim=1)
+    valid = (pos < torch.clamp(qnum, max=n)[:, None]).view(bsz, nb, SWEPT_BLOCK_ROWS, 1)
+    qs = torch.gather(q, 1, order[..., None].expand(-1, -1, 3)).view(
+        bsz, nb, SWEPT_BLOCK_ROWS, 3)
+    lo = torch.where(valid, qs, _BIG).amin(dim=2)  # [B,nb,3]
+    hi = torch.where(valid, qs, -_BIG).amax(dim=2)
+    g = torch.clamp(torch.maximum(tbox[:, None, :, 0:3] - hi[:, :, None],
+                                  lo[:, :, None] - tbox[:, None, :, 4:7]), min=0.0)
+    gap2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+    holds_row = torch.arange(tbox.shape[1], device=dev) * TILE_ROWS < tnum[:, None]
+    return ~(gap2 > max_dist_sq) & holds_row[:, None, :] & valid[:, :, :1, 0]
+
+
 def swept_live_tiles(tables: GicpTables, T: torch.Tensor, max_dist_sq: float
                      ) -> torch.Tensor:
     """[blocks, tiles] bool: the target tiles that the swept search stages
@@ -424,22 +463,9 @@ def swept_live_tiles(tables: GicpTables, T: torch.Tensor, max_dist_sq: float
     valid row."""
     _require_swept(tables)
     qtab, dev = tables.qtab, tables.qtab.device
-    n = qtab.shape[0]
-    nb = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
-    q = _transform_lanes(qtab[None], _pose12(T.to(dev), qtab.dtype)[None])[0]
-    pos = torch.arange(nb * SWEPT_BLOCK_ROWS, device=dev)
-    order = torch.cat([tables.sperm.long(),
-                       tables.sperm.new_zeros(len(pos) - n, dtype=torch.int64)])
-    valid = (pos < torch.clamp(tables.qnum, max=n)).view(nb, SWEPT_BLOCK_ROWS, 1)
-    qs = q[order].view(nb, SWEPT_BLOCK_ROWS, 3)
-    lo = torch.where(valid, qs, _BIG).amin(dim=1)  # [nb,3]
-    hi = torch.where(valid, qs, -_BIG).amax(dim=1)
-    box = tables.tbox
-    g = torch.clamp(torch.maximum(box[None, :, 0:3] - hi[:, None],
-                                  lo[:, None] - box[None, :, 4:7]), min=0.0)
-    gap2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
-    holds_row = torch.arange(box.shape[0], device=dev) * TILE_ROWS < tables.tnum
-    return ~(gap2 > max_dist_sq) & holds_row[None, :] & valid[:, :1, 0]
+    return _live_tiles_lanes(qtab[None], tables.sperm[None], tables.qnum.reshape(1),
+                             _pose12(T.to(dev), qtab.dtype)[None], tables.tbox[None],
+                             tables.tnum.reshape(1), max_dist_sq)[0]
 
 
 def gicp_linearize_swept_plain(tables: GicpTables, T: torch.Tensor,
@@ -561,25 +587,152 @@ def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: floa
 gicp_linearize_tables.launches = 0
 
 
+# ---------------------------------------------------------------- K7 ----
+
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _lane_tickets(dev: torch.device, bsz: int) -> torch.Tensor:
+    """[≥ bsz] int32 counters in which the fleet kernels' lanes count their
+    finished blocks. Each lane's last block sets its counter back to 0, so
+    the buffer is zero between launches; one buffer per device and stream,
+    on which launches run in order."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < bsz:
+        t = _tickets[key] = torch.zeros(max(bsz, 64), dtype=torch.int32, device=dev)
+    return t
+
+
+def _require_fleet_swept(tables: GicpTables) -> None:
+    _require_fleet(tables)
+    if tables.tsorted is None or tables.tbox is None or tables.sperm is None:
+        raise ValueError("fleet tables from gicp_fleet_prepare carry the sorted "
+                         "target rows, their boxes and the source order")
+
+
+def fleet_live_tiles(tables: GicpTables, uids: torch.Tensor, Ts: torch.Tensor,
+                     max_dist_sq: float) -> torch.Tensor:
+    """[B, blocks, tiles] bool: for lane b (pair uids[b] at pose Ts[b]) the
+    target tiles that K7 stages for each block of 64 Morton-sorted source
+    rows — ``swept_live_tiles`` of the lane's pair. Inactive lanes stage
+    none; mask them out with the same ``active`` as the kernel."""
+    _require_fleet_swept(tables)
+    u = _lane_pairs(tables, uids)
+    dev = tables.qtab.device
+    return _live_tiles_lanes(tables.qtab[u], tables.sperm[u], tables.qnum[u],
+                             _pose12(Ts.to(dev), tables.qtab.dtype), tables.tbox[u],
+                             tables.tnum[u], max_dist_sq)
+
+
 def gicp_linearize_fleet_plain(tables: GicpTables, uids: torch.Tensor,
                                Ts: torch.Tensor, max_dist_sq: float,
                                active: torch.Tensor, robust: Optional[str] = None,
                                robust_c: float = 1.0):
-    """Plain PyTorch version of K7; same outputs as ``gicp_linearize_fleet``."""
+    """Plain PyTorch version of K7; same outputs as ``gicp_linearize_fleet``.
+    It searches every valid target row: on a row whose nearest row lies
+    within the rejector radius that row is K7's winner too, since the box
+    cull never drops an acceptable row (``fleet_live_tiles``); every other
+    row is zero with d² = 3e38 in both."""
     _robust_code(robust)
     u = _lane_pairs(tables, uids)
     act = active.to(device=u.device, dtype=torch.bool)
     sums, corr = _linearize_plain_lanes(
         tables.ttab[u], tables.tnum[u], tables.qtab[u],
         torch.where(act, tables.qnum[u], 0), _pose12(Ts, tables.qtab.dtype),
-        max_dist_sq, robust, robust_c, tables.factor)
+        max_dist_sq, robust, robust_c, tables.factor, zero_unmatched=True)
     return (*_finish(sums), torch.where(act[:, None, None], corr, 0.0))
+
+
+def _fleet_lanes(tables: GicpTables, uids: torch.Tensor, Ts: torch.Tensor,
+                 pose_shape: tuple):
+    """Checked lane inputs of the fleet kernels: (uids [B] int32, Ts as
+    float32 [B, …, 4, 4] on the tables' device)."""
+    dev = tables.qtab.device
+    uids = uids.to(device=dev, dtype=torch.int32).contiguous()
+    Ts = Ts.to(device=dev, dtype=torch.float32).contiguous()
+    _build.require(Ts, "Ts", torch.float32, (uids.shape[0],) + pose_shape)
+    return uids, Ts
 
 
 def _gicp_linearize_fleet_cuda(tables: GicpTables, uids: torch.Tensor,
                                Ts: torch.Tensor, max_dist_sq: float,
                                active: torch.Tensor, robust: Optional[str],
                                robust_c: float):
+    f32 = torch.float32
+    _build.require(tables.ttab, "ttab", f32, (None, None, 16))
+    u, m = tables.ttab.shape[:2]
+    _build.require(tables.qtab, "qtab", f32, (u, None, 16))
+    n = tables.qtab.shape[1]
+    _build.require(tables.tsorted, "tsorted", f32, (u, m, 4))
+    _build.require(tables.tbox, "tbox", f32, (u, (m + TILE_ROWS - 1) // TILE_ROWS, 8))
+    _build.require(tables.sperm, "sperm", torch.int32, (u, n))
+    _build.require(tables.tnum, "tnum", torch.int32, (u,))
+    _build.require(tables.qnum, "qnum", torch.int32, (u,))
+    dev = tables.qtab.device
+    uids, Ts = _fleet_lanes(tables, uids, Ts, (4, 4))
+    bsz = uids.shape[0]
+    active = active.to(device=dev, dtype=torch.bool).contiguous()
+    _build.require(active, "active", torch.bool, (bsz,))
+    corr = torch.empty((bsz, n, 16), dtype=f32, device=dev)
+    if n == 0 or bsz == 0:
+        return (*_finish(torch.zeros((bsz, 44), dtype=torch.float64, device=dev)),
+                corr)
+    lib = morton_boxes.library("gicp_fleet")
+    partials = torch.empty((bsz, (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS, 44),
+                           dtype=f32, device=dev)
+    sums = torch.empty((bsz, 44), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sgt_fleet_linearize(
+            tables.ttab.data_ptr(), tables.tsorted.data_ptr(), tables.tbox.data_ptr(),
+            tables.tnum.data_ptr(), tables.qtab.data_ptr(), tables.sperm.data_ptr(),
+            tables.qnum.data_ptr(), u, m, n, uids.data_ptr(), active.data_ptr(), bsz,
+            Ts.data_ptr(), float(max_dist_sq), float(robust_c),
+            FACTORS.index(tables.factor), _robust_code(robust), corr.data_ptr(),
+            partials.data_ptr(), _lane_tickets(dev, bsz).data_ptr(), sums.data_ptr(),
+            _stream(),
+        )
+    _build.check(rc, "gicp_linearize_fleet")
+    gicp_linearize_fleet.launches += 1
+    return (*_finish(sums), corr)
+
+
+def gicp_linearize_fleet(tables: GicpTables, uids: torch.Tensor, Ts: torch.Tensor,
+                         max_dist_sq: float, active: torch.Tensor,
+                         robust: Optional[str] = None, robust_c: float = 1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The swept search and K1's finalize for B lanes over fleet tables:
+    lane b linearizes pair uids[b] at Ts[b] ([B,4,4]) unless active[b] is
+    False. The factor rides in the tables. Returns (H [B,6,6] f64, b [B,6]
+    f64, inliers [B] f64, corr [B,N,16]): K1's sums, and K1's corr rows
+    where mask = 1; other rows are zero with d² = 3e38, and an inactive
+    lane gets zero sums and all-zero corr rows."""
+    _require_fleet_swept(tables)
+    if tables.ttab.shape[1] > MAX_FLEET_TARGET_ROWS:
+        raise ValueError(
+            f"fleet registration takes at most {MAX_FLEET_TARGET_ROWS} target "
+            f"rows per pair, got {tables.ttab.shape[1]} (use align for "
+            "map-scale targets)")
+    if tables.qtab.device.type == "cpu":
+        return gicp_linearize_fleet_plain(tables, uids, Ts, max_dist_sq, active,
+                                          robust, robust_c)
+    return _gicp_linearize_fleet_cuda(tables, uids, Ts, max_dist_sq, active,
+                                      robust, robust_c)
+
+
+gicp_linearize_fleet.launches = 0
+
+
+def _gicp_linearize_fleet_brute(tables: GicpTables, uids: torch.Tensor,
+                                Ts: torch.Tensor, max_dist_sq: float,
+                                active: torch.Tensor, robust: Optional[str] = None,
+                                robust_c: float = 1.0):
+    """K1's brute-force kernel with a lane grid dimension (``csrc/gicp_fused.cu``),
+    which K7 was before the swept search, for timing K7 against on the card:
+    every valid target row for every source row, [B, blocks, 44] partials
+    summed by torch. Its corr rows where mask = 0 hold the nearest row, as
+    K1's do. Not counted and not on any path."""
     f32 = torch.float32
     _build.require(tables.ttab, "ttab", f32, (None, None, 16))
     u, m = tables.ttab.shape[:2]
@@ -594,9 +747,6 @@ def _gicp_linearize_fleet_cuda(tables: GicpTables, uids: torch.Tensor,
     poses = _pose12(Ts.to(dev), f32)
     _build.require(poses, "Ts", f32, (bsz, 12))
     corr = torch.empty((bsz, n, 16), dtype=f32, device=dev)
-    if n == 0 or bsz == 0:
-        return (*_finish(torch.zeros((bsz, 44), dtype=torch.float64, device=dev)),
-                corr)
     lib = _build.library("gicp_fused")
     rows = lib.sgt_linearize_block_rows()
     partials = torch.empty((bsz, (n + rows - 1) // rows, 44), dtype=f32, device=dev)
@@ -608,34 +758,8 @@ def _gicp_linearize_fleet_cuda(tables: GicpTables, uids: torch.Tensor,
             FACTORS.index(tables.factor), _robust_code(robust), corr.data_ptr(),
             partials.data_ptr(), _stream(),
         )
-    _build.check(rc, "gicp_linearize_fleet")
-    gicp_linearize_fleet.launches += 1
+    _build.check(rc, "gicp_linearize_fleet (brute force)")
     return (*_finish(partials.to(torch.float64).sum(1)), corr)
-
-
-def gicp_linearize_fleet(tables: GicpTables, uids: torch.Tensor, Ts: torch.Tensor,
-                         max_dist_sq: float, active: torch.Tensor,
-                         robust: Optional[str] = None, robust_c: float = 1.0
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
-    """K1 for B lanes over fleet tables: lane b linearizes pair uids[b] at
-    Ts[b] ([B,4,4]) unless active[b] is False. The factor rides in the
-    tables. Returns (H [B,6,6] f64, b [B,6] f64, inliers [B] f64,
-    corr [B,N,16]); an inactive lane gets zero sums and zero corr rows."""
-    _require_fleet(tables)
-    if tables.ttab.shape[1] > MAX_FLEET_TARGET_ROWS:
-        raise ValueError(
-            f"fleet registration takes at most {MAX_FLEET_TARGET_ROWS} target "
-            f"rows per pair, got {tables.ttab.shape[1]} (use align for "
-            "map-scale targets)")
-    if tables.qtab.device.type == "cpu":
-        return gicp_linearize_fleet_plain(tables, uids, Ts, max_dist_sq, active,
-                                          robust, robust_c)
-    return _gicp_linearize_fleet_cuda(tables, uids, Ts, max_dist_sq, active,
-                                      robust, robust_c)
-
-
-gicp_linearize_fleet.launches = 0
 
 
 # ------------------------------------------------------------ K2, K8 ----
@@ -724,25 +848,25 @@ def _gicp_error_multi_fleet_cuda(corr, tables, uids, Ts, robust, robust_c):
     _build.require(tables.qtab, "qtab", f32, (None, None, 16))
     u, n = tables.qtab.shape[:2]
     dev = corr.device
-    uids = uids.to(device=dev, dtype=torch.int32).contiguous()
+    uids, Ts = _fleet_lanes(tables, uids, Ts, (Ts.shape[1], 4, 4))
     bsz, k1 = uids.shape[0], Ts.shape[1]
     _build.require(corr, "corr", f32, (bsz, n, 16))
-    poses = _pose12(Ts.to(dev), f32)
-    _build.require(poses, "Ts", f32, (bsz, k1, 12))
     if n == 0 or bsz == 0:
         return torch.zeros((bsz, k1), dtype=torch.float64, device=dev)
-    lib = _build.library("gicp_fused")
-    rows = lib.sgt_trials_block_rows()
+    lib = _build.library("gicp_fleet")
+    rows = lib.sgt_fleet_trial_block_rows()
     partials = torch.empty((bsz, (n + rows - 1) // rows, k1), dtype=f32, device=dev)
+    errs = torch.empty((bsz, k1), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.sgt_gicp_error_multi_fleet(
+        rc = lib.sgt_fleet_error_multi(
             corr.data_ptr(), tables.qtab.data_ptr(), u, uids.data_ptr(), bsz, n,
-            poses.data_ptr(), k1, float(robust_c), _robust_code(robust),
-            partials.data_ptr(), _stream(),
+            Ts.data_ptr(), k1, float(robust_c), _robust_code(robust),
+            partials.data_ptr(), _lane_tickets(dev, bsz).data_ptr(), errs.data_ptr(),
+            _stream(),
         )
     _build.check(rc, "gicp_error_multi_fleet")
     gicp_error_multi_fleet.launches += 1
-    return partials.to(torch.float64).sum(1)
+    return errs
 
 
 def gicp_error_multi_fleet(corr: torch.Tensor, tables: GicpTables, uids: torch.Tensor,
@@ -761,3 +885,33 @@ def gicp_error_multi_fleet(corr: torch.Tensor, tables: GicpTables, uids: torch.T
 
 
 gicp_error_multi_fleet.launches = 0
+
+
+def _gicp_error_multi_fleet_k2(corr: torch.Tensor, tables: GicpTables,
+                               uids: torch.Tensor, Ts: torch.Tensor,
+                               robust: Optional[str] = None, robust_c: float = 1.0):
+    """K2's kernel with a lane grid dimension (``csrc/gicp_fused.cu``), which
+    K8 was before it finished its own sums: poses converted by torch, one
+    block of 128 rows per [lane, block], [B, blocks, K1] partials summed by
+    torch. For timing K8 against on the card; not counted and not on any
+    path."""
+    f32 = torch.float32
+    _build.require(tables.qtab, "qtab", f32, (None, None, 16))
+    u, n = tables.qtab.shape[:2]
+    dev = corr.device
+    uids = uids.to(device=dev, dtype=torch.int32).contiguous()
+    bsz, k1 = uids.shape[0], Ts.shape[1]
+    _build.require(corr, "corr", f32, (bsz, n, 16))
+    poses = _pose12(Ts.to(dev), f32)
+    _build.require(poses, "Ts", f32, (bsz, k1, 12))
+    lib = _build.library("gicp_fused")
+    rows = lib.sgt_trials_block_rows()
+    partials = torch.empty((bsz, (n + rows - 1) // rows, k1), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sgt_gicp_error_multi_fleet(
+            corr.data_ptr(), tables.qtab.data_ptr(), u, uids.data_ptr(), bsz, n,
+            poses.data_ptr(), k1, float(robust_c), _robust_code(robust),
+            partials.data_ptr(), _stream(),
+        )
+    _build.check(rc, "gicp_error_multi_fleet (K2's kernel)")
+    return partials.to(torch.float64).sum(1)

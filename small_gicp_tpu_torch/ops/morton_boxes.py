@@ -1,6 +1,7 @@
 """Morton sort and tile boxes: the prologue that the box-pruned searches
 share (K12 ``knn_cuda.knn_pruned``, K4 ``cov_fused_cuda.knn_topk_idx``,
-K6 ``gicp_fused_cuda.gicp_linearize_swept``).
+K6 ``gicp_fused_cuda.gicp_linearize_swept``, and over stacked pairs K7
+``gicp_fused_cuda.gicp_linearize_fleet``).
 
 A cloud's valid rows are sorted by Morton code (cell 1.0, origin at their
 min corner) and every ``TILE_ROWS`` sorted rows get a bounding box; a
@@ -38,20 +39,29 @@ def morton_order(xyz: torch.Tensor, valid: torch.Tensor
     """Stable order of the rows [N,3] by Morton code (cell 1.0, origin at
     the valid rows' min corner), valid rows first whatever their code:
     (sorted keys [N] int64 — the code, 2³¹ for invalid rows; perm [N] int64,
-    sorted position → row; origin [3])."""
-    if xyz.shape[0] > 0:
-        origin = torch.where(valid[:, None], xyz, torch.inf).amin(dim=0)
+    sorted position → row; origin [3]). Over stacked clouds [U,N,3] with
+    ``valid`` [U,N] each cloud is ordered on its own, by one sort of the
+    keys offset by cloud: every output gains the leading [U]."""
+    if xyz.shape[-2] > 0:
+        origin = torch.where(valid[..., None], xyz, torch.inf).amin(dim=-2)
         origin = torch.where(torch.isfinite(origin), origin, 0.0)
     else:
-        origin = xyz.new_zeros(3)
-    codes = morton_codes32(xyz, 1.0, origin).to(torch.int64)
-    key, perm = torch.sort(torch.where(valid, codes, 2 ** 31), stable=True)
-    return key, perm, origin
+        origin = xyz.new_zeros(xyz.shape[:-2] + (3,))
+    codes = morton_codes32(xyz, 1.0, origin[..., None, :]).to(torch.int64)
+    key = torch.where(valid, codes, 2 ** 31)
+    if key.dim() == 1:
+        key, perm = torch.sort(key, stable=True)
+        return key, perm, origin
+    u, n = key.shape
+    offset = torch.arange(u, device=key.device)[:, None]
+    flat, perm = torch.sort((key + offset * 2 ** 32).reshape(-1), stable=True)
+    return (flat.view(u, n) - offset * 2 ** 32, perm.view(u, n) - offset * n, origin)
 
 
 @dataclass
 class PrunedTarget:
-    """A cloud sorted and boxed for the pruned searches."""
+    """A cloud sorted and boxed for the pruned searches (stacked clouds:
+    every field gains a leading [U])."""
 
     tsorted: torch.Tensor  # [M,4] Morton-sorted x y z | original row (int32 bits)
     tperm: torch.Tensor  # [M] int64, sorted position → original row
@@ -63,25 +73,29 @@ class PrunedTarget:
 def pruned_prepare_target(target_points: torch.Tensor, num_points: torch.Tensor
                           ) -> PrunedTarget:
     """Sort the cloud's first ``num_points`` rows by Morton code and box
-    every 256 sorted rows. No host read of ``num_points``."""
+    every 256 sorted rows. No host read of ``num_points``. Stacked clouds
+    [U,M,4] with counts [U] are sorted and boxed each on its own, by one
+    sort for all (``morton_order``)."""
     dev, dt = target_points.device, target_points.dtype
-    t = target_points[:, :3]
-    m = t.shape[0]
-    tkey, tperm, origin = morton_order(t, torch.arange(m, device=dev) < num_points)
-    tsorted = torch.empty((m, 4), dtype=dt, device=dev)
-    tsorted[:, :3] = t[tperm]
+    t = target_points[..., :3]
+    lead, m = t.shape[:-2], t.shape[-2]
+    num = torch.as_tensor(num_points, device=dev)[..., None]
+    tkey, tperm, origin = morton_order(t, torch.arange(m, device=dev) < num)
+    tsorted = torch.empty(lead + (m, 4), dtype=dt, device=dev)
+    tsorted[..., :3] = torch.gather(t, -2, tperm[..., None].expand(lead + (m, 3)))
     if dt == torch.float32:
-        tsorted[:, 3] = tperm.to(torch.int32).view(torch.float32)
+        tsorted[..., 3] = tperm.to(torch.int32).view(torch.float32)
     else:
-        tsorted[:, 3] = 0.0
+        tsorted[..., 3] = 0.0
 
     ntiles = (m + TILE_ROWS - 1) // TILE_ROWS
-    padded = torch.zeros((ntiles * TILE_ROWS, 3), dtype=dt, device=dev)
-    padded[:m] = tsorted[:, :3]
-    live = (torch.arange(ntiles * TILE_ROWS, device=dev) < num_points)[:, None]
-    tbox = torch.zeros((ntiles, 8), dtype=dt, device=dev)
+    padded = torch.zeros(lead + (ntiles * TILE_ROWS, 3), dtype=dt, device=dev)
+    padded[..., :m, :] = tsorted[..., :3]
+    live = (torch.arange(ntiles * TILE_ROWS, device=dev) < num)[..., None]
+    tbox = torch.zeros(lead + (ntiles, 8), dtype=dt, device=dev)
     if ntiles > 0:
-        tbox[:, 0:3] = torch.where(live, padded, _BIG).view(ntiles, TILE_ROWS, 3).amin(1)
-        tbox[:, 4:7] = torch.where(live, padded, -_BIG).view(ntiles, TILE_ROWS, 3).amax(1)
+        tiles = lead + (ntiles, TILE_ROWS, 3)
+        tbox[..., 0:3] = torch.where(live, padded, _BIG).view(tiles).amin(-2)
+        tbox[..., 4:7] = torch.where(live, padded, -_BIG).view(tiles).amax(-2)
     return PrunedTarget(tsorted=tsorted, tperm=tperm, tbox=tbox, tkey=tkey,
                         origin=origin)

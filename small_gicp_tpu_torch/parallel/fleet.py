@@ -5,8 +5,9 @@ Counterpart of ``small_gicp_tpu/parallel/fleet.py`` (single device):
 
   * P registration problems = (pair id, initial pose) form a queue;
   * B lanes each run ONE LM iteration per round: one fused linearize over
-    all lanes (kernel K7 on the card) and one trial-error pass over all
-    lanes (K8);
+    all lanes (kernel K7 on the card: each block of 64 Morton-sorted source
+    rows scans only the target tiles within the rejector radius) and one
+    trial-error pass over all lanes (K8), each a single launch;
   * a lane whose problem converged, failed or hit max_iterations retires
     its result into the problem's output slot and loads the next problem
     in the same round, in lane order;
@@ -48,7 +49,9 @@ from small_gicp_tpu_torch.utils.lie import se3_exp
 
 def fleet_prepare(targets: PointCloud, sources: PointCloud,
                   registration_type: str = "gicp") -> GicpTables:
-    """Prepare the kernel tables of U stacked pairs once.
+    """Prepare the kernel tables of U stacked pairs once: K1's tables and
+    each pair's Morton-sorted target rows, their boxes and the source's
+    Morton order.
 
     targets/sources are one pair (2-D points) or [U]-stacked clouds
     (``stack_clouds``). registration_type selects the factor: "gicp"

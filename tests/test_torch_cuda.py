@@ -1,11 +1,13 @@
 """On-card checks of the port's CUDA kernels against their plain versions.
 
 Every compiled instance runs here — K1 (difference and score form), K6 and
-K7 for each factor × robust kernel, K2 and K8 for each robust kernel and pose
-count, K3 for both top-k bounds, the three list bounds of K4, K10 and K12,
-K5 and K11 below and above 32 neighbours, both K9 variants — at small shapes
+K7 (the box-pruned fleet kernel, against its plain version and against the
+brute-force lane kernel it replaced) for each factor × robust kernel, K2 and
+K8 for each robust kernel and pose count, K3 for both top-k bounds, the
+three list bounds of K4, K10 and K12, K5 and K11 below and above 32 neighbours, both K9 variants — at small shapes
 with padding rows, plus one small registration (fused on both routes and
-unfused) and one small fleet on the card against the CPU path. The tests need an NVIDIA card and skip without one.
+unfused) and one small fleet on the card against the CPU path and at one
+lane against 32. The tests need an NVIDIA card and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
 without the repository's conftest:
 
@@ -33,6 +35,9 @@ from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     FACTORS,
     gicp_error_multi,
+    _gicp_error_multi_fleet_k2,
+    _gicp_linearize_fleet_brute,
+    fleet_live_tiles,
     gicp_error_multi_fleet,
     gicp_error_multi_fleet_plain,
     gicp_error_multi_plain,
@@ -258,8 +263,10 @@ def test_fleet_kernels_match_plain(dev, fleet, factor):
     for bsz in (1, 5, 32):
         uids, active, Ts = _lanes(dev, bsz)
         for robust, c in ROBUST:
+            before = gicp_linearize_fleet.launches
             H, b, inl, corr = gicp_linearize_fleet(tables, uids, Ts, 1.0, active,
                                                    robust, c)
+            assert gicp_linearize_fleet.launches == before + 1
             Hp, bp, inlp, corrp = gicp_linearize_fleet_plain(tables, uids, Ts, 1.0,
                                                              active, robust, c)
             torch.cuda.synchronize()
@@ -267,27 +274,69 @@ def test_fleet_kernels_match_plain(dev, fleet, factor):
             mask = corr[..., 12] > 0.5
             assert torch.equal(mask, corrp[..., 12] > 0.5), what
             assert torch.equal(inl, inlp), what
-            assert torch.equal(corr[mask][:, [0, 1, 2, 13]],
-                               corrp[mask][:, [0, 1, 2, 13]]), what
-            torch.testing.assert_close(corr[mask][:, 3:12], corrp[mask][:, 3:12],
+            # Rows without a correspondence are zero with d² = 3e38 in both.
+            assert torch.equal(corr[..., [0, 1, 2, 13]], corrp[..., [0, 1, 2, 13]]), what
+            torch.testing.assert_close(corr[..., 3:12], corrp[..., 3:12],
                                        rtol=2e-3, atol=2e-3)
+            unmatched = ~mask & active[:, None]
+            assert torch.all(corr[unmatched][:, :13] == 0), what
+            assert torch.all(corr[unmatched][:, 13] == 3.0e38), what
             scale = Hp.abs().amax(dim=(1, 2)).clamp(min=1.0)[:, None, None]
             torch.testing.assert_close(H / scale, Hp / scale, rtol=0, atol=5e-4)
             bscale = bp.abs().amax(dim=1).clamp(min=1.0)[:, None]
             torch.testing.assert_close(b / bscale, bp / bscale, rtol=0, atol=5e-4)
             idle = ~active
             assert torch.all(H[idle] == 0) and torch.all(corr[idle] == 0), what
+            # Against the brute-force lane kernel it replaced: the same
+            # winners on accepted rows, block sums over other groups of rows.
+            H1, b1, inl1, corr1 = _gicp_linearize_fleet_brute(tables, uids, Ts, 1.0,
+                                                              active, robust, c)
+            torch.cuda.synchronize()
+            assert torch.equal(mask, corr1[..., 12] > 0.5) and torch.equal(inl, inl1)
+            assert torch.equal(corr[mask][:, [0, 1, 2, 13]],
+                               corr1[mask][:, [0, 1, 2, 13]]), what
+            torch.testing.assert_close(H / scale, H1 / scale, rtol=0, atol=5e-4)
 
             lambdas = 1e-3 * 10.0 ** torch.arange(10, dtype=torch.float32, device=dev)
             deltas = solve6x6(H.float()[:, None], -b.float()[:, None],
                               lambdas.expand(bsz, 10))
             all_Ts = torch.cat([Ts[:, None], Ts[:, None] @ se3_exp(deltas)], dim=1)
+            before = gicp_error_multi_fleet.launches
             got = gicp_error_multi_fleet(corr, tables, uids, all_Ts, robust, c)
+            assert gicp_error_multi_fleet.launches == before + 1
             ref = gicp_error_multi_fleet_plain(corr, tables, uids, all_Ts, robust, c)
+            old = _gicp_error_multi_fleet_k2(corr, tables, uids, all_Ts, robust, c)
             torch.cuda.synchronize()
             assert got.dtype == torch.float64 and got.shape == (bsz, 11), what
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=0,
                                        msg=lambda m: f"{what}: {m}")
+            torch.testing.assert_close(got, old, rtol=1e-5, atol=0,
+                                       msg=lambda m: f"{what} (K2's kernel): {m}")
+            assert torch.all(got[idle] == 0), what
+
+
+def test_fleet_kernels_with_many_poses_and_a_far_lane(dev, fleet):
+    """K8 above one pose chunk (100 poses), and K7 where the box cull
+    leaves most tiles out (a lane shifted 6 m), against their plain
+    versions."""
+    tables = fleet["gicp"]
+    uids, active, Ts = _lanes(dev, 5)
+    Ts[1, 0, 3] += 6.0
+    live = fleet_live_tiles(tables, uids, Ts, 1.0)
+    assert not bool(live[1].all())
+    H, b, inl, corr = gicp_linearize_fleet(tables, uids, Ts, 1.0, active)
+    Hp, bp, inlp, corrp = gicp_linearize_fleet_plain(tables, uids, Ts, 1.0, active)
+    torch.cuda.synchronize()
+    assert torch.equal(inl, inlp)
+    assert torch.equal(corr[..., [0, 1, 2, 12, 13]], corrp[..., [0, 1, 2, 12, 13]])
+    g = torch.Generator().manual_seed(5)
+    tw = torch.randn(5, 100, 6, generator=g, dtype=torch.float64) * 0.02
+    all_Ts = (Ts.double().cpu()[:, None] @ se3_exp(tw)).float().to(dev)
+    for robust, c in ROBUST:
+        got = gicp_error_multi_fleet(corr, tables, uids, all_Ts, robust, c)
+        ref = gicp_error_multi_fleet_plain(corr, tables, uids, all_Ts, robust, c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
 
 
 def test_small_fleet_card_matches_cpu(dev):
@@ -316,6 +365,12 @@ def test_small_fleet_card_matches_cpu(dev):
         assert np.linalg.norm(dT[:3, 3]) <= 2e-3
         assert np.linalg.norm(dT[[2, 0, 1], [1, 2, 0]]) <= 2 * 0.1 * math.pi / 180.0
         assert abs(int(a["iterations"][p]) - int(c["iterations"][p])) <= 1
+    # A lane's work depends on nothing of another lane's: one lane and 32
+    # give the same results bit for bit.
+    one, many = (result_to_numpy(align_fleet(*clouds[dev], init, pair_ids=pair_ids,
+                                             num_lanes=nl)) for nl in (1, 32))
+    for key in one:
+        assert np.array_equal(one[key], many[key]), key
 
 
 # ----------------------------------------------------------- K9-K12 ----
