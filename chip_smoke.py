@@ -29,14 +29,19 @@ Phases (any failure exits non-zero):
   7. search   — K9 (both variants) at the registration shape and K10, K11,
                 K12 at the covariance shape (k = 10, 20) and at raw-scan
                 scale (≈108k × 108k, k = 20) against their plain versions
-                and each other; K9's and K12's launches timed apart from
-                their wrappers' prologues, K12 bounded by the pairs this
-                data leaves a pruned search; K10 against K11 by query
-                count; then the
-                neighbour-search path with the counts at 0: KdTree searches,
-                knn_T, knn_pruned, the unfused align_impl (within the bounds,
-                in agreement with the fused one, K9 once per linearization
-                and no K1/K2) and the kdtree_benchmark CLI in process;
+                and each other; K9 and K10 also against their first forms
+                (the PR 3 kernels) at Q = 1, 64, 4096 and all rows, k = 10,
+                20, 64, on the scan and on a duplicate-heavy grid, with one
+                launch a call (counters and profiler); K9 and K10 timed in
+                turns with their first forms (and K10 with K11 by query
+                count); K9's and K12's launches timed apart from their
+                wrappers' prologues, K12 bounded by the pairs this data
+                leaves a pruned search; then the neighbour-search path with
+                the counts at 0: KdTree searches, knn_T, knn_pruned, the
+                unfused align_impl (within the bounds, in agreement with the
+                fused one, K9 once per linearization and no K1/K2) and the
+                kdtree_benchmark CLI in process, which then runs again
+                through the first forms and once more through the new ones;
   8. map      — 17 frames: two submaps of 8 raw frames each in the world
                 frame (≈864k rows) and their union, the map (≈1.73 M rows).
                 K4 on a submap against its plain version on 8,192 sampled
@@ -57,6 +62,8 @@ the per-kernel JSON record.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -101,9 +108,13 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     swept_live_tiles,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
+from small_gicp_tpu_torch.ops import knn_cuda
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops.knn_cuda import (
     BLOCK_QUERIES,
+    VARIANTS,
+    _knn_v1,
+    _nearest_neighbor_v1,
     PrunedQueries,
     knn,
     knn_plain,
@@ -244,15 +255,23 @@ def kernel_ms(fn, name: str, reps: int = REPS):
     """The kernel alone: (ms per call that the card spends in kernels whose
     name holds ``name``, their count, {other device work: count}) over
     ``reps`` calls of ``fn`` under torch.profiler, after one untimed call.
-    The profiler's view of so short a window came back empty once in
-    seven runs: it is taken up to three times, and if it stays empty the
-    ``reps`` calls are timed back to back by CUDA events (count None)."""
-    from torch.profiler import ProfilerActivity, profile
+    The ``reps`` calls are profiled after a warm-up step of as many calls
+    under the profiler (the first kernel of a cold window has gone
+    unrecorded). The profiler's view of so short a window came back empty
+    once in seven runs: it is taken up to three times, and if it stays
+    empty the ``reps`` calls are timed back to back by CUDA events (count
+    None)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()  # the warm-up ends; the window holds what follows
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -272,6 +291,19 @@ def kernel_ms(fn, name: str, reps: int = REPS):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, None, {}
+
+
+def one_kernel_per_call(fn, name: str) -> float:
+    """ms of the kernel alone (``kernel_ms``), after checking that the
+    profiler saw exactly one kernel named ``name`` per call and no other
+    device work. A window in which the profiler lost an event (it has
+    returned 19 kernels for 20 calls) is taken again, up to three times."""
+    for _ in range(3):
+        ms, count, others = kernel_ms(fn, name)
+        if count in (None, REPS) and not others:
+            return ms
+        print(f"{name}: the profiler saw {count} kernels and {others} in {REPS} calls")
+    check(False, f"{name}: {count} kernels and {others} in {REPS} calls, three times")
 
 
 def launches_per_call(wrapper, fn) -> int:
@@ -826,6 +858,73 @@ def pruned_pairs(target, queries, query, d_k, m: int) -> int:
     return int((needed.double() @ rows * in_block).sum().item())
 
 
+def split_checks(tpts, tnum, qs, m: int, rng, card) -> dict:
+    """K9 (both variants) and K10 (k = 10, 20, 64) against their plain
+    versions and their first forms at Q = 1, 64, 4096 and m, on the scan and
+    on a duplicate-heavy grid of m points in 24³ cells queried with itself;
+    one launch a call, by the counters and (K10 at m², k = 10) by the
+    profiler. Then K10, its first form and K11 in turns by query count (k =
+    10; at m also k = 20). Returns {(Q, k): {name: ms}}."""
+    dev = tpts.device
+    grid = PointCloud.from_points(rng.integers(0, 24, (m, 3)).astype(np.float32),
+                                  device=dev)
+    clouds = {"scan": (tpts, tnum, qs),
+              "grid": (grid.points, grid.num_points, grid.points[:, :3])}
+    for cloud, (t, num, qq) in clouds.items():
+        for nq in (1, 64, 4096, qq.shape[0]):
+            sub = qq[:nq]
+            for v in VARIANTS:
+                got = nearest_neighbor(t, num, sub, v)
+                ref = nearest_neighbor_plain(t, num, sub, v)
+                old = _nearest_neighbor_v1(t, num, sub, v)
+                check(all(torch.equal(a, b) and torch.equal(a, c)
+                          for a, b, c in zip(got, ref, old)),
+                      f"K9 ({v}) differs from its plain version or first form on the "
+                      f"{cloud} at Q={nq}")
+            for k in (10, 20, 64):
+                got = knn(t, num, sub, k)
+                ref = knn_plain(t, num, sub, k)
+                old = _knn_v1(t, num, sub, k)
+                check(all(torch.equal(a, b) and torch.equal(a, c)
+                          for a, b, c in zip(got, ref, old)),
+                      f"K10 differs from its plain version or first form on the {cloud} "
+                      f"at Q={nq}, k={k}")
+                check(launches_per_call(knn, lambda: knn(t, num, sub, k)) == 1,
+                      "K10 launched other than once a call")
+    print(f"K9 (vpu, mxu) and K10 (k = 10, 20, 64) equal to their plain versions and "
+          f"first forms at Q = 1, 64, 4096, {m} on the scan and on a grid of {m} "
+          f"points in 24³ cells; one launch a call")
+    alone = one_kernel_per_call(lambda: knn(tpts, tnum, qs, K_NEIGHBORS),
+                                "knn_split_kernel")
+    sms = knn_cuda._sm_count(dev.index)
+    turns = {}
+    for nq in (1, 64, 4096, m):
+        sub = qs[:nq]
+        for k in ((K_NEIGHBORS, 20) if nq == m else (K_NEIGHBORS,)):
+            t = turns[nq, k] = time_turns({
+                "knn": lambda: knn(tpts, tnum, sub, k),
+                "knn v1": lambda: _knn_v1(tpts, tnum, sub, k),
+                "knn_T": lambda: knn_T(tpts, tnum, sub, k)})
+            fastest = min(t, key=t.get)
+            # The kernels alone: a one-call event window holds the wrapper's
+            # host time too, which dominates at a few queries.
+            t["kernel"] = one_kernel_per_call(lambda: knn(tpts, tnum, sub, k),
+                                              "knn_split_kernel")
+            t["kernel v1"] = one_kernel_per_call(lambda: _knn_v1(tpts, tnum, sub, k),
+                                                 "knn_kernel")
+            nsplit = knn_cuda.split_plan(nq, tpts.shape[0], knn_cuda.KNN_BLOCK_QUERIES, sms)
+            chunk = knn_cuda.split_chunk(m, nsplit,
+                                         least=knn_cuda.knn_least_rows(nq, k, sms))
+            print(f"K10 in turns at Q={nq}, M={m}, k={k}: knn {t['knn']:.4f} ms "
+                  f"({nsplit} chunks of {chunk} rows planned), first "
+                  f"form {t['knn v1']:.4f} ms, K11 knn_T {t['knn_T']:.4f} ms "
+                  f"({fastest} fastest); kernels alone by the profiler: knn "
+                  f"{t['kernel']:.4f} ms, first form {t['kernel v1']:.4f} ms on {card}")
+    print(f"K10 kernel alone by the profiler at {m}², k={K_NEIGHBORS}: {alone:.4f} ms, "
+          f"one kernel a call on {card}")
+    return turns
+
+
 def phase_search(scans, T_gt, rng, dev, card):
     """K9-K12 against their plain versions, then the neighbour-search path."""
     print("== phase 7: search", flush=True)
@@ -840,6 +939,7 @@ def phase_search(scans, T_gt, rng, dev, card):
     # K9 at the registration shape: T·source against the downsampled target.
     T = torch.as_tensor(noisy_guess(T_gt, rng), dtype=torch.float32, device=dev)
     q = (source.points @ T.T)[:n, :3]  # a [n,3] view of [n,4] rows
+    centre = tree.centre()
     dv, iv = nearest_neighbor(tpts, tnum, q, "vpu")
     dvp, ivp = nearest_neighbor_plain(tpts, tnum, q, "vpu")
     check(torch.equal(iv, ivp) and torch.equal(dv, dvp),
@@ -848,6 +948,10 @@ def phase_search(scans, T_gt, rng, dev, card):
     dmp, imp = nearest_neighbor_plain(tpts, tnum, q, "mxu")
     check(torch.equal(im, imp) and torch.equal(dm, dmp),
           "K9 (mxu) differs from its plain version")
+    for variant, (d, i) in (("vpu", (dv, iv)), ("mxu", (dm, im))):
+        d1, i1 = _nearest_neighbor_v1(tpts, tnum, q, variant, centre)
+        check(torch.equal(d, d1) and torch.equal(i, i1),
+              f"K9 ({variant}) differs from its first form")
     # Score form against difference form. The score |t|² − 2 q·t of a row
     # carries a rounding error of up to 2·2⁻²³·(|q| + |t|)² in the centred
     # frame, so between two rows it may prefer the one whose true d² is larger
@@ -855,7 +959,6 @@ def phase_search(scans, T_gt, rng, dev, card):
     # its winners' (the farther of the two variants' rows): the winners' d²
     # agree within it, and the rows are equal wherever the runner-up (K10,
     # k = 2) is farther than it.
-    centre = tree.centre()
     q_reach = (q - centre).norm(dim=1)
     t_reach = torch.maximum((tpts[iv.long(), :3] - centre).norm(dim=1),
                             (tpts[im.long(), :3] - centre).norm(dim=1))
@@ -875,24 +978,39 @@ def phase_search(scans, T_gt, rng, dev, card):
           f"{tol.median().item():.3e}, max {tol.max().item():.3e}; largest "
           f"|Δd²|/tolerance {(delta / tol).max().item():.3f}")
     print(f"K9 nearest_neighbor: {n} queries × {m} rows; vpu and mxu equal to their "
-          f"plain versions (d², idx); mxu vs vpu max |Δd²| {delta.max().item():.3e}, "
-          f"rows equal on {int(clear.sum())} queries with a clear runner-up "
-          f"({100 * clear_share:.1f} %), {int((iv != im).sum())} differ in all")
+          f"plain versions and first forms (d², idx); mxu vs vpu max |Δd²| "
+          f"{delta.max().item():.3e}, rows equal on {int(clear.sum())} queries with a "
+          f"clear runner-up ({100 * clear_share:.1f} %), {int((iv != im).sum())} differ "
+          "in all")
     tt = tpts[:m, :3].contiguous()
     qc = q.contiguous()
     # The launch alone (the centre given, as KdTree gives it) is the kernel's
-    # time; the wrapper without a centre adds the torch ops that compute it.
-    mxu_ms = time_ms(lambda: nearest_neighbor(tpts, tnum, q, "mxu", centre))
+    # time, in turns with its first form; the wrapper without a centre adds
+    # the torch ops that compute it. The profiler shows one K9 per call and
+    # no other device work.
+    k9 = time_turns({f"{v}{tag}": (lambda v=v, fn=fn: fn(tpts, tnum, q, v, centre))
+                     for v in VARIANTS
+                     for tag, fn in (("", nearest_neighbor), (" v1", _nearest_neighbor_v1))})
     whole_ms = time_ms(lambda: nearest_neighbor(tpts, tnum, q, "vpu"))
+    k9_alone = {}
+    for v in VARIANTS:
+        k9_alone[v] = one_kernel_per_call(
+            lambda v=v: nearest_neighbor(tpts, tnum, q, v, centre), "nn1_split_kernel")
+        check(launches_per_call(nearest_neighbor, lambda v=v: nearest_neighbor(
+            tpts, tnum, q, v, centre)) == 1, "K9 launched other than once a call")
     records["nearest_neighbor"] = dict(
-        max_abs_err=(dv - dvp).abs().max().item(),
-        ms=time_ms(lambda: nearest_neighbor(tpts, tnum, q, "vpu", centre)),
+        max_abs_err=(dv - dvp).abs().max().item(), ms=k9["vpu"],
         plain_ms=time_ms(lambda: nearest_neighbor_plain(tpts, tnum, q, "vpu"), reps=3),
         library_ms=time_ms(lambda: torch.cdist(qc, tt).min(dim=1), reps=3),
         pairs=n * m, bound=search_bound(n, m, 1))
-    print(f"K9 launch alone: vpu {records['nearest_neighbor']['ms']:.4f} ms, mxu "
-          f"{mxu_ms:.4f} ms; whole wrapper (centre computed per call) vpu "
-          f"{whole_ms:.4f} ms on {card}")
+    nsplit = knn_cuda.split_plan(n, tpts.shape[0], knn_cuda.NN1_BLOCK_QUERIES,
+                                 knn_cuda._sm_count(q.device.index))
+    print(f"K9 launch alone, in turns with its first form: vpu {k9['vpu']:.4f} ms "
+          f"(v1 {k9['vpu v1']:.4f}), mxu {k9['mxu']:.4f} ms (v1 {k9['mxu v1']:.4f}); "
+          f"kernel alone by the profiler vpu {k9_alone['vpu']:.4f}, mxu "
+          f"{k9_alone['mxu']:.4f} ms; whole wrapper (centre computed per call) vpu "
+          f"{whole_ms:.4f} ms; {nsplit} chunks of "
+          f"{knn_cuda.split_chunk(m, nsplit)} rows on {card}")
 
     # K10, K11, K12 at the covariance shape: self-kNN of the downsampled target.
     qs = tpts[:m, :3]
@@ -946,13 +1064,10 @@ def phase_search(scans, T_gt, rng, dev, card):
           f"{pruned_ms['target']:.4f} ms, query half {pruned_ms['queries']:.4f} ms "
           f"on {card}")
 
-    # K10 against K11 by query count (k = 10, the first Q rows as queries).
-    for nq in (1, 64, 4096, m):
-        sub = qs[:nq]
-        t10 = time_ms(lambda: knn(tpts, tnum, sub, k))
-        t11 = time_ms(lambda: knn_T(tpts, tnum, sub, k))
-        print(f"K10 vs K11 at Q={nq}, M={m}, k={k}: knn {t10:.4f} ms, knn_T "
-              f"{t11:.4f} ms ({'knn_T' if t11 < t10 else 'knn'} wins) on {card}")
+    # K9 and K10 at every query count; K10 in turns with its first form and
+    # K11 by query count (the first Q rows as queries).
+    turns = split_checks(tpts, tnum, qs, m, rng, card)
+    records["knn"]["ms"] = turns[m, K_NEIGHBORS]["knn"]
 
     # Raw-scan scale: the whole first frame against itself, k = 20.
     raw = PointCloud.from_points(scans[0], device=dev)
@@ -969,8 +1084,19 @@ def phase_search(scans, T_gt, rng, dev, card):
     d11, i11 = knn_T(rpts, rnum, rq, 20)
     check(torch.equal(d10, d11) and torch.equal(i10, i11),
           "K11 differs from K10 at raw-scan scale")
-    raw_ms = {name: time_ms(lambda: fn(rpts, rnum, rq, 20), reps=3)
-              for name, fn in searches}
+    d1, i1 = _knn_v1(rpts, rnum, rq, 20)
+    check(torch.equal(d10, d1) and torch.equal(i10, i1),
+          "K10 differs from its first form at raw-scan scale")
+    for v in VARIANTS:
+        got = nearest_neighbor(rpts, rnum, rq[pick], v)
+        ref = nearest_neighbor_plain(rpts, rnum, rq[pick], v)
+        old = _nearest_neighbor_v1(rpts, rnum, rq[pick], v)
+        check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, ref, old)),
+              f"K9 ({v}) differs from its plain version or first form at raw-scan scale")
+    raw_ms = time_turns({"knn": lambda: knn(rpts, rnum, rq, 20),
+                         "knn v1": lambda: _knn_v1(rpts, rnum, rq, 20)}, reps=3)
+    raw_ms.update({name: time_ms(lambda: fn(rpts, rnum, rq, 20), reps=3)
+                   for name, fn in searches[1:]})
     raw_tree = KdTree(points=rpts, num_points=rnum)
     rtgt = raw_tree.pruned_target()
     rqry = pruned_prepare_queries(rtgt, rq)
@@ -980,9 +1106,10 @@ def phase_search(scans, T_gt, rng, dev, card):
     raw_ms["kept"] = time_ms(lambda: knn_pruned(rpts, rnum, rq, 20, target=rtgt), reps=3)
     b_ms, b_by = search_bound(nr, nr, 20)
     p_ms, p_by = search_bound(nr, nr, 20, need)
-    print(f"raw-scan scale, {nr} × {nr}, k=20: K11 and K12 equal to K10, K10 equal "
-          f"to its plain version on {len(pick)} sampled queries; knn "
-          f"{raw_ms['knn']:.3f} ms, knn_T {raw_ms['knn_T']:.3f} ms (bound "
+    print(f"raw-scan scale, {nr} × {nr}, k=20: K11, K12 and K10's first form equal "
+          f"to K10, K10 and K9 equal to their plain versions on {len(pick)} sampled "
+          f"queries; knn {raw_ms['knn']:.3f} ms (first form {raw_ms['knn v1']:.3f}, in "
+          f"turns), knn_T {raw_ms['knn_T']:.3f} ms (bound "
           f"{b_ms:.4f} ms by {b_by}); knn_pruned launch alone "
           f"{raw_ms['launch']:.3f} ms, with the target half kept "
           f"{raw_ms['kept']:.3f} ms, whole {raw_ms['knn_pruned']:.3f} ms over {need} "
@@ -1044,11 +1171,45 @@ def phase_search(scans, T_gt, rng, dev, card):
     print(f"time per registration: unfused {per_reg['never']:.2f} ms, fused "
           f"{per_reg['auto']:.2f} ms ({n_regs} aligns each) on {card}")
 
-    check(kdtree_benchmark.main([]) == 0, "kdtree_benchmark failed")
+    cli = {"new": cli_rates()}
     launches = {name: KERNELS[name][3].launches for name in SEARCH_KERNELS}
     print(f"launches on the search path: {launches}")
     check(all(v > 0 for v in launches.values()), "a search kernel was not launched")
+    # The CLI again through the first forms of K9 and K10, then through the
+    # new ones: in turns, in this call.
+    with first_forms():
+        cli["v1"] = cli_rates()
+    cli["again"] = cli_rates()
+    for n_k, rate in cli["new"].items():
+        print(f"kdtree_benchmark n={n_k[0]} k={n_k[1]}: {rate} and {cli['again'][n_k]} "
+              f"queries/s, first forms {cli['v1'][n_k]} "
+              f"({min(rate, cli['again'][n_k]) / cli['v1'][n_k]:.2f}× or more) on {card}")
     return records, launches
+
+
+def cli_rates() -> dict:
+    """{(n, k): queries/s} of one run of the kdtree_benchmark CLI, whose
+    lines are printed as well."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = kdtree_benchmark.main([])
+    print(out.getvalue(), end="")
+    check(rc == 0, "kdtree_benchmark failed")
+    rows = [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+    return {(r["n"], r["k"]): r["queries_per_sec"] for r in rows}
+
+
+@contextlib.contextmanager
+def first_forms():
+    """``KdTree`` searches through the first forms of K9 and K10, which it
+    looks up in ``knn_cuda`` at each call, uncounted."""
+    saved = knn_cuda.knn, knn_cuda.nearest_neighbor
+    knn_cuda.knn, knn_cuda.nearest_neighbor = _knn_v1, _nearest_neighbor_v1
+    try:
+        yield
+    finally:
+        knn_cuda.knn, knn_cuda.nearest_neighbor = saved
 
 
 def world_cloud(scans, poses) -> np.ndarray:

@@ -2,11 +2,15 @@
 // (sm_90a). They replace the Pallas kernels of
 // small_gicp_tpu/ops/knn_pallas.py:
 //
-//   nn1_kernel<false|true>   `_nn1_kernel_vpu` / `_nn1_kernel`
-//                            (nearest_neighbor_pallas, "vpu" / "mxu")
-//   knn_kernel<KMAX>         `_make_knn_kernel`        (knn_pallas)
-//   knn_warp_kernel          `_make_knn_kernel_T`      (knn_pallas_T)
-//   knn_pruned_kernel<KMAX>  `_make_knn_listed_kernel` (knn_pallas_pruned)
+//   nn1_split_kernel<false|true>  `_nn1_kernel_vpu` / `_nn1_kernel`
+//                                 (nearest_neighbor_pallas, "vpu" / "mxu")
+//   knn_split_kernel<KMAX>        `_make_knn_kernel`        (knn_pallas)
+//   knn_warp_kernel               `_make_knn_kernel_T`      (knn_pallas_T)
+//   knn_pruned_kernel<KMAX>       `_make_knn_listed_kernel` (knn_pallas_pruned)
+//
+// nn1_kernel and knn_kernel are the first forms of K9 and K10, one thread
+// per query over every row; they stay as yardsticks (entries sgt_nn1_v1,
+// sgt_knn_v1) and are on no path.
 //
 // Shared contract. Targets are [M,4] float32 rows (x y z w) of which the
 // first *tnum are valid (a device int32 read in place; sentinel rows beyond
@@ -25,23 +29,52 @@
 // streams the target through shared memory in 16-byte rows, so the inner
 // loop is one broadcast load, the distance and one compare.
 //
-// K9 (1-NN): one thread per query, strict < over rows in index order.
-// Both clouds are centred on `centre` (the mean of the finite target rows,
-// computed by the wrapper), as the Pallas wrapper centres them: the
-// difference-form instance returns d² of the centred coordinates; the
-// score-form instance ranks by |t|² − 2 q·t of the centred coordinates
-// (|q|² is constant per query) and returns the winner's d² recomputed from
-// the uncentred inputs.
+// K9 (1-NN). Both clouds are centred on `centre` (the mean of the finite
+// target rows, computed by the wrapper), as the Pallas wrapper centres
+// them: the difference-form instance returns d² of the centred
+// coordinates; the score-form instance ranks by |t|² − 2 q·t of the centred
+// coordinates (|q|² is constant per query) and returns the winner's d²
+// recomputed from the uncentred inputs.
 //
-// K10 (kNN, one thread per query): a sorted top-k list per thread, in
-// local memory (KMAX ∈ {16, 32, 64} sizes it and the bound's sample list,
-// k at run time). An insertion taken by one
-// lane stalls its warp, and a cloud in scan or voxel order approaches a
-// query gradually, so a cold list would insert at most rows. Each query
-// therefore first takes the kth smallest d² over a strided sample of about
-// kSampleRows valid rows as a bound B ≥ its true kth distance, and the scan
-// only considers rows with d² ≤ B: the result is unchanged, the insertions
-// drop to about the rows inside the bound.
+// K10 (kNN, k ≤ 64): a sorted top-k list per query (KMAX ∈ {16, 32, 64}
+// sizes it and the bound's sample list, k at run time; up to kRegList slots
+// in registers, longer lists in local memory). An insertion taken by one lane stalls its warp, and a cloud in
+// scan or voxel order approaches a query gradually, so a cold list would
+// insert at most rows. Each query therefore first takes the kth smallest d²
+// over a strided sample of rows as a bound B ≥ its true kth distance, and
+// the scan only considers rows with d² ≤ B: the result is unchanged, the
+// insertions drop to about the rows inside the bound.
+//
+// The split design of K9 and K10. A block owns R · kSplitThreads queries,
+// R of them per thread (kNn1Rows for K9, kKnnRows for K10), so that one
+// staged row feeds R independent distance chains. The second grid dimension
+// cuts the valid target rows into gridDim.y chunks (split_chunk: equal
+// multiples of kSplitTile, read from the device row count, so trailing
+// chunks may be empty); the wrapper chooses gridDim.y from the query blocks
+// and the card's SM count so that a launch fills the card at every query
+// count. A chunk streams through a two-stage cp.async ring of kSplitTile
+// rows: tile t + 1 lands while tile t is scanned. Within a chunk, rows come
+// in index order. With one chunk the block writes its results; with more,
+// every chunk's winners are merged inside the same launch:
+//   K9: each thread posts its winner as a 64-bit key, the rank's bits made
+//       orderable (the score can be negative) in the high word and the row
+//       in the low one, by atomicMax of its complement into a per-query
+//       word that is 0 between launches: the smallest key wins, ties to the
+//       lower row, whatever the blocks' order. The last block of the query
+//       block (a ticket) decodes the winner, recomputes the score form's d²
+//       from the uncentred rows, writes, and sets the words and the ticket
+//       back to 0.
+//   K10: each non-empty chunk's sorted list goes to a workspace [S, k, Q];
+//       the last block of the query block merges the lists in chunk order.
+//       Chunks cover disjoint, ascending row ranges, so inserting after
+//       every entry of equal d² keeps (d², row) order. K10's bound is taken
+//       over every kSampleStep-th row of the chunk (fewer where that would
+//       exceed about kChunkSample rows), which bounds that chunk's own list;
+//       a chunk of at most kSplitTile rows starts cold. Any chunk's bound,
+//       and any chunk's full list's kth, bounds the query's kth over the
+//       whole target, so the chunks of a query trade their bounds through a
+//       per-query word after every tile, and each keeps only rows within
+//       the smallest: a row of the final list is never cut.
 //
 // K11 (kNN, one warp per query): the other work mapping of the same
 // search, for few queries. Lanes stride the target rows, each lane keeps a
@@ -68,6 +101,7 @@
 // insertion is lexicographic on (d², original index): K12 equals K10 on
 // every input.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -76,9 +110,16 @@ namespace {
 
 using sgt::kBig;
 
-constexpr int kKnnThreads = 64;    // queries per block (K9, K10, K12)
-constexpr int kKnnTile = 512;      // target rows staged at once (K9, K10)
-constexpr int kSampleRows = 2048;  // rows of K10's bound sample
+constexpr int kKnnThreads = 64;    // queries per block (K9, K10 v1, K12)
+constexpr int kKnnTile = 512;      // target rows staged at once (v1)
+constexpr int kSampleRows = 2048;  // rows of K10 v1's bound sample
+constexpr int kSplitThreads = 64;  // threads per block (K9, K10)
+constexpr int kNn1Rows = 4;        // queries per thread (K9)
+constexpr int kKnnRows = 1;        // queries per thread (K10)
+constexpr int kSplitTile = 256;    // rows per ring stage; chunks are multiples
+constexpr int kSampleStep = 8;     // K10's bound samples every 8th row of a
+constexpr int kChunkSample = 2048;  // chunk, or a larger step above this many
+constexpr int kRegList = 16;       // K10's lists up to this long live in registers
 constexpr int kWarpTile = 256;     // target rows staged at once (K11)
 constexpr int kTile = sgt::kBoxRows;  // sorted rows per box (K12)
 constexpr int kSeedTiles = 5;      // tiles around the anchor scanned first
@@ -94,7 +135,7 @@ __device__ __forceinline__ void load_query(const float* __restrict__ qry,
   z = q[2];
 }
 
-// ---------------------------------------------------------------- K9 ----
+// ------------------------------------------------------------- K9 v1 ----
 
 template <bool SCORE>
 __global__ void __launch_bounds__(kKnnThreads)
@@ -163,7 +204,7 @@ nn1_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap
   out_i[i] = best_i;
 }
 
-// --------------------------------------------------------------- K10 ----
+// ------------------------------------------------------------ K10 v1 ----
 
 // K10's list lives in local memory (L1), indexed at run time: its sampled
 // bound is loose, so a query inserts some fifty times, and an insertion
@@ -229,6 +270,368 @@ knn_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap
   for (int s = 0; s < k; ++s) {
     out_d[(size_t)i * k + s] = bd[s];
     out_i[(size_t)i * k + s] = bi[s];  // 0 in a slot no row has filled
+  }
+}
+
+// --------------------------------------------------- K9, K10: split ----
+
+// Start the copy of rows [base, base + cnt) into dst: 16-byte cp.async
+// copies; thread tid copies rows tid, tid + kSplitThreads, ….
+__device__ __forceinline__ void stage_rows(float4* dst, const float4* t4, int base,
+                                           int cnt) {
+  for (int j = threadIdx.x; j < cnt; j += kSplitThreads)
+    __pipeline_memcpy_async(dst + j, t4 + base + j, sizeof(float4));
+}
+
+// Rows per chunk when the m valid rows are cut into gridDim.y chunks of at
+// least `least` rows (a multiple of kSplitTile): a multiple of kSplitTile;
+// trailing chunks may be empty.
+__device__ __forceinline__ int split_chunk(int m, int least) {
+  return max(least, ((m + (int)gridDim.y - 1) / (int)gridDim.y + kSplitTile - 1) /
+                        kSplitTile * kSplitTile);
+}
+
+// Called by every thread after it posted its chunk's results: true in the
+// block of query block blockIdx.x that finished last among its chunks.
+__device__ __forceinline__ bool last_chunk(unsigned* tickets) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + blockIdx.x, 1u) == gridDim.y - 1;
+  __syncthreads();
+  return last;
+}
+
+// Float bits whose unsigned order is the floats' order (no NaN), and back.
+__device__ __forceinline__ unsigned orderable(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_orderable(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// K9's result for query q: the winner (v, row) of the ranks; the score
+// form's d² recomputed from the uncentred query (u) and row.
+template <bool SCORE>
+__device__ __forceinline__ void put_nn1(const float4* __restrict__ t4, float ux,
+                                        float uy, float uz, float v, int row,
+                                        float* __restrict__ out_d,
+                                        int* __restrict__ out_i, int q) {
+  if (SCORE && v < kBig) {
+    const float4 p = t4[row];
+    float dx, dy, dz;
+    v = sgt::sq_dist(ux, uy, uz, p.x, p.y, p.z, dx, dy, dz);
+  }
+  out_d[q] = v;
+  out_i[q] = row;
+}
+
+// keys [nq] and tickets [query blocks]: 0 between launches.
+template <bool SCORE>
+__global__ void __launch_bounds__(kSplitThreads)
+nn1_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap,
+                 const float* __restrict__ qry, int qstride, int nq,
+                 const float* __restrict__ centre,
+                 unsigned long long* __restrict__ keys, unsigned* __restrict__ tickets,
+                 float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int R = kNn1Rows;
+  __shared__ __align__(16) float4 tile[2][kSplitTile];
+  const int q0 = blockIdx.x * R * kSplitThreads + threadIdx.x;  // + r·kSplitThreads
+  const int m = min(*tnum, mcap);
+  const int chunk = split_chunk(m, kSplitTile);
+  const int lo = blockIdx.y * chunk;
+  const int cnt = max(0, min(m - lo, chunk));
+  const float4* t4 = reinterpret_cast<const float4*>(tgt);
+  const float cx = centre[0], cy = centre[1], cz = centre[2];
+
+  float ux[R], uy[R], uz[R], qx[R], qy[R], qz[R], best[R];
+  int best_i[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ux[r] = uy[r] = uz[r] = 0.f;
+    if (q0 + r * kSplitThreads < nq)
+      load_query(qry, qstride, q0 + r * kSplitThreads, ux[r], uy[r], uz[r]);
+    qx[r] = __fsub_rn(ux[r], cx);
+    qy[r] = __fsub_rn(uy[r], cy);
+    qz[r] = __fsub_rn(uz[r], cz);
+    best[r] = kBig;
+    best_i[r] = 0;
+  }
+
+  // Tile t goes to ring slot t & 1, one commit group per tile.
+  const int ntiles = (cnt + kSplitTile - 1) / kSplitTile;
+  if (ntiles > 0) stage_rows(tile[0], t4, lo, min(kSplitTile, cnt));
+  __pipeline_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int base = lo + t * kSplitTile;
+    const int rows = min(kSplitTile, cnt - t * kSplitTile);
+    if (t + 1 < ntiles)
+      stage_rows(tile[(t + 1) & 1], t4, base + kSplitTile,
+                 min(kSplitTile, cnt - (t + 1) * kSplitTile));
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this thread's copies of tile t landed
+    float4* tl = tile[t & 1];
+    // Centre the rows this thread copied; the score form's |t|² goes to w.
+    for (int j = threadIdx.x; j < rows; j += kSplitThreads) {
+      float4 p = tl[j];
+      p.x = __fsub_rn(p.x, cx);
+      p.y = __fsub_rn(p.y, cy);
+      p.z = __fsub_rn(p.z, cz);
+      if (SCORE)
+        p.w = __fadd_rn(__fadd_rn(__fmul_rn(p.x, p.x), __fmul_rn(p.y, p.y)),
+                        __fmul_rn(p.z, p.z));
+      tl[j] = p;
+    }
+    __syncthreads();  // every thread's rows are in place
+#pragma unroll 2
+    for (int j = 0; j < rows; ++j) {
+      const float4 p = tl[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float v;
+        if (SCORE) {
+          const float dot = __fadd_rn(
+              __fadd_rn(__fmul_rn(qx[r], p.x), __fmul_rn(qy[r], p.y)),
+              __fmul_rn(qz[r], p.z));
+          v = __fsub_rn(p.w, __fmul_rn(2.f, dot));
+        } else {
+          float dx, dy, dz;
+          v = sgt::sq_dist(qx[r], qy[r], qz[r], p.x, p.y, p.z, dx, dy, dz);
+        }
+        if (v < best[r]) {  // strict: the first row keeps a tie
+          best[r] = v;
+          best_i[r] = base + j;
+        }
+      }
+    }
+    __syncthreads();  // slot t & 1 is read; tile t + 2 may land there
+  }
+
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (q0 + r * kSplitThreads < nq)
+        put_nn1<SCORE>(t4, ux[r], uy[r], uz[r], best[r], best_i[r], out_d, out_i,
+                       q0 + r * kSplitThreads);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = q0 + r * kSplitThreads;
+    if (q < nq && best[r] < kBig) {
+      // -0 + 0 = +0: equal ranks get equal keys.
+      const unsigned long long key =
+          ((unsigned long long)orderable(__fadd_rn(best[r], 0.f)) << 32) |
+          (unsigned)best_i[r];
+      atomicMax(keys + q, ~key);
+    }
+  }
+  if (!last_chunk(tickets)) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = q0 + r * kSplitThreads;
+    if (q >= nq) continue;
+    const unsigned long long key = ~__ldcg(keys + q);
+    keys[q] = 0ull;
+    const bool found = key != ~0ull;  // some chunk posted a winner
+    put_nn1<SCORE>(t4, ux[r], uy[r], uz[r],
+                   found ? from_orderable((unsigned)(key >> 32)) : kBig,
+                   found ? (int)(key & 0xffffffffu) : 0, out_d, out_i, q);
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
+}
+
+// K10's sorted list (d, p) of length k ≤ KMAX. Up to kRegList slots it is
+// kept in registers: every access is unrolled over the slots with constant
+// indices, and an insertion costs a pass over all of them. Longer lists
+// live in local memory, indexed at run time, where an insertion shifts only
+// the entries behind it.
+template <int KMAX>
+constexpr bool kInRegisters = KMAX <= kRegList;
+
+template <int KMAX>
+__device__ __forceinline__ float list_kth(const float (&d)[KMAX], int k) {
+  if (kInRegisters<KMAX>) return sgt::topk_slot<KMAX>(d, k - 1);
+  return d[k - 1];
+}
+
+// Insert (d2, row) after every entry ≤ d2; the caller has checked
+// d2 < the list's kth.
+template <int KMAX>
+__device__ __forceinline__ void list_insert(float (&d)[KMAX], int (&p)[KMAX], int k,
+                                            float d2, int row) {
+  if (kInRegisters<KMAX>) {
+#pragma unroll
+    for (int s = KMAX - 1; s > 0; --s) {
+      if (s < k) {
+        if (d[s - 1] > d2) {
+          d[s] = d[s - 1];
+          p[s] = p[s - 1];
+        } else if (d[s] > d2) {
+          d[s] = d2;
+          p[s] = row;
+        }
+      }
+    }
+    if (d[0] > d2) {
+      d[0] = d2;
+      p[0] = row;
+    }
+    return;
+  }
+  int s = k - 1;
+  while (s > 0 && d[s - 1] > d2) {
+    d[s] = d[s - 1];
+    p[s] = p[s - 1];
+    --s;
+  }
+  d[s] = d2;
+  p[s] = row;
+}
+
+// A bound B of query q's kth d² over the whole target, shared by its
+// chunks: words[q] holds ~bits(B) (d² ≥ 0, so the bits order as the values),
+// 0 for none; atomicMax keeps the smallest B.
+__device__ __forceinline__ void share_bound(unsigned* words, int q, float& b) {
+  const unsigned w = __ldcg(words + q);
+  if (w != 0u && __uint_as_float(~w) < b) b = __uint_as_float(~w);
+  else if (b < kBig && (w == 0u || b < __uint_as_float(~w)))
+    atomicMax(words + q, ~__float_as_uint(b));
+}
+
+// ws_d / ws_i [gridDim.y, k, nq], bounds [nq] (used when gridDim.y > 1),
+// tickets [query blocks]; bounds and tickets are 0 between launches.
+template <int KMAX>
+__global__ void __launch_bounds__(kSplitThreads)
+knn_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, int mcap,
+                 const float* __restrict__ qry, int qstride, int nq, int k, int least,
+                 float* __restrict__ ws_d, int* __restrict__ ws_i,
+                 unsigned* __restrict__ bounds, unsigned* __restrict__ tickets,
+                 float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int R = kKnnRows;
+  __shared__ __align__(16) float4 tile[2][kSplitTile];
+  const int q0 = blockIdx.x * R * kSplitThreads + threadIdx.x;  // + r·kSplitThreads
+  const int m = min(*tnum, mcap);
+  const int chunk = split_chunk(m, least);
+  const int lo = blockIdx.y * chunk;
+  const int cnt = max(0, min(m - lo, chunk));
+  const bool shared = gridDim.y > 1;
+  const float4* t4 = reinterpret_cast<const float4*>(tgt);
+
+  // Query r's list (bd[r], bi[r]). bnd[r] is a bound of its kth d² over
+  // the whole target: its own chunk's sampled bound, its own list's kth once
+  // full, and with more than one chunk the other chunks' (bounds). Every
+  // row of the final list has d² ≤ bnd[r], and a row of this chunk that
+  // belongs to it is among the chunk's k first; so a row enters the list
+  // only if d² < lim[r] = min(the list's kth, the float above bnd[r]).
+  float qx[R], qy[R], qz[R], bnd[R], lim[R];
+  float bd[R][KMAX];
+  int bi[R][KMAX];
+  const float inf = __int_as_float(0x7f800000);
+  const int step = max(kSampleStep, (cnt + kChunkSample - 1) / kChunkSample);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = q0 + r * kSplitThreads;
+    qx[r] = qy[r] = qz[r] = 0.f;
+    bnd[r] = kBig;
+    if (q < nq) {
+      load_query(qry, qstride, q, qx[r], qy[r], qz[r]);
+      if (cnt > kSplitTile)
+        bnd[r] = sgt::kth_bound<KMAX>(t4, lo, lo + cnt, step, k, qx[r], qy[r], qz[r]);
+      if (shared && cnt > 0) share_bound(bounds, q, bnd[r]);
+    }
+    lim[r] = fminf(kBig, nextafterf(bnd[r], inf));
+    sgt::topk_fill<KMAX>(bd[r], kBig);
+    sgt::topk_fill<KMAX>(bi[r], 0);
+  }
+
+  const int ntiles = (cnt + kSplitTile - 1) / kSplitTile;
+  if (ntiles > 0) stage_rows(tile[0], t4, lo, min(kSplitTile, cnt));
+  __pipeline_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int base = lo + t * kSplitTile;
+    const int rows = min(kSplitTile, cnt - t * kSplitTile);
+    if (t + 1 < ntiles)
+      stage_rows(tile[(t + 1) & 1], t4, base + kSplitTile,
+                 min(kSplitTile, cnt - (t + 1) * kSplitTile));
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    const float4* tl = tile[t & 1];
+    for (int j = 0; j < rows; ++j) {
+      const float4 p = tl[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float dx, dy, dz;
+        const float d2 = sgt::sq_dist(qx[r], qy[r], qz[r], p.x, p.y, p.z, dx, dy, dz);
+        if (d2 < lim[r]) {
+          // Rows arrive in index order: after equal entries keeps ties low.
+          list_insert<KMAX>(bd[r], bi[r], k, d2, base + j);
+          lim[r] = fminf(list_kth<KMAX>(bd[r], k), nextafterf(bnd[r], inf));
+        }
+      }
+    }
+    if (shared) {  // trade bounds with the query's other chunks
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int q = q0 + r * kSplitThreads;
+        if (q >= nq) continue;
+        bnd[r] = fminf(bnd[r], list_kth<KMAX>(bd[r], k));
+        share_bound(bounds, q, bnd[r]);
+        lim[r] = fminf(list_kth<KMAX>(bd[r], k), nextafterf(bnd[r], inf));
+      }
+    }
+    __syncthreads();
+  }
+
+  if (gridDim.y > 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int q = q0 + r * kSplitThreads;
+      if (q >= nq || cnt == 0) continue;  // the merge skips empty chunks
+#pragma unroll
+      for (int s = 0; s < KMAX; ++s) {
+        if (s >= k) break;
+        const size_t at = ((size_t)blockIdx.y * k + s) * nq + q;
+        ws_d[at] = bd[r][s];
+        ws_i[at] = bi[r][s];
+      }
+    }
+    if (!last_chunk(tickets)) return;
+    // Merge the chunks' lists in chunk order: rows ascend from chunk to
+    // chunk, so an entry that only ties the kth loses to it.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int q = q0 + r * kSplitThreads;
+      if (q >= nq) continue;
+      sgt::topk_fill<KMAX>(bd[r], kBig);
+      sgt::topk_fill<KMAX>(bi[r], 0);
+      bounds[q] = 0u;
+      float kth = kBig;
+      for (int c = 0; c * chunk < m; ++c) {
+        for (int s = 0; s < k; ++s) {
+          const size_t at = ((size_t)c * k + s) * nq + q;
+          const float d2 = __ldcg(ws_d + at);
+          if (!(d2 < kth)) break;  // the chunk's list ascends
+          list_insert<KMAX>(bd[r], bi[r], k, d2, __ldcg(ws_i + at));
+          kth = list_kth<KMAX>(bd[r], k);
+        }
+      }
+    }
+    if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = q0 + r * kSplitThreads;
+    if (q >= nq) continue;
+#pragma unroll
+    for (int s = 0; s < KMAX; ++s) {
+      if (s >= k) break;
+      out_d[(size_t)q * k + s] = bd[r][s];
+      out_i[(size_t)q * k + s] = bi[r][s];  // 0 in a slot no row has filled
+    }
   }
 }
 
@@ -357,9 +760,72 @@ extern "C" {
 // [nq,k].
 
 // K9. centre: 3 device floats; variant 0 = difference form, 1 = score form.
+// The valid target rows are cut into nsplit chunks (split_chunk); keys [nq]
+// and tickets [query blocks] are 0 between launches and left so.
 int sgt_nn1(const float* tgt, const int* tnum, int mcap, const float* qry,
-            int qstride, int nq, const float* centre, int variant, float* out_d,
-            int* out_i, void* stream) {
+            int qstride, int nq, const float* centre, int variant, int nsplit,
+            unsigned long long* keys, unsigned* tickets, float* out_d, int* out_i,
+            void* stream) {
+  if (bad_search(mcap, qstride, nq) || nsplit < 1 || nsplit > 65535 || variant < 0 ||
+      variant > 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((nq + kNn1Rows * kSplitThreads - 1) / (kNn1Rows * kSplitThreads),
+                  nsplit);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 0)
+    nn1_split_kernel<false><<<grid, kSplitThreads, 0, s>>>(
+        tgt, tnum, mcap, qry, qstride, nq, centre, keys, tickets, out_d, out_i);
+  else
+    nn1_split_kernel<true><<<grid, kSplitThreads, 0, s>>>(
+        tgt, tnum, mcap, qry, qstride, nq, centre, keys, tickets, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
+// K10. Chunks as for K9, of at least `least` rows (a positive multiple of
+// kSplitTile); ws_d / ws_i hold nsplit · k · nq entries when nsplit > 1;
+// bounds [nq] and tickets are 0 between launches and left so.
+int sgt_knn(const float* tgt, const int* tnum, int mcap, const float* qry,
+            int qstride, int nq, int k, int nsplit, int least, float* ws_d, int* ws_i,
+            unsigned* bounds, unsigned* tickets, float* out_d, int* out_i,
+            void* stream) {
+  if (bad_search(mcap, qstride, nq) || nsplit < 1 || nsplit > 65535 || k < 1 ||
+      k > 64 || least < kSplitTile || least % kSplitTile != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((nq + kKnnRows * kSplitThreads - 1) / (kKnnRows * kSplitThreads),
+                  nsplit);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16)
+    knn_split_kernel<16><<<grid, kSplitThreads, 0, s>>>(
+        tgt, tnum, mcap, qry, qstride, nq, k, least, ws_d, ws_i, bounds, tickets, out_d,
+        out_i);
+  else if (k <= 32)
+    knn_split_kernel<32><<<grid, kSplitThreads, 0, s>>>(
+        tgt, tnum, mcap, qry, qstride, nq, k, least, ws_d, ws_i, bounds, tickets, out_d,
+        out_i);
+  else
+    knn_split_kernel<64><<<grid, kSplitThreads, 0, s>>>(
+        tgt, tnum, mcap, qry, qstride, nq, k, least, ws_d, ws_i, bounds, tickets, out_d,
+        out_i);
+  return (int)cudaGetLastError();
+}
+
+// The split geometry that the wrapper's plan and plain account repeat:
+// out[0..4] = queries per K9 block, per K10 block, rows per ring stage
+// (chunks are multiples of it), K10's least sample step and most sampled
+// rows per chunk.
+int sgt_knn_split_geometry(int* out) {
+  out[0] = kNn1Rows * kSplitThreads;
+  out[1] = kKnnRows * kSplitThreads;
+  out[2] = kSplitTile;
+  out[3] = kSampleStep;
+  out[4] = kChunkSample;
+  return 0;
+}
+
+// K9 v1, the yardstick: one thread per query over every row.
+int sgt_nn1_v1(const float* tgt, const int* tnum, int mcap, const float* qry,
+               int qstride, int nq, const float* centre, int variant, float* out_d,
+               int* out_i, void* stream) {
   if (bad_search(mcap, qstride, nq) || variant < 0 || variant > 1)
     return (int)cudaErrorInvalidValue;
   const int blocks = (nq + kKnnThreads - 1) / kKnnThreads;
@@ -373,9 +839,9 @@ int sgt_nn1(const float* tgt, const int* tnum, int mcap, const float* qry,
   return (int)cudaGetLastError();
 }
 
-// K10.
-int sgt_knn(const float* tgt, const int* tnum, int mcap, const float* qry,
-            int qstride, int nq, int k, float* out_d, int* out_i, void* stream) {
+// K10 v1, the yardstick.
+int sgt_knn_v1(const float* tgt, const int* tnum, int mcap, const float* qry,
+               int qstride, int nq, int k, float* out_d, int* out_i, void* stream) {
   if (bad_search(mcap, qstride, nq) || k < 1 || k > 64)
     return (int)cudaErrorInvalidValue;
   const int blocks = (nq + kKnnThreads - 1) / kKnnThreads;

@@ -31,7 +31,9 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
     ``factors.linearize`` and ``factors.error_multi``, plain torch ops as
     they are XLA ops in the JAX package.
 The loop state stays on the device; the host reads one stop flag per outer
-iteration.
+iteration (with ``verbose``, the printed values ride in the same read).
+Parameters sit in the JAX package's positions; ``fused_route`` follows them
+as a keyword only.
 """
 
 from __future__ import annotations
@@ -108,17 +110,23 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                rotation_eps: float = 0.1 * math.pi / 180.0,
                translation_eps: float = 1e-3, init_lambda: float = 1e-3,
                lambda_factor: float = 10.0, gn_lambda: float = 1e-6,
-               dof_mask=None, dof_lambda: float = 1e9,
-               use_fused: str = "auto",
-               solve_dtype: str = "same",
+               dof_mask=None, dof_lambda: float = 1e9, verbose: bool = False,
+               use_fused: str = "auto", psum_axis: Optional[str] = None,
+               solve_dtype: str = "same", *,
                fused_route: Optional[str] = None) -> RegistrationResult:
     """Register ``source`` to ``target``; both clouds on the same device.
 
+    ``verbose`` prints the JAX package's line once per iteration: LM
+    ``iter e new_e lambda dr dt``, GN ``iter e gn_lambda dr dt``.
     ``use_fused``: "auto" takes the fused kernels for float32 clouds;
     "never" keeps the unfused search + linearize route, which float64
-    clouds always take. ``fused_route``: "listed" or "swept" forces the
-    fused search's route; None chooses by the target's size.
+    clouds always take. ``psum_axis`` (the point-sharded mode) is not
+    ported. ``fused_route``: "listed" or "swept" forces the fused search's
+    route; None chooses by the target's size.
     """
+    if psum_axis is not None:
+        raise NotImplementedError(
+            "psum_axis (the point-sharded registration) waits for ROADMAP item A10")
     if not isinstance(target, PointCloud):
         raise NotImplementedError(_NOT_PORTED)
     if target_tree is not None and not isinstance(target_tree, KdTree):
@@ -214,6 +222,7 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
             converged = _converged(delta, rotation_eps, translation_eps)
             T = T @ se3_exp(delta)
             stop = converged
+            shown = (e, gn_damping)
         else:
             lambdas = lam * lambda_factor ** powers
             deltas = solve6x6(Hs, -bs, lambdas.to(solve_dt)).to(dt)  # [K,6]
@@ -230,8 +239,18 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                               lam * lambda_factor ** K)
             converged = accepted & _converged(delta, rotation_eps, translation_eps)
             stop = converged | ~accepted
+            shown = (e0, e, lam)
         H, b, last_e = Hs.to(dt), bs.to(dt), e
-        if bool(stop):  # the one host read of the iteration
+        if verbose:  # the iteration's one host read carries the line's values
+            vals = torch.stack([v.to(torch.float64) for v in (
+                stop, *shown, torch.linalg.vector_norm(delta[:3]),
+                torch.linalg.vector_norm(delta[3:]))]).tolist()
+            names = (("e", "gn_lambda") if optimizer == "gn"
+                     else ("e", "new_e", "lambda")) + ("dr", "dt")
+            print(f"iter={i} " + " ".join(f"{n}={v}" for n, v in zip(names, vals[1:])))
+            if vals[0]:
+                break
+        elif bool(stop):  # the one host read of the iteration
             break
 
     return RegistrationResult(
@@ -255,8 +274,8 @@ class Registration:
                  max_correspondence_distance: float = 1.0,
                  rotation_eps: float = 0.1 * math.pi / 180.0,
                  translation_eps: float = 1e-3, dof_rotation_mask=None,
-                 dof_translation_mask=None, solve_dtype: str = "same",
-                 fused_route: Optional[str] = None):
+                 dof_translation_mask=None, verbose: bool = False,
+                 solve_dtype: str = "same", *, fused_route: Optional[str] = None):
         if registration_type == "vgicp":
             raise NotImplementedError(_NOT_PORTED)
         if registration_type not in (ICP, PLANE_ICP, GICP):
@@ -273,6 +292,7 @@ class Registration:
         self.max_correspondence_distance = max_correspondence_distance
         self.rotation_eps = rotation_eps
         self.translation_eps = translation_eps
+        self.verbose = verbose
         self.solve_dtype = solve_dtype
         self.fused_route = fused_route
         self.dof_mask = None
@@ -295,6 +315,7 @@ class Registration:
             rotation_eps=self.rotation_eps,
             translation_eps=self.translation_eps,
             dof_mask=self.dof_mask,
+            verbose=self.verbose,
             solve_dtype=self.solve_dtype,
             fused_route=self.fused_route,
         )

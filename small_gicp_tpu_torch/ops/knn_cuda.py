@@ -12,7 +12,7 @@ Counterpart of ``small_gicp_tpu/ops/knn_pallas.py``:
     the uncentred inputs (its tensor-core form is later work).
   * ``knn`` (K10) replaces ``knn_pallas`` (``_make_knn_kernel``): exact
     kNN for k ≤ 64, (d² [Q,k] ascending, idx [Q,k]), difference form, no
-    centring, ties to the lower index. One thread per query.
+    centring, ties to the lower index.
   * ``knn_T`` (K11) replaces ``knn_pallas_T`` (``_make_knn_kernel_T``):
     K10's contract with the other work mapping — one warp per query —
     bit-identical to K10. Reachable by this wrapper only, as in the JAX
@@ -34,10 +34,28 @@ Bound on the card: Q·M pairs at 9 float32 operations against 16·(Q+M)
 bytes in and 8·k·Q out — operations, at every shape a scan produces. K12
 is bounded by fewer pairs: the rows of the tiles that lie within a query
 block's true kth distance, which depend on the data.
-The kernels stream the target through shared memory; K10 bounds each
-query's scan by the kth distance over a strided sample so that its list
-insertions stay few; K12 skips whole tiles by a block-uniform branch.
-See ``csrc/knn.cu``.
+The kernels stream the target through shared memory; K12 skips whole
+tiles by a block-uniform branch. See ``csrc/knn.cu``.
+
+K9 and K10 split the work two ways so that one launch fills the card at
+every query count: each thread of K9 takes 4 queries (K10 one), and ``split_plan`` cuts the target rows into chunks, one grid row
+each. Each chunk searches its own rows; the chunks' results are merged in
+the same launch by the last block of each query block:
+
+  * K9: a chunk's winner becomes a 64-bit key, the rank's float bits made
+    orderable (the score form's rank can be negative) above the row; the
+    smallest key over the chunks wins, so ties go to the lower row, and the
+    score form's d² is then recomputed from the uncentred rows;
+  * K10: a chunk keeps the k first rows in (d², row) order among the rows
+    within its bound — the kth smallest d² over a strided sample of its own
+    rows, which bounds its own list and so changes nothing — and the
+    chunks' lists are merged in (d², row) order.
+
+``nearest_neighbor_split_plain`` and ``knn_split_plain`` are the plain
+account of that: for every plan they equal ``nearest_neighbor_plain`` and
+``knn_plain``, which stay the contract. The first forms of K9 and K10 (one
+thread per query over every row) stay as the yardsticks ``_nearest_neighbor_v1``
+and ``_knn_v1``, reached from no path.
 
 What a search derives from the target alone — K9's centre, the target
 half of K12's prologue (the sort and boxes of ``ops/morton_boxes.py``) —
@@ -51,8 +69,9 @@ arithmetic (and, for K12, its sort, boxes, seed and pruning rule).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -73,6 +92,26 @@ BLOCK_QUERIES = morton_boxes.BLOCK_ROWS
 # Tiles around a block's anchor that K12 scans first (kSeedTiles of
 # csrc/knn.cu, held against the compiled value when the library loads).
 SEED_TILES = 5
+# K9's and K10's queries per block, rows per ring stage (chunks are
+# multiples of it), K10's least sample step and most sampled rows per chunk
+# (sgt_knn_split_geometry of csrc/knn.cu, held against the compiled values
+# when the library loads).
+NN1_BLOCK_QUERIES = 256
+KNN_BLOCK_QUERIES = 64
+SPLIT_TILE = 256
+SAMPLE_STEP = 8
+CHUNK_SAMPLE = 2048
+# Blocks that a K9 or K10 launch aims at per SM: the target rows are cut
+# into chunks until the query blocks times the chunks reach this many, or
+# until a chunk of the capacity is one ring stage.
+SPLIT_BLOCKS_PER_SM = 32
+# A chunk pays about k insertions into its lists whatever its length, so
+# where the query blocks alone put FILLED_BLOCKS_PER_SM blocks on every SM,
+# K10's chunks hold at least KNN_ROWS_PER_K rows per neighbour (0: no such
+# floor).
+FILLED_BLOCKS_PER_SM = 2
+KNN_ROWS_PER_K = 512
+_EMPTY_KEY = 2 ** 63 - 1
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -128,14 +167,88 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
-    """The knn library, its pruned-search constants held against the
-    Python side's."""
+    """The knn library, its pruned-search and split constants held against
+    the Python side's (once: a launch pays no check)."""
     lib = morton_boxes.library("knn")
     if lib.sgt_knn_seed_tiles() != SEED_TILES:
         raise RuntimeError(f"csrc/knn.cu scans {lib.sgt_knn_seed_tiles()} seed "
                            f"tiles; the Python wrapper has {SEED_TILES}")
-    return lib
+    return _build.library_with_geometry(
+        "knn", "sgt_knn_split_geometry",
+        (NN1_BLOCK_QUERIES, KNN_BLOCK_QUERIES, SPLIT_TILE, SAMPLE_STEP, CHUNK_SAMPLE))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_plan(nq: int, mcap: int, block_queries: int, sms: int) -> int:
+    """Chunks of a K9 or K10 launch over ``nq`` queries and a target of
+    ``mcap`` rows: as many as it takes for the query blocks times the
+    chunks to reach ``SPLIT_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs,
+    but not more than the capacity has ring stages. One where the queries
+    alone reach it."""
+    qblocks = _cdiv(max(nq, 1), block_queries)
+    return max(1, min(_cdiv(SPLIT_BLOCKS_PER_SM * sms, qblocks),
+                      _cdiv(max(mcap, 1), SPLIT_TILE), 65535))
+
+
+def split_chunk(m: int, nsplit: int, tile: int = SPLIT_TILE,
+                least: Optional[int] = None) -> int:
+    """Rows per chunk when the kernel cuts ``m`` valid rows into ``nsplit``
+    chunks of at least ``least`` rows (default ``tile``): equal multiples of
+    ``tile``; trailing chunks may be empty."""
+    return max(least or tile, _cdiv(_cdiv(m, nsplit), tile) * tile)
+
+
+def knn_least_rows(nq: int, k: int, sms: int) -> int:
+    """K10's least rows per chunk (a multiple of SPLIT_TILE) for ``nq``
+    queries on a card of ``sms`` SMs."""
+    if KNN_ROWS_PER_K and _cdiv(nq, KNN_BLOCK_QUERIES) >= FILLED_BLOCKS_PER_SM * sms:
+        return _cdiv(k * KNN_ROWS_PER_K, SPLIT_TILE) * SPLIT_TILE
+    return SPLIT_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@dataclass
+class _SplitBuffers:
+    """K9's per-query keys, K10's per-query shared bounds and the query
+    blocks' tickets (all 0 between launches: every launch leaves them so),
+    K10's chunk lists."""
+
+    keys: torch.Tensor  # int64 [≥ Q]
+    bounds: torch.Tensor  # int32 [≥ Q]
+    tickets: torch.Tensor  # int32 [≥ query blocks]
+    ws_d: torch.Tensor  # float32 [≥ chunks·k·Q]
+    ws_i: torch.Tensor  # int32, the same
+
+
+_buffers: Dict[Tuple[int, int], _SplitBuffers] = {}
+
+
+def _split_buffers(dev: torch.device, nq: int, qblocks: int, ws: int) -> _SplitBuffers:
+    """The buffers of one device and stream, on which launches run in
+    order, grown to hold a launch's needs; zeroed once, at allocation."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    b = _buffers.get(key)
+    if b is None:
+        b = _buffers[key] = _SplitBuffers(*(torch.zeros(0, dtype=t, device=dev) for t in (
+            torch.int64, torch.int32, torch.int32, torch.float32, torch.int32)))
+    if b.keys.numel() < nq:
+        b.keys = torch.zeros(max(nq, 1024), dtype=torch.int64, device=dev)
+        b.bounds = torch.zeros(max(nq, 1024), dtype=torch.int32, device=dev)
+    if b.tickets.numel() < qblocks:
+        b.tickets = torch.zeros(max(qblocks, 1024), dtype=torch.int32, device=dev)
+    if b.ws_d.numel() < ws:
+        b.ws_d = torch.empty(ws, dtype=torch.float32, device=dev)
+        b.ws_i = torch.empty(ws, dtype=torch.int32, device=dev)
+    return b
 
 
 # ------------------------------------------------------------------ K9 ----
@@ -188,6 +301,77 @@ def nearest_neighbor_plain(target_points: torch.Tensor, num_points: torch.Tensor
     return torch.cat(ds), torch.cat(ids).to(torch.int32)
 
 
+def _orderable(v: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2³²) whose order is that of the float32 values ``v``
+    (no NaN): the high word of K9's key."""
+    u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, 0xFFFFFFFF - u, u + 2 ** 31)
+
+
+def _from_orderable(o: torch.Tensor) -> torch.Tensor:
+    u = torch.where(o >= 2 ** 31, o - 2 ** 31, 0xFFFFFFFF - o)
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
+
+
+def nearest_neighbor_split_plain(target_points: torch.Tensor, num_points: torch.Tensor,
+                                 query: torch.Tensor, variant: str, nsplit: int,
+                                 centre: Optional[torch.Tensor] = None,
+                                 tile: int = SPLIT_TILE) -> Pair:
+    """Plain account of K9 over ``nsplit`` chunks (``split_chunk``; the
+    kernel's ``tile`` is SPLIT_TILE): each chunk's first smallest rank
+    (strict < in row order), its key — the rank's orderable bits above the
+    row, here offset by 2³¹ so that it fits a signed int64 in the same
+    order; -0 counts as +0 — the smallest key over the chunks, decoded; the
+    score form's d² recomputed from the uncentred rows. Equal to
+    ``nearest_neighbor_plain`` for every plan."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r} (use 'vpu' or 'mxu')")
+    nq = query.shape[0]
+    c = target_centre(target_points) if centre is None else centre
+    t = target_points[:, :3]
+    tc, qc = t - c, query[:, :3] - c
+    m = min(int(num_points), target_points.shape[0])
+    chunk = split_chunk(m, nsplit, tile)
+    keys = torch.full((nq,), _EMPTY_KEY, dtype=torch.int64, device=query.device)
+    for s in range(nsplit):
+        lo = s * chunk
+        rows = tc[lo:max(lo, min(m, lo + chunk))]
+        if rows.shape[0] == 0:
+            continue
+        if variant == "vpu":
+            rank = sq_dists(qc, rows)
+        else:
+            tn = rows[:, 0] * rows[:, 0] + rows[:, 1] * rows[:, 1] + rows[:, 2] * rows[:, 2]
+            dot = (qc[:, None, 0] * rows[None, :, 0] + qc[:, None, 1] * rows[None, :, 1]
+                   + qc[:, None, 2] * rows[None, :, 2])
+            rank = tn[None, :] - 2.0 * dot
+        v, j = torch.min(torch.where(rank < _BIG, rank, _BIG), dim=1)
+        key = (_orderable(v + 0.0) - 2 ** 31) * 2 ** 32 + lo + j
+        keys = torch.where(v < _BIG, torch.minimum(keys, key), keys)
+    found = keys != _EMPTY_KEY
+    rows = torch.where(found, keys & 0xFFFFFFFF, 0)
+    d = torch.where(found, _from_orderable((keys >> 32) + 2 ** 31), _BIG)
+    if variant == "mxu":
+        diff = query[:, :3] - t[rows]
+        d = torch.where(found, diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
+                        + diff[:, 2] * diff[:, 2], _BIG)
+    return d, rows.to(torch.int32)
+
+
+def _nn1_inputs(target_points, num_points, query, variant, centre):
+    """Checked K9 inputs: (queries rows 3 or 4 floats apart, contiguous
+    centre, outputs)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r} (use 'vpu' or 'mxu')")
+    _require_search(target_points, num_points, query)
+    q = _query_rows(query)
+    if centre is None:
+        centre = target_centre(target_points)
+    else:
+        _build.require(centre, "centre", torch.float32, (3,))
+    return q, centre.contiguous(), _empty(q, (q.shape[0],))
+
+
 def nearest_neighbor(target_points: torch.Tensor, num_points: torch.Tensor,
                      query: torch.Tensor, variant: str = "vpu",
                      centre: Optional[torch.Tensor] = None) -> Pair:
@@ -201,29 +385,41 @@ def nearest_neighbor(target_points: torch.Tensor, num_points: torch.Tensor,
         raise ValueError(f"unknown variant {variant!r} (use 'vpu' or 'mxu')")
     if target_points.device.type == "cpu":
         return nearest_neighbor_plain(target_points, num_points, query, variant, centre)
-    _require_search(target_points, num_points, query)
-    q = _query_rows(query)
-    nq = q.shape[0]
-    d, i = _empty(q, (nq,))
+    q, centre, (d, i) = _nn1_inputs(target_points, num_points, query, variant, centre)
+    nq, mcap = q.shape[0], target_points.shape[0]
     if nq == 0:
         return d, i
-    if centre is None:
-        centre = target_centre(target_points)
-    else:
-        _build.require(centre, "centre", torch.float32, (3,))
-    centre = centre.contiguous()
     lib = _library()
+    nsplit = split_plan(nq, mcap, NN1_BLOCK_QUERIES, _sm_count(q.device.index))
+    buf = _split_buffers(q.device, nq, _cdiv(nq, NN1_BLOCK_QUERIES), 0)
     with torch.cuda.device(q.device):
-        rc = lib.sgt_nn1(target_points.data_ptr(), num_points.data_ptr(),
-                         target_points.shape[0], q.data_ptr(), q.stride(0), nq,
-                         centre.data_ptr(), VARIANTS.index(variant), d.data_ptr(),
-                         i.data_ptr(), _stream())
+        rc = lib.sgt_nn1(target_points.data_ptr(), num_points.data_ptr(), mcap,
+                         q.data_ptr(), q.stride(0), nq, centre.data_ptr(),
+                         VARIANTS.index(variant), nsplit, buf.keys.data_ptr(),
+                         buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(), _stream())
     _build.check(rc, "nearest_neighbor")
     nearest_neighbor.launches += 1
     return d, i
 
 
 nearest_neighbor.launches = 0
+
+
+def _nearest_neighbor_v1(target_points: torch.Tensor, num_points: torch.Tensor,
+                         query: torch.Tensor, variant: str = "vpu",
+                         centre: Optional[torch.Tensor] = None) -> Pair:
+    """K9's first form (one thread per query over every row), for timing
+    K9 against on the card. Not counted and not on any path."""
+    q, centre, (d, i) = _nn1_inputs(target_points, num_points, query, variant, centre)
+    if q.shape[0] == 0:
+        return d, i
+    with torch.cuda.device(q.device):
+        rc = _library().sgt_nn1_v1(
+            target_points.data_ptr(), num_points.data_ptr(), target_points.shape[0],
+            q.data_ptr(), q.stride(0), q.shape[0], centre.data_ptr(),
+            VARIANTS.index(variant), d.data_ptr(), i.data_ptr(), _stream())
+    _build.check(rc, "nearest_neighbor (v1)")
+    return d, i
 
 
 # ------------------------------------------------------------ K10, K11 ----
@@ -246,8 +442,63 @@ def knn_plain(target_points: torch.Tensor, num_points: torch.Tensor,
     return torch.cat(ds), torch.cat(idx)
 
 
+def _sampled_bound(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """[B] kth smallest of the columns 0, step, 2·step, … of ``d2`` [B,L]
+    (3e38 if they are fewer than k), step = max(SAMPLE_STEP, ceil(L /
+    CHUNK_SAMPLE)): K10's bound over a chunk of L rows."""
+    sample = d2[:, ::max(SAMPLE_STEP, _cdiv(d2.shape[1], CHUNK_SAMPLE))]
+    if sample.shape[1] < k:
+        return d2.new_full((d2.shape[0],), _BIG)
+    return torch.sort(sample, dim=1).values[:, k - 1]
+
+
+def knn_split_plain(target_points: torch.Tensor, num_points: torch.Tensor,
+                    query: torch.Tensor, k: int, nsplit: int,
+                    tile: int = SPLIT_TILE, shared: bool = False,
+                    least: Optional[int] = None) -> Pair:
+    """Plain account of K10 over ``nsplit`` chunks of at least ``least``
+    rows (``split_chunk``; the kernel's ``tile`` is SPLIT_TILE): each
+    chunk's k first rows in (d², row) order among the rows with d² within
+    its bound (the kth smallest d² over a strided sample of the chunk's own
+    rows, where the chunk holds more than ``tile`` rows), then the chunks'
+    lists merged in (d², row) order. Equal to ``knn_plain`` for every
+    plan.
+
+    Any chunk's bound bounds the query's kth d² over the whole target, so
+    every chunk may filter by the smallest of them (``shared``): the kernel
+    trades bounds between a query's chunks as they run, and its own lists'
+    kth once full, which leaves the merge unchanged."""
+    nq = query.shape[0]
+    if nq == 0:
+        return _empty(query, (0, k))
+    m = min(int(num_points), target_points.shape[0])
+    chunk = split_chunk(m, nsplit, tile, least)
+    t = target_points[:, :3]
+    chunks = []
+    for s in range(nsplit):
+        lo = s * chunk
+        ids = torch.arange(lo, max(lo, min(m, lo + chunk)), device=t.device)
+        d2 = _masked_sq_dists(query[:, :3], t[ids], ids >= 0)
+        bound = (_sampled_bound(d2, k) if ids.shape[0] > tile
+                 else d2.new_full((nq,), _BIG))
+        chunks.append((ids, d2, bound))
+    tightest = torch.stack([b for _, _, b in chunks]).amin(dim=0)
+    lists_d, lists_i = [], []
+    for ids, d2, bound in chunks:
+        reach = tightest if shared else bound
+        d, i = _first_k(torch.where(d2 <= reach[:, None], d2, _BIG), ids, k)
+        lists_d.append(d)
+        lists_i.append(i)
+    # Chunks ascend by row: a stable sort of the lists in chunk order is the
+    # (d², row) order.
+    d_all, i_all = torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1)
+    d_sorted, pos = torch.sort(d_all, dim=1, stable=True)
+    return d_sorted[:, :k], i_all.gather(1, pos[:, :k])
+
+
 def _knn_launch(wrapper, entry: str, target_points, num_points, query, k) -> Pair:
-    """Launch the K10 / K11 entry ``entry`` and count it on ``wrapper``."""
+    """Launch the K10 v1 / K11 entry ``entry`` (one thread or one warp per
+    query over every row) and count it on ``wrapper`` (None: uncounted)."""
     _require_search(target_points, num_points, query)
     q = _query_rows(query)
     nq = q.shape[0]
@@ -260,21 +511,50 @@ def _knn_launch(wrapper, entry: str, target_points, num_points, query, k) -> Pai
             target_points.data_ptr(), num_points.data_ptr(), target_points.shape[0],
             q.data_ptr(), q.stride(0), nq, k, d.data_ptr(), i.data_ptr(), _stream())
     _build.check(rc, entry)
-    wrapper.launches += 1
+    if wrapper is not None:
+        wrapper.launches += 1
     return d, i
 
 
 def knn(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,
         k: int) -> Pair:
-    """Exact kNN, k ≤ 64: (d² [Q,k] ascending, idx [Q,k] int32), one thread
-    per query. Kernel K10 on CUDA, plain version on the CPU."""
+    """Exact kNN, k ≤ 64: (d² [Q,k] ascending, idx [Q,k] int32). Kernel K10
+    on CUDA, plain version on the CPU."""
     _check_k(k, "knn")
     if target_points.device.type == "cpu":
         return knn_plain(target_points, num_points, query, k)
-    return _knn_launch(knn, "sgt_knn", target_points, num_points, query, k)
+    _require_search(target_points, num_points, query)
+    q = _query_rows(query)
+    nq, mcap = q.shape[0], target_points.shape[0]
+    d, i = _empty(q, (nq, k))
+    if nq == 0:
+        return d, i
+    lib = _library()
+    sms = _sm_count(q.device.index)
+    nsplit = split_plan(nq, mcap, KNN_BLOCK_QUERIES, sms)
+    buf = _split_buffers(q.device, nq, _cdiv(nq, KNN_BLOCK_QUERIES),
+                         nsplit * k * nq if nsplit > 1 else 0)
+    with torch.cuda.device(q.device):
+        rc = lib.sgt_knn(target_points.data_ptr(), num_points.data_ptr(), mcap,
+                         q.data_ptr(), q.stride(0), nq, k, nsplit,
+                         knn_least_rows(nq, k, sms),
+                         buf.ws_d.data_ptr(), buf.ws_i.data_ptr(), buf.bounds.data_ptr(),
+                         buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(), _stream())
+    _build.check(rc, "knn")
+    knn.launches += 1
+    return d, i
 
 
 knn.launches = 0
+
+
+def _knn_v1(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,
+            k: int) -> Pair:
+    """K10's first form (one thread per query over every row, a bound over
+    2,048 sampled rows), for timing K10 against on the card. Not counted
+    and not on any path."""
+    _check_k(k, "knn")
+    return _knn_launch(None, "sgt_knn_v1", target_points, num_points, query, k)
 
 
 def knn_T(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,

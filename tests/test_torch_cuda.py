@@ -5,7 +5,8 @@ K7 (the box-pruned fleet kernel, against its plain version and against the
 brute-force lane kernel it replaced) for each factor × robust kernel, K2 and
 K8 for each robust kernel and pose count, K3 for both top-k bounds, the
 three list bounds of K4, K10 and K12, K5 and K11 below and above 32 neighbours, both K9 variants — at small shapes
-with padding rows, plus one small registration (fused on both routes and
+with padding rows, K9 and K10 with one chunk and with many and against
+their first forms, plus one small registration (fused on both routes and
 unfused) and one small fleet on the card against the CPU path and at one
 lane against 32. The tests need an NVIDIA card and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
@@ -55,7 +56,10 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
 )
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.knn import KdTree
+from small_gicp_tpu_torch.ops import knn_cuda
 from small_gicp_tpu_torch.ops.knn_cuda import (
+    _knn_v1,
+    _nearest_neighbor_v1,
     knn,
     knn_plain,
     knn_pruned,
@@ -410,6 +414,9 @@ def test_nearest_neighbor_kernel_matches_plain(dev, variant):
         # Same centre, same operation order, first index on ties: exact.
         assert i.dtype == torch.int32 and torch.equal(i, ip), (variant, kind)
         assert torch.equal(d, dp), (variant, kind)
+        d1, i1 = _nearest_neighbor_v1(tgt, num, q, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(i, i1) and torch.equal(d, d1), (variant, kind)
     # The score |t|² − 2 q·t of a row carries a rounding error of up to
     # 2·2⁻²³·(|q| + |t|)² in the centred frame, twice that between two rows.
     # Per query, from its own reach and its winners': the two variants agree
@@ -446,8 +453,51 @@ def test_knn_kernels_match_plain(dev, search, ks):
             # and the plain version: exact, ties included.
             assert torch.equal(d, dp), what
             assert torch.equal(i, ip), what
+            if search is knn:
+                d1, i1 = _knn_v1(tgt, num, q, k)
+                torch.cuda.synchronize()
+                assert torch.equal(d, d1) and torch.equal(i, i1), what
             if kind == "tiny":
                 assert torch.all(d[:, 3:] == 3e38) and torch.all(i[:, 3:] == 0), what
+
+
+# SPLIT_BLOCKS_PER_SM = 0 plans one chunk (the block writes its results);
+# 10⁶ plans one 256-row ring stage per chunk, the most chunks there can be.
+@pytest.mark.parametrize("per_sm", [0, 10 ** 6])
+def test_split_kernels_at_one_chunk_and_at_many(dev, monkeypatch, per_sm):
+    monkeypatch.setattr(knn_cuda, "SPLIT_BLOCKS_PER_SM", per_sm)
+    for kind in ("scan", "grid", "tiny", "empty"):
+        tgt, num, q = _search_clouds(dev, kind)
+        for nq in (1, 64, q.shape[0]):
+            for variant in ("vpu", "mxu"):
+                d, i = nearest_neighbor(tgt, num, q[:nq], variant)
+                dp, ip = nearest_neighbor_plain(tgt, num, q[:nq], variant)
+                torch.cuda.synchronize()
+                assert torch.equal(d, dp) and torch.equal(i, ip), (per_sm, kind, nq)
+            for k in (1, 10, 33):
+                d, i = knn(tgt, num, q[:nq], k)
+                dp, ip = knn_plain(tgt, num, q[:nq], k)
+                torch.cuda.synchronize()
+                assert torch.equal(d, dp) and torch.equal(i, ip), (per_sm, kind, nq, k)
+
+
+def test_split_buffers_are_zero_between_launches(dev):
+    """K9's keys, K10's bounds and both kernels' tickets go back to 0 in
+    every launch: the same calls again, and calls on other query counts in
+    between, give the same results."""
+    tgt, num, q = _search_clouds(dev, "scan")
+    first = [nearest_neighbor(tgt, num, q, "mxu"), knn(tgt, num, q, 12)]
+    for nq in (5, 700, 1234):
+        nearest_neighbor(tgt, num, q[:nq])
+        knn(tgt, num, q[:nq], 20)
+    again = [nearest_neighbor(tgt, num, q, "mxu"), knn(tgt, num, q, 12)]
+    torch.cuda.synchronize()
+    for (d, i), (d2, i2) in zip(first, again):
+        assert torch.equal(d, d2) and torch.equal(i, i2)
+    buf = knn_cuda._buffers[(dev.index if dev.index is not None else 0,
+                             torch.cuda.current_stream(dev).cuda_stream)]
+    for t in (buf.keys, buf.bounds, buf.tickets):
+        assert int(t.abs().sum()) == 0
 
 
 def test_search_wrappers_edges(dev):
