@@ -44,17 +44,25 @@ Phases (any failure exits non-zero):
                 through the first forms and once more through the new ones;
   8. map      — 17 frames: two submaps of 8 raw frames each in the world
                 frame (≈864k rows) and their union, the map (≈1.73 M rows).
-                K4 on a submap against its plain version on 8,192 sampled
-                rows and against K3 forced; K5 against its plain version and
-                K3 at the scan shape and at raw-scan scale; K6 on the map
-                against its plain version and against K1 forced on the same
-                tables, with the share of (block, tile) pairs it skips; K1's
-                score form against its plain version and the difference form;
-                K3/K4 and K1/K6 timed at both sizes; then, with the counts at
-                0, the map-scale path: covariances of both submaps (K4), the
-                align of frame 16 against the map (K6 per linearization, K2
-                per iteration, K1 never) within 2.5° / 0.2 m, a layout "q"
-                call (K5) and a score-form linearization.
+                K4 on both submaps against its first form (the PR 4 kernel)
+                on every row (k = 10, 20) and its plain version on 8,192
+                sampled rows of each, and against K3 forced; K5 against its
+                plain version and K3 at the scan shape and at raw-scan
+                scale; K6 on the map and at the scan shape against its first
+                form (corr and float64 sums), its split plain account at the
+                planned chunk count, at one chunk and above the live tiles,
+                its plain version and K1 forced on the same tables, with the
+                share of (block, tile) pairs it skips; one launch a call for
+                K4 and K6 (counters and profiler), each timed alone (the
+                profiler) and in turns with its first form; K1's score form
+                against its plain version and the difference form; then,
+                with the counts at 0, the map-scale path: covariances of both
+                submaps (K4), the align of frame 16 against the map (K6 per
+                linearization, K2 per iteration, K1 never) within 2.5° /
+                0.2 m, a layout "q" call (K5) and a score-form
+                linearization; the covariances and the align with the map's
+                sort kept timed in turns with the same path through the
+                first forms.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -66,6 +74,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import subprocess
 import time
 
@@ -76,7 +85,9 @@ from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.apps import kdtree_benchmark
 from small_gicp_tpu_torch.interop import result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
+from small_gicp_tpu_torch.ops import cov_fused_cuda, gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    _knn_topk_idx_v1,
     auto_layout as cov_layout,
     knn_moments,
     knn_moments_rows,
@@ -95,6 +106,8 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_error_multi_plain,
     _gicp_error_multi_fleet_k2,
     _gicp_linearize_fleet_brute,
+    _gicp_linearize_swept_cuda,
+    _gicp_linearize_swept_v1,
     fleet_live_tiles,
     gicp_linearize_fleet,
     gicp_linearize_fleet_plain,
@@ -103,9 +116,11 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_score_plain,
     gicp_linearize_swept,
     gicp_linearize_swept_plain,
+    gicp_linearize_swept_split_plain,
     gicp_linearize_tables,
     gicp_prepare,
     swept_live_tiles,
+    swept_plan,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops import knn_cuda
@@ -253,7 +268,8 @@ def device_events(prof) -> list:
 
 def kernel_ms(fn, name: str, reps: int = REPS):
     """The kernel alone: (ms per call that the card spends in kernels whose
-    name holds ``name``, their count, {other device work: count}) over
+    name matches the regular expression ``name`` (a plain name matches
+    itself), their count, {other device work: count}) over
     ``reps`` calls of ``fn`` under torch.profiler, after one untimed call.
     The ``reps`` calls are profiled after a warm-up step of as many calls
     under the profiler (the first kernel of a cold window has gone
@@ -277,8 +293,8 @@ def kernel_ms(fn, name: str, reps: int = REPS):
             torch.cuda.synchronize()
         events = device_events(prof)
         if events:
-            ours = [e for e in events if name in e.key]
-            others = {e.key[:60]: e.count for e in events if name not in e.key}
+            ours = [e for e in events if re.search(name, e.key)]
+            others = {e.key[:60]: e.count for e in events if not re.search(name, e.key)}
             return (sum(e.self_device_time_total for e in ours) / 1e3 / reps,
                     sum(e.count for e in ours), others)
     print(f"the profiler saw no device work in {reps} calls ({name}), three times: "
@@ -293,14 +309,16 @@ def kernel_ms(fn, name: str, reps: int = REPS):
     return start.elapsed_time(end) / reps, None, {}
 
 
-def one_kernel_per_call(fn, name: str) -> float:
+def one_kernel_per_call(fn, name: str, alone: bool = True) -> float:
     """ms of the kernel alone (``kernel_ms``), after checking that the
-    profiler saw exactly one kernel named ``name`` per call and no other
-    device work. A window in which the profiler lost an event (it has
-    returned 19 kernels for 20 calls) is taken again, up to three times."""
+    profiler saw exactly one kernel named ``name`` per call and, where
+    ``alone``, no other device work (a wrapper whose torch ops launch kernels
+    of their own passes False). A window in which the profiler lost an event
+    (it has returned 19, and 10, kernels for 20 calls) is taken again, up to
+    three times."""
     for _ in range(3):
         ms, count, others = kernel_ms(fn, name)
-        if count in (None, REPS) and not others:
+        if count in (None, REPS) and not (alone and others):
             return ms
         print(f"{name}: the profiler saw {count} kernels and {others} in {REPS} calls")
     check(False, f"{name}: {count} kernels and {others} in {REPS} calls, three times")
@@ -319,6 +337,44 @@ def bound(ops: float, nbytes: float):
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def issue_floor_ms(pairs: float, sms: int = 132) -> float:
+    """The issue-rate floor of a search over ``pairs`` pairs: ~11
+    instructions a pair (3 subtractions, 3 products, 2 sums, a compare, 2
+    selects), 128 lanes a clock on each SM at 1.98 GHz (H100 SXM)."""
+    return pairs * 11.0 / (128.0 * sms * 1.98e9) * 1e3
+
+
+def host_turns(fns: dict, reps: int) -> dict:
+    """{name: median ms} of each function by the host clock around one
+    call ending in a synchronize, the functions taking turns in each of
+    ``reps`` rounds, after one untimed call each."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(v)) for name, v in times.items()}
+
+
+@contextlib.contextmanager
+def first_forms_map():
+    """Route K4 and K6 through their first forms (the yardsticks
+    ``_knn_topk_idx_v1`` / ``_gicp_linearize_swept_v1``) inside the block."""
+    saved = (cov_fused_cuda.knn_topk_idx_launch, gicp_fused_cuda._gicp_linearize_swept_cuda)
+    cov_fused_cuda.knn_topk_idx_launch = _knn_topk_idx_v1
+    gicp_fused_cuda._gicp_linearize_swept_cuda = (
+        lambda tables, T, d2, robust, c: _gicp_linearize_swept_v1(tables, T, d2, robust, c))
+    try:
+        yield
+    finally:
+        cov_fused_cuda.knn_topk_idx_launch, gicp_fused_cuda._gicp_linearize_swept_cuda = saved
 
 
 def pose_errors(T: np.ndarray, T_gt: np.ndarray):
@@ -666,14 +722,12 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
         "pruned": lambda: gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active),
         "brute": lambda: _gicp_linearize_fleet_brute(tables, uids, Ts, MAX_DIST_SQ,
                                                      active)})
-    k7_alone, k7_count, k7_other = kernel_ms(
+    k7_alone = one_kernel_per_call(
         lambda: gicp_linearize_fleet(tables, uids, Ts, MAX_DIST_SQ, active),
         "gicp_linearize_fleet_kernel")
     brute_alone, _, _ = kernel_ms(
         lambda: _gicp_linearize_fleet_brute(tables, uids, Ts, MAX_DIST_SQ, active),
         "gicp_linearize_kernel")
-    check(k7_count in (REPS, None) and not k7_other,
-          f"K7's wrapper ran {k7_count} K7 kernels in {REPS} calls and also {k7_other}")
     check(launches_per_call(gicp_linearize_fleet, lambda: gicp_linearize_fleet(
         tables, uids, Ts, MAX_DIST_SQ, active)) == 1, "K7's wrapper does not launch once")
     records["gicp_linearize_fleet"] = dict(
@@ -682,8 +736,8 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
             tables, uids, Ts, MAX_DIST_SQ, active), reps=3),
         library_ms=time_ms(lib_k7, reps=3), pairs=need, bound=bound(ops, nbytes))
     k7_bound = records["gicp_linearize_fleet"]["bound"]
-    print(f"K7 kernel alone (profiler, {REPS} calls, no other device work) "
-          f"{k7_alone:.4f} ms ({k7_count} kernels), the brute-force lane kernel alone "
+    print(f"K7 kernel alone (profiler, {REPS} calls, one kernel a call, no other device "
+          f"work) {k7_alone:.4f} ms, the brute-force lane kernel alone "
           f"{brute_alone:.4f} ms; "
           f"their wrappers in turns (CUDA events around one call, median of {REPS}): "
           f"pruned {k7['pruned']:.4f} ms, brute force {k7['brute']:.4f} ms; "
@@ -716,14 +770,12 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
     k8 = time_turns({
         "new": lambda: gicp_error_multi_fleet(corr, tables, uids, all_Ts),
         "k2": lambda: _gicp_error_multi_fleet_k2(corr, tables, uids, all_Ts)})
-    k8_alone, k8_count, k8_other = kernel_ms(
+    k8_alone = one_kernel_per_call(
         lambda: gicp_error_multi_fleet(corr, tables, uids, all_Ts),
         "gicp_error_multi_fleet_kernel")
     k2_alone, k2_count, k2_other = kernel_ms(
         lambda: _gicp_error_multi_fleet_k2(corr, tables, uids, all_Ts),
         "gicp_error_multi_kernel")
-    check(k8_count in (REPS, None) and not k8_other,
-          f"K8's wrapper ran {k8_count} K8 kernels in {REPS} calls and also {k8_other}")
     check(launches_per_call(gicp_error_multi_fleet, lambda: gicp_error_multi_fleet(
         corr, tables, uids, all_Ts)) == 1, "K8's wrapper does not launch once")
     records["gicp_error_multi_fleet"] = dict(
@@ -732,8 +784,8 @@ def phase_fleet(scans, poses, rng, dev, card, align_reg_per_s,
                                                               all_Ts)),
         library_ms=None, pairs=sum(n_u[u] for u in act) * k1,
         bound=bound(ops, nbytes))
-    print(f"K8 kernel alone (profiler, {REPS} calls) {k8_alone:.4f} ms ({k8_count} "
-          f"kernels), its wrapper "
+    print(f"K8 kernel alone (profiler, {REPS} calls, one kernel a call, no other device "
+          f"work) {k8_alone:.4f} ms, its wrapper "
           f"(CUDA events around one call, median of {REPS}, in turns) {k8['new']:.4f} "
           f"ms; K2's lane kernel alone {k2_alone:.4f} ms ({k2_count} in {REPS} calls), "
           f"its wrapper {k8['k2']:.4f} ms (other device work in those calls: "
@@ -1257,6 +1309,34 @@ def check_linearize(name, got, ref, n, exact_rows: bool) -> float:
     return h_err
 
 
+def swept_checks(name, tables, T, n) -> dict:
+    """K6 on ``tables`` at T: equal to its first form in corr and the
+    float64 sums, at the planned chunk count, at one chunk and at more
+    chunks than a source block has live tiles, and at each equal to its
+    split plain account (``check_linearize``, every row); one launch a
+    call. Returns {"plan": chunks planned, "above": the count above}."""
+    out = gicp_linearize_tables(tables, T, MAX_DIST_SQ)
+    old = _gicp_linearize_swept_v1(tables, T, MAX_DIST_SQ)
+    check(all(torch.equal(a, b) for a, b in zip(out, old)),
+          f"K6 differs from its first form ({name})")
+    live = swept_live_tiles(tables, T, MAX_DIST_SQ)
+    plan = swept_plan(tables)
+    above = min(65535, int(live.sum(dim=1).max().item()) + 3)
+    for chunks in (plan, 1, above):
+        got = _gicp_linearize_swept_cuda(tables, T, MAX_DIST_SQ, None, 1.0, chunks)
+        check(all(torch.equal(a, b) for a, b in zip(got, old)),
+              f"K6 at {chunks} chunks differs from its first form ({name})")
+        check_linearize(f"K6 at {chunks} chunks against its split plain account ({name})",
+                        got, gicp_linearize_swept_split_plain(tables, T, MAX_DIST_SQ,
+                                                              chunks=chunks), n, True)
+    check(launches_per_call(gicp_linearize_swept, lambda: gicp_linearize_tables(
+        tables, T, MAX_DIST_SQ)) == 1, "K6 launched other than once a call")
+    print(f"K6 ({name}): equal to its first form (corr, H, b, inliers) at {plan} chunks "
+          f"(planned), 1 and {above} (above the {above - 3} live tiles of the fullest "
+          "source block); one launch a call")
+    return {"plan": plan, "above": above}
+
+
 def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     """K4, K5, K6 and K1's score form against their plain versions and their
     scan-scale siblings, then the map-scale path."""
@@ -1273,20 +1353,37 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
           "in the world frame)")
     check(cov_layout(ns) == "ti" and ns <= 1_048_576, "a submap is not at K4's scale")
 
-    # K4 on a submap (with the sort given the wrapper is the launch alone)
-    # against the plain version on sampled rows, 256 at a time: a
-    # [rows, 864k] distance block.
+    # K4 on both submaps (with the sort given the wrapper is the launch
+    # alone) against its first form on every row and against the plain
+    # version on sampled rows, 256 at a time: a [rows, 864k] distance block.
+    k4_err = 0.0  # max |Δd²| over the sampled rows
+    for si, s_cloud in enumerate(subs):
+        s_pts, s_num, s_ns = s_cloud.points, s_cloud.num_points, int(s_cloud.num_points)
+        s_tgt = pruned_prepare_target(s_pts, s_num)
+        for kk in (20, k):
+            dn, i_n = knn_topk_idx(s_pts, s_num, kk, target=s_tgt)
+            do, io = _knn_topk_idx_v1(s_tgt, s_num, kk)
+            check(torch.equal(dn, do) and torch.equal(i_n, io),
+                  f"K4 differs from its first form on submap {si}, k={kk}")
+        pick = torch.as_tensor(
+            np.sort(rng.choice(s_ns, size=min(sample, s_ns), replace=False)), device=dev)
+        for s0 in range(0, len(pick), 256):
+            rows = pick[s0:s0 + 256]
+            dp, ip = knn_topk_idx_plain(s_pts, s_num, k, rows=rows)
+            k4_err = max(k4_err, (dn[rows] - dp).abs().max().item())
+            check(torch.equal(dn[rows], dp) and torch.equal(i_n[rows], ip),
+                  f"K4 differs from its plain version on submap {si}")
+        check(launches_per_call(knn_topk_idx, lambda: knn_topk_idx(
+            s_pts, s_num, k, target=s_tgt)) == 1, "K4 launched other than once a call")
+        del s_tgt, dn, i_n, do, io
+    print(f"K4 knn_topk_idx on both submaps: (d², idx) equal to the first form on every "
+          f"row (k = {k}, 20) and to the plain version on {min(sample, ns)} sampled rows "
+          f"of each (max |Δd²| {k4_err:.1e} there, the record's max_abs_err); one launch "
+          "a call")
     ptgt = pruned_prepare_target(pts, num)
     d4, i4 = knn_topk_idx(pts, num, k, target=ptgt)
-    pick = torch.as_tensor(np.sort(rng.choice(ns, size=min(sample, ns), replace=False)),
+    pick = torch.as_tensor(np.sort(rng.choice(ns, size=min(256, ns), replace=False)),
                            device=dev)
-    k4_err = 0.0  # max |Δd²| over the sampled rows
-    for s in range(0, len(pick), 256):
-        rows = pick[s:s + 256]
-        dp, ip = knn_topk_idx_plain(pts, num, k, rows=rows)
-        k4_err = max(k4_err, (d4[rows] - dp).abs().max().item())
-        check(torch.equal(d4[rows], dp) and torch.equal(i4[rows], ip),
-              "K4 differs from its plain version on a submap")
     check(bool((i4[:, 0].long() == torch.arange(ns, device=dev)).all()),
           "K4 does not find each row first")
     # Against K3 forced on the same submap: the same neighbours (counts and,
@@ -1302,9 +1399,7 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     got9 = torch.cat([m1, m2.reshape(-1, 9)[:, [0, 1, 2, 4, 5, 8]]], dim=1)
     diff = (got9 - rows3[:, :9]).abs()
     excess = (diff - 1e-5 * rows3[:, :9].abs()).max().item()
-    print(f"K4 knn_topk_idx at {ns} rows, k={k}: (d², idx) equal to the plain version "
-          f"on {len(pick)} sampled rows (max |Δd²| {k4_err:.1e} there, the record's "
-          f"max_abs_err); against K3 forced (one run, {k3_big_ms:.1f} ms, "
+    print(f"K4 against K3 forced at {ns} rows, k={k} (one run, {k3_big_ms:.1f} ms, "
           f"{time.perf_counter() - t0:.1f} s wall): counts and d_k equal, max |Δ moments| "
           f"{diff.max().item():.3e} (tolerance 1e-4 + 1e-5·|m|: float32 sums of k products)")
     check(excess <= 1e-4, "K4's moments differ from K3's")
@@ -1315,23 +1410,31 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     all_rows = pts[:ns, :3].contiguous()
     lib_ms = time_ms(lambda: torch.topk(torch.cdist(chunk, all_rows), k, largest=False),
                      reps=3) * ns / lib_chunk
-    plain_ms = time_ms(lambda: knn_topk_idx_plain(pts, num, k, rows=pick[:256]),
-                       reps=3) * ns / 256
-    k4 = {
-        "launch": time_ms(lambda: knn_topk_idx(pts, num, k, target=ptgt), reps=None),
-        "search": time_ms(lambda: knn_topk_idx(pts, num, k), reps=None),
-        "moments": time_ms(lambda: knn_moments(pts, num, k, layout="ti"), reps=None),
-    }
+    plain_ms = time_ms(lambda: knn_topk_idx_plain(pts, num, k, rows=pick),
+                       reps=3) * ns / len(pick)
+    launch = lambda: knn_topk_idx(pts, num, k, target=ptgt)
+    first = lambda: _knn_topk_idx_v1(ptgt, num, k)
+    k4 = time_turns({"launch": launch, "first form": first})
+    k4["alone"] = one_kernel_per_call(launch, r"knn_topk_idx_kernel(?!_v1)")
+    k4["first form alone"] = one_kernel_per_call(first, "knn_topk_idx_kernel_v1")
+    k4["search"] = time_ms(lambda: knn_topk_idx(pts, num, k), reps=None)
+    k4["moments"] = time_ms(lambda: knn_moments(pts, num, k, layout="ti"), reps=None)
     full_ms, full_by = search_bound(ns, ns, k)
     records["knn_topk_idx"] = dict(
-        max_abs_err=k4_err, ms=k4["launch"], plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=k4_err, ms=k4["alone"], plain_ms=plain_ms, library_ms=lib_ms,
         pairs=need, bound=search_bound(ns, ns, k, need))
-    print(f"K4 at {ns} rows: launch alone {k4['launch']:.3f} ms over {need} needed pairs "
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if \
+        dev.type == "cuda" else 132
+    print(f"K4 at {ns} rows: kernel alone (profiler, {REPS} calls, one kernel a call) "
+          f"{k4['alone']:.4f} ms, its first form alone {k4['first form alone']:.4f} ms; "
+          f"in turns (CUDA events around one launch) {k4['launch']:.4f} against "
+          f"{k4['first form']:.4f} ms; over {need} needed pairs "
           f"({100 * need / (ns * ns):.3f} % of N², bound "
-          f"{records['knn_topk_idx']['bound'][0]:.4f} ms; over all N² pairs "
+          f"{records['knn_topk_idx']['bound'][0]:.4f} ms by operations, issue-rate floor "
+          f"{issue_floor_ms(need, sms):.4f} ms; over all N² pairs "
           f"{full_ms:.3f} ms by {full_by}); with its sort {k4['search']:.3f} ms, "
           f"with the torch moment sums {k4['moments']:.3f} ms; K3 forced "
-          f"{k3_big_ms:.1f} ms; plain and library (cdist + topk) timed on 256 / "
+          f"{k3_big_ms:.1f} ms; plain and library (cdist + topk) timed on {len(pick)} / "
           f"{lib_chunk} queries and scaled: {plain_ms:.0f} / {lib_ms:.0f} ms on {card}")
     before = (knn_topk_idx.launches, knn_moments_rows.launches)
     sub_covs = [estimate_covariances(s, num_neighbors=k) for s in subs]
@@ -1411,6 +1514,7 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     torch.cuda.synchronize()
     plain6_ms = (time.perf_counter() - t0) * 1e3
     h_err = check_linearize("K6 gicp_linearize_swept (map)", out6, ref6, n, True)
+    map_chunks = swept_checks("the map", tables, T, n)
     out1 = gicp_linearize_tables(tables, T, MAX_DIST_SQ, route="listed")
     mask = out6[3][:, 12] > 0.5
     check(torch.equal(mask, out1[3][:, 12] > 0.5) and int(out6[2]) == int(out1[2]),
@@ -1438,18 +1542,30 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     live_rows = float((live.any(dim=0).double() * TILE_ROWS).sum().item())
     nbytes = (16.0 + 32.0 / TILE_ROWS) * live_rows + 64.0 * 2 * source.capacity \
         + 64.0 * n + 4.0 * source.capacity + 4.0 * 44 * ((source.capacity + 63) // 64)
-    k6_ms = time_ms(lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ))
+    k6_new = lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ)
+    k6_old = lambda: _gicp_linearize_swept_v1(tables, T, MAX_DIST_SQ)
+    k6 = time_turns({"wrapper": k6_new, "first form": k6_old})
+    # The wrapper's torch ops (the pose, the float64 sum) launch kernels of
+    # their own: one K6 a call, other device work allowed.
+    k6_alone = one_kernel_per_call(k6_new, r"gicp_linearize_swept_kernel(?!_v1)",
+                                   alone=False)
+    k6_old_alone = one_kernel_per_call(k6_old, "gicp_linearize_swept_kernel_v1",
+                                       alone=False)
     k1_map_ms = time_ms(lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ,
                                                       route="listed"), reps=None)
     full_ms, full_by = bound(9.0 * n * mm + 400.0 * n, 64.0 * (mm + 2 * source.capacity))
     records["gicp_linearize_swept"] = dict(
-        max_abs_err=h_err, ms=k6_ms, plain_ms=plain6_ms,
+        max_abs_err=h_err, ms=k6_alone, plain_ms=plain6_ms,
         library_ms=time_ms(lambda: torch.cdist(tq, tt).min(dim=1), reps=3) * n / lib_chunk,
         pairs=need, bound=bound(ops, nbytes))
-    print(f"K6 on the map ({n} × {mm}): {k6_ms:.4f} ms (bound "
+    print(f"K6 on the map ({n} × {mm}, {map_chunks['plan']} chunks a source block): "
+          f"kernel alone (profiler, {REPS} calls, one kernel a call) {k6_alone:.4f} ms, "
+          f"its first form alone {k6_old_alone:.4f} ms; wrappers in turns (CUDA events "
+          f"around one call) {k6['wrapper']:.4f} against {k6['first form']:.4f} ms; bound "
           f"{records['gicp_linearize_swept']['bound'][0]:.4f} ms by "
-          f"{records['gicp_linearize_swept']['bound'][1]} over the needed pairs; over "
-          f"all Q·M pairs {full_ms:.3f} ms by {full_by}); K1 forced {k1_map_ms:.3f} ms; "
+          f"{records['gicp_linearize_swept']['bound'][1]} over the needed pairs, "
+          f"issue-rate floor {issue_floor_ms(need, sms):.4f} ms; over "
+          f"all Q·M pairs {full_ms:.3f} ms by {full_by}; K1 forced {k1_map_ms:.3f} ms; "
           f"plain {plain6_ms:.0f} ms (one run, host clock); library cdist + min timed "
           f"on {lib_chunk} queries and scaled on {card}")
     del tt, out1, ref6
@@ -1486,13 +1602,26 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     msk = o1[3][:, 12] > 0.5
     check(torch.equal(msk, o6[3][:, 12] > 0.5) and torch.equal(o6[3][msk], o1[3][msk]),
           "K6 and K1 differ at the scan shape")
+    scan_chunks = swept_checks("the scan shape", scan_tables, Ts, n)
     s_live = swept_live_tiles(scan_tables, Ts, MAX_DIST_SQ)
-    print(f"K1 against K6 at the scan shape ({n} × {m}): K1 "
-          f"{time_ms(lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route='listed')):.4f}"
-          f" ms, K6 "
-          f"{time_ms(lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ)):.4f} ms "
-          f"({100 * (1 - s_live.float().mean().item()):.1f} % of (block, tile) pairs "
-          f"skipped) on {card}")
+    s_need = swept_pairs(scan_tables, s_live)
+    s6 = time_turns({
+        "K1": lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route="listed"),
+        "K6": lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ),
+        "K6 first form": lambda: _gicp_linearize_swept_v1(scan_tables, Ts, MAX_DIST_SQ)})
+    s6_alone = one_kernel_per_call(
+        lambda: gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ),
+        r"gicp_linearize_swept_kernel(?!_v1)", alone=False)
+    s6_old_alone = one_kernel_per_call(
+        lambda: _gicp_linearize_swept_v1(scan_tables, Ts, MAX_DIST_SQ),
+        "gicp_linearize_swept_kernel_v1", alone=False)
+    print(f"K1 against K6 at the scan shape ({n} × {m}, {scan_chunks['plan']} chunks a "
+          f"source block), wrappers in turns: K1 {s6['K1']:.4f} ms, K6 {s6['K6']:.4f} ms, "
+          f"K6's first form {s6['K6 first form']:.4f} ms; kernels alone (profiler) K6 "
+          f"{s6_alone:.4f} ms, its first form {s6_old_alone:.4f} ms; "
+          f"{100 * (1 - s_live.float().mean().item()):.1f} % of (block, tile) pairs "
+          f"skipped, {s_need} needed pairs (issue-rate floor "
+          f"{issue_floor_ms(s_need, sms):.4f} ms) on {card}")
 
     outs = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route="listed",
                                  mxu_dist=True)
@@ -1613,6 +1742,56 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
           "included): "
           + ", ".join(f"{route} {np.median(v):.2f} ms" for route, v in per_reg.items())
           + f" ({n_regs} aligns each, alternating) on {card}")
+
+    # The path through K4 and K6 against the same path through their first
+    # forms, in turns: the covariances of both submaps, and the align against
+    # the map with its sort kept.
+    g = noisy_guess(T_map, rng)
+    covs_new = lambda: [estimate_covariances(s, num_neighbors=k) for s in subs]
+    align_new = lambda: align(the_map, source, init_T_target_source=g,
+                              target_tree=map_tree)
+
+    def with_first_forms(fn):
+        def run():
+            with first_forms_map():
+                return fn()
+        return run
+
+    a_new, a_old = align_new(), with_first_forms(align_new)()
+    check(torch.equal(a_new.T_target_source, a_old.T_target_source),
+          "the align through the first forms gives another pose")
+    c_new, c_old = covs_new(), with_first_forms(covs_new)()
+    check(all(torch.equal(x.covs, y.covs) for x, y in zip(c_new, c_old)),
+          "the covariances through the first forms differ")
+    path = host_turns({"covariances": covs_new,
+                       "covariances, first forms": with_first_forms(covs_new),
+                       "align, sort kept": align_new,
+                       "align, sort kept, first forms": with_first_forms(align_new)},
+                      reps=5)
+    print("the map-scale path against the same path through K4's and K6's first forms "
+          "(host clock around a synchronize, median of 5 in turns; the same poses and "
+          "covariances): " + ", ".join(f"{key} {v:.2f} ms" for key, v in path.items())
+          + f"; align {int(a_new.iterations)} iterations on {card}")
+    # Where the align's time goes: device time (device events once) against
+    # wall time, and K6's share, through either form, by torch.profiler.
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, fn in (("new", align_new), ("first forms", with_first_forms(align_new))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        k6_dev = sum(e.self_device_time_total for e in events
+                     if "gicp_linearize_swept_kernel" in e.key) / 1e3
+        print(f"profiled align against the map, sort kept, {label}: device busy "
+              f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+              f"({100 * busy_ms / wall_ms:.1f} % busy), K6 {k6_dev:.3f} ms of it, "
+              f"{sum(e.count for e in events)} device events on {card}")
     return records, launches
 
 

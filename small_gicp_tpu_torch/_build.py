@@ -56,12 +56,15 @@ SIGNATURES = {
     },
     "gicp_swept": {
         "sgt_gicp_linearize_swept": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F,
-                                     _I, _I, _P, _P, _P],
+                                     _I, _I, _I, _P, _P, _P, _P, _P],
+        "sgt_gicp_linearize_swept_v1": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F,
+                                        _F, _I, _I, _P, _P, _P],
         "sgt_box_geometry": [_P],
     },
     "cov_fused": {
         "sgt_knn_moments": [_P, _P, _I, _I, _P, _P],
         "sgt_knn_topk_idx": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+        "sgt_knn_topk_idx_v1": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
         "sgt_knn_moments_warp": [_P, _P, _I, _I, _P, _P],
         "sgt_box_geometry": [_P],
     },

@@ -1,6 +1,7 @@
 // Shared device helpers of the port's hand-written kernels.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace sgt {
@@ -266,6 +267,108 @@ __device__ __forceinline__ void scan_tile(const float4* __restrict__ t4,
   }
 }
 
+// ------------------------------------------------------------------------
+// The parallel cull and the copy ring of the box walks (K4, K6, K7).
+
+// Boxes a cull pass tests at most: the length of a block's shared list. A
+// thread tests kCullPerThread of them, all loads in flight together; the
+// counts of a pass are one int per (round, warp).
+constexpr int kCullPass = 256;
+constexpr int kCullPerThread = kCullPass / kPrunedThreads;
+constexpr int kCullWords = kCullPass / 32;
+static_assert(kCullPass % kPrunedThreads == 0, "a pass is whole rounds of the block");
+
+// Test boxes [first, end) of tbox, end - first ≤ kCullPass, against the box
+// [lo, hi] at `bound`: thread tid tests boxes first + tid, first + tid + 64,
+// … and keeps a box where !(gap² > bound) (a NaN gap keeps it). The kept
+// box indices go to live[0, count) in ascending order by ballot and popc,
+// their gap² beside them in live_gap where that is not null. Returns count,
+// the same in every thread. Called by all threads of a block of
+// kPrunedThreads; counts holds kCullWords ints.
+__device__ __forceinline__ int cull_boxes(const float* __restrict__ tbox, int first,
+                                          int end, const float (&lo)[3],
+                                          const float (&hi)[3], float bound, int* live,
+                                          float* live_gap, int* counts) {
+  constexpr int kWarpsPerBlock = kPrunedThreads / 32;
+  const int lid = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool keep[kCullPerThread];
+  float gap2[kCullPerThread];
+  unsigned ballot[kCullPerThread];
+#pragma unroll
+  for (int r = 0; r < kCullPerThread; ++r) {
+    const int tt = first + r * kPrunedThreads + threadIdx.x;
+    gap2[r] = 0.f;
+    keep[r] = false;
+    if (tt < end) {
+      gap2[r] = box_gap2(tbox + (size_t)tt * 8, lo[0], lo[1], lo[2], hi[0], hi[1], hi[2]);
+      keep[r] = !(gap2[r] > bound);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kCullPerThread; ++r) {
+    ballot[r] = __ballot_sync(0xffffffffu, keep[r]);
+    if (lid == 0) counts[r * kWarpsPerBlock + warp] = __popc(ballot[r]);
+  }
+  __syncthreads();
+  // Box first + r·64 + tid is (round r, warp, lane) in ascending order.
+  int nlive = 0;
+#pragma unroll
+  for (int c = 0; c < kCullWords; ++c) nlive += counts[c];
+#pragma unroll
+  for (int r = 0; r < kCullPerThread; ++r) {
+    if (keep[r]) {
+      int at = __popc(ballot[r] & ((1u << lid) - 1u));
+      for (int c = 0; c < r * kWarpsPerBlock + warp; ++c) at += counts[c];
+      live[at] = first + r * kPrunedThreads + threadIdx.x;
+      if (live_gap) live_gap[at] = gap2[r];
+    }
+  }
+  __syncthreads();  // `live` complete; counts free for the next pass
+  return nlive;
+}
+
+// Start the copy of sorted tile tt (its rows below m) into dst: 16-byte
+// cp.async copies by the kPrunedThreads threads of a block (one tile is at
+// most 4 KB and contiguous: 4 copies a thread, no barrier object to set
+// up). The caller commits a group per tile and waits with wait_prior(1), so
+// that tile k + 1 is copied while tile k is scanned.
+__device__ __forceinline__ void stage_tile(float4* dst, const float4* t4, int tt,
+                                           int m) {
+  const int base = tt * kBoxRows;
+  const int cnt = min(kBoxRows, m - base);
+  for (int j = threadIdx.x; j < cnt; j += kPrunedThreads)
+    __pipeline_memcpy_async(dst + j, t4 + base + j, sizeof(float4));
+}
+
+// The nearest of the cnt staged rows of sorted tile t to the point q with
+// d² ≤ max_d2, in (d², original row) order, folded into (best_d, best). A
+// warp skips the rows if the tile's box lies farther from each of its
+// points than that point's best so far, or than max_d2 (K6, K7).
+__device__ __forceinline__ void nearest_in_tile(const float4* tile, int cnt,
+                                                const float* __restrict__ tbox, int t,
+                                                bool active, float qx, float qy,
+                                                float qz, float max_d2, float& best_d,
+                                                int& best) {
+  const bool wanted =
+      active && !(box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) >
+                  fminf(best_d, max_d2));
+  if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
+  float limit = fminf(best_d, max_d2);  // a winner has d² ≤ limit
+  for (int j = 0; j < cnt; ++j) {
+    const float4 tp = tile[j];
+    float dx, dy, dz;
+    const float d2 = sq_dist(qx, qy, qz, tp.x, tp.y, tp.z, dx, dy, dz);
+    if (d2 <= limit) {
+      const int idx = __float_as_int(tp.w);  // original target row
+      if (d2 <= max_d2 && lex_before(d2, idx, best_d, best)) {
+        best_d = d2;
+        best = idx;
+        limit = fminf(best_d, max_d2);
+      }
+    }
+  }
+}
+
 // Write a list to row `row` of [rows, k] outputs; empty slots get index 0.
 template <int KMAX>
 __device__ __forceinline__ void store_list(const float (&d)[KMAX],
@@ -333,10 +436,11 @@ __device__ __forceinline__ void lane_lists_pop(const float* ld, const int* li,
 }  // namespace sgt
 
 // The box geometry that the Python prologue and plain versions repeat
-// (ops/morton_boxes.py): out[0..1] = sorted rows per box, queries per block.
-// Every library built on this header exports it.
+// (ops/morton_boxes.py): out[0..2] = sorted rows per box, queries per block,
+// boxes per cull pass. Every library built on this header exports it.
 extern "C" int sgt_box_geometry(int* out) {
   out[0] = sgt::kBoxRows;
   out[1] = sgt::kPrunedThreads;
+  out[2] = sgt::kCullPass;
   return 0;
 }

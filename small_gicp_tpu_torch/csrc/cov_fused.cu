@@ -55,11 +55,17 @@
 // order and branches past every tile whose box lies farther than R from the
 // block's box; within a scanned tile a warp skips the rows if the tile's box
 // is beyond each of its queries' own bounds, and a row enters a list only
-// with d² ≤ its query's bound. R tightens after every scanned tile. The gap²
-// between boxes never exceeds the d² of a pair inside them (common.cuh), so
-// no neighbour is skipped. The self-search needs one sort and no insertion
-// positions, and its bound is there before the first tile: that is what K12,
-// which seeds from five tiles, does not have. Instances KMAX ∈ {16, 32, 64}
+// with d² ≤ its query's bound. The gap² between boxes never exceeds the d²
+// of a pair inside them (common.cuh), so no neighbour is skipped. The walk
+// is in passes (the first form, kept as a yardstick, tested the boxes one
+// after another): a pass culls kCullPass boxes in parallel against the
+// current R, four a thread (common.cuh's cull_boxes), and streams the live
+// ones through a two-stage cp.async ring, re-checking each kept gap²
+// against R, which tightens after every pass. Passes start at the block's
+// own box and work outwards, so that R is tight before the far boxes are
+// culled. The self-search needs one sort and no insertion positions, and
+// its bound is there before the first tile: that is what K12, which seeds
+// from five tiles, does not have. Instances KMAX ∈ {16, 32, 64}
 // as K10: 32 keeps k = 20 out of local memory.
 //
 // K5 (the other work mapping of K3, as K11 is to K10): one warp per query.
@@ -179,11 +185,14 @@ knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
 
 // tsorted [n,4]: Morton-sorted rows x y z | original index, the first *num
 // valid; tbox [ceil(n / 256), 8]; out_d / out_i [n,k] in original row order.
+// The first form: one box after another, each staged synchronously,
+// R tightened after every scanned tile. Kept as the yardstick of the kernel
+// below (entry sgt_knn_topk_idx_v1); on no path.
 template <int KMAX>
 __global__ void __launch_bounds__(sgt::kPrunedThreads)
-knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ num,
-                    int n, const float* __restrict__ tbox, int k, int window,
-                    float* __restrict__ out_d, int* __restrict__ out_i) {
+knn_topk_idx_kernel_v1(const float* __restrict__ tsorted, const int* __restrict__ num,
+                       int n, const float* __restrict__ tbox, int k, int window,
+                       float* __restrict__ out_d, int* __restrict__ out_i) {
   __shared__ float4 tile[sgt::kBoxRows];
   __shared__ float sw[sgt::kPrunedThreads / 32];
   const int i = blockIdx.x * sgt::kPrunedThreads + threadIdx.x;  // sorted position
@@ -231,6 +240,150 @@ knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ n
       bound = sgt::block_max(active ? fminf(kth, reach) : 0.f, sw);
     }
   }
+  if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
+}
+
+// The walk in cull passes (the launch of sgt_knn_topk_idx). Passes of
+// kCullPass boxes start at the block's own box and work outwards (kOutward;
+// else in ascending order). A pass culls its boxes in parallel against the
+// current R (cull_boxes, gap² kept beside each index) and streams the live
+// tiles through the two-stage cp.async ring; a live tile whose gap² exceeds
+// R, which has tightened since the cull, is not staged. R tightens after
+// each pass. A list's empty slots start at (min(reach, the float below
+// kBig), kNoIndex), so that one (d², index) compare against its end also
+// tests d² ≤ reach and d² < kBig; before the store they go back to (kBig,
+// kNoIndex). The lists are in (d², original index) order whatever the order
+// of the tiles, so they equal the first form's. kWalkMinBlocks: the blocks
+// an SM should hold of the KMAX = 16 instance, which caps its registers.
+constexpr int kOutward = 1;
+constexpr int kWalkMinBlocks = 16;
+constexpr int kWalkWarps = sgt::kPrunedThreads / 32;
+
+// Offer the cnt staged rows of sorted tile t to the block's seeded lists,
+// in (d², original index) order; a warp skips the tile if its box lies
+// beyond each of its queries' kth.
+template <int KMAX>
+__device__ __forceinline__ void offer_seeded(const float4* tile, int cnt,
+                                             const float* __restrict__ tbox, int t,
+                                             bool active, float qx, float qy, float qz,
+                                             int k, float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                             float& kth, unsigned& kth0) {
+  const bool wanted =
+      active && !(sgt::box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > kth);
+  if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
+  for (int j = 0; j < cnt; ++j) {
+    const float4 p = tile[j];
+    float dx, dy, dz;
+    const float d2 = sgt::sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
+    const int idx = __float_as_int(p.w);  // original row index
+    if (sgt::lex_before(d2, idx, kth, (int)kth0)) {
+      sgt::topk_insert_lex<KMAX>(d, p0, k, d2, idx);
+      kth = sgt::topk_slot<KMAX>(d, k - 1);
+      kth0 = sgt::topk_slot<KMAX>(p0, k - 1);
+    }
+  }
+}
+
+// The ring, the pass's list and its gaps: at least 16 blocks on an SM.
+static_assert(2 * sgt::kBoxRows * 16 + sgt::kCullPass * 9 + 64 <= 232448 / 16,
+              "K4's shared memory keeps fewer than 16 blocks on an SM");
+
+template <int KMAX>
+__global__ void __launch_bounds__(sgt::kPrunedThreads, KMAX == 16 ? kWalkMinBlocks : 1)
+knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ num,
+                    int n, const float* __restrict__ tbox, int k, int window,
+                    float* __restrict__ out_d, int* __restrict__ out_i) {
+  __shared__ __align__(16) float4 tile[2][sgt::kBoxRows];
+  __shared__ int live[sgt::kCullPass];
+  __shared__ float live_gap[sgt::kCullPass];
+  __shared__ int counts[sgt::kCullWords];
+  __shared__ float sw[kWalkWarps];
+  const int i = blockIdx.x * sgt::kPrunedThreads + threadIdx.x;  // sorted position
+  const int m = min(*num, n);
+  const bool active = i < m;
+  const float4* t4 = reinterpret_cast<const float4*>(tsorted);
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  int row = 0;
+  if (i < n) {
+    const float4 q = t4[i];
+    qx = q.x;
+    qy = q.y;
+    qz = q.z;
+    row = __float_as_int(q.w);
+  }
+
+  float bd[KMAX];
+  unsigned bi[KMAX];
+  sgt::topk_fill<KMAX>(bd, kBig);
+  sgt::topk_fill<KMAX>(bi, (unsigned)sgt::kNoIndex);
+  float kth = kBig;
+  unsigned kth0 = (unsigned)sgt::kNoIndex;
+
+  // A block of padding rows only (the same for all its threads) has nothing
+  // to search; its rows get empty lists.
+  if (blockIdx.x * sgt::kPrunedThreads < m) {
+    // The query's bound: the kth smallest d² over its Morton window.
+    float reach = kBig;
+    if (active) {
+      const int lo = max(0, min(i - window / 2, m - window));
+      reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
+    }
+    kth = fminf(reach, nextafterf(kBig, 0.f));
+    sgt::topk_fill<KMAX>(bd, kth);
+    float lo[3], hi[3];  // the block's query box
+    sgt::block_box(active, qx, qy, qz, sw, lo, hi);
+    float bound = sgt::block_max(active ? reach : 0.f, sw);
+
+    const int ntiles = (m + sgt::kBoxRows - 1) / sgt::kBoxRows;
+    constexpr int P = sgt::kCullPass;
+    // The first pass: P boxes around the block's own (or the first P).
+    const int own = blockIdx.x * sgt::kPrunedThreads / sgt::kBoxRows;
+    int below = kOutward ? max(0, min(own - P / 2, ntiles - P)) : 0;
+    int above = min(ntiles, below + P);
+    int first = below, end = above;
+    bool up = true;
+    for (;;) {
+      const int nlive = sgt::cull_boxes(tbox, first, end, lo, hi, bound, live,
+                                        live_gap, counts);
+      // Live tile j goes to ring slot `slot`, one commit group per tile; the
+      // next one is the first after it whose gap² is still within R.
+      int j = 0;
+      while (j < nlive && live_gap[j] > bound) ++j;
+      if (j < nlive) sgt::stage_tile(tile[0], t4, live[j], m);
+      __pipeline_commit();
+      int slot = 0;
+      while (j < nlive) {
+        int next = j + 1;
+        while (next < nlive && live_gap[next] > bound) ++next;
+        if (next < nlive) sgt::stage_tile(tile[slot ^ 1], t4, live[next], m);
+        __pipeline_commit();
+        __pipeline_wait_prior(1);  // this thread's copies of tile j landed
+        __syncthreads();           // and every other thread's
+        const int tt = live[j];
+        offer_seeded<KMAX>(tile[slot], min(sgt::kBoxRows, m - tt * sgt::kBoxRows), tbox,
+                           tt, active, qx, qy, qz, k, bd, bi, kth, kth0);
+        __syncthreads();  // the slot is read; tile `next + 1` may land there
+        j = next;
+        slot ^= 1;
+      }
+      bound = sgt::block_max(active ? kth : 0.f, sw);  // kth ≤ reach
+      // The next pass: the adjacent P boxes above and below in turn.
+      if (above < ntiles && (up || below == 0)) {
+        first = above;
+        end = above = min(ntiles, above + P);
+      } else if (below > 0) {
+        end = below;
+        first = below = max(0, below - P);
+      } else {
+        break;
+      }
+      up = !up;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s)
+    if (bi[s] == (unsigned)sgt::kNoIndex) bd[s] = kBig;
   if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
 }
 
@@ -335,6 +488,24 @@ int sgt_knn_topk_idx(const float* tsorted, const int* num, int n, const float* t
         tsorted, num, n, tbox, k, window, out_d, out_i);
   else
     knn_topk_idx_kernel<64><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        tsorted, num, n, tbox, k, window, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
+// K4's first form, the same arguments.
+int sgt_knn_topk_idx_v1(const float* tsorted, const int* num, int n, const float* tbox,
+                        int k, int window, float* out_d, int* out_i, void* stream) {
+  if (k < 1 || k > 64 || n <= 0 || window < k) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + sgt::kPrunedThreads - 1) / sgt::kPrunedThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16)
+    knn_topk_idx_kernel_v1<16><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        tsorted, num, n, tbox, k, window, out_d, out_i);
+  else if (k <= 32)
+    knn_topk_idx_kernel_v1<32><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        tsorted, num, n, tbox, k, window, out_d, out_i);
+  else
+    knn_topk_idx_kernel_v1<64><<<blocks, sgt::kPrunedThreads, 0, s>>>(
         tsorted, num, n, tbox, k, window, out_d, out_i);
   return (int)cudaGetLastError();
 }

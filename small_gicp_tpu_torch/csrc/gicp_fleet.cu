@@ -63,6 +63,7 @@ namespace {
 using namespace sgt;
 
 constexpr int kMaxTiles = 256;  // 65,536 target rows a pair / kBoxRows
+static_assert(kMaxTiles <= kCullPass, "one cull pass covers a pair's boxes");
 constexpr int kTrialThreads = 128;
 constexpr int kTrialRowsPerThread = 4;
 constexpr int kTrialBlockRows = kTrialThreads * kTrialRowsPerThread;
@@ -101,15 +102,6 @@ __device__ __forceinline__ void lane_sum(const float* partials, int width,
   if (threadIdx.x == 0) tickets[blockIdx.y] = 0u;
 }
 
-// Start the copy of sorted tile tt (its rows below m) into dst: 16-byte
-// cp.async copies, kLinThreads threads.
-__device__ __forceinline__ void stage_tile(float4* dst, const float4* t4, int tt, int m) {
-  const int base = tt * kBoxRows;
-  const int cnt = min(kBoxRows, m - base);
-  for (int j = threadIdx.x; j < cnt; j += kLinThreads)
-    __pipeline_memcpy_async(dst + j, t4 + base + j, sizeof(float4));
-}
-
 // ttab [U,M,16], qtab [U,N,16] in the clouds' order (K1's tables); tsorted
 // [U,M,4] Morton-sorted target rows x y z | original row; tbox [U,ceil(M /
 // 256),8]; sperm [U,N] sorted position → source row; tnum, qnum [U]; uids,
@@ -133,7 +125,7 @@ gicp_linearize_fleet_kernel(const float* __restrict__ ttab,
                             double* __restrict__ sums) {
   __shared__ __align__(16) float4 tile[2][kBoxRows];
   __shared__ int live[kMaxTiles];
-  __shared__ int warp_live[kWarps];
+  __shared__ int counts[kCullWords];
   __shared__ float sw[kWarps];
   __shared__ float red[kWarps][kLinRed];
 
@@ -190,24 +182,11 @@ gicp_linearize_fleet_kernel(const float* __restrict__ ttab,
     float lo[3], hi[3];  // the box of the block's transformed valid points
     block_box(active, qx, qy, qz, sw, lo, hi);
 
-    // Cull the pair's boxes, 64 at a time, into the ascending list `live`.
+    // Cull the pair's boxes (at most kMaxTiles: one pass) into the ascending
+    // list `live`.
     const int ntiles = (m + kBoxRows - 1) / kBoxRows;
-    const int lid = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int nlive = 0;
-    for (int base = 0; base < ntiles; base += kLinThreads) {
-      const int tt = base + threadIdx.x;
-      const bool keep = tt < ntiles && !(box_gap2(tbox + (size_t)tt * 8, lo[0], lo[1],
-                                                  lo[2], hi[0], hi[1], hi[2]) > max_d2);
-      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      if (lid == 0) warp_live[warp] = __popc(ballot);
-      __syncthreads();
-      int at = nlive;
-      for (int w = 0; w < warp; ++w) at += warp_live[w];
-      if (keep) live[at + __popc(ballot & ((1u << lid) - 1u))] = tt;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) nlive += warp_live[w];
-      __syncthreads();  // `live` complete; warp_live free for the next round
-    }
+    const int nlive =
+        cull_boxes(tbox, 0, ntiles, lo, hi, max_d2, live, nullptr, counts);
 
     // Live tile k goes to ring slot k & 1, one commit group per tile.
     const float4* t4 = reinterpret_cast<const float4*>(tsorted);
@@ -219,23 +198,8 @@ gicp_linearize_fleet_kernel(const float* __restrict__ ttab,
       __pipeline_wait_prior(1);  // this thread's copies of tile k landed
       __syncthreads();           // and every other thread's
       const int tt = live[k];
-      const int cnt = min(kBoxRows, m - tt * kBoxRows);
-      const float4* tl = tile[k & 1];
-      const bool wanted =
-          active && !(box_gap2(tbox + (size_t)tt * 8, qx, qy, qz, qx, qy, qz) >
-                      fminf(best_d, max_d2));
-      if (__any_sync(0xffffffffu, wanted) && wanted) {
-        for (int j = 0; j < cnt; ++j) {
-          const float4 tp = tl[j];
-          float dx, dy, dz;
-          const float d2 = sq_dist(qx, qy, qz, tp.x, tp.y, tp.z, dx, dy, dz);
-          const int idx = __float_as_int(tp.w);  // original target row
-          if (d2 <= max_d2 && lex_before(d2, idx, best_d, best)) {
-            best_d = d2;
-            best = idx;
-          }
-        }
-      }
+      nearest_in_tile(tile[k & 1], min(kBoxRows, m - tt * kBoxRows), tbox, tt, active,
+                      qx, qy, qz, max_d2, best_d, best);
       __syncthreads();  // slot k & 1 is read; tile k + 2 may land there
     }
   }

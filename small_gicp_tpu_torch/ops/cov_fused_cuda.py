@@ -16,9 +16,10 @@ Three layouts, named as the JAX package names them:
     rows;
   * ``"ti"`` (K4): the kernel returns the neighbours only (``knn_topk_idx``:
     indices and d², through a Morton-sorted, box-pruned search whose bound
-    comes from each row's Morton window); the winners are gathered and
-    summed here with torch ops — the default above ``TI_MIN_ROWS`` rows,
-    where brute force costs seconds;
+    comes from each row's Morton window, its boxes culled in parallel
+    passes — ``knn_topk_idx_walk_plain`` is the plain account of that
+    walk); the winners are gathered and summed here with torch ops — the
+    default above ``TI_MIN_ROWS`` rows, where brute force costs seconds;
   * ``"q"`` (K5): K3's moment rows by the other work mapping, one warp per
     query; by request only.
 
@@ -31,7 +32,9 @@ were set by TPU memory and bind nothing on this card, and moving them is a
 measured decision for later.
 
 On a CUDA tensor every wrapper launches its kernel (``csrc/cov_fused.cu``)
-or raises; on a CPU tensor it runs the plain version beside it.
+or raises; on a CPU tensor it runs the plain version beside it. K4's first
+form, which walked the boxes one after another, stays as the yardstick
+``_knn_topk_idx_v1``, reached from no path.
 """
 
 from __future__ import annotations
@@ -43,8 +46,16 @@ import torch
 from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.ops import morton_boxes
 from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK
-from small_gicp_tpu_torch.ops.knn_cuda import knn_plain
-from small_gicp_tpu_torch.ops.morton_boxes import PrunedTarget, pruned_prepare_target
+from small_gicp_tpu_torch.ops.knn import sq_dists
+from small_gicp_tpu_torch.ops.knn_cuda import _first_k, knn_plain
+from small_gicp_tpu_torch.ops.morton_boxes import (
+    BLOCK_ROWS,
+    CULL_PASS,
+    TILE_ROWS,
+    PrunedTarget,
+    box_gap2,
+    pruned_prepare_target,
+)
 
 _BIG = 3.0e38
 _VALID_SQ = 1e16
@@ -192,9 +203,87 @@ def knn_topk_idx_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
     return torch.where(live, d, _BIG), torch.where(live, i, 0)
 
 
-def knn_topk_idx_launch(target: PrunedTarget, num_points: torch.Tensor, k: int
-                        ) -> Pair:
-    """Kernel K4 alone, over the finished sort and boxes of the cloud."""
+def walk_passes(own: int, ntiles: int, cull_pass: int = CULL_PASS,
+                outward: bool = True):
+    """K4's cull passes over ``ntiles`` boxes for a block whose own box is
+    ``own``: [(first, end)], the first pass the ``cull_pass`` boxes around
+    ``own`` (``outward``; else the first ones), then the adjacent passes
+    above and below in turn. Every box lies in exactly one pass."""
+    below = max(0, min(own - cull_pass // 2, ntiles - cull_pass)) if outward else 0
+    above = min(ntiles, below + cull_pass)
+    passes, up = [(below, above)], True
+    while True:
+        if above < ntiles and (up or below == 0):
+            passes.append((above, min(ntiles, above + cull_pass)))
+            above = passes[-1][1]
+        elif below > 0:
+            passes.append((max(0, below - cull_pass), below))
+            below = passes[-1][0]
+        else:
+            return passes
+        up = not up
+
+
+def knn_topk_idx_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                            cull_pass: int = CULL_PASS, outward: bool = True,
+                            target: Optional[PrunedTarget] = None) -> Pair:
+    """Plain account of K4's pruned walk, with the outputs of
+    ``knn_topk_idx_plain``: each valid row's reach (the kth smallest d² over
+    its ``bound_window(k)`` Morton-sorted neighbours), blocks of 64 sorted
+    rows, each with the box of its rows and the bound R = the largest reach;
+    the passes of ``walk_passes``, each keeping the tiles whose box gap² to
+    the block's box does not exceed R, offering their rows to the queries
+    whose reach they are within, then tightening R to the largest of each
+    query's min(kth so far, reach); each list the k first candidates in
+    (d², original row) order. Equal to ``knn_topk_idx_plain`` because no
+    bound ever cuts a true neighbour."""
+    _check_k(k)
+    n = points.shape[0]
+    dev, dt = points.device, points.dtype
+    out_d = torch.full((n, k), _BIG, dtype=dt, device=dev)
+    out_i = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    if target is None:
+        target = pruned_prepare_target(points, num_points)
+    m = min(int(num_points), n)
+    if m == 0:
+        return out_d, out_i
+    xyz, orig, tbox = target.tsorted[:, :3], target.tperm, target.tbox
+    w = bound_window(k)
+    pos = torch.arange(m, device=dev)
+    lo = torch.clamp(torch.clamp(pos - w // 2, max=m - w), min=0)
+    cols = lo[:, None] + torch.arange(w, device=dev)
+    d = xyz[cols.clamp(max=m - 1)] - xyz[:m, None, :]
+    wd2 = torch.where(cols < m, d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                      + d[..., 2] * d[..., 2], _BIG)
+    reach = torch.sort(wd2, dim=1).values[:, k - 1]
+    ntiles = -(-m // TILE_ROWS)
+    for q0 in range(0, m, BLOCK_ROWS):
+        qpos = pos[q0:q0 + BLOCK_ROWS]
+        q, rq = xyz[qpos], reach[qpos]
+        blo, bhi = q.amin(dim=0), q.amax(dim=0)
+        bound = rq.max()
+        cand_d = q.new_zeros((len(qpos), 0))
+        cand_i = orig.new_zeros(0)
+        for first, end in walk_passes(q0 // TILE_ROWS, ntiles, cull_pass, outward):
+            live = first + (~(box_gap2(tbox[first:end], blo, bhi) > bound)).nonzero()[:, 0]
+            rows = (live[:, None] * TILE_ROWS
+                    + torch.arange(TILE_ROWS, device=dev)).reshape(-1)
+            rows = rows[rows < m]
+            d2 = sq_dists(q, xyz[rows])
+            cand_d = torch.cat([cand_d, torch.where(d2 <= rq[:, None], d2, _BIG)], dim=1)
+            cand_i = torch.cat([cand_i, orig[rows]])
+            kth = (torch.sort(cand_d, dim=1).values[:, k - 1] if cand_d.shape[1] >= k
+                   else torch.full_like(rq, _BIG))
+            bound = torch.minimum(kth, rq).max()
+        by_row = torch.argsort(cand_i, stable=True)
+        dk, ik = _first_k(cand_d[:, by_row], cand_i[by_row], k)
+        out_d[orig[qpos]], out_i[orig[qpos]] = dk, ik
+    return out_d, out_i
+
+
+def _topk_idx_launch(entry: str, target: PrunedTarget, num_points: torch.Tensor,
+                     k: int) -> Pair:
+    """Launch the K4 entry ``entry`` over the finished sort and boxes."""
     _check_k(k)
     _build.require(target.tsorted, "sorted rows", torch.float32, (None, 4))
     _build.require(num_points, "num_points", torch.int32, ())
@@ -206,12 +295,27 @@ def knn_topk_idx_launch(target: PrunedTarget, num_points: torch.Tensor, k: int
         return d, i
     lib = _library()
     with torch.cuda.device(dev):
-        rc = lib.sgt_knn_topk_idx(
+        rc = getattr(lib, entry)(
             target.tsorted.data_ptr(), num_points.data_ptr(), n, target.tbox.data_ptr(),
             k, bound_window(k), d.data_ptr(), i.data_ptr(), _stream())
-    _build.check(rc, "knn_topk_idx")
-    knn_topk_idx.launches += 1
+    _build.check(rc, entry)
     return d, i
+
+
+def knn_topk_idx_launch(target: PrunedTarget, num_points: torch.Tensor, k: int
+                        ) -> Pair:
+    """Kernel K4 alone, over the finished sort and boxes of the cloud."""
+    out = _topk_idx_launch("sgt_knn_topk_idx", target, num_points, k)
+    if target.tsorted.shape[0] > 0:
+        knn_topk_idx.launches += 1
+    return out
+
+
+def _knn_topk_idx_v1(target: PrunedTarget, num_points: torch.Tensor, k: int) -> Pair:
+    """K4's first form (one box after another, each tile staged
+    synchronously), over the finished sort and boxes: the yardstick of the
+    kernel above, on no path and counted nowhere."""
+    return _topk_idx_launch("sgt_knn_topk_idx_v1", target, num_points, k)
 
 
 def knn_topk_idx(points: torch.Tensor, num_points: torch.Tensor, k: int,

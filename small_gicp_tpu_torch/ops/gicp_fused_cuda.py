@@ -54,7 +54,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from small_gicp_tpu_torch import _build
-from small_gicp_tpu_torch.ops import morton_boxes
+from small_gicp_tpu_torch.ops import knn_cuda, morton_boxes
 from small_gicp_tpu_torch.ops.eigh3 import inv3x3
 from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK, sq_dists
 from small_gicp_tpu_torch.ops.morton_boxes import (
@@ -72,6 +72,11 @@ ROUTES = ("listed", "swept")
 LISTED_MP_CAP = 1_572_864
 # Source rows per block of the swept kernel.
 SWEPT_BLOCK_ROWS = morton_boxes.BLOCK_ROWS
+# Blocks on each SM that K6's chunk plan aims at (tools/box_walk_sweep.py).
+SWEPT_BLOCKS_PER_SM = 32
+# K6's per-row key with no winner posted: the kernel's ~0 (unsigned), here
+# the largest int64, above every real key (whose top bit, d²'s sign, is 0).
+SWEPT_KEY_NONE = 2 ** 63 - 1
 FACTORS = ("gicp", "plane_icp", "icp")
 ROBUST_KERNELS = ("huber", "cauchy")
 MAX_POSES = 100
@@ -101,6 +106,8 @@ class GicpTables:
     tsorted: Optional[torch.Tensor] = None  # [M,4] Morton-sorted x y z | row
     tbox: Optional[torch.Tensor] = None  # [ceil(M/256), 8] lo 3, 0, hi 3, 0
     sperm: Optional[torch.Tensor] = None  # [N] int32, sorted position → source row
+    # Host copy of qnum, read by the first swept launch for its chunk plan.
+    qnum_host: Optional[int] = None
 
 
 def auto_route(target_points: torch.Tensor) -> str:
@@ -513,9 +520,134 @@ def gicp_linearize_swept_plain(tables: GicpTables, T: torch.Tensor,
     return (*_finish(sums[0]), corr[0])
 
 
-def _gicp_linearize_swept_cuda(tables: GicpTables, T: torch.Tensor,
-                               max_dist_sq: float, robust: Optional[str],
-                               robust_c: float):
+def swept_chunks(valid_rows: int, mcap: int, sms: int) -> int:
+    """K6's chunks per source block for ``valid_rows`` valid source rows and
+    a target of capacity ``mcap`` on a card of ``sms`` SMs: enough that the
+    valid source blocks times the chunks reach ``SWEPT_BLOCKS_PER_SM``
+    blocks on each SM, but no more than the target has tiles (the most
+    live tiles a block can feed). One where the source blocks alone reach
+    it."""
+    blocks = -(-max(valid_rows, 1) // SWEPT_BLOCK_ROWS)
+    return max(1, min(-(-SWEPT_BLOCKS_PER_SM * sms // blocks),
+                      -(-max(mcap, 1) // TILE_ROWS), 65535))
+
+
+def swept_plan(tables: GicpTables) -> int:
+    """The chunk count that ``gicp_linearize_swept`` launches K6 with on
+    these tables (CUDA): ``swept_chunks`` of the valid source rows, read
+    from the card once per tables."""
+    if tables.qnum_host is None:
+        tables.qnum_host = int(tables.qnum)
+    return swept_chunks(min(tables.qnum_host, tables.qtab.shape[0]),
+                        tables.ttab.shape[0],
+                        knn_cuda._sm_count(tables.qtab.device.index or 0))
+
+
+def swept_chunk_tiles(live: torch.Tensor, chunks: int) -> torch.Tensor:
+    """[blocks, tiles] int64: the chunk of K6 that scans each live tile
+    (``swept_live_tiles``), -1 where a tile is not live. Chunk s of a block
+    takes the block's live tiles whose ordinal among them, in ascending
+    tile order, is s modulo ``chunks``, as the kernel deals them out of its
+    cull passes."""
+    ordinal = torch.cumsum(live.long(), dim=1) - 1
+    return torch.where(live, ordinal % chunks, -1)
+
+
+def swept_key(d2: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """K6's 64-bit key of a winner (d² float32 ≥ +0, original row): d²'s
+    bits above the row, as int64; -0 counts as +0. Smaller keys are
+    smaller d², and on a tie the lower row."""
+    bits = (d2.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return (bits << 32) | row.to(torch.int64)
+
+
+def gicp_linearize_swept_split_plain(tables: GicpTables, T: torch.Tensor,
+                                     max_dist_sq: float, robust: Optional[str] = None,
+                                     robust_c: float = 1.0, chunks: int = 1):
+    """Plain account of K6 over ``chunks`` chunks per source block: each
+    chunk's tiles (``swept_chunk_tiles``), each chunk's winner for each of
+    the block's valid rows — the smallest ``swept_key`` over its rows with
+    d² ≤ max_dist_sq — the smallest key over the chunks, decoded, then
+    K1's finalize with unmatched rows zeroed. The same outputs as
+    ``gicp_linearize_swept_plain`` for every chunk count."""
+    _robust_code(robust)
+    _require_swept(tables)
+    qtab, dev, dt = tables.qtab, tables.qtab.device, tables.qtab.dtype
+    if dt != torch.float32:
+        raise ValueError("the swept route runs float32 tables")
+    n = qtab.shape[0]
+    pose = _pose12(T.to(dev), dt)[None]
+    q = _transform_lanes(qtab[None], pose)[0]
+    plan = swept_chunk_tiles(swept_live_tiles(tables, T, max_dist_sq), chunks)
+    m = min(int(tables.tnum), tables.tsorted.shape[0])
+    nv = min(int(tables.qnum), n)
+    orig = tables.tsorted[:, 3].contiguous().view(torch.int32).long()
+    sperm = tables.sperm.long()
+    keys = torch.full((n,), SWEPT_KEY_NONE, dtype=torch.int64, device=dev)
+    cols = torch.arange(TILE_ROWS, device=dev)
+    for b in range(-(-nv // SWEPT_BLOCK_ROWS)):
+        tiles = (plan[b] >= 0).nonzero()[:, 0]
+        if len(tiles) == 0:
+            continue
+        pos = torch.arange(b * SWEPT_BLOCK_ROWS, min(nv, (b + 1) * SWEPT_BLOCK_ROWS),
+                           device=dev)
+        rows = (tiles[:, None] * TILE_ROWS + cols).reshape(-1)
+        chunk = plan[b, tiles].repeat_interleave(TILE_ROWS)
+        keep = rows < m
+        rows, chunk = rows[keep], chunk[keep]
+        d2 = sq_dists(q[sperm[pos]], tables.tsorted[rows, :3])
+        k = torch.where(d2 <= max_dist_sq, swept_key(d2, orig[rows]), SWEPT_KEY_NONE)
+        per_chunk = torch.full((len(pos), chunks), SWEPT_KEY_NONE, dtype=torch.int64,
+                               device=dev).scatter_reduce(
+            1, chunk[None].expand(len(pos), -1), k, "amin")
+        keys[pos] = per_chunk.amin(dim=1)
+    found = keys != SWEPT_KEY_NONE
+    best_d = torch.where(found, (keys >> 32).to(torch.int32).view(torch.float32), _BIG)
+    best_pos = torch.where(found, keys & 0xFFFFFFFF, 0)
+    best_d_rows = torch.full((n,), _BIG, dtype=dt, device=dev)
+    best_rows = torch.zeros(n, dtype=torch.int64, device=dev)
+    best_d_rows[sperm], best_rows[sperm] = best_d, best_pos
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    active[sperm] = torch.arange(n, device=dev) < tables.qnum
+    sums, corr = _finalize_plain_lanes(
+        tables.ttab[None], qtab[None], pose, q[None], active[None], best_rows[None],
+        best_d_rows[None], max_dist_sq, robust, robust_c, tables.factor,
+        zero_unmatched=True)
+    return (*_finish(sums[0]), corr[0])
+
+
+@dataclass
+class _SweptBuffers:
+    """K6's per-row keys (~0, here -1, between launches) and its source
+    blocks' tickets (0 between launches): every launch leaves them so."""
+
+    keys: torch.Tensor  # int64 [≥ N]
+    tickets: torch.Tensor  # int32 [≥ source blocks]
+
+
+_swept_buffers: Dict[Tuple[int, int], _SweptBuffers] = {}
+
+
+def _swept_workspace(dev: torch.device, n: int, blocks: int) -> _SweptBuffers:
+    """The buffers of one device and stream, on which launches run in
+    order, grown to hold a launch's needs; set once, at allocation."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    b = _swept_buffers.get(key)
+    if b is None:
+        b = _swept_buffers[key] = _SweptBuffers(
+            keys=torch.full((0,), -1, dtype=torch.int64, device=dev),
+            tickets=torch.zeros(0, dtype=torch.int32, device=dev))
+    if b.keys.numel() < n:
+        b.keys = torch.full((max(n, 1024),), -1, dtype=torch.int64, device=dev)
+    if b.tickets.numel() < blocks:
+        b.tickets = torch.zeros(max(blocks, 1024), dtype=torch.int32, device=dev)
+    return b
+
+
+def _swept_launch(entry: str, tables: GicpTables, T: torch.Tensor,
+                  max_dist_sq: float, robust: Optional[str], robust_c: float,
+                  chunks: Optional[int]):
+    """Launch the K6 entry ``entry``; ``chunks`` None is the first form."""
     f32 = torch.float32
     _build.require(tables.ttab, "ttab", f32, (None, 16))
     m = tables.ttab.shape[0]
@@ -534,17 +666,43 @@ def _gicp_linearize_swept_cuda(tables: GicpTables, T: torch.Tensor,
     lib = morton_boxes.library("gicp_swept")
     blocks = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
     partials = torch.empty((blocks, 44), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.sgt_gicp_linearize_swept(
-            tables.ttab.data_ptr(), tables.tsorted.data_ptr(), tables.tbox.data_ptr(),
+    args = [tables.ttab.data_ptr(), tables.tsorted.data_ptr(), tables.tbox.data_ptr(),
             tables.tnum.data_ptr(), m, tables.qtab.data_ptr(), tables.sperm.data_ptr(),
             tables.qnum.data_ptr(), n, pose.data_ptr(), float(max_dist_sq),
-            float(robust_c), FACTORS.index(tables.factor), _robust_code(robust),
-            corr.data_ptr(), partials.data_ptr(), _stream(),
-        )
-    _build.check(rc, "gicp_linearize_swept")
-    gicp_linearize_swept.launches += 1
+            float(robust_c), FACTORS.index(tables.factor), _robust_code(robust)]
+    if chunks is None:
+        args += [corr.data_ptr(), partials.data_ptr()]
+    else:
+        ws = _swept_workspace(dev, n, blocks)
+        args += [int(chunks), corr.data_ptr(), partials.data_ptr(), ws.keys.data_ptr(),
+                 ws.tickets.data_ptr()]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(*args, _stream())
+    _build.check(rc, entry)
     return (*_finish(partials.to(torch.float64).sum(0)), corr)
+
+
+def _gicp_linearize_swept_cuda(tables: GicpTables, T: torch.Tensor,
+                               max_dist_sq: float, robust: Optional[str],
+                               robust_c: float, chunks: Optional[int] = None):
+    """Kernel K6 at ``chunks`` chunks per source block (None: ``swept_plan``)."""
+    _build.require(tables.qtab, "qtab", torch.float32, (None, 16))
+    if tables.qtab.shape[0] > 0 and chunks is None:
+        chunks = swept_plan(tables)
+    out = _swept_launch("sgt_gicp_linearize_swept", tables, T, max_dist_sq, robust,
+                        robust_c, chunks or 1)
+    if tables.qtab.shape[0] > 0:
+        gicp_linearize_swept.launches += 1
+    return out
+
+
+def _gicp_linearize_swept_v1(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                             robust: Optional[str] = None, robust_c: float = 1.0):
+    """K6's first form (one block per source block, the boxes tested one
+    after another): the yardstick of the kernel above, on no path and
+    counted nowhere."""
+    return _swept_launch("sgt_gicp_linearize_swept_v1", tables, T, max_dist_sq, robust,
+                         robust_c, None)
 
 
 def gicp_linearize_swept(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,

@@ -82,6 +82,7 @@ from small_gicp_tpu_torch.ops.knn_window import morton_codes32
 from small_gicp_tpu_torch.ops.morton_boxes import (
     TILE_ROWS,
     PrunedTarget,
+    box_gap2,
     pruned_prepare_target,
 )
 
@@ -630,11 +631,7 @@ def knn_pruned_plain(target_points: torch.Tensor, num_points: torch.Tensor,
             seed = slice(s_lo * TILE_ROWS, min(m, (s_hi + 1) * TILE_ROWS))
             d, _ = _lex_first_k(q, rows[seed], orig[seed], k)
             bound = d[:, k - 1].max()
-            lo, hi = q.amin(dim=0), q.amax(dim=0)
-            g = torch.clamp(torch.maximum(tbox[:ntiles, 0:3] - hi,
-                                          lo - tbox[:ntiles, 4:7]), min=0.0)
-            gap2 = g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
-            keep = ~(gap2 > bound)
+            keep = ~(box_gap2(tbox[:ntiles], q.amin(dim=0), q.amax(dim=0)) > bound)
             keep[s_lo:s_hi + 1] = True
             sel = keep[tile_of_row].nonzero()[:, 0]
         out_d[qrows], out_i[qrows] = _lex_first_k(q, rows[sel], orig[sel], k)

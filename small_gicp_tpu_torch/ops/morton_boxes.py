@@ -8,8 +8,10 @@ min corner) and every ``TILE_ROWS`` sorted rows get a bounding box; a
 kernel's block of ``BLOCK_ROWS`` queries then skips every tile whose box
 lies beyond its bound. The result depends on the cloud alone, so a caller
 that searches one cloud repeatedly builds it once (``KdTree.pruned_target``).
-The two constants repeat ``kBoxRows`` and ``kPrunedThreads`` of
-``csrc/common.cuh``; ``library`` holds them against the compiled values.
+The box walks of K4, K6 and K7 cull a block's tiles in passes of
+``CULL_PASS`` boxes. The three constants repeat ``kBoxRows``,
+``kPrunedThreads`` and ``kCullPass`` of ``csrc/common.cuh``; ``library``
+holds them against the compiled values.
 """
 
 from __future__ import annotations
@@ -25,13 +27,14 @@ from small_gicp_tpu_torch.ops.knn_window import morton_codes32
 _BIG = 3.0e38
 TILE_ROWS = 256
 BLOCK_ROWS = 64
+CULL_PASS = 256
 
 
 def library(name: str):
     """The kernel library ``name`` (one built on ``csrc/common.cuh``), its
     box constants held against this module's on the first load."""
     return _build.library_with_geometry(name, "sgt_box_geometry",
-                                        (TILE_ROWS, BLOCK_ROWS))
+                                        (TILE_ROWS, BLOCK_ROWS, CULL_PASS))
 
 
 def morton_order(xyz: torch.Tensor, valid: torch.Tensor
@@ -99,3 +102,11 @@ def pruned_prepare_target(target_points: torch.Tensor, num_points: torch.Tensor
         tbox[..., 4:7] = torch.where(live, padded, -_BIG).view(tiles).amax(-2)
     return PrunedTarget(tsorted=tsorted, tperm=tperm, tbox=tbox, tkey=tkey,
                         origin=origin)
+
+
+def box_gap2(tbox: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """[T] gap² between each box of ``tbox`` [T,8] and the box [lo, hi] [3],
+    in the kernels' operation order (``csrc/common.cuh`` ``box_gap2``): it
+    never exceeds the d² of a pair of points inside the two boxes."""
+    g = torch.clamp(torch.maximum(tbox[:, 0:3] - hi, lo - tbox[:, 4:7]), min=0.0)
+    return g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]

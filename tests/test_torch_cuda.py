@@ -6,7 +6,9 @@ brute-force lane kernel it replaced) for each factor × robust kernel, K2 and
 K8 for each robust kernel and pose count, K3 for both top-k bounds, the
 three list bounds of K4, K10 and K12, K5 and K11 below and above 32 neighbours, both K9 variants — at small shapes
 with padding rows, K9 and K10 with one chunk and with many and against
-their first forms, plus one small registration (fused on both routes and
+their first forms, K4 and K6 against their first forms (K4 over more than
+one cull pass, K6 at one chunk, at the planned count and above the live
+tiles, and at a pose with no live tile), plus one small registration (fused on both routes and
 unfused) and one small fleet on the card against the CPU path and at one
 lane against 32. The tests need an NVIDIA card and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
@@ -23,7 +25,9 @@ import torch
 
 from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
+from small_gicp_tpu_torch.ops import gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    _knn_topk_idx_v1,
     knn_moments,
     knn_moments_rows,
     knn_moments_rows_plain,
@@ -31,6 +35,7 @@ from small_gicp_tpu_torch.ops.cov_fused_cuda import (
     knn_moments_rows_q_plain,
     knn_topk_idx,
     knn_topk_idx_plain,
+    knn_topk_idx_walk_plain,
 )
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
@@ -38,6 +43,8 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_error_multi,
     _gicp_error_multi_fleet_k2,
     _gicp_linearize_fleet_brute,
+    _gicp_linearize_swept_cuda,
+    _gicp_linearize_swept_v1,
     fleet_live_tiles,
     gicp_error_multi_fleet,
     gicp_error_multi_fleet_plain,
@@ -50,9 +57,11 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_score_plain,
     gicp_linearize_swept,
     gicp_linearize_swept_plain,
+    gicp_linearize_swept_split_plain,
     gicp_linearize_tables,
     gicp_prepare,
     swept_live_tiles,
+    swept_plan,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.knn import KdTree
@@ -70,6 +79,7 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
     pruned_prepare_queries,
     target_centre,
 )
+from small_gicp_tpu_torch.ops.morton_boxes import CULL_PASS, TILE_ROWS, pruned_prepare_target
 from small_gicp_tpu_torch.ops.normals import estimate_covariances
 from small_gicp_tpu_torch.parallel.fleet import align_fleet
 from small_gicp_tpu_torch.point_cloud import stack_clouds
@@ -745,3 +755,106 @@ def test_small_registration_swept_route_matches_listed(dev):
     assert np.linalg.norm(dT[:3, 3]) <= 2e-3
     assert np.linalg.norm(dT[[2, 0, 1], [1, 2, 0]]) <= 2 * 0.1 * math.pi / 180.0
     assert abs(a["iterations"] - c["iterations"]) <= 1
+
+
+# ---- the box walks redesigned: K4 in cull passes, K6 in chunks -------------
+
+def _sheet(dev, m, cap, seed):
+    """m points of a wavy sheet (no ties) in a table of cap rows."""
+    rng = np.random.default_rng(seed)
+    side = math.sqrt(m) * 0.2
+    xy = rng.uniform(-side, side, size=(m, 2))
+    z = 0.4 * np.sin(0.2 * xy[:, 0]) + 0.02 * rng.normal(size=m)
+    pts = torch.as_tensor(_padded(np.c_[xy, z], cap), device=dev).float()
+    return pts, torch.tensor(m, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("k", [10, 20, 64])
+def test_topk_idx_walk_matches_plain_and_first_form(dev, scan_cloud, k):
+    # The scan (one pass) and a sheet of more tiles than a cull pass holds.
+    big = _sheet(dev, (CULL_PASS + 40) * TILE_ROWS, (CULL_PASS + 41) * TILE_ROWS, 5)
+    for pts, num in (scan_cloud, big):
+        target = pruned_prepare_target(pts, num)
+        before = knn_topk_idx.launches
+        d, i = knn_topk_idx(pts, num, k, target=target)
+        d1, i1 = _knn_topk_idx_v1(target, num, k)
+        torch.cuda.synchronize()
+        assert knn_topk_idx.launches == before + 1
+        assert torch.equal(d, d1) and torch.equal(i, i1), k
+        rows = torch.arange(0, pts.shape[0], 7, device=dev)
+        dp, ip = knn_topk_idx_plain(pts, num, k, rows=rows)
+        assert torch.equal(d[rows], dp) and torch.equal(i[rows], ip), k
+    pts, num = scan_cloud
+    dw, iw = knn_topk_idx_walk_plain(pts, num, k)
+    d, i = knn_topk_idx(pts, num, k)
+    assert torch.equal(d, dw) and torch.equal(i, iw)
+
+
+def _wide_pair(dev, m):
+    """A target of m rows spread over a plane wider than the source's
+    reach, and 2,000 source rows near part of it: many tiles, most of them
+    culled, more than one cull pass where m > 65,536."""
+    rng = np.random.default_rng(m)
+    side = math.sqrt(m) * 0.25
+    tp = rng.uniform(-side, side, size=(m, 3)).astype(np.float32)
+    tp[:, 2] = np.sin(tp[:, 0] * 0.3) * 0.5
+    n = 2000
+    sp = tp[rng.permutation(m)[:n]] + rng.normal(scale=0.05, size=(n, 3)).astype(
+        np.float32)
+    covs = lambda k, cap: np.tile(np.eye(3, dtype=np.float32) * 0.02, (cap, 1, 1))
+    normals = np.zeros((m + 20, 4), np.float32)
+    normals[:m, 2] = 1.0
+    tgt = cloud_from_numpy(_padded(tp, m + 20), m, normals=normals,
+                           covs=covs(m, m + 20), device=dev)
+    src = cloud_from_numpy(_padded(sp, n + 100), n, covs=covs(n, n + 100), device=dev)
+    return tgt, src
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("factor", ["gicp", "plane_icp", "icp"])
+def test_swept_chunks_match_first_form_and_split_plain(dev, pair, factor):
+    T = pair[2]
+    for tgt, src in (_far_pair(dev), _wide_pair(dev, 90_000)):
+        tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                              factor, tgt.covs, src.covs, tgt.normals, route="swept")
+        live = swept_live_tiles(tables, T, 1.0)
+        planned = swept_plan(tables)
+        above = int(live.sum(dim=1).max()) + 3
+        for robust, c in ((None, 1.0), ("huber", 0.5)):
+            old = _gicp_linearize_swept_v1(tables, T, 1.0, robust, c)
+            before = gicp_linearize_swept.launches
+            new = gicp_linearize_tables(tables, T, 1.0, robust, c)
+            torch.cuda.synchronize()
+            assert gicp_linearize_swept.launches == before + 1
+            assert _same(new, old), (factor, robust)
+            for chunks in (1, planned, above):
+                got = _gicp_linearize_swept_cuda(tables, T, 1.0, robust, c, chunks)
+                ref = gicp_linearize_swept_split_plain(tables, T, 1.0, robust, c,
+                                                       chunks=chunks)
+                torch.cuda.synchronize()
+                assert _same(got, old), (factor, robust, chunks)
+                mask = got[3][:, 12] > 0.5
+                assert torch.equal(got[3][:, [12, 13]], ref[3][:, [12, 13]])
+                assert torch.equal(got[3][mask][:, :3], ref[3][mask][:, :3])
+    ws = gicp_fused_cuda._swept_buffers[(dev.index if dev.index is not None else 0,
+                                         torch.cuda.current_stream(dev).cuda_stream)]
+    assert bool((ws.keys == -1).all()) and bool((ws.tickets == 0).all())
+
+
+def test_swept_chunks_at_a_pose_without_live_tiles(dev):
+    tgt, src = _far_pair(dev)
+    tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                          "gicp", tgt.covs, src.covs, route="swept")
+    T = torch.eye(4, device=dev)
+    T[:3, 3] = torch.tensor([1e4, -3e3, 50.0])
+    assert not swept_live_tiles(tables, T, 1.0).any()
+    new = gicp_linearize_tables(tables, T, 1.0)
+    old = _gicp_linearize_swept_v1(tables, T, 1.0)
+    plain = gicp_linearize_swept_plain(tables, T, 1.0)
+    torch.cuda.synchronize()
+    assert _same(new, old) and _same(new, plain)
+    assert int(new[2]) == 0 and not new[3][:, :13].any()
+    assert bool((new[3][:, 13] == 3.0e38).all())
