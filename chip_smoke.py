@@ -10,11 +10,21 @@ Phases (any failure exits non-zero):
   3. data     — two consecutive KITTI HDL-64-like synthetic frames
                 (64 rings × 1800 azimuth steps, ≈108k points each);
   4. kernels  — K1, K2 and K3 at the main path's shapes against their plain
-                versions, with times (CUDA events), bounds and yardsticks;
+                versions; K3 (k = 10, 20, on the scan and on a
+                duplicate-heavy grid) equal to its first form (the
+                brute-force scan it replaced) on every row, K1 against its
+                first form, its split
+                plain account, at a radius of inf and with the source in row
+                order; each timed alone (the profiler) and in turns with its
+                first form, bounded by the pairs its box walk cannot avoid;
   5. e2e      — preprocess_points on both frames, then GICP/LM align within
-                2.5° / 0.2 m of ground truth, with every kernel launched;
-                registrations/s over noisy initial guesses; the card path
-                against the plain CPU path on a small pair;
+                2.5° / 0.2 m of ground truth, with K3 launched once a cloud
+                and K1, K2 once a linearization (the launch counters);
+                preprocessing per frame pair and registrations/s over noisy
+                initial guesses, each in turns with the same path through
+                K3's and K1's first forms (first_forms_scan), with the
+                card's busy share; the card path against the plain CPU path
+                on a small pair;
   6. fleet    — three frames preprocessed at one capacity (two pairs); K7
                 (box-pruned) and K8 at 32 lanes against their plain versions,
                 K7 against the brute-force lane kernel it replaced and K8
@@ -87,6 +97,7 @@ from small_gicp_tpu_torch.interop import result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops import cov_fused_cuda, gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    _knn_moments_rows_v1,
     _knn_topk_idx_v1,
     auto_layout as cov_layout,
     knn_moments,
@@ -106,12 +117,14 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_error_multi_plain,
     _gicp_error_multi_fleet_k2,
     _gicp_linearize_fleet_brute,
+    _gicp_linearize_listed_cuda,
     _gicp_linearize_swept_cuda,
     _gicp_linearize_swept_v1,
+    _gicp_linearize_v1,
     fleet_live_tiles,
     gicp_linearize_fleet,
     gicp_linearize_fleet_plain,
-    gicp_linearize_plain,
+    gicp_linearize_listed_plain,
     gicp_linearize_score,
     gicp_linearize_score_plain,
     gicp_linearize_swept,
@@ -164,7 +177,7 @@ FLEET_LANES = 32
 FLEET_PROBLEMS = 512
 
 KERNELS = {
-    "gicp_linearize": ("K1", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+    "gicp_linearize": ("K1", "small_gicp_tpu_torch/csrc/gicp_listed.cu",
                        "small_gicp_tpu/ops/gicp_fused_pallas.py:466",
                        gicp_linearize_tables),
     "gicp_error_multi": ("K2", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
@@ -377,6 +390,31 @@ def first_forms_map():
         cov_fused_cuda.knn_topk_idx_launch, gicp_fused_cuda._gicp_linearize_swept_cuda = saved
 
 
+@contextlib.contextmanager
+def first_forms_scan():
+    """Route K3 and K1 through their first forms (the yardsticks
+    ``_knn_moments_rows_v1`` / ``_gicp_linearize_v1``, uncounted) inside
+    the block."""
+    k3, k1 = cov_fused_cuda._knn_moments_rows_cuda, gicp_fused_cuda._gicp_linearize_listed_cuda
+    cov_fused_cuda._knn_moments_rows_cuda = (
+        lambda points, num, k, target: _knn_moments_rows_v1(points, num, k))
+    gicp_fused_cuda._gicp_linearize_listed_cuda = (
+        lambda tables, T, d2, robust, c: _gicp_linearize_v1(tables, T, d2, robust, c))
+    try:
+        yield
+    finally:
+        cov_fused_cuda._knn_moments_rows_cuda = k3
+        gicp_fused_cuda._gicp_linearize_listed_cuda = k1
+
+
+def within(fn):
+    """``fn`` run inside ``first_forms_scan()``."""
+    def run():
+        with first_forms_scan():
+            return fn()
+    return run
+
+
 def pose_errors(T: np.ndarray, T_gt: np.ndarray):
     """(rotation errors in degrees, translation errors in metres) of
     [..., 4, 4] poses, float64 arrays."""
@@ -399,8 +437,21 @@ def noisy_guess(T_gt: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     return T_gt @ se3_exp(torch.as_tensor(tw)).numpy()
 
 
-def phase_kernels(scans, T_gt, rng, dev):
-    """K1-K3 at the main path's shapes against their plain versions."""
+def grid_cloud(dev, rows: int, cap: int, seed: int = 24) -> PointCloud:
+    """``rows`` points in integer cells of a cube of about ``rows`` cells
+    (every distance ties many times), in a table of ``cap`` rows."""
+    side = max(2, round(rows ** (1 / 3)))
+    xyz = np.random.default_rng(seed).integers(0, side, (rows, 3)).astype(np.float32)
+    pts = np.full((cap, 4), 1e9, np.float32)
+    pts[:, 3] = 0.0
+    pts[:rows, :3], pts[:rows, 3] = xyz, 1.0
+    return PointCloud(points=torch.as_tensor(pts, device=dev),
+                      num_points=torch.tensor(rows, dtype=torch.int32, device=dev))
+
+
+def phase_kernels(scans, T_gt, rng, dev, card="cpu"):
+    """K1-K3 at the main path's shapes against their plain versions, K1 and
+    K3 against their first forms, each timed alone and in turns."""
     print("== phase 4: kernels against their plain versions", flush=True)
     clouds = [voxelgrid_sampling(PointCloud.from_points(s, device=dev), LEAF)
               for s in scans]
@@ -409,66 +460,164 @@ def phase_kernels(scans, T_gt, rng, dev):
     print(f"downsampled: target {m} / source {n} points "
           f"(capacities {tgt.capacity} / {src.capacity})")
     records = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if \
+        dev.type == "cuda" else 132
 
-    # K3: kNN moments of the target cloud.
+    # K3: kNN moments of the target cloud, and of a duplicate-heavy grid, at
+    # k = 10 and 20: every row equal to the first form's (the same
+    # neighbours summed in the same order), the plain version's neighbours
+    # (counts, d_k) equal and its sums to their rounding.
     pts, num = tgt.points, tgt.num_points
-    got = knn_moments_rows(pts, num, K_NEIGHBORS)
-    ref = knn_moments_rows_plain(pts, num, K_NEIGHBORS)
-    check(torch.equal(got[:m, 9:11], ref[:m, 9:11]),
-          "K3 neighbour counts or kth distances differ")
-    diff = (got[:m, :9] - ref[:m, :9]).abs()
-    err = diff.max().item()
-    excess = (diff - 1e-5 * ref[:m, :9].abs()).max().item()
-    print(f"K3 knn_moments: counts and d_k equal, max |Δ moments| = {err:.3e} "
-          "(tolerance 1e-4 + 1e-5·|m|: float32 sums of k products)")
-    check(excess <= 1e-4, f"K3 moments differ by {err}")
+    stgt = pruned_prepare_target(pts, num)
+    grid = grid_cloud(dev, m, tgt.capacity)
+    err = 0.0
+    for label, cloud, kept in (("scan", tgt, stgt), ("grid", grid, None)):
+        for kk in (K_NEIGHBORS, 20):
+            cp, cn = cloud.points, cloud.num_points
+            got = knn_moments_rows(cp, cn, kk, target=kept)
+            check(torch.equal(got, _knn_moments_rows_v1(cp, cn, kk)),
+                  f"K3 differs from its first form ({label}, k={kk})")
+            ref = knn_moments_rows_plain(cp, cn, kk)
+            check(torch.equal(got[:, 9:11], ref[:, 9:11]),
+                  f"K3 neighbour counts or kth distances differ ({label}, k={kk})")
+            diff = (got[:, :9] - ref[:, :9]).abs()
+            excess = (diff - 1e-5 * ref[:, :9].abs()).max().item()
+            check(excess <= 1e-4, f"K3 moments differ by {diff.max().item()}")
+            if label == "scan" and kk == K_NEIGHBORS:
+                err, d_k = diff.max().item(), got[:, 10]
+            print(f"K3 knn_moments ({label}, k={kk}): every row equal to the first "
+                  f"form's; counts and d_k equal to the plain version's, max |Δ moments| "
+                  f"{diff.max().item():.3e} (tolerance 1e-4 + 1e-5·|m|: float32 sums of "
+                  "k products, fused multiply-adds in the kernels)")
+    new3 = lambda: knn_moments_rows(pts, num, K_NEIGHBORS, target=stgt)  # noqa: E731
+    old3 = lambda: _knn_moments_rows_v1(pts, num, K_NEIGHBORS)  # noqa: E731
+    check(launches_per_call(knn_moments_rows, new3) == 1, "K3 launched other than once")
+    k3 = time_turns({"new": new3, "first form": old3,
+                     "new, sorting": lambda: knn_moments_rows(pts, num, K_NEIGHBORS)})
+    k3["alone"] = one_kernel_per_call(new3, r"knn_moments_kernel(?!_v1)")
+    k3["first form alone"] = one_kernel_per_call(old3, "knn_moments_kernel_v1")
+    team = cov_fused_cuda.MOMENTS_TEAM
+    self_q = PrunedQueries(qperm=stgt.tperm[:m].to(torch.int32), qpos=None)
+    need = pruned_pairs(stgt, self_q, pts[:m], d_k, m, block=64 // team)
+    need64 = pruned_pairs(stgt, self_q, pts[:m], d_k, m)
     t1 = tgt.points[:m, :3].contiguous()
     lib_fn = lambda: torch.topk(torch.cdist(t1, t1), K_NEIGHBORS, largest=False)  # noqa: E731
-    # reads the m valid rows once, writes a 64-byte row per capacity row
-    ops, nbytes = 9.0 * m * m, 16.0 * m + 64.0 * tgt.capacity
+    # reads the m valid rows once, writes a 64-byte row per capacity row;
+    # 9 operations a pair and 9 a neighbour for the moments
+    nbytes = 16.0 * m + 64.0 * tgt.capacity
+    full_ms, full_by = bound(9.0 * m * m + 9.0 * K_NEIGHBORS * m, nbytes)
     records["knn_moments"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: knn_moments_rows(pts, num, K_NEIGHBORS)),
-        plain_ms=time_ms(lambda: knn_moments_rows_plain(pts, num, K_NEIGHBORS)),
-        library_ms=time_ms(lib_fn), pairs=m * m, bound=bound(ops, nbytes))
+        max_abs_err=err, ms=k3["alone"],
+        plain_ms=time_ms(lambda: knn_moments_rows_plain(pts, num, K_NEIGHBORS), reps=3),
+        library_ms=time_ms(lib_fn), pairs=need,
+        bound=bound(9.0 * need + 9.0 * K_NEIGHBORS * m, nbytes))
+    print(f"K3 at {m} rows, k={K_NEIGHBORS} ({team} threads a query, {64 // team} "
+          f"queries a block): kernel alone (profiler, {REPS} calls, one kernel a call) "
+          f"{k3['alone']:.4f} ms, its first form alone {k3['first form alone']:.4f} ms; "
+          f"in turns (CUDA events around one call) {k3['new']:.4f} against "
+          f"{k3['first form']:.4f} ms, {k3['new, sorting']:.4f} ms with its sort made in "
+          f"the call; over the {need} pairs a pruned search of {64 // team}-query "
+          f"blocks cannot avoid ({100 * need / (m * m):.2f} % of N²; {need64} at 64 "
+          f"queries a block) bound {records['knn_moments']['bound'][0]:.4f} ms, "
+          f"issue-rate floor {issue_floor_ms(need, sms):.4f} ms; over all N² pairs "
+          f"{full_ms:.4f} ms by {full_by} on {card}")
 
-    # K1: fused search + linearize at a noisy guess.
+    # K1: fused search + linearize at a noisy guess, against its plain
+    # version, its split plain account and its first form; then with a
+    # rejector radius of inf and with the source in its row order.
     tgt = estimate_normals_covariances(tgt, num_neighbors=K_NEIGHBORS)
     src = estimate_normals_covariances(src, num_neighbors=K_NEIGHBORS)
     T = torch.as_tensor(noisy_guess(T_gt, rng), dtype=torch.float32, device=dev)
     tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
                           "gicp", tgt.covs, src.covs)
-    H, b, inl, corr = gicp_linearize_tables(tables, T, MAX_DIST_SQ)
-    Hp, bp, inlp, corrp = gicp_linearize_plain(tables, T, MAX_DIST_SQ)
-    mask = corr[:n, 12] > 0.5
-    check(torch.equal(mask, corrp[:n, 12] > 0.5), "K1 inlier masks differ")
-    check(int(inl) == int(inlp), "K1 inlier counts differ")
-    check(torch.equal(corr[:n, :3][mask], corrp[:n, :3][mask])
-          and torch.equal(corr[:n, 13][mask], corrp[:n, 13][mask]),
-          "K1 correspondences (μ, d²) differ")
-    w_err = ((corr[:n, 3:12] - corrp[:n, 3:12])[mask].abs()
-             / torch.clamp(corrp[:n, 3:12][mask].abs(), min=1.0)).max().item()
-    h_scale = max(1.0, Hp.abs().max().item())
-    b_scale = max(1.0, bp.abs().max().item())
-    h_err = (H - Hp).abs().max().item()
-    b_err = (b - bp).abs().max().item()
-    print(f"K1 gicp_linearize: {int(inl)} inliers, masks/μ/d² equal, "
-          f"W rel {w_err:.2e} (tol 2e-3), |ΔH| {h_err:.3e} "
-          f"(scaled {h_err / h_scale:.2e}, tol 5e-4), |Δb| {b_err:.3e} "
-          f"(scaled {b_err / b_scale:.2e}, tol 5e-4)")
-    check(w_err <= 2e-3, f"K1 W differs by {w_err}")
-    check(h_err / h_scale <= 5e-4 and b_err / b_scale <= 5e-4, "K1 H/b differ")
+    check(tables.route == "listed" and tables.sperm is not None,
+          "the scan pair's tables carry no sort")
+    out = gicp_linearize_tables(tables, T, MAX_DIST_SQ)
+    h_err = check_linearize("K1 against its plain version", out,
+                            gicp_linearize_listed_plain(tables, T, MAX_DIST_SQ), n, True)
+    chunks = swept_plan(tables)
+    check_linearize(f"K1 against its split plain account at {chunks} chunks", out,
+                    gicp_linearize_swept_split_plain(tables, T, MAX_DIST_SQ,
+                                                     chunks=chunks), n, True)
+    check_linearize("K1 against its first form", out,
+                    _gicp_linearize_v1(tables, T, MAX_DIST_SQ), n, False)
+    check(bool(torch.all(out[3][:n][out[3][:n, 12] < 0.5][:, :13] == 0)),
+          "K1's rows without a correspondence are not zero")
+    check(launches_per_call(gicp_linearize_tables, lambda: gicp_linearize_tables(
+        tables, T, MAX_DIST_SQ)) == 1, "K1 launched other than once a call")
+    inf = float("inf")
+    out_inf = gicp_linearize_tables(tables, T, inf)
+    check_linearize("K1 at a radius of inf against its first form", out_inf,
+                    _gicp_linearize_v1(tables, T, inf), n, True)
+    check(int(out_inf[2]) == n, "a radius of inf leaves a row unmatched")
+    rows = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points, "gicp",
+                        tgt.covs, src.covs)
+    rows.sperm = torch.arange(src.capacity, dtype=torch.int32, device=dev)
+    out_rows = gicp_linearize_tables(rows, T, MAX_DIST_SQ)
+    check(torch.equal(out_rows[3], out[3]) and int(out_rows[2]) == int(out[2]),
+          "K1 in the source's row order picks other winners")
+    old = _gicp_linearize_v1(tables, T, MAX_DIST_SQ)
+    h_scale = max(1.0, old[0].abs().max().item())
+    h_morton = (out[0] - old[0]).abs().max().item() / h_scale
+    h_rows = (out_rows[0] - old[0]).abs().max().item() / h_scale
+    live = swept_live_tiles(tables, T, MAX_DIST_SQ)
+    need = swept_pairs(tables, live)
+    live_rows = swept_live_tiles(rows, T, MAX_DIST_SQ)
+    need_rows = swept_pairs(rows, live_rows)
+    k1_new = lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ)  # noqa: E731
+    k1_old = lambda: _gicp_linearize_v1(tables, T, MAX_DIST_SQ)  # noqa: E731
+    k1 = time_turns({
+        "new": k1_new, "first form": k1_old,
+        "new, row order": lambda: gicp_linearize_tables(rows, T, MAX_DIST_SQ),
+        "new, radius inf": lambda: gicp_linearize_tables(tables, T, inf),
+        "first form, radius inf": lambda: _gicp_linearize_v1(tables, T, inf)})
+    # The new wrapper launches its kernel alone; the first form's wrapper
+    # converts the pose and sums the partials with torch ops.
+    k1["alone"] = one_kernel_per_call(k1_new, "gicp_linearize_listed_kernel", alone=False)
+    k1["first form alone"] = one_kernel_per_call(k1_old, "gicp_linearize_kernel<",
+                                                 alone=False)
+    k1["row order alone"] = one_kernel_per_call(
+        lambda: gicp_linearize_tables(rows, T, MAX_DIST_SQ),
+        "gicp_linearize_listed_kernel", alone=False)
+    k1["radius inf alone"] = one_kernel_per_call(
+        lambda: gicp_linearize_tables(tables, T, inf), "gicp_linearize_listed_kernel",
+        alone=False)
+    k1["first form, radius inf alone"] = one_kernel_per_call(
+        lambda: _gicp_linearize_v1(tables, T, inf), "gicp_linearize_kernel<", alone=False)
     tq = (src.points[:n, :3] @ T[:3, :3].T + T[:3, 3]).contiguous()
     tt = tgt.points[:m, :3].contiguous()
     lib_fn = lambda: torch.cdist(tq, tt).min(dim=1)  # noqa: E731
-    ops = 9.0 * n * m + 400.0 * n
-    # valid target rows; every source row is read (qtab) and written (corr)
-    nbytes = 64.0 * (m + 2 * src.capacity) + 4.0 * 44 * ((src.capacity + 63) // 64)
+    # the sorted rows and boxes of the live tiles once; every source row read
+    # (qtab, its order) and written (corr); one payload row per accepted
+    # source row; the block partials
+    live_tile_rows = float((live.any(dim=0).double() * TILE_ROWS).sum().item())
+    nbytes = (16.0 + 32.0 / TILE_ROWS) * live_tile_rows + 64.0 * 2 * src.capacity \
+        + 64.0 * n + 4.0 * src.capacity + 4.0 * 44 * ((src.capacity + 63) // 64)
+    full_ms, full_by = bound(9.0 * n * m + 400.0 * n,
+                             64.0 * (m + 2 * src.capacity)
+                             + 4.0 * 44 * ((src.capacity + 63) // 64))
     records["gicp_linearize"] = dict(
-        max_abs_err=h_err,
-        ms=time_ms(lambda: gicp_linearize_tables(tables, T, MAX_DIST_SQ)),
-        plain_ms=time_ms(lambda: gicp_linearize_plain(tables, T, MAX_DIST_SQ)),
-        library_ms=time_ms(lib_fn), pairs=n * m, bound=bound(ops, nbytes))
+        max_abs_err=h_err, ms=k1["alone"],
+        plain_ms=time_ms(lambda: gicp_linearize_listed_plain(tables, T, MAX_DIST_SQ),
+                         reps=3),
+        library_ms=time_ms(lib_fn), pairs=need,
+        bound=bound(9.0 * need + 400.0 * n, nbytes))
+    print(f"K1 at {n} × {m} ({chunks} chunks a source block): kernel alone (profiler, "
+          f"{REPS} calls) {k1['alone']:.4f} ms, its first form alone "
+          f"{k1['first form alone']:.4f} ms; wrappers in turns (CUDA events around one "
+          f"call) {k1['new']:.4f} against {k1['first form']:.4f} ms; over the {need} "
+          f"pairs the box cull cannot avoid ({100 * need / (n * m):.2f} % of Q·M, "
+          f"{100 * (1 - live.float().mean().item()):.1f} % of (block, tile) pairs "
+          f"skipped) bound {records['gicp_linearize']['bound'][0]:.4f} ms, issue-rate "
+          f"floor {issue_floor_ms(need, sms):.4f} ms; over all Q·M pairs {full_ms:.4f} ms "
+          f"by {full_by}. Source in row order: {need_rows} pairs, alone "
+          f"{k1['row order alone']:.4f} ms, wrapper {k1['new, row order']:.4f} ms, H "
+          f"scaled against the first form {h_rows:.2e} (Morton order {h_morton:.2e}). "
+          f"Radius inf (every tile walked): alone {k1['radius inf alone']:.4f} ms "
+          f"against the first form's {k1['first form, radius inf alone']:.4f}, wrappers "
+          f"{k1['new, radius inf']:.4f} against {k1['first form, radius inf']:.4f} ms "
+          f"on {card}")
+    H, b, corr = out[0], out[1], out[3]
 
     # K2: the current pose plus the 10 LM trial poses of the first iteration.
     lambdas = 1e-3 * 10.0 ** torch.arange(10, dtype=torch.float32, device=dev)
@@ -523,50 +672,104 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
     check(np.isfinite(r["T_target_source"]).all(), "non-finite pose")
     check(rot < 2.5 and trans < 0.2, "registration outside the reference bounds")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched")
+    check(launches["knn_moments"] == 2, "preprocessing did not run K3 once a cloud")
+    check(launches["gicp_linearize"] == r["iterations"] + 1
+          and launches["gicp_error_multi"] == r["iterations"] + 1,
+          "the align did not run K1 and K2 once a linearization")
 
-    n_regs, iters = 10, []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_regs):
-        out = align(target, source, tree, init_T_target_source=noisy_guess(T_gt, rng))
-        iters.append(int(out.iterations))
-        rot, trans = pose_error(out.T_target_source.cpu().numpy(), T_gt)
-        check(rot < 2.5 and trans < 0.2, "a timed registration left the bounds")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    reg_per_s = n_regs / dt
-    print(f"registrations/s: {reg_per_s:.3f} ({n_regs} aligns, iterations "
-          f"{iters}, preprocessing excluded) on {card}")
+    # Preprocessing per frame pair and registrations/s, each in turns with
+    # the same path through K3's and K1's first forms.
+    def preprocess_pair():
+        return [preprocess_points(s, LEAF, num_neighbors=K_NEIGHBORS, device=dev)
+                for s in scans[:2]]
+
+    (t_new, _), (s_new, _) = preprocess_pair()
+    (t_old, _), (s_old, _) = within(preprocess_pair)()
+    check(torch.equal(t_new.covs, t_old.covs) and torch.equal(s_new.covs, s_old.covs),
+          "the covariances through K3's first form differ")
+    pre = host_turns({"new": preprocess_pair, "first forms": within(preprocess_pair)},
+                     reps=5)
+    print(f"preprocess_points of a frame pair (host clock around a synchronize, median "
+          f"of 5 in turns): {pre['new']:.3f} ms, through K3's first form "
+          f"{pre['first forms']:.3f} ms on {card}")
+
+    n_regs = 10
+    per_reg = {"new": [], "first forms": []}
+    iters = {"new": [], "first forms": []}
+    for r in range(n_regs):
+        g = noisy_guess(T_gt, rng)
+        both = [("new", lambda: align(target, source, tree, init_T_target_source=g)),
+                ("first forms", within(lambda: align(target, source, tree,
+                                                     init_T_target_source=g)))]
+        for label, fn in both[::1 if r % 2 == 0 else -1]:  # either goes first in turn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            per_reg[label].append(time.perf_counter() - t0)
+            iters[label].append(int(out.iterations))
+            rot, trans = pose_error(out.T_target_source.cpu().numpy(), T_gt)
+            check(rot < 2.5 and trans < 0.2, "a timed registration left the bounds")
+    reg_per_s = n_regs / sum(per_reg["new"])
+    print("registrations/s (preprocessing excluded, the same noisy guesses in turns, "
+          "either path first in alternate rounds): "
+          + ", ".join(f"{label} {n_regs / sum(v):.3f} (iterations {iters[label]})"
+                      for label, v in per_reg.items()) + f" on {card}")
     # Each align runs K1 and K2 once per executed iteration.
-    calls = sum(i + 1 for i in iters)
+    calls = sum(i + 1 for i in iters["new"])
+    dt = sum(per_reg["new"])
     k_ms = calls * (records["gicp_linearize"]["ms"] + records["gicp_error_multi"]["ms"])
     print(f"K1+K2 time inside those aligns: {k_ms:.3f} ms of {dt * 1e3:.3f} ms "
           f"wall ({100 * k_ms / (dt * 1e3):.1f}%), {dt * 1e3 / calls:.3f} ms "
           "wall per optimizer iteration")
 
-    # Device busy share over three aligns, from a torch.profiler trace
-    # (its own overhead lengthens the wall time a little).
+    # Device busy share over three aligns, each way, from a torch.profiler
+    # trace (its own overhead lengthens the wall time a little).
     from torch.profiler import ProfilerActivity, profile
 
     inits = [noisy_guess(T_gt, rng) for _ in range(3)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for init in inits:
-            align(target, source, tree, init_T_target_source=init)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        align(target, source, tree, init_T_target_source=inits[0])  # warms the profiler
+    for label, wrap in (("new", lambda f: f), ("first forms", within)):
+        run = wrap(lambda: [align(target, source, tree, init_T_target_source=g)
+                            for g in inits])
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    launches_seen = sum(e.count for e in prof.key_averages()
-                        if e.key == "cudaLaunchKernel")
-    events = device_events(prof)
-    busy_us = sum(e.self_device_time_total for e in events)
-    check(busy_us > 0, "the profiler saw no device time")
-    print(f"profiled 3 aligns: device busy {busy_us / 1e3:.3f} ms of "
-          f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% busy); "
-          f"{launches_seen} kernel launches; top device time:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-              f"{e.key[:90]}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launches_seen = sum(e.count for e in prof.key_averages()
+                            if e.key == "cudaLaunchKernel")
+        events = device_events(prof)
+        busy_us = sum(e.self_device_time_total for e in events)
+        check(busy_us > 0, "the profiler saw no device time")
+        print(f"profiled 3 aligns, {label}: device busy {busy_us / 1e3:.3f} ms of "
+              f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% busy); "
+              f"{launches_seen} kernel launches; top device time:")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]}")
+    # One frame pair's preprocessing, profiled each way.
+    for label, fn in (("new", preprocess_pair), ("first forms", within(preprocess_pair))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = device_events(prof)
+        busy_us = sum(e.self_device_time_total for e in events)
+        k3_us = sum(e.self_device_time_total for e in events
+                    if "knn_moments_kernel" in e.key)
+        print(f"profiled preprocessing of a frame pair, {label}: device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}% busy), K3 {k3_us / 1e3:.3f} ms of it; "
+              "top device time:")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]}")
 
     # The card path against the plain CPU path on a small pair.
     small, poses = generate_sequence(n_frames=2, rings=16, azimuth_steps=256)
@@ -883,30 +1086,29 @@ def search_bound(nq: int, m: int, k: int, pairs=None):
     return bound(9.0 * pairs, 16.0 * (nq + m) + 8.0 * k * nq)
 
 
-def pruned_pairs(target, queries, query, d_k, m: int) -> int:
+def pruned_pairs(target, queries, query, d_k, m: int, block: int = BLOCK_QUERIES) -> int:
     """Pairs the pruned search cannot avoid on this data: for every block of
-    64 Morton-sorted queries, the rows of the tiles whose box lies within
-    the block's true kth distance (the largest over its queries, ``d_k``
-    [Q] in query order) of the block's query box. The kernel scans at least
-    these; with a bound looser than the true one it scans more."""
+    ``block`` Morton-sorted queries, the rows of the tiles whose box lies
+    within the block's true kth distance (the largest over its queries,
+    ``d_k`` [Q] in query order) of the block's query box. The kernel scans
+    at least these; with a bound looser than the true one it scans more."""
     dev = query.device
     nq = query.shape[0]
-    nb = (nq + BLOCK_QUERIES - 1) // BLOCK_QUERIES
+    nb = (nq + block - 1) // block
     ntiles = (m + TILE_ROWS - 1) // TILE_ROWS
     order = queries.qperm.long()
-    pad = nb * BLOCK_QUERIES - nq
+    pad = nb * block - nq
     qs = torch.cat([query[order, :3], query[order[-1:], :3].expand(pad, 3)])
-    qs = qs.view(nb, BLOCK_QUERIES, 3)
+    qs = qs.view(nb, block, 3)
     lo, hi = qs.amin(dim=1), qs.amax(dim=1)
-    reach = torch.cat([d_k[order], d_k.new_zeros(pad)]).view(nb, BLOCK_QUERIES).amax(1)
+    reach = torch.cat([d_k[order], d_k.new_zeros(pad)]).view(nb, block).amax(1)
     box = target.tbox[:ntiles]
     gap = torch.clamp(torch.maximum(box[None, :, 0:3] - hi[:, None],
                                     lo[:, None] - box[None, :, 4:7]), min=0.0)
     needed = (gap * gap).sum(dim=-1) <= reach[:, None]  # [nb, ntiles]
     rows = torch.clamp(m - TILE_ROWS * torch.arange(ntiles, device=dev),
                        max=TILE_ROWS).double()
-    in_block = torch.clamp(nq - BLOCK_QUERIES * torch.arange(nb, device=dev),
-                           max=BLOCK_QUERIES).double()
+    in_block = torch.clamp(nq - block * torch.arange(nb, device=dev), max=block).double()
     return int((needed.double() @ rows * in_block).sum().item())
 
 
@@ -1627,12 +1829,15 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
                                  mxu_dist=True)
     refs = gicp_linearize_score_plain(scan_tables, Ts, MAX_DIST_SQ)
     h_err = check_linearize("K1 score form", outs, refs, n, False)
-    # Score form against difference form. The uncentred score ‖t‖² − 2 t·q of
+    # Score form against difference form, both the brute-force kernel (the
+    # score form is an instance of K1's first form, which keeps every row's
+    # nearest row). The uncentred score ‖t‖² − 2 t·q of
     # a row carries a rounding error of up to 2·2⁻²³·(|q| + |t|)², so between
     # two rows it may prefer the one whose true d² is larger by twice that.
     # Each query gets that tolerance from its own norm and its winners': the
     # winners' d² agree within it, and the rows are equal wherever the
     # runner-up (K10, k = 2) is farther than it.
+    o1 = _gicp_linearize_v1(scan_tables, Ts, MAX_DIST_SQ)
     q = (source.points @ Ts.T)[:n, :3].contiguous()
     mu_s, mu_d = outs[3][:n, :3], o1[3][:n, :3]
     found = (outs[3][:n, 13] < 1e16) & (o1[3][:n, 13] < 1e16)
@@ -1836,7 +2041,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(args.seed)
 
-    records = phase_kernels(scans[:2], T_gt, rng, dev)
+    records = phase_kernels(scans[:2], T_gt, rng, dev, card)
     launches, reg_per_s = phase_e2e(scans[:2], T_gt, rng, dev, card, records)
     fleet_records, fleet_launches = phase_fleet(scans[:3], poses[:3], rng, dev, card,
                                                 reg_per_s)

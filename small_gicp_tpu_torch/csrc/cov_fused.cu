@@ -14,67 +14,58 @@
 // where count is the number of slots with d² < 1e16 and d_k the kth d².
 // Rows at or beyond num_points get zeros. Ties keep the lower row index.
 //
-// K3 (scan scale). What bounds it: the search, N² pairs at ~9 f32
-// operations each (operations; the moments are k·9 operations per row). One
-// thread owns one query and keeps a sorted top-k list of (d², dx, dy, dz) in
-// registers (common.cuh's list, shared with the search kernels); the block
-// streams the cloud through shared memory in 16-byte rows, so the inner loop
-// is one broadcast load, the distance and one compare. Ties keep the lower
-// row index (strict < against the kth, insertion after equal entries, rows
-// visited in ascending order), which is the order a stable sort of
-// (d², index) gives.
+// K3 and K4 walk the same boxes. What bounds them: the pairs a pruned search
+// cannot avoid on the data (operations, ~9 a pair), a few per cent of N² at
+// scan scale and fewer as the cloud grows; K3's moments add k·9 operations a
+// row. The wrapper sorts the cloud by Morton code into rows (x y z |
+// original index) and boxes every 256 sorted rows (the prologue it shares
+// with K12; a KdTree over the cloud keeps it). A block owns consecutive
+// sorted rows as its queries. Each query first takes the kth smallest d²
+// over the `window` sorted rows around it — Morton neighbours are spatial
+// neighbours, and the kth best of any k rows bounds the true kth distance
+// from above, in float32 too: it is the d² of a real row in the kernel's own
+// rounding. The block reduces R = the largest bound over its queries, culls
+// the boxes in passes of kCullPass, in parallel, four a thread
+// (common.cuh's cull_boxes: a box whose gap² to the block's query box
+// exceeds R goes), and streams the live tiles through a two-stage cp.async
+// ring, re-checking each kept gap² against R, which tightens after every
+// pass. Passes start at the block's own box and work outwards, so that R is
+// tight before the far boxes are culled. Within a scanned tile a warp skips
+// the rows if the tile's box is beyond each of its queries' own bounds, and
+// each list is seeded with its query's bound, so that a row costs one
+// (d², index) compare. The gap² between boxes never exceeds the d² of a pair
+// inside them (common.cuh), so no neighbour is skipped; the lists are in
+// (d², original index) order, so the visit order is free.
 //
-// An insertion shifts four register arrays and, taken by one lane,
-// stalls its whole warp; scanning from a cold list inserts hundreds of
-// times per query. So each query first takes the kth smallest d² among
-// the 2·kWindow+1 rows around it in row order (voxel-key order, so
-// these are spatial neighbours) as a bound B ≥ its true kth distance,
-// and the scan only considers rows with d² ≤ B. Every true neighbour
-// has d² ≤ B, so the result is unchanged; the insertions drop to about
-// the number of rows inside the bound.
+// K4 (map scale: clouds of hundreds of thousands of rows) returns, for
+// every valid row, the original indices and d² of its k nearest valid rows,
+// ascending by (d², original index); the wrapper gathers the winners and
+// forms the moments in torch. One thread a query, 64 queries a block.
+// Instances KMAX ∈ {16, 32, 64} as K10: 32 keeps k = 20 out of local
+// memory. The first form (kept as a yardstick) tested the boxes one after
+// another.
 //
-// Blocks whose rows are all padding skip the scan.
+// K3 (scan scale) forms the moments in the kernel. A scan fills the card
+// with too few blocks of 64 queries (a 21k-row cloud gives 335), so kTeam
+// threads serve one query: a block holds 64 / kTeam queries, whose box is
+// tighter, and a team member scans every kTeam-th row of a staged tile into
+// its own seeded list. At the end the team merges its lists, k rounds of a
+// shuffle arg-min on (d², original index), and sums the winners' offsets
+// d = p − q (p gathered from the cloud in original order) in slot order
+// with the first form's arithmetic; the lists are the first form's, so the
+// moment rows equal its rows bit for bit. The row goes to the query's
+// original row; padding rows get zeros. The first form (kept as the
+// yardstick knn_moments_kernel_v1) gave each thread a query, 64 a block,
+// and scanned every valid row in original order through a 512-row shared
+// tile, bounded by the kth d² over the ±32 rows around it in row order.
 //
-// The list length is a template bound KMAX ∈ {16, 64} with k ≤ KMAX
-// chosen at run time: KMAX = 16 keeps k = 10 (the main path) in
-// registers; KMAX = 64 serves 16 < k ≤ 64 and spills to local memory.
-//
-// K4 (map scale: clouds of hundreds of thousands of rows, where N² pairs
-// cost seconds). It returns, for every valid row, the original indices and
-// d² of its k nearest valid rows, ascending by (d², original index); the
-// wrapper gathers the winners and forms the moments in torch. What bounds
-// it: the pairs a pruned search cannot avoid on the data (operations), a few
-// per cent of N² and fewer as the cloud grows. The wrapper sorts the cloud by
-// Morton code into rows (x y z | original index) and boxes every 256 sorted
-// rows (the prologue it shares with K12). A block owns 64 consecutive sorted
-// rows as its queries. Each query first takes the kth smallest d² over the
-// `window` sorted rows around it — Morton neighbours are spatial neighbours,
-// and the kth best of any k rows bounds the true kth distance from above, in
-// float32 too: it is the d² of a real row in the kernel's own rounding. The
-// block reduces R = the largest bound over its queries, walks the tiles in
-// order and branches past every tile whose box lies farther than R from the
-// block's box; within a scanned tile a warp skips the rows if the tile's box
-// is beyond each of its queries' own bounds, and a row enters a list only
-// with d² ≤ its query's bound. The gap² between boxes never exceeds the d²
-// of a pair inside them (common.cuh), so no neighbour is skipped. The walk
-// is in passes (the first form, kept as a yardstick, tested the boxes one
-// after another): a pass culls kCullPass boxes in parallel against the
-// current R, four a thread (common.cuh's cull_boxes), and streams the live
-// ones through a two-stage cp.async ring, re-checking each kept gap²
-// against R, which tightens after every pass. Passes start at the block's
-// own box and work outwards, so that R is tight before the far boxes are
-// culled. The self-search needs one sort and no insertion positions, and
-// its bound is there before the first tile: that is what K12, which seeds
-// from five tiles, does not have. Instances KMAX ∈ {16, 32, 64}
-// as K10: 32 keeps k = 20 out of local memory.
-//
-// K5 (the other work mapping of K3, as K11 is to K10): one warp per query.
-// Lanes stride the rows, each lane keeps a private sorted list of (d², row)
-// in shared memory, k rounds of a shuffle arg-min on (d², row) merge them
-// (common.cuh), and the warp gathers the k winners' rows and sums their
-// offsets in slot order, in K3's operation order. It picks the neighbours K3
-// picks. It fills the card where queries are few; at scan sizes it pays
-// 32 lanes' insertions for every query.
+// K5 (the other work mapping of K3's first form, as K11 is to K10): one
+// warp per query. Lanes stride the rows, each lane keeps a private sorted
+// list of (d², row) in shared memory, k rounds of a shuffle arg-min on
+// (d², row) merge them (common.cuh), and the warp gathers the k winners'
+// rows and sums their offsets in slot order, in K3's operation order. It
+// picks the neighbours K3 picks. It fills the card where queries are few;
+// at scan sizes it pays 32 lanes' insertions for every query.
 
 #include <cuda_runtime.h>
 
@@ -113,12 +104,15 @@ __device__ __forceinline__ void store_row(float* __restrict__ out, int i,
     row[c] = make_float4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]);
 }
 
-// ---------------------------------------------------------------- K3 ----
+// ---------------------------------------------------- K3's first form ----
+
+// pts [N,4] in original order. Kept as the yardstick of knn_moments_kernel
+// (entry sgt_knn_moments_v1); on no path.
 
 template <int KMAX>
 __global__ void __launch_bounds__(kMomThreads)
-knn_moments_kernel(const float* __restrict__ pts, const int* __restrict__ num,
-                   int n, int k, float* __restrict__ out) {
+knn_moments_kernel_v1(const float* __restrict__ pts, const int* __restrict__ num,
+                      int n, int k, float* __restrict__ out) {
   __shared__ float4 tile[kMomTile];
   const int i = blockIdx.x * kMomThreads + threadIdx.x;
   const int m = *num;
@@ -243,35 +237,43 @@ knn_topk_idx_kernel_v1(const float* __restrict__ tsorted, const int* __restrict_
   if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
 }
 
-// The walk in cull passes (the launch of sgt_knn_topk_idx). Passes of
-// kCullPass boxes start at the block's own box and work outwards (kOutward;
-// else in ascending order). A pass culls its boxes in parallel against the
-// current R (cull_boxes, gap² kept beside each index) and streams the live
-// tiles through the two-stage cp.async ring; a live tile whose gap² exceeds
-// R, which has tightened since the cull, is not staged. R tightens after
-// each pass. A list's empty slots start at (min(reach, the float below
-// kBig), kNoIndex), so that one (d², index) compare against its end also
-// tests d² ≤ reach and d² < kBig; before the store they go back to (kBig,
-// kNoIndex). The lists are in (d², original index) order whatever the order
-// of the tiles, so they equal the first form's. kWalkMinBlocks: the blocks
-// an SM should hold of the KMAX = 16 instance, which caps its registers.
+// The walk in cull passes (K4's launch, and K3's). Passes of kCullPass
+// boxes start at the block's own box and work outwards (kOutward; else in
+// ascending order). A pass culls its boxes in parallel against the current
+// R (cull_boxes, gap² kept beside each index) and streams the live tiles
+// through the two-stage cp.async ring; a live tile whose gap² exceeds R,
+// which has tightened since the cull, is not staged. R tightens after each
+// pass. A list's empty slots start at (min(reach, the float below kBig),
+// kNoIndex), so that one (d², index) compare against its end also tests
+// d² ≤ reach and d² < kBig; the caller turns them back into (kBig,
+// kNoIndex). The lists are in (d², original index) order whatever the
+// order of the tiles, so they equal the first form's. kWalkMinBlocks: the
+// blocks an SM should hold of K4's KMAX = 16 instance, which caps its
+// registers (K3's keeps the compiler's choice: a cap of 8 or 16 blocks
+// moved it by ≤ 2 %, tools/scan_walk_sweep.py). kTeam: the threads that
+// serve one of K3's queries.
 constexpr int kOutward = 1;
 constexpr int kWalkMinBlocks = 16;
+constexpr int kTeam = 4;
 constexpr int kWalkWarps = sgt::kPrunedThreads / 32;
+static_assert(kTeam >= 1 && kTeam <= 32 && 32 % kTeam == 0,
+              "a team is a power of two of a warp's lanes");
 
 // Offer the cnt staged rows of sorted tile t to the block's seeded lists,
-// in (d², original index) order; a warp skips the tile if its box lies
-// beyond each of its queries' kth.
-template <int KMAX>
+// in (d², original index) order: team member `member` of TEAM takes rows
+// member, member + TEAM, …; a warp skips the tile if its box lies beyond
+// each of its queries' kth.
+template <int KMAX, int TEAM>
 __device__ __forceinline__ void offer_seeded(const float4* tile, int cnt,
                                              const float* __restrict__ tbox, int t,
-                                             bool active, float qx, float qy, float qz,
-                                             int k, float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                             int member, bool active, float qx,
+                                             float qy, float qz, int k,
+                                             float (&d)[KMAX], unsigned (&p0)[KMAX],
                                              float& kth, unsigned& kth0) {
   const bool wanted =
       active && !(sgt::box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > kth);
   if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
-  for (int j = 0; j < cnt; ++j) {
+  for (int j = member; j < cnt; j += TEAM) {
     const float4 p = tile[j];
     float dx, dy, dz;
     const float d2 = sgt::sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
@@ -286,18 +288,101 @@ __device__ __forceinline__ void offer_seeded(const float4* tile, int cnt,
 
 // The ring, the pass's list and its gaps: at least 16 blocks on an SM.
 static_assert(2 * sgt::kBoxRows * 16 + sgt::kCullPass * 9 + 64 <= 232448 / 16,
-              "K4's shared memory keeps fewer than 16 blocks on an SM");
+              "the walk's shared memory keeps fewer than 16 blocks on an SM");
+
+// The walk of a block whose first query is valid (the same for all its
+// threads): TEAM threads serve one query, kPrunedThreads / TEAM queries a
+// block; thread tid holds the query at sorted position i (active: i < m)
+// with point q, as member tid % TEAM. On return its list (d, p0) holds the k
+// first of its rows within the query's reach in (d², original index)
+// order, empty slots (reach', kNoIndex) as above. Called by all threads.
+template <int KMAX, int TEAM>
+__device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m,
+                                            const float* __restrict__ tbox, int k,
+                                            int window, int i, bool active, float qx,
+                                            float qy, float qz, float (&d)[KMAX],
+                                            unsigned (&p0)[KMAX], float& kth,
+                                            unsigned& kth0) {
+  __shared__ __align__(16) float4 tile[2][sgt::kBoxRows];
+  __shared__ int live[sgt::kCullPass];
+  __shared__ float live_gap[sgt::kCullPass];
+  __shared__ int counts[sgt::kCullWords];
+  __shared__ float sw[kWalkWarps];
+  const int member = TEAM == 1 ? 0 : (int)threadIdx.x % TEAM;
+
+  // The query's bound: the kth smallest d² over its Morton window.
+  float reach = kBig;
+  if (active) {
+    const int lo = max(0, min(i - window / 2, m - window));
+    reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
+  }
+  kth = fminf(reach, nextafterf(kBig, 0.f));
+  sgt::topk_fill<KMAX>(d, kth);
+  float lo[3], hi[3];  // the block's query box
+  sgt::block_box(active, qx, qy, qz, sw, lo, hi);
+  float bound = sgt::block_max(active ? reach : 0.f, sw);
+
+  const int ntiles = (m + sgt::kBoxRows - 1) / sgt::kBoxRows;
+  constexpr int P = sgt::kCullPass;
+  // The first pass: P boxes around the block's own (or the first P).
+  const int own = blockIdx.x * (sgt::kPrunedThreads / TEAM) / sgt::kBoxRows;
+  int below = kOutward ? max(0, min(own - P / 2, ntiles - P)) : 0;
+  int above = min(ntiles, below + P);
+  int first = below, end = above;
+  bool up = true;
+  for (;;) {
+    const int nlive = sgt::cull_boxes(tbox, first, end, lo, hi, bound, live,
+                                      live_gap, counts);
+    // Live tile j goes to ring slot `slot`, one commit group per tile; the
+    // next one is the first after it whose gap² is still within R.
+    int j = 0;
+    while (j < nlive && live_gap[j] > bound) ++j;
+    if (j < nlive) sgt::stage_tile(tile[0], t4, live[j], m);
+    __pipeline_commit();
+    int slot = 0;
+    while (j < nlive) {
+      int next = j + 1;
+      while (next < nlive && live_gap[next] > bound) ++next;
+      if (next < nlive) sgt::stage_tile(tile[slot ^ 1], t4, live[next], m);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this thread's copies of tile j landed
+      __syncthreads();           // and every other thread's
+      const int tt = live[j];
+      offer_seeded<KMAX, TEAM>(tile[slot], min(sgt::kBoxRows, m - tt * sgt::kBoxRows),
+                               tbox, tt, member, active, qx, qy, qz, k, d, p0, kth,
+                               kth0);
+      __syncthreads();  // the slot is read; tile `next + 1` may land there
+      j = next;
+      slot ^= 1;
+    }
+    bound = sgt::block_max(active ? kth : 0.f, sw);  // kth ≤ reach
+    // The next pass: the adjacent P boxes above and below in turn.
+    if (above < ntiles && (up || below == 0)) {
+      first = above;
+      end = above = min(ntiles, above + P);
+    } else if (below > 0) {
+      end = below;
+      first = below = max(0, below - P);
+    } else {
+      break;
+    }
+    up = !up;
+  }
+}
+
+// Empty slots of a walked list back to (kBig, kNoIndex).
+template <int KMAX>
+__device__ __forceinline__ void unseed(float (&d)[KMAX], const unsigned (&p0)[KMAX]) {
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s)
+    if (p0[s] == (unsigned)sgt::kNoIndex) d[s] = kBig;
+}
 
 template <int KMAX>
 __global__ void __launch_bounds__(sgt::kPrunedThreads, KMAX == 16 ? kWalkMinBlocks : 1)
 knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ num,
                     int n, const float* __restrict__ tbox, int k, int window,
                     float* __restrict__ out_d, int* __restrict__ out_i) {
-  __shared__ __align__(16) float4 tile[2][sgt::kBoxRows];
-  __shared__ int live[sgt::kCullPass];
-  __shared__ float live_gap[sgt::kCullPass];
-  __shared__ int counts[sgt::kCullWords];
-  __shared__ float sw[kWalkWarps];
   const int i = blockIdx.x * sgt::kPrunedThreads + threadIdx.x;  // sorted position
   const int m = min(*num, n);
   const bool active = i < m;
@@ -319,72 +404,87 @@ knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ n
   sgt::topk_fill<KMAX>(bi, (unsigned)sgt::kNoIndex);
   float kth = kBig;
   unsigned kth0 = (unsigned)sgt::kNoIndex;
-
   // A block of padding rows only (the same for all its threads) has nothing
   // to search; its rows get empty lists.
-  if (blockIdx.x * sgt::kPrunedThreads < m) {
-    // The query's bound: the kth smallest d² over its Morton window.
-    float reach = kBig;
-    if (active) {
-      const int lo = max(0, min(i - window / 2, m - window));
-      reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
-    }
-    kth = fminf(reach, nextafterf(kBig, 0.f));
-    sgt::topk_fill<KMAX>(bd, kth);
-    float lo[3], hi[3];  // the block's query box
-    sgt::block_box(active, qx, qy, qz, sw, lo, hi);
-    float bound = sgt::block_max(active ? reach : 0.f, sw);
-
-    const int ntiles = (m + sgt::kBoxRows - 1) / sgt::kBoxRows;
-    constexpr int P = sgt::kCullPass;
-    // The first pass: P boxes around the block's own (or the first P).
-    const int own = blockIdx.x * sgt::kPrunedThreads / sgt::kBoxRows;
-    int below = kOutward ? max(0, min(own - P / 2, ntiles - P)) : 0;
-    int above = min(ntiles, below + P);
-    int first = below, end = above;
-    bool up = true;
-    for (;;) {
-      const int nlive = sgt::cull_boxes(tbox, first, end, lo, hi, bound, live,
-                                        live_gap, counts);
-      // Live tile j goes to ring slot `slot`, one commit group per tile; the
-      // next one is the first after it whose gap² is still within R.
-      int j = 0;
-      while (j < nlive && live_gap[j] > bound) ++j;
-      if (j < nlive) sgt::stage_tile(tile[0], t4, live[j], m);
-      __pipeline_commit();
-      int slot = 0;
-      while (j < nlive) {
-        int next = j + 1;
-        while (next < nlive && live_gap[next] > bound) ++next;
-        if (next < nlive) sgt::stage_tile(tile[slot ^ 1], t4, live[next], m);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);  // this thread's copies of tile j landed
-        __syncthreads();           // and every other thread's
-        const int tt = live[j];
-        offer_seeded<KMAX>(tile[slot], min(sgt::kBoxRows, m - tt * sgt::kBoxRows), tbox,
-                           tt, active, qx, qy, qz, k, bd, bi, kth, kth0);
-        __syncthreads();  // the slot is read; tile `next + 1` may land there
-        j = next;
-        slot ^= 1;
-      }
-      bound = sgt::block_max(active ? kth : 0.f, sw);  // kth ≤ reach
-      // The next pass: the adjacent P boxes above and below in turn.
-      if (above < ntiles && (up || below == 0)) {
-        first = above;
-        end = above = min(ntiles, above + P);
-      } else if (below > 0) {
-        end = below;
-        first = below = max(0, below - P);
-      } else {
-        break;
-      }
-      up = !up;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s)
-    if (bi[s] == (unsigned)sgt::kNoIndex) bd[s] = kBig;
+  if (blockIdx.x * sgt::kPrunedThreads < m)
+    walk_sorted<KMAX, 1>(t4, m, tbox, k, window, i, active, qx, qy, qz, bd, bi, kth,
+                         kth0);
+  unseed<KMAX>(bd, bi);
   if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
+}
+
+// ---------------------------------------------------------------- K3 ----
+
+// pts [n,4] in original order; tsorted [n,4] and tbox [ceil(n / 256), 8]
+// its Morton sort and boxes (as K4's); out [n,16] in original row order.
+template <int KMAX>
+__global__ void __launch_bounds__(sgt::kPrunedThreads)
+knn_moments_kernel(const float* __restrict__ pts, const float* __restrict__ tsorted,
+                   const int* __restrict__ num, int n, const float* __restrict__ tbox,
+                   int k, int window, float* __restrict__ out) {
+  constexpr int kQueries = sgt::kPrunedThreads / kTeam;
+  const int i = blockIdx.x * kQueries + threadIdx.x / kTeam;  // sorted position
+  const int m = min(*num, n);
+  const bool active = i < m;
+  const float4* t4 = reinterpret_cast<const float4*>(tsorted);
+  const float4* p4 = reinterpret_cast<const float4*>(pts);
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  int row = 0;
+  if (i < n) {
+    const float4 q = t4[i];
+    qx = q.x;
+    qy = q.y;
+    qz = q.z;
+    row = __float_as_int(q.w);
+  }
+
+  float o[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) o[c] = 0.f;
+  // A block of padding rows only writes zero rows.
+  if (blockIdx.x * kQueries < m) {
+    float bd[KMAX];
+    unsigned bi[KMAX];
+    sgt::topk_fill<KMAX>(bi, (unsigned)sgt::kNoIndex);
+    float kth;
+    unsigned kth0 = (unsigned)sgt::kNoIndex;
+    walk_sorted<KMAX, kTeam>(t4, m, tbox, k, window, i, active, qx, qy, qz, bd, bi,
+                             kth, kth0);
+    unseed<KMAX>(bd, bi);
+    // Merge the team's lists: round r takes the smallest head in (d²,
+    // original index) order — slot r of the query's list — and its member
+    // advances; the winner's offset goes into the sums in slot order. Row
+    // indices are unique within a team (each row went to one member), and
+    // every thread of the warp runs the k rounds.
+    int head = 0;
+    float d_k = kBig;
+    for (int r = 0; r < k; ++r) {
+      const unsigned hi =
+          head < k ? sgt::topk_slot<KMAX>(bi, head) : (unsigned)sgt::kNoIndex;
+      float wd = head < k ? sgt::topk_slot<KMAX>(bd, head) : kBig;
+      int wi = (int)hi;
+#pragma unroll
+      for (int off = 1; off < kTeam; off <<= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, wd, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
+        if (sgt::lex_before(od, oi, wd, wi)) {
+          wd = od;
+          wi = oi;
+        }
+      }
+      if (wi != sgt::kNoIndex && (int)hi == wi) ++head;
+      d_k = wd;
+      if (active && wd < kValidSq) {
+        const float4 p = p4[wi];
+        float dx, dy, dz;
+        sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
+        add_offset(o, dx, dy, dz);
+      }
+    }
+    if (active) o[10] = d_k;
+  }
+  if (i < n && threadIdx.x % kTeam == 0) store_row(out, row, o);
 }
 
 // ---------------------------------------------------------------- K5 ----
@@ -458,18 +558,46 @@ knn_moments_warp_kernel(const float* __restrict__ pts, const int* __restrict__ n
 
 extern "C" {
 
-// pts [N,4] f32 (x y z w), num: device int32 count of valid rows,
-// out [N,16] f32. Returns cudaGetLastError() after the launch.
-int sgt_knn_moments(const float* pts, const int* num, int n, int k, float* out,
-                    void* stream) {
+// K3. pts [n,4] f32 (x y z w) in original order, tsorted [n,4] and tbox
+// [ceil(n / 256), 8] from the wrapper's sort, num: device int32 count of
+// valid rows, window: sorted rows a query takes its bound from (≥ k),
+// out [n,16]. Returns cudaGetLastError() after the launch.
+int sgt_knn_moments(const float* pts, const float* tsorted, const int* num, int n,
+                    const float* tbox, int k, int window, float* out, void* stream) {
+  if (k < 1 || k > 64 || n <= 0 || window < k) return (int)cudaErrorInvalidValue;
+  constexpr int kQueries = sgt::kPrunedThreads / kTeam;
+  const int blocks = (n + kQueries - 1) / kQueries;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16)
+    knn_moments_kernel<16><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        pts, tsorted, num, n, tbox, k, window, out);
+  else if (k <= 32)
+    knn_moments_kernel<32><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        pts, tsorted, num, n, tbox, k, window, out);
+  else
+    knn_moments_kernel<64><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        pts, tsorted, num, n, tbox, k, window, out);
+  return (int)cudaGetLastError();
+}
+
+// K3's first form: pts [N,4], num, out [N,16]; no sort.
+int sgt_knn_moments_v1(const float* pts, const int* num, int n, int k, float* out,
+                       void* stream) {
   if (k < 1 || k > 64 || n <= 0) return (int)cudaErrorInvalidValue;
   const int blocks = (n + kMomThreads - 1) / kMomThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 16)
-    knn_moments_kernel<16><<<blocks, kMomThreads, 0, s>>>(pts, num, n, k, out);
+    knn_moments_kernel_v1<16><<<blocks, kMomThreads, 0, s>>>(pts, num, n, k, out);
   else
-    knn_moments_kernel<64><<<blocks, kMomThreads, 0, s>>>(pts, num, n, k, out);
+    knn_moments_kernel_v1<64><<<blocks, kMomThreads, 0, s>>>(pts, num, n, k, out);
   return (int)cudaGetLastError();
+}
+
+// K3's team size, which the wrapper's plain account repeats: out[0] =
+// threads a query.
+int sgt_knn_moments_geometry(int* out) {
+  out[0] = kTeam;
+  return 0;
 }
 
 // K4. tsorted [n,4] and tbox [ceil(n / 256), 8] from the wrapper's sort,
@@ -510,7 +638,7 @@ int sgt_knn_topk_idx_v1(const float* tsorted, const int* num, int n, const float
   return (int)cudaGetLastError();
 }
 
-// K5. Arguments as K3's. Four queries (warps) per block up to k = 32, two
+// K5. Arguments as K3's first form's. Four queries (warps) per block up to k = 32, two
 // above, so the lists stay within 32 KB of shared memory.
 int sgt_knn_moments_warp(const float* pts, const int* num, int n, int k, float* out,
                          void* stream) {

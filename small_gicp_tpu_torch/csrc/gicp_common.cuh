@@ -204,4 +204,106 @@ __device__ __forceinline__ void linearize_finalize(
   }
 }
 
+// ------------------------------------------------------------------------
+// The chunked box walk of K6 and K1: `chunks` blocks a source block on the
+// grid's second dimension, merged in the launch.
+
+static_assert(kLinThreads == kPrunedThreads, "block_max reduces a linearize block");
+
+// A row's winner as the 64-bit key of the merge: d²'s bits (d² ≥ +0, and
+// -0 + 0 = +0, so they order as the floats) over the original row.
+__device__ __forceinline__ unsigned long long swept_key(float d2, int row) {
+  return ((unsigned long long)__float_as_uint(__fadd_rn(d2, 0.f)) << 32) |
+         (unsigned)row;
+}
+
+// Called by every thread of a block after the block's results are in
+// device memory: counts the block at *ticket and returns true in the one
+// that arrives as the `expected`-th.
+__device__ __forceinline__ bool last_arrival(unsigned* ticket, unsigned expected) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == expected - 1;
+  __syncthreads();
+  return last;
+}
+
+// The chunked walk of K6 and K1, called by every thread of a block: chunk
+// blockIdx.y of the gridDim.y chunks of source block blockIdx.x, whose
+// thread at sorted position i (active: a valid row; block_active: the block
+// holds one) carries the transformed point q. The chunk reduces the box of
+// the block's valid points, culls the boxes of the sorted target (rows x y
+// z | original index, the first m valid) against it at max_d2 in passes of
+// kCullPass, and scans every gridDim.y-th live tile through the cp.async
+// ring; candidates need d² ≤ max_d2 and win in (d², original index) order.
+// With more than one chunk each posts its rows' winners as keys [n] (~0
+// between launches) and returns false, except the last of the source block
+// (ticket tickets[blockIdx.x], 0 between launches), which reads and resets
+// the keys and its ticket. (best_d, best): the row's winner over the
+// target, (kBig, kNoIndex) without one.
+__device__ __forceinline__ bool chunked_nearest(const float* __restrict__ tsorted,
+                                                const float* __restrict__ tbox, int m,
+                                                bool block_active, bool active, int i,
+                                                float qx, float qy, float qz,
+                                                float max_d2,
+                                                unsigned long long* __restrict__ keys,
+                                                unsigned* __restrict__ tickets,
+                                                float& best_d, int& best) {
+  __shared__ __align__(16) float4 tile[2][kBoxRows];
+  __shared__ int live[kCullPass];
+  __shared__ int counts[kCullWords];
+  __shared__ float sw[kLinThreads / 32];
+  best_d = kBig;
+  best = kNoIndex;
+  if (block_active) {
+    float lo[3], hi[3];  // the box of the block's transformed valid points
+    block_box(active, qx, qy, qz, sw, lo, hi);
+    const float4* t4 = reinterpret_cast<const float4*>(tsorted);
+    const int ntiles = (m + kBoxRows - 1) / kBoxRows;
+    const int chunks = gridDim.y, s = blockIdx.y;
+    int before = 0;  // the block's live tiles in earlier passes
+    for (int first = 0; first < ntiles; first += kCullPass) {
+      const int nlive = cull_boxes(tbox, first, min(ntiles, first + kCullPass), lo, hi,
+                                   max_d2, live, nullptr, counts);
+      // This chunk's tiles: live[j] with (before + j) % chunks == s. Its tile
+      // c goes to ring slot c & 1, one commit group per tile.
+      const int j0 = ((s - before) % chunks + chunks) % chunks;
+      const int mine = j0 < nlive ? (nlive - j0 + chunks - 1) / chunks : 0;
+      if (mine > 0) stage_tile(tile[0], t4, live[j0], m);
+      __pipeline_commit();
+      for (int c = 0; c < mine; ++c) {
+        if (c + 1 < mine) stage_tile(tile[(c + 1) & 1], t4, live[j0 + (c + 1) * chunks], m);
+        __pipeline_commit();
+        __pipeline_wait_prior(1);  // this thread's copies of tile c landed
+        __syncthreads();           // and every other thread's
+        const int tt = live[j0 + c * chunks];
+        nearest_in_tile(tile[c & 1], min(kBoxRows, m - tt * kBoxRows), tbox, tt, active,
+                        qx, qy, qz, max_d2, best_d, best);
+        __syncthreads();  // slot c & 1 is read; tile c + 2 may land there
+      }
+      before += nlive;
+    }
+  }
+
+  if (gridDim.y > 1 && block_active) {
+    // Post the chunk's winners, the smallest key kept: ties to the lower
+    // row, in any order of the chunks.
+    if (active && best != kNoIndex) atomicMin(keys + i, swept_key(best_d, best));
+    if (!last_arrival(tickets + blockIdx.x, gridDim.y)) return false;
+    best_d = kBig;
+    best = kNoIndex;
+    if (active) {
+      const unsigned long long key = __ldcg(keys + i);
+      keys[i] = ~0ull;
+      if (key != ~0ull) {
+        best_d = __uint_as_float((unsigned)(key >> 32));
+        best = (int)(key & 0xffffffffu);
+      }
+    }
+    if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
+  }
+  return true;
+}
+
 }  // namespace sgt

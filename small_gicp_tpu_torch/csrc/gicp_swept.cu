@@ -41,7 +41,9 @@
 // block's partial sums exactly as the one-block-per-source-block first
 // form did. One chunk skips the keys. A row without an accepted
 // correspondence (rejected, padding, empty target) holds zeros and
-// d² = 3e38: its nearest row may lie in a tile that was never scanned.
+// d² = 3e38: its nearest row may lie in a tile that was never scanned. The
+// walk and the merge are gicp_common.cuh's chunked_nearest, which K1's
+// kernel (gicp_listed.cu) runs too.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -51,8 +53,6 @@
 namespace {
 
 using namespace sgt;
-
-static_assert(kLinThreads == kPrunedThreads, "block_max reduces a linearize block");
 
 // ttab [M,16] and qtab [N,16] in original order (K1's tables); tsorted [M,4]:
 // Morton-sorted target rows x y z | original index, the first *tnum valid;
@@ -142,24 +142,6 @@ gicp_linearize_swept_kernel_v1(const float* __restrict__ ttab,
       pz, max_d2, robust_c, i < n ? corr + (size_t)row * 16 : nullptr, partials, red);
 }
 
-// A row's winner as the 64-bit key of the merge: d²'s bits (d² ≥ +0, and
-// -0 + 0 = +0, so they order as the floats) over the original row.
-__device__ __forceinline__ unsigned long long swept_key(float d2, int row) {
-  return ((unsigned long long)__float_as_uint(__fadd_rn(d2, 0.f)) << 32) |
-         (unsigned)row;
-}
-
-// Called by every thread after its chunk posted its winners: true in the
-// block of source block blockIdx.x that finished last among its chunks.
-__device__ __forceinline__ bool last_chunk(unsigned* tickets) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(tickets + blockIdx.x, 1u) == gridDim.y - 1;
-  __syncthreads();
-  return last;
-}
-
 // The launch of sgt_gicp_linearize_swept: chunk blockIdx.y of source block
 // blockIdx.x. Arguments as the first form's, and keys [n] (~0 between
 // launches) and tickets [blocks] (0 between launches).
@@ -177,10 +159,6 @@ gicp_linearize_swept_kernel(const float* __restrict__ ttab,
                             float* __restrict__ partials,
                             unsigned long long* __restrict__ keys,
                             unsigned* __restrict__ tickets) {
-  __shared__ __align__(16) float4 tile[2][kBoxRows];
-  __shared__ int live[kCullPass];
-  __shared__ int counts[kCullWords];
-  __shared__ float sw[kLinThreads / 32];
   __shared__ float red[kLinThreads / 32][kLinRed];
 
   const int i = blockIdx.x * kLinThreads + threadIdx.x;  // sorted position
@@ -211,55 +189,11 @@ gicp_linearize_swept_kernel(const float* __restrict__ ttab,
   const float qy = affine_row(r + 3, t[1], px, py, pz);
   const float qz = affine_row(r + 6, t[2], px, py, pz);
 
-  float best_d = kBig;
-  int best = kNoIndex;
-  if (block_active) {
-    float lo[3], hi[3];  // the box of the block's transformed valid points
-    block_box(active, qx, qy, qz, sw, lo, hi);
-    const float4* t4 = reinterpret_cast<const float4*>(tsorted);
-    const int ntiles = (m + kBoxRows - 1) / kBoxRows;
-    const int chunks = gridDim.y, s = blockIdx.y;
-    int before = 0;  // the block's live tiles in earlier passes
-    for (int first = 0; first < ntiles; first += kCullPass) {
-      const int nlive = cull_boxes(tbox, first, min(ntiles, first + kCullPass), lo, hi,
-                                   max_d2, live, nullptr, counts);
-      // This chunk's tiles: live[j] with (before + j) % chunks == s. Its tile
-      // c goes to ring slot c & 1, one commit group per tile.
-      const int j0 = ((s - before) % chunks + chunks) % chunks;
-      const int mine = j0 < nlive ? (nlive - j0 + chunks - 1) / chunks : 0;
-      if (mine > 0) stage_tile(tile[0], t4, live[j0], m);
-      __pipeline_commit();
-      for (int c = 0; c < mine; ++c) {
-        if (c + 1 < mine) stage_tile(tile[(c + 1) & 1], t4, live[j0 + (c + 1) * chunks], m);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);  // this thread's copies of tile c landed
-        __syncthreads();           // and every other thread's
-        const int tt = live[j0 + c * chunks];
-        nearest_in_tile(tile[c & 1], min(kBoxRows, m - tt * kBoxRows), tbox, tt, active,
-                        qx, qy, qz, max_d2, best_d, best);
-        __syncthreads();  // slot c & 1 is read; tile c + 2 may land there
-      }
-      before += nlive;
-    }
-  }
-
-  if (gridDim.y > 1 && block_active) {
-    // Post the chunk's winners, the smallest key kept: ties to the lower
-    // row, in any order of the chunks.
-    if (active && best != kNoIndex) atomicMin(keys + i, swept_key(best_d, best));
-    if (!last_chunk(tickets)) return;
-    best_d = kBig;
-    best = kNoIndex;
-    if (active) {
-      const unsigned long long key = __ldcg(keys + i);
-      keys[i] = ~0ull;
-      if (key != ~0ull) {
-        best_d = __uint_as_float((unsigned)(key >> 32));
-        best = (int)(key & 0xffffffffu);
-      }
-    }
-    if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
-  }
+  float best_d;
+  int best;
+  if (!chunked_nearest(tsorted, tbox, m, block_active, active, i, qx, qy, qz, max_d2,
+                       keys, tickets, best_d, best))
+    return;  // a chunk whose winners another chunk finishes
 
   linearize_finalize<FACTOR, ROBUST, true>(
       ttab, qrow, active, best == kNoIndex ? -1 : best, best_d, r, qx, qy, qz, px, py,

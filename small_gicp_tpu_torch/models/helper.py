@@ -46,7 +46,9 @@ def preprocess_points(points, downsampling_resolution: float = 0.25,
                       num_neighbors: int = 10, num_threads: int = 4,
                       max_points: Optional[int] = None, *,
                       device=None) -> Tuple[PointCloud, KdTree]:
-    """Downsample → searcher → normals and covariances.
+    """Downsample → searcher → normals and covariances. The searcher keeps
+    the cloud's Morton sort, which the covariance stage walks and an
+    ``align`` against this cloud with this tree walks again.
 
     ``points`` is a PointCloud (which stays on its device) or an
     [N,3]/[N,4] array, placed on ``device`` (default: the card).

@@ -19,10 +19,11 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
     float32 clouds): the tables are prepared once before the loop
     (``gicp_prepare``), every linearization goes through
     ``gicp_linearize_tables`` — kernel K1 on the card, or for targets above
-    1,572,864 rows the swept kernel K6 over the Morton-sorted, boxed
-    target (``fused_route`` forces either; a ``KdTree`` built over the
-    target keeps that sort and those boxes from one align to the next,
-    without it they are made anew) — and every error evaluation
+    1,572,864 rows the swept kernel K6, both walking the Morton-sorted,
+    boxed target (``fused_route`` forces either; a ``KdTree`` built over
+    the target keeps that sort and those boxes from the covariance stage
+    and from one align to the next, without it they are made anew) — and
+    every error evaluation
     through ``gicp_error_multi`` (K2); on CPU tensors those run their
     plain versions;
   * unfused ("never", or float64 clouds): ``search_correspondences`` —
@@ -158,9 +159,10 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
 
     if use_fused == "auto" and dt == torch.float32:
         route = fused_route or auto_route(target.points)
-        # A tree over this very target keeps its sort and boxes across aligns.
+        # A tree over this very target keeps its sort and boxes across aligns
+        # (and from the covariance stage of preprocess_points).
         kept = (target_tree.pruned_target()
-                if route == "swept" and isinstance(target_tree, KdTree)
+                if isinstance(target_tree, KdTree)
                 and target_tree.points is target.points else None)
         tables = gicp_prepare(
             target.points, target.num_points, source.points, source.num_points,

@@ -11,15 +11,16 @@ same neighbours.
 
 Three layouts, named as the JAX package names them:
 
-  * ``"t"`` (K3): one thread per query, brute force over the cloud, the
-    moment rows formed in the kernel — the default up to ``TI_MIN_ROWS``
-    rows;
+  * ``"t"`` (K3): the moment rows formed in the kernel, after a walk over
+    the cloud's Morton sort and boxes in which ``MOMENTS_TEAM`` threads
+    serve one query (``knn_moments_walk_plain`` is the plain account) — the
+    default up to ``TI_MIN_ROWS`` rows;
   * ``"ti"`` (K4): the kernel returns the neighbours only (``knn_topk_idx``:
-    indices and d², through a Morton-sorted, box-pruned search whose bound
-    comes from each row's Morton window, its boxes culled in parallel
-    passes — ``knn_topk_idx_walk_plain`` is the plain account of that
-    walk); the winners are gathered and summed here with torch ops — the
-    default above ``TI_MIN_ROWS`` rows, where brute force costs seconds;
+    indices and d², through the same Morton-sorted, box-pruned walk, one
+    thread a query, whose bound comes from each row's Morton window, its
+    boxes culled in parallel passes — ``knn_topk_idx_walk_plain`` is the
+    plain account of that walk); the winners are gathered and summed here
+    with torch ops — the default above ``TI_MIN_ROWS`` rows;
   * ``"q"`` (K5): K3's moment rows by the other work mapping, one warp per
     query; by request only.
 
@@ -31,10 +32,16 @@ with d_k the kth d². The routing thresholds are the JAX package's; they
 were set by TPU memory and bind nothing on this card, and moving them is a
 measured decision for later.
 
+K3 and K4 take the cloud's sort and boxes (``morton_boxes``) as
+``target=`` when the caller keeps them (``KdTree.pruned_target()``: the
+covariance stage of ``preprocess_points`` and the align that follows share
+one sort of each cloud); without it they sort the cloud themselves.
+
 On a CUDA tensor every wrapper launches its kernel (``csrc/cov_fused.cu``)
-or raises; on a CPU tensor it runs the plain version beside it. K4's first
-form, which walked the boxes one after another, stays as the yardstick
-``_knn_topk_idx_v1``, reached from no path.
+or raises; on a CPU tensor it runs the plain version beside it. The first
+forms stay as yardsticks reached from no path: K3's brute-force scan in
+row order (``_knn_moments_rows_v1``) and K4's walk that tested the boxes
+one after another (``_knn_topk_idx_v1``).
 """
 
 from __future__ import annotations
@@ -65,6 +72,9 @@ LAYOUTS = ("t", "ti", "q")
 # many rows, "ti" above, nothing above MAX_ROWS.
 TI_MIN_ROWS = 262_144
 MAX_ROWS = 1_048_576
+# Threads that serve one of K3's queries (kTeam of csrc/cov_fused.cu, held
+# against it when the library loads; tools/scan_walk_sweep.py).
+MOMENTS_TEAM = 4
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -75,7 +85,9 @@ def _check_k(k: int) -> None:
 
 
 def _library():
-    return morton_boxes.library("cov_fused")
+    morton_boxes.library("cov_fused")  # the box constants held
+    return _build.library_with_geometry("cov_fused", "sgt_knn_moments_geometry",
+                                        (MOMENTS_TEAM,))
 
 
 def _stream() -> int:
@@ -89,6 +101,22 @@ def bound_window(k: int) -> int:
 
 
 # ------------------------------------------------------------ K3, K5 ----
+
+def _moment_rows(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
+                 d_k: torch.Tensor) -> torch.Tensor:
+    """[R,11] = [Σd 3 | Σddᵀ upper 6 | count | d_k] of the offsets (gx, gy,
+    gz) [R,k] of each row's k slots at d² ``d_k`` [R,k], slots with
+    d² ≥ 1e16 left out: the plain versions' one form of the sums."""
+    v = d_k < _VALID_SQ
+    vx, vy, vz = (torch.where(v, g, 0.0) for g in (gx, gy, gz))
+    return torch.stack(
+        [vx.sum(1), vy.sum(1), vz.sum(1),
+         (vx * gx).sum(1), (vx * gy).sum(1), (vx * gz).sum(1),
+         (vy * gy).sum(1), (vy * gz).sum(1), (vz * gz).sum(1),
+         v.sum(1).to(gx.dtype), d_k[:, -1]],
+        dim=1,
+    )
+
 
 def knn_moments_rows_plain(points: torch.Tensor, num_points: torch.Tensor,
                            k: int, rows: Optional[torch.Tensor] = None
@@ -114,16 +142,7 @@ def knn_moments_rows_plain(points: torch.Tensor, num_points: torch.Tensor,
             d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - n), _BIG)], dim=1)
         d_sorted, idx = torch.sort(d2, dim=1, stable=True)
         d_k, idx = d_sorted[:, :k], torch.clamp(idx[:, :k], max=n - 1)
-        gx, gy, gz = (torch.gather(a, 1, idx) for a in (dx, dy, dz))
-        v = d_k < _VALID_SQ
-        vx, vy, vz = (torch.where(v, g, 0.0) for g in (gx, gy, gz))
-        moments = torch.stack(
-            [vx.sum(1), vy.sum(1), vz.sum(1),
-             (vx * gx).sum(1), (vx * gy).sum(1), (vx * gz).sum(1),
-             (vy * gy).sum(1), (vy * gz).sum(1), (vz * gz).sum(1),
-             v.sum(1).to(dt), d_k[:, k - 1]],
-            dim=1,
-        )
+        moments = _moment_rows(*(torch.gather(a, 1, idx) for a in (dx, dy, dz)), d_k)
         out[s:s + QUERY_BLOCK, :11] = torch.where((ids < num_points)[:, None],
                                                   moments, 0.0)
     return out
@@ -139,7 +158,8 @@ def knn_moments_rows_q_plain(points: torch.Tensor, num_points: torch.Tensor,
 
 def _launch_rows(wrapper, entry: str, points: torch.Tensor,
                  num_points: torch.Tensor, k: int) -> torch.Tensor:
-    """Launch the K3 / K5 entry ``entry`` and count it on ``wrapper``."""
+    """Launch the entry ``entry`` of K5 or K3's first form (no sort) and
+    count it on ``wrapper`` (None: not counted)."""
     _build.require(points, "points", torch.float32, (None, 4))
     _build.require(num_points, "num_points", torch.int32, ())
     n = points.shape[0]
@@ -151,7 +171,8 @@ def _launch_rows(wrapper, entry: str, points: torch.Tensor,
         rc = getattr(lib, entry)(points.data_ptr(), num_points.data_ptr(), n, k,
                                  out.data_ptr(), _stream())
     _build.check(rc, entry)
-    wrapper.launches += 1
+    if wrapper is not None:
+        wrapper.launches += 1
     return out
 
 
@@ -169,11 +190,56 @@ def knn_moments_rows_q(points: torch.Tensor, num_points: torch.Tensor,
 knn_moments_rows_q.launches = 0
 
 
+def _knn_moments_rows_v1(points: torch.Tensor, num_points: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """K3's first form (one thread a query over every valid row in row
+    order, bounded by the ±32 rows around it): the yardstick of the kernel
+    below, on no path and counted nowhere."""
+    _check_k(k)
+    return _launch_rows(None, "sgt_knn_moments_v1", points, num_points, k)
+
+
+def _sorted_cloud(points: torch.Tensor, num_points: torch.Tensor,
+                  target: Optional[PrunedTarget]) -> PrunedTarget:
+    """The cloud's Morton sort and boxes: ``target`` when the caller keeps
+    them (checked against the cloud's shape), else made here."""
+    if target is None:
+        return pruned_prepare_target(points, num_points)
+    if target.tsorted.shape != points.shape or target.tsorted.dtype != points.dtype:
+        raise ValueError("target= was not prepared from these points")
+    return target
+
+
+def _knn_moments_rows_cuda(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                           target: Optional[PrunedTarget]) -> torch.Tensor:
+    """Kernel K3 over the cloud's sort and boxes (made here without
+    ``target``)."""
+    _build.require(points, "points", torch.float32, (None, 4))
+    _build.require(num_points, "num_points", torch.int32, ())
+    n = points.shape[0]
+    out = torch.empty((n, 16), dtype=torch.float32, device=points.device)
+    if n == 0:
+        return out
+    target = _sorted_cloud(points, num_points, target)
+    _build.require(target.tsorted, "sorted rows", torch.float32, (n, 4))
+    lib = _library()
+    with torch.cuda.device(points.device):
+        rc = lib.sgt_knn_moments(points.data_ptr(), target.tsorted.data_ptr(),
+                                 num_points.data_ptr(), n, target.tbox.data_ptr(), k,
+                                 bound_window(k), out.data_ptr(), _stream())
+    _build.check(rc, "knn_moments_rows")
+    knn_moments_rows.launches += 1
+    return out
+
+
 def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor, k: int,
-                     layout: str = "t") -> torch.Tensor:
+                     layout: str = "t", target: Optional[PrunedTarget] = None
+                     ) -> torch.Tensor:
     """[N,4] padded cloud → [N,16] moment rows: layout ``"t"`` (kernel K3 on
-    CUDA, plain version on the CPU) or ``"q"`` (``knn_moments_rows_q``).
-    Layout ``"ti"`` forms no rows: see ``knn_topk_idx``."""
+    CUDA over the cloud's sort and boxes, which ``target`` passes in when
+    the caller keeps them; plain version on the CPU) or ``"q"``
+    (``knn_moments_rows_q``). Layout ``"ti"`` forms no rows: see
+    ``knn_topk_idx``."""
     _check_k(k)
     if layout == "q":
         return knn_moments_rows_q(points, num_points, k)
@@ -181,7 +247,7 @@ def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor, k: int,
         raise ValueError(f"moment rows come in layout 't' or 'q', got {layout!r}")
     if points.device.type == "cpu":
         return knn_moments_rows_plain(points, num_points, k)
-    return _launch_rows(knn_moments_rows, "sgt_knn_moments", points, num_points, k)
+    return _knn_moments_rows_cuda(points, num_points, k, target)
 
 
 knn_moments_rows.launches = 0
@@ -224,20 +290,24 @@ def walk_passes(own: int, ntiles: int, cull_pass: int = CULL_PASS,
         up = not up
 
 
-def knn_topk_idx_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
-                            cull_pass: int = CULL_PASS, outward: bool = True,
-                            target: Optional[PrunedTarget] = None) -> Pair:
-    """Plain account of K4's pruned walk, with the outputs of
-    ``knn_topk_idx_plain``: each valid row's reach (the kth smallest d² over
-    its ``bound_window(k)`` Morton-sorted neighbours), blocks of 64 sorted
-    rows, each with the box of its rows and the bound R = the largest reach;
-    the passes of ``walk_passes``, each keeping the tiles whose box gap² to
-    the block's box does not exceed R, offering their rows to the queries
-    whose reach they are within, then tightening R to the largest of each
-    query's min(kth so far, reach); each list the k first candidates in
-    (d², original row) order. Equal to ``knn_topk_idx_plain`` because no
-    bound ever cuts a true neighbour."""
+def _walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int, team: int,
+                cull_pass: int, outward: bool, target: Optional[PrunedTarget]) -> Pair:
+    """The walk of K4 (``team`` 1) and K3 over the cloud's sort and boxes,
+    step by step: each valid row's reach (the kth smallest d² over its
+    ``bound_window(k)`` Morton-sorted neighbours); blocks of 64 // ``team``
+    sorted rows, each with the box of its rows and the bound R = the largest
+    reach; the passes of ``walk_passes``, each keeping the tiles whose box
+    gap² to the block's box does not exceed R; member t of a query's team
+    takes the rows t, t + team, … of each kept tile into its own list, those
+    within the query's reach (the lists are seeded with it), and R tightens
+    after each pass to the largest of every member's min(kth so far,
+    reach); each member's list is the k first of its rows in (d², original
+    row) order, and the team's merged list the k first of theirs. Returns
+    the merged lists as ``knn_topk_idx_plain`` does: equal to it, because no
+    bound ever cuts a true neighbour and the merge keeps the order."""
     _check_k(k)
+    if morton_boxes.BLOCK_ROWS % team or TILE_ROWS % team:
+        raise ValueError(f"a team of {team} does not divide a block")
     n = points.shape[0]
     dev, dt = points.device, points.dtype
     out_d = torch.full((n, k), _BIG, dtype=dt, device=dev)
@@ -257,28 +327,76 @@ def knn_topk_idx_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: i
                       + d[..., 2] * d[..., 2], _BIG)
     reach = torch.sort(wd2, dim=1).values[:, k - 1]
     ntiles = -(-m // TILE_ROWS)
-    for q0 in range(0, m, BLOCK_ROWS):
-        qpos = pos[q0:q0 + BLOCK_ROWS]
+    block = BLOCK_ROWS // team
+    tile_cols = torch.arange(TILE_ROWS, device=dev)
+
+    def kth_of(cand_d, rq):
+        if cand_d.shape[1] < k:
+            return torch.full_like(rq, _BIG)
+        return torch.sort(cand_d, dim=1).values[:, k - 1]
+
+    for q0 in range(0, m, block):
+        qpos = pos[q0:q0 + block]
         q, rq = xyz[qpos], reach[qpos]
         blo, bhi = q.amin(dim=0), q.amax(dim=0)
         bound = rq.max()
-        cand_d = q.new_zeros((len(qpos), 0))
-        cand_i = orig.new_zeros(0)
+        cand_d = [q.new_zeros((len(qpos), 0)) for _ in range(team)]
+        cand_i = [orig.new_zeros(0) for _ in range(team)]
         for first, end in walk_passes(q0 // TILE_ROWS, ntiles, cull_pass, outward):
             live = first + (~(box_gap2(tbox[first:end], blo, bhi) > bound)).nonzero()[:, 0]
-            rows = (live[:, None] * TILE_ROWS
-                    + torch.arange(TILE_ROWS, device=dev)).reshape(-1)
+            rows = (live[:, None] * TILE_ROWS + tile_cols).reshape(-1)
             rows = rows[rows < m]
             d2 = sq_dists(q, xyz[rows])
-            cand_d = torch.cat([cand_d, torch.where(d2 <= rq[:, None], d2, _BIG)], dim=1)
-            cand_i = torch.cat([cand_i, orig[rows]])
-            kth = (torch.sort(cand_d, dim=1).values[:, k - 1] if cand_d.shape[1] >= k
-                   else torch.full_like(rq, _BIG))
-            bound = torch.minimum(kth, rq).max()
-        by_row = torch.argsort(cand_i, stable=True)
-        dk, ik = _first_k(cand_d[:, by_row], cand_i[by_row], k)
-        out_d[orig[qpos]], out_i[orig[qpos]] = dk, ik
+            d2 = torch.where(d2 <= rq[:, None], d2, _BIG)
+            for t in range(team):
+                mine = rows % team == t  # the member's rows of each tile
+                cand_d[t] = torch.cat([cand_d[t], d2[:, mine]], dim=1)
+                cand_i[t] = torch.cat([cand_i[t], orig[rows[mine]]])
+            bound = torch.stack([torch.minimum(kth_of(c, rq), rq) for c in cand_d]).max()
+        lists_d, lists_i = [], []
+        for t in range(team):
+            by_row = torch.argsort(cand_i[t], stable=True)
+            dk, ik = _first_k(cand_d[t][:, by_row], cand_i[t][by_row], k)
+            lists_d.append(dk)
+            lists_i.append(torch.where(dk < _BIG, ik.long(), orig.new_full((), 2 ** 40)))
+        # The merge: the k first of the members' lists in (d², original row)
+        # order (empty slots last).
+        all_d, all_i = torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1)
+        by_row = torch.argsort(all_i, dim=1, stable=True)
+        all_d, all_i = torch.gather(all_d, 1, by_row), torch.gather(all_i, 1, by_row)
+        by_d = torch.argsort(all_d, dim=1, stable=True)[:, :k]
+        dk, ik = torch.gather(all_d, 1, by_d), torch.gather(all_i, 1, by_d)
+        out_d[orig[qpos]] = dk
+        out_i[orig[qpos]] = torch.where(dk < _BIG, ik, 0).to(torch.int32)
     return out_d, out_i
+
+
+def knn_topk_idx_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                            cull_pass: int = CULL_PASS, outward: bool = True,
+                            target: Optional[PrunedTarget] = None) -> Pair:
+    """Plain account of K4's pruned walk (``_walk_plain`` with one thread a
+    query), with the outputs of ``knn_topk_idx_plain``."""
+    return _walk_plain(points, num_points, k, 1, cull_pass, outward, target)
+
+
+def knn_moments_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                           team: int = MOMENTS_TEAM, cull_pass: int = CULL_PASS,
+                           target: Optional[PrunedTarget] = None) -> torch.Tensor:
+    """Plain account of K3: the walk of ``_walk_plain`` with ``team``
+    threads a query, the team's merged list, and the offsets d = p − q of
+    its slots in slot order summed as ``knn_moments_rows_plain`` sums them
+    — the same [N,16] rows, bit for bit."""
+    n = points.shape[0]
+    d_k, idx = _walk_plain(points, num_points, k, team, cull_pass, True, target)
+    out = torch.zeros((n, 16), dtype=points.dtype, device=points.device)
+    m = min(int(num_points), n)
+    if m == 0:
+        return out
+    xyz = points[:, :3]
+    gathered = xyz[idx[:m].long()]  # [m,k,3]
+    off = [gathered[..., c] - xyz[:m, None, c] for c in range(3)]
+    out[:m, :11] = _moment_rows(*off, d_k[:m])
+    return out
 
 
 def _topk_idx_launch(entry: str, target: PrunedTarget, num_points: torch.Tensor,
@@ -329,9 +447,7 @@ def knn_topk_idx(points: torch.Tensor, num_points: torch.Tensor, k: int,
     if points.device.type == "cpu":
         return knn_topk_idx_plain(points, num_points, k)
     _build.require(points, "points", torch.float32, (None, 4))
-    if target is None:
-        target = pruned_prepare_target(points, num_points)
-    return knn_topk_idx_launch(target, num_points, k)
+    return knn_topk_idx_launch(_sorted_cloud(points, num_points, target), num_points, k)
 
 
 knn_topk_idx.launches = 0
@@ -357,9 +473,11 @@ def auto_layout(num_rows: int) -> str:
 
 
 def knn_moments(points: torch.Tensor, num_points: torch.Tensor, k: int,
-                layout: Optional[str] = None
+                layout: Optional[str] = None, target: Optional[PrunedTarget] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(m1 [N,3] = Σd, m2 [N,3,3] = Σddᵀ, counts [N]) in original row order."""
+    """(m1 [N,3] = Σd, m2 [N,3,3] = Σddᵀ, counts [N]) in original row order.
+    ``target``: the cloud's Morton sort and boxes, which layouts "t" and
+    "ti" walk on the card (``KdTree.pruned_target()`` keeps them)."""
     if layout is None:
         layout = auto_layout(points.shape[0])
     if k > MAX_K:
@@ -372,8 +490,9 @@ def knn_moments(points: torch.Tensor, num_points: torch.Tensor, k: int,
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r} (use 't', 'ti' or 'q')")
     if layout == "ti":
-        return moments_from_neighbors(points, *knn_topk_idx(points, num_points, k))
-    rows = knn_moments_rows(points, num_points, k, layout)
+        return moments_from_neighbors(points, *knn_topk_idx(points, num_points, k,
+                                                            target=target))
+    rows = knn_moments_rows(points, num_points, k, layout, target=target)
     m1 = rows[:, 0:3]
     m2 = rows[:, [3, 4, 5, 4, 6, 7, 5, 7, 8]].reshape(-1, 3, 3)
     return m1, m2, rows[:, 9]

@@ -4,34 +4,35 @@
 Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
 
   * ``gicp_prepare`` builds the per-align tables once, for one of two
-    routes: ``"listed"`` (K1, brute force over the valid target rows; the
-    default up to ``LISTED_MP_CAP`` target rows) or ``"swept"`` (K6, for
-    map-scale targets: it adds the Morton-sorted target rows, their tile
-    boxes and the source's Morton order, all from ``ops/morton_boxes.py``;
-    the target's half depends on the target alone and can be passed in).
-    The threshold is the JAX package's, set by TPU memory; either route
-    can be forced;
+    routes: ``"listed"`` (K1; the default up to ``LISTED_MP_CAP`` target
+    rows) or ``"swept"`` (K6, for map-scale targets). Both walk the
+    Morton-sorted target rows and their tile boxes in the source's Morton
+    order, all from ``ops/morton_boxes.py``, which the tables of one pair
+    carry beside the clouds' own (the target's half depends on the target
+    alone and can be passed in: a ``KdTree`` keeps it). The threshold is
+    the JAX package's, set by TPU memory; either route can be forced;
   * ``gicp_linearize_tables`` → (H [6,6], b [6], inliers, corr [N,16]):
-    exact 1-NN of T·p over the valid target rows (ties to the lower
-    index), the factor's weight W, the rejector mask d² ≤ max_d2, the
-    optional Huber/Cauchy weight and the sums of J_iᵀW_iJ_i, J_iᵀW_ir_i,
-    e_i and the inlier count. corr rows are [μ 3 | W 9 | mask | d² | 0 0]
-    in original source order. It follows the tables' route; on the listed
-    route ``mxu_dist=True`` ranks the targets by the score ‖t‖² − 2 t·q
-    (``gicp_linearize_score``) instead of the difference form. The swept
-    route (``gicp_linearize_swept``) only visits target tiles within the
-    rejector radius of a block of source rows; H, b and the inliers are
-    K1's, and so are the corr rows with mask = 1, while a row without an
+    exact 1-NN of T·p among the valid target rows within the rejector
+    radius (ties to the lower index), the factor's weight W, the rejector
+    mask d² ≤ max_d2, the optional Huber/Cauchy weight and the sums of
+    J_iᵀW_iJ_i, J_iᵀW_ir_i, e_i and the inlier count. corr rows are [μ 3 |
+    W 9 | mask | d² | 0 0] in original source order; a row without an
     accepted correspondence holds zeros and d² = 3e38 (its nearest row may
-    lie in a tile that was never visited);
+    lie in a tile that was never visited). It follows the tables' route:
+    K1 (``gicp_linearize_listed``'s kernel) and K6 (``gicp_linearize_swept``)
+    both visit only the target tiles within the rejector radius of a block
+    of source rows and differ in their launch (K1 finishes the float64
+    sums itself, K6 leaves them to torch); on the listed route
+    ``mxu_dist=True`` ranks the targets by the score ‖t‖² − 2 t·q
+    (``gicp_linearize_score``, brute force) instead;
   * ``gicp_error_multi`` → [K1] float64: Σ ½ rᵀWr·mask at each of up to
     100 poses over frozen corr rows, re-weighted by w(√e) at each pose.
 
 The fleet variants serve B lanes over U prepared pairs
 (``parallel/fleet.py``): ``gicp_fleet_prepare`` stacks the tables of U
-pairs and adds, per pair, the swept route's sorted target rows, boxes and
-source order; ``gicp_linearize_fleet`` (K7) is the swept search for lane b
-on pair uids[b] at pose Ts[b] — K1's H, b, inliers and accepted corr rows,
+pairs and adds, per pair, the sorted target rows, boxes and source order;
+``gicp_linearize_fleet`` (K7) is the swept search for lane b on pair
+uids[b] at pose Ts[b] — K1's H, b, inliers and accepted corr rows,
 unmatched rows zero with d² = 3e38 — and ``gicp_error_multi_fleet`` (K8)
 is K2 for each lane. A lane reads its pair's tables in place; an inactive
 lane returns zero sums and all-zero corr rows. Each fleet wrapper launches
@@ -40,10 +41,13 @@ itself.
 
 Per-point terms are float32 on the card; sums across blocks are float64
 and are handed on un-truncated. On a CUDA tensor the wrappers launch the
-kernels of ``csrc/gicp_fused.cu``, ``csrc/gicp_swept.cu`` and
-``csrc/gicp_fleet.cu``; on a CPU tensor they run the plain versions below,
-which repeat the kernels' arithmetic. The single-pair plain versions are
-the fleet ones at one lane.
+kernels of ``csrc/gicp_listed.cu``, ``csrc/gicp_fused.cu``,
+``csrc/gicp_swept.cu`` and ``csrc/gicp_fleet.cu``; on a CPU tensor they run
+the plain versions below, which repeat the kernels' arithmetic. The
+single-pair plain versions are the fleet ones at one lane. K1's first form,
+a brute-force scan over every valid target row in source row order, stays
+as the yardstick ``_gicp_linearize_v1`` (its kernel also serves the score
+form and the brute-force lane entries).
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ ROUTES = ("listed", "swept")
 LISTED_MP_CAP = 1_572_864
 # Source rows per block of the swept kernel.
 SWEPT_BLOCK_ROWS = morton_boxes.BLOCK_ROWS
-# Blocks on each SM that K6's chunk plan aims at (tools/box_walk_sweep.py).
+# Blocks on each SM that the chunk plan of K6 and K1 aims at
+# (tools/box_walk_sweep.py, tools/scan_walk_sweep.py).
 SWEPT_BLOCKS_PER_SM = 32
 # K6's per-row key with no winner posted: the kernel's ~0 (unsigned), here
 # the largest int64, above every real key (whose top bit, d²'s sign, is 0).
@@ -92,8 +97,8 @@ class GicpTables:
 
     ttab [M,16]: x y z 0 | payload 9 (C_t row-major, or the target normal
     in 0-2, or zeros) | ‖t‖² 0 0.  qtab [N,16]: x y z 0 | C_s 9 | 0 0 0.
-    Both stay in the clouds' row order on either route. The swept route
-    adds the last three. Fleet tables (``gicp_fleet_prepare``) carry a
+    Both stay in the clouds' row order on either route. The tables of one
+    float32 pair (both routes) add the last four. Fleet tables (``gicp_fleet_prepare``) carry a
     leading [U] pair axis on every tensor, the last three included.
     """
 
@@ -106,7 +111,8 @@ class GicpTables:
     tsorted: Optional[torch.Tensor] = None  # [M,4] Morton-sorted x y z | row
     tbox: Optional[torch.Tensor] = None  # [ceil(M/256), 8] lo 3, 0, hi 3, 0
     sperm: Optional[torch.Tensor] = None  # [N] int32, sorted position → source row
-    # Host copy of qnum, read by the first swept launch for its chunk plan.
+    # Host copy of qnum, read by the first launch of K1 or K6 for its chunk
+    # plan: once per tables.
     qnum_host: Optional[int] = None
 
 
@@ -127,12 +133,13 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
                  target: Optional[PrunedTarget] = None) -> GicpTables:
     """Build the tables of one registration, once before the optimizer's
     loop. ``route``: ``"listed"``, ``"swept"`` or None for ``auto_route``.
-    The tables keep the clouds' row order; the swept route adds the sorted
-    target rows, their boxes and the source's order. ``target`` is
-    ``pruned_prepare_target(target_points, target_num)`` when the caller
-    has it already (``KdTree`` keeps it): the swept route then sorts the
-    source only. Leading dimensions of the clouds carry over to the tables
-    (listed route only)."""
+    The tables keep the clouds' row order; those of one pair (either route;
+    the listed route float32 only) add the sorted target rows, their boxes
+    and the source's order. ``target`` is ``pruned_prepare_target(
+    target_points, target_num)`` when the caller has it already (``KdTree``
+    keeps it): then only the source is ordered here. Leading dimensions of
+    the clouds carry over to the tables (listed route only, without the
+    sort: ``gicp_fleet_prepare`` adds each pair's)."""
     if factor not in FACTORS:
         raise ValueError(f"unknown fused factor {factor!r}")
     if route is None:
@@ -161,17 +168,25 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
         qtab[..., 4:13] = source_covs.flatten(-2)
     tables = GicpTables(ttab=ttab, tnum=target_num.to(torch.int32), qtab=qtab,
                         qnum=source_num.to(torch.int32), factor=factor, route=route)
-    if route == "swept":
-        if target is None:
-            target = pruned_prepare_target(target_points.to(dt), tables.tnum)
-        elif (target.tsorted.shape[0] != target_points.shape[0]
-              or target.tsorted.dtype != dt):
-            raise ValueError("target= was not prepared from these target points")
-        n = source_points.shape[0]
-        valid = torch.arange(n, device=source_points.device) < source_num
-        tables.tsorted, tables.tbox = target.tsorted, target.tbox
-        tables.sperm = morton_order(source_points[:, :3], valid)[1].to(torch.int32)
+    if route == "swept" or (target_points.dim() == 2 and dt == torch.float32):
+        _add_sort(tables, target_points, source_points, target)
     return tables
+
+
+def _add_sort(tables: GicpTables, target_points: torch.Tensor,
+              source_points: torch.Tensor, target: Optional[PrunedTarget]) -> None:
+    """Give one pair's tables the target's Morton sort and boxes (``target``
+    when the caller keeps them) and the source's Morton order."""
+    dt = tables.qtab.dtype
+    if target is None:
+        target = pruned_prepare_target(target_points.to(dt), tables.tnum)
+    elif (target.tsorted.shape[0] != target_points.shape[0]
+          or target.tsorted.dtype != dt):
+        raise ValueError("target= was not prepared from these target points")
+    n = source_points.shape[0]
+    valid = torch.arange(n, device=source_points.device) < tables.qnum
+    tables.tsorted, tables.tbox = target.tsorted, target.tbox
+    tables.sperm = morton_order(source_points[:, :3], valid)[1].to(torch.int32)
 
 
 def gicp_fleet_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
@@ -364,17 +379,38 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
                                  max_dist_sq, robust, robust_c, factor, zero_unmatched)
 
 
-def gicp_linearize_plain(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
-                         robust: Optional[str] = None, robust_c: float = 1.0,
-                         score: bool = False):
-    """Plain PyTorch version of K1 (``score``: of its score-form instance);
-    same outputs as ``gicp_linearize_tables`` on the listed route."""
+def _plain_one_pair(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                    robust: Optional[str], robust_c: float, **kind):
+    """``_linearize_plain_lanes`` for the tables of one pair at one pose."""
     _robust_code(robust)
     sums, corr = _linearize_plain_lanes(
         tables.ttab[None], tables.tnum.reshape(1), tables.qtab[None],
         tables.qnum.reshape(1), _pose12(T, tables.qtab.dtype)[None], max_dist_sq,
-        robust, robust_c, tables.factor, score)
+        robust, robust_c, tables.factor, **kind)
     return (*_finish(sums[0]), corr[0])
+
+
+def gicp_linearize_plain(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                         robust: Optional[str] = None, robust_c: float = 1.0,
+                         score: bool = False):
+    """Plain PyTorch version of K1's first form (``score``: of its
+    score-form instance): rows without an accepted correspondence hold the
+    nearest row all the same."""
+    return _plain_one_pair(tables, T, max_dist_sq, robust, robust_c, score=score)
+
+
+def gicp_linearize_listed_plain(tables: GicpTables, T: torch.Tensor,
+                                max_dist_sq: float, robust: Optional[str] = None,
+                                robust_c: float = 1.0):
+    """Plain PyTorch version of K1: brute force over every valid target row;
+    on a row whose nearest row lies within the rejector radius that row is
+    K1's winner too, since the box cull never drops an acceptable row
+    (``swept_live_tiles``); every other row holds zeros and d² = 3e38 in
+    both. Same outputs as ``gicp_linearize_tables`` on the listed route;
+    ``gicp_linearize_swept_split_plain`` is the step-by-step account of
+    the kernel's walk."""
+    return _plain_one_pair(tables, T, max_dist_sq, robust, robust_c,
+                           zero_unmatched=True)
 
 
 def gicp_linearize_score_plain(tables: GicpTables, T: torch.Tensor,
@@ -386,7 +422,8 @@ def gicp_linearize_score_plain(tables: GicpTables, T: torch.Tensor,
 
 def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tensor,
                          max_dist_sq: float, robust: Optional[str], robust_c: float):
-    """Launch the K1 entry ``entry`` and count it on ``wrapper``."""
+    """Launch the entry ``entry`` of K1's first-form kernel and count it on
+    ``wrapper`` (None: not counted)."""
     f32 = torch.float32
     _build.require(tables.ttab, "ttab", f32, (None, 16))
     _build.require(tables.qtab, "qtab", f32, (None, 16))
@@ -409,18 +446,32 @@ def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tenso
             corr.data_ptr(), partials.data_ptr(), _stream(),
         )
     _build.check(rc, entry)
-    wrapper.launches += 1
+    if wrapper is not None:
+        wrapper.launches += 1
     return (*_finish(partials.to(torch.float64).sum(0)), corr)
+
+
+def _gicp_linearize_v1(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                       robust: Optional[str] = None, robust_c: float = 1.0):
+    """K1's first form (a thread a source row in row order, a scan of every
+    valid target row; rows without an accepted correspondence hold their
+    nearest row): the yardstick of the kernel below, on no path and counted
+    nowhere."""
+    return _gicp_linearize_cuda(None, "sgt_gicp_linearize", tables, T, max_dist_sq,
+                                robust, robust_c)
 
 
 def gicp_linearize_score(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
                          robust: Optional[str] = None, robust_c: float = 1.0):
     """K1 with the targets ranked by the score ‖t‖² − 2 t·q (uncentred,
     ‖t‖² from the table) and the winner's exact d² taken afterwards: the
-    ``mxu_dist=True`` branch of the JAX kernel, on CUDA cores. Near-exact:
-    between two targets whose d² differ by less than the score's float32
-    rounding (~‖q‖²·2⁻²³) it may pick the other. Same outputs as
-    ``gicp_linearize_tables``; plain version on the CPU."""
+    ``mxu_dist=True`` branch of the JAX kernel, on CUDA cores, over every
+    valid target row (the first form's kernel). Near-exact: between two
+    targets whose d² differ by less than the score's float32 rounding
+    (~‖q‖²·2⁻²³) it may pick the other. Same outputs as
+    ``gicp_linearize_tables`` except on rows without an accepted
+    correspondence, which hold their nearest row; plain version on the
+    CPU."""
     if tables.qtab.device.type == "cpu":
         return gicp_linearize_score_plain(tables, T, max_dist_sq, robust, robust_c)
     return _gicp_linearize_cuda(gicp_linearize_score, "sgt_gicp_linearize_score",
@@ -521,21 +572,21 @@ def gicp_linearize_swept_plain(tables: GicpTables, T: torch.Tensor,
 
 
 def swept_chunks(valid_rows: int, mcap: int, sms: int) -> int:
-    """K6's chunks per source block for ``valid_rows`` valid source rows and
-    a target of capacity ``mcap`` on a card of ``sms`` SMs: enough that the
-    valid source blocks times the chunks reach ``SWEPT_BLOCKS_PER_SM``
-    blocks on each SM, but no more than the target has tiles (the most
-    live tiles a block can feed). One where the source blocks alone reach
-    it."""
+    """Chunks per source block of K6 and K1 for ``valid_rows`` valid source
+    rows and a target of capacity ``mcap`` on a card of ``sms`` SMs: enough
+    that the valid source blocks times the chunks reach
+    ``SWEPT_BLOCKS_PER_SM`` blocks on each SM, but no more than the target
+    has tiles (the most live tiles a block can feed). One where the source
+    blocks alone reach it."""
     blocks = -(-max(valid_rows, 1) // SWEPT_BLOCK_ROWS)
     return max(1, min(-(-SWEPT_BLOCKS_PER_SM * sms // blocks),
                       -(-max(mcap, 1) // TILE_ROWS), 65535))
 
 
 def swept_plan(tables: GicpTables) -> int:
-    """The chunk count that ``gicp_linearize_swept`` launches K6 with on
-    these tables (CUDA): ``swept_chunks`` of the valid source rows, read
-    from the card once per tables."""
+    """The chunk count that K6 and K1 launch with on these tables (CUDA):
+    ``swept_chunks`` of the valid source rows, read from the card once per
+    tables (``qnum_host``)."""
     if tables.qnum_host is None:
         tables.qnum_host = int(tables.qnum)
     return swept_chunks(min(tables.qnum_host, tables.qtab.shape[0]),
@@ -618,8 +669,9 @@ def gicp_linearize_swept_split_plain(tables: GicpTables, T: torch.Tensor,
 
 @dataclass
 class _SweptBuffers:
-    """K6's per-row keys (~0, here -1, between launches) and its source
-    blocks' tickets (0 between launches): every launch leaves them so."""
+    """The per-row keys (~0, here -1, between launches) and the source
+    blocks' tickets (0 between launches; K1 adds one for its final sum) of
+    K6 and K1: every launch leaves them so."""
 
     keys: torch.Tensor  # int64 [≥ N]
     tickets: torch.Tensor  # int32 [≥ source blocks]
@@ -718,6 +770,46 @@ def gicp_linearize_swept(tables: GicpTables, T: torch.Tensor, max_dist_sq: float
 gicp_linearize_swept.launches = 0
 
 
+# ---------------------------------------------------------------- K1 ----
+
+def _gicp_linearize_listed_cuda(tables: GicpTables, T: torch.Tensor,
+                                max_dist_sq: float, robust: Optional[str],
+                                robust_c: float, chunks: Optional[int] = None):
+    """Kernel K1 at ``chunks`` chunks per source block (None:
+    ``swept_plan``), counted on ``gicp_linearize_tables``."""
+    f32 = torch.float32
+    _build.require(tables.ttab, "ttab", f32, (None, 16))
+    _build.require(tables.qtab, "qtab", f32, (None, 16))
+    m, n = tables.ttab.shape[0], tables.qtab.shape[0]
+    _build.require(tables.tsorted, "tsorted", f32, (m, 4))
+    _build.require(tables.tbox, "tbox", f32, ((m + TILE_ROWS - 1) // TILE_ROWS, 8))
+    _build.require(tables.sperm, "sperm", torch.int32, (n,))
+    _build.require(tables.tnum, "tnum", torch.int32, ())
+    _build.require(tables.qnum, "qnum", torch.int32, ())
+    dev = tables.qtab.device
+    pose = T.to(device=dev, dtype=f32).contiguous()
+    _build.require(pose, "T", f32, (4, 4))
+    corr = torch.empty((n, 16), dtype=f32, device=dev)
+    if n == 0:
+        return (*_finish(torch.zeros(44, dtype=torch.float64, device=dev)), corr)
+    lib = morton_boxes.library("gicp_listed")
+    blocks = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
+    partials = torch.empty((blocks, 44), dtype=f32, device=dev)
+    sums = torch.empty(44, dtype=torch.float64, device=dev)
+    ws = _swept_workspace(dev, n, blocks + 1)
+    with torch.cuda.device(dev):
+        rc = lib.sgt_gicp_linearize_listed(
+            tables.ttab.data_ptr(), tables.tsorted.data_ptr(), tables.tbox.data_ptr(),
+            tables.tnum.data_ptr(), m, tables.qtab.data_ptr(), tables.sperm.data_ptr(),
+            tables.qnum.data_ptr(), n, pose.data_ptr(), float(max_dist_sq),
+            float(robust_c), FACTORS.index(tables.factor), _robust_code(robust),
+            int(chunks or swept_plan(tables)), corr.data_ptr(), partials.data_ptr(),
+            ws.keys.data_ptr(), ws.tickets.data_ptr(), sums.data_ptr(), _stream())
+    _build.check(rc, "gicp_linearize_listed")
+    gicp_linearize_tables.launches += 1
+    return (*_finish(sums), corr)
+
+
 def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
                           robust: Optional[str] = None, robust_c: float = 1.0,
                           mxu_dist: bool = False, route: Optional[str] = None
@@ -725,10 +817,11 @@ def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: floa
                                      torch.Tensor]:
     """One linearization at T: (H [6,6] f64, b [6] f64, inliers f64, corr [N,16]).
 
-    ``route`` overrides the tables' own (``"listed"`` works on any tables,
-    ``"swept"`` on tables prepared for it). ``mxu_dist`` takes the score
-    form on the listed route and is ignored on the swept one, as the JAX
-    flag is off its row-major listed path."""
+    ``route`` overrides the tables' own (``"listed"`` works on any tables of
+    one pair, ``"swept"`` on tables prepared for it). The listed route is
+    kernel K1 on CUDA and its plain version on the CPU. ``mxu_dist`` takes
+    the score form on the listed route and is ignored on the swept one, as
+    the JAX flag is off its row-major listed path."""
     route = tables.route if route is None else route
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r} (use 'listed' or 'swept')")
@@ -737,9 +830,8 @@ def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: floa
     if mxu_dist:
         return gicp_linearize_score(tables, T, max_dist_sq, robust, robust_c)
     if tables.qtab.device.type == "cpu":
-        return gicp_linearize_plain(tables, T, max_dist_sq, robust, robust_c)
-    return _gicp_linearize_cuda(gicp_linearize_tables, "sgt_gicp_linearize", tables, T,
-                                max_dist_sq, robust, robust_c)
+        return gicp_linearize_listed_plain(tables, T, max_dist_sq, robust, robust_c)
+    return _gicp_linearize_listed_cuda(tables, T, max_dist_sq, robust, robust_c)
 
 
 gicp_linearize_tables.launches = 0

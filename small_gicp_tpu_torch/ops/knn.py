@@ -69,8 +69,9 @@ class KdTree:
 
     The rows are taken as fixed once the tree is built: what the card's
     searches derive from the target alone (K9's centre, the sorted rows
-    and boxes of K12 and K6) is computed at the first search that needs it
-    and kept.
+    and boxes that K12, K3, K4, K1 and K6 walk) is computed at the first
+    search that needs it and kept, so that the covariance stage and every
+    align against the cloud share one sort.
     """
 
     points: torch.Tensor  # [M,4], padded with the sentinel
@@ -107,9 +108,9 @@ class KdTree:
         return self._centre
 
     def pruned_target(self):
-        """The cloud Morton-sorted and boxed for the pruned searches
-        (``knn_cuda.knn_pruned(..., target=...)``, the swept route of
-        ``gicp_prepare``); computed once."""
+        """The cloud Morton-sorted and boxed for the pruned searches and box
+        walks (``knn_cuda.knn_pruned(..., target=...)``, ``knn_moments(...,
+        target=...)``, ``gicp_prepare(..., target=...)``); computed once."""
         if self._pruned is None:
             from small_gicp_tpu_torch.ops.morton_boxes import pruned_prepare_target
 

@@ -1,6 +1,7 @@
 """Morton sort and tile boxes: the prologue that the box-pruned searches
-share (K12 ``knn_cuda.knn_pruned``, K4 ``cov_fused_cuda.knn_topk_idx``,
-K6 ``gicp_fused_cuda.gicp_linearize_swept``, and over stacked pairs K7
+share (K12 ``knn_cuda.knn_pruned``, K3 and K4 ``cov_fused_cuda.knn_moments``
+/ ``knn_topk_idx``, K1 and K6 ``gicp_fused_cuda.gicp_linearize_tables`` on
+either route, and over stacked pairs K7
 ``gicp_fused_cuda.gicp_linearize_fleet``).
 
 A cloud's valid rows are sorted by Morton code (cell 1.0, origin at their
@@ -8,7 +9,7 @@ min corner) and every ``TILE_ROWS`` sorted rows get a bounding box; a
 kernel's block of ``BLOCK_ROWS`` queries then skips every tile whose box
 lies beyond its bound. The result depends on the cloud alone, so a caller
 that searches one cloud repeatedly builds it once (``KdTree.pruned_target``).
-The box walks of K4, K6 and K7 cull a block's tiles in passes of
+The box walks of K3, K4, K1, K6 and K7 cull a block's tiles in passes of
 ``CULL_PASS`` boxes. The three constants repeat ``kBoxRows``,
 ``kPrunedThreads`` and ``kCullPass`` of ``csrc/common.cuh``; ``library``
 holds them against the compiled values.

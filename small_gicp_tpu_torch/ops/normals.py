@@ -9,7 +9,9 @@ come from one of two routes, chosen as the JAX package chooses them:
   * anything else (float64, k > 64, larger clouds): ``KdTree.knn_search``
     and query-centred moment sums over the gathered neighbours.
 ``neighbor_mode="fused"`` insists on the first route and raises where it
-does not apply.
+does not apply. A ``KdTree`` over the cloud's own points hands the kernels
+its kept Morton sort and boxes (``KdTree.pruned_target()``), so that
+``preprocess_points`` and the align that follows sort each cloud once.
 Then:
   * fewer than 5 neighbours → invalid: normal 0, covariance I;
   * cov = E[ddᵀ] − E[d]E[d]ᵀ over the query-centred offsets d (biased);
@@ -45,9 +47,16 @@ def _searched_moments(points: torch.Tensor, num_points: torch.Tensor, k: int):
     return neigh.sum(dim=1), torch.einsum("nkd,nke->nde", neigh, neigh), counts
 
 
+def _kept_sort(points: torch.Tensor, tree):
+    """The tree's kept sort and boxes when it was built over ``points``."""
+    if isinstance(tree, KdTree) and tree.points is points:
+        return tree.pruned_target()
+    return None
+
+
 def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
                    num_neighbors: int, need_normals: bool, need_covs: bool,
-                   neighbor_mode: str = "exact"):
+                   neighbor_mode: str = "exact", tree=None):
     n = points.shape[0]
     dt, dev = points.dtype, points.device
     xyz = points[:, :3]
@@ -58,7 +67,8 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
     if neighbor_mode == "fused":
         if not fused_ok:
             raise ValueError("neighbor_mode='fused' needs f32 points and k<=64")
-        m1, m2, counts = knn_moments(points, num_points, num_neighbors)
+        m1, m2, counts = knn_moments(points, num_points, num_neighbors,
+                                     target=_kept_sort(points, tree))
     elif neighbor_mode == "window":
         raise NotImplementedError(
             "neighbor_mode='window' (ops/knn_window.knn_windowed) waits for "
@@ -91,22 +101,23 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
 
 def estimate_normals_covariances(cloud: PointCloud, tree=None,
                                  num_neighbors: int = 20) -> PointCloud:
-    """Normals and plane-regularised covariances (``tree`` is accepted for
-    API parity; the search is exact over the cloud itself)."""
+    """Normals and plane-regularised covariances. The search is exact over
+    the cloud itself; a ``KdTree`` built over this cloud lends it its kept
+    Morton sort."""
     normals, covs = _estimate_impl(cloud.points, cloud.num_points,
-                                   num_neighbors, True, True)
+                                   num_neighbors, True, True, tree=tree)
     return cloud.replace(normals=normals, covs=covs)
 
 
 def estimate_normals(cloud: PointCloud, tree=None,
                      num_neighbors: int = 20) -> PointCloud:
     normals, _ = _estimate_impl(cloud.points, cloud.num_points, num_neighbors,
-                                True, False)
+                                True, False, tree=tree)
     return cloud.replace(normals=normals)
 
 
 def estimate_covariances(cloud: PointCloud, tree=None,
                          num_neighbors: int = 20) -> PointCloud:
     _, covs = _estimate_impl(cloud.points, cloud.num_points, num_neighbors,
-                             False, True)
+                             False, True, tree=tree)
     return cloud.replace(covs=covs)

@@ -10,7 +10,14 @@ their first forms, K4 and K6 against their first forms (K4 over more than
 one cull pass, K6 at one chunk, at the planned count and above the live
 tiles, and at a pose with no live tile), plus one small registration (fused on both routes and
 unfused) and one small fleet on the card against the CPU path and at one
-lane against 32. The tests need an NVIDIA card and skip without one.
+lane against 32; and the scan pair's walks — K3 with its team of threads a
+query against its plain version, its plain account and its first form (the
+brute-force scan it replaced) on every row, K1 in chunks against its plain
+version, its
+split plain account and its first form for each factor × robust kernel,
+at a pose with no live tile, a radius of inf, an empty target and no
+source rows, and in the source's row order. The tests need an NVIDIA card
+and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
 without the repository's conftest:
 
@@ -27,6 +34,7 @@ from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops import gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    _knn_moments_rows_v1,
     _knn_topk_idx_v1,
     knn_moments,
     knn_moments_rows,
@@ -36,6 +44,7 @@ from small_gicp_tpu_torch.ops.cov_fused_cuda import (
     knn_topk_idx,
     knn_topk_idx_plain,
     knn_topk_idx_walk_plain,
+    knn_moments_walk_plain,
 )
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
@@ -43,7 +52,9 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_error_multi,
     _gicp_error_multi_fleet_k2,
     _gicp_linearize_fleet_brute,
+    _gicp_linearize_listed_cuda,
     _gicp_linearize_swept_cuda,
+    _gicp_linearize_v1,
     _gicp_linearize_swept_v1,
     fleet_live_tiles,
     gicp_error_multi_fleet,
@@ -52,6 +63,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_fleet_prepare,
     gicp_linearize_fleet,
     gicp_linearize_fleet_plain,
+    gicp_linearize_listed_plain,
     gicp_linearize_plain,
     gicp_linearize_score,
     gicp_linearize_score_plain,
@@ -858,3 +870,135 @@ def test_swept_chunks_at_a_pose_without_live_tiles(dev):
     assert _same(new, old) and _same(new, plain)
     assert int(new[2]) == 0 and not new[3][:, :13].any()
     assert bool((new[3][:, 13] == 3.0e38).all())
+
+
+# ---- the scan pair's walks: K3 with a team a query, K1 in chunks ------------
+
+def _grid_cloud(dev):
+    """3,000 points in 24³ integer cells (every distance ties many times)."""
+    rng = np.random.default_rng(24)
+    pts = torch.as_tensor(_padded(rng.integers(0, 24, (3000, 3)), 3100),
+                          device=dev).float()
+    return pts, torch.tensor(3000, dtype=torch.int32, device=dev)
+
+
+# The three list bounds of K3: k ≤ 16, ≤ 32, ≤ 64.
+@pytest.mark.parametrize("ks", [(1, 10, 16), (17, 20, 32), (33, 64)])
+def test_moments_walk_kernel_matches_first_form_and_plain(dev, scan_cloud, ks):
+    for pts, num in (scan_cloud, _grid_cloud(dev)):
+        target = pruned_prepare_target(pts, num)
+        for k in ks:
+            before = knn_moments_rows.launches
+            got = knn_moments_rows(pts, num, k, target=target)
+            torch.cuda.synchronize()
+            assert knn_moments_rows.launches == before + 1
+            # The first form's neighbours summed in its order: every row bit
+            # for bit, and the same without the kept sort.
+            assert torch.equal(got, _knn_moments_rows_v1(pts, num, k)), k
+            assert torch.equal(got, knn_moments_rows(pts, num, k)), k
+            # The plain version: the same neighbours (counts, d_k), the sums
+            # to their float32 rounding (the kernel's are fused multiply-adds).
+            ref = knn_moments_rows_plain(pts, num, k)
+            assert torch.equal(got[:, 9:11], ref[:, 9:11]), k
+            torch.testing.assert_close(got[:, :9], ref[:, :9], rtol=1e-5, atol=1e-4)
+            assert torch.all(got[3000:] == 0), k
+    pts, num = scan_cloud
+    walk = knn_moments_walk_plain(pts.cpu(), num.cpu(), 10)
+    got = knn_moments_rows(pts, num, 10).cpu()
+    assert torch.equal(got[:, 9:11], walk[:, 9:11])
+    torch.testing.assert_close(got[:, :9], walk[:, :9], rtol=1e-5, atol=1e-4)
+
+
+def test_moments_walk_kernel_edges(dev):
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(_padded(rng.normal(size=(7, 3)), 300), device=dev).float()
+    for valid in (7, 0):
+        num = torch.tensor(valid, dtype=torch.int32, device=dev)
+        got = knn_moments_rows(pts, num, 10)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _knn_moments_rows_v1(pts, num, 10)), valid
+        assert torch.equal(got[:, 9:11], knn_moments_rows_plain(pts, num, 10)[:, 9:11])
+        assert torch.all(got[valid:] == 0)
+    with pytest.raises(ValueError, match="target="):
+        knn_moments_rows(pts, num, 10, target=pruned_prepare_target(pts[:200], num))
+
+
+def _listed_checks(tables, T, max_d2, robust, c):
+    """K1 on ``tables`` at T: equal to its plain version (masks, inliers,
+    every corr row but W exact, W to 2e-3, H and b to 5e-4 scaled), to its
+    split plain account at one chunk, the planned count and above the live
+    tiles (the same, μ and d² on every row), and to its first form on the
+    rows the first form accepts (masks, inliers, μ and d²); one launch a
+    call. Returns the kernel's outputs."""
+    before = gicp_linearize_tables.launches
+    out = gicp_linearize_tables(tables, T, max_d2, robust, c)
+    torch.cuda.synchronize()
+    assert gicp_linearize_tables.launches == before + 1
+
+    def close(got, ref):
+        assert torch.equal(got[3][:, [0, 1, 2, 12, 13]], ref[3][:, [0, 1, 2, 12, 13]])
+        assert int(got[2]) == int(ref[2])
+        torch.testing.assert_close(got[3][:, 3:12], ref[3][:, 3:12], rtol=2e-3,
+                                   atol=2e-3)
+        scale = max(1.0, ref[0].abs().max().item())
+        torch.testing.assert_close(got[0] / scale, ref[0] / scale, rtol=0, atol=5e-4)
+        bscale = max(1.0, ref[1].abs().max().item())
+        torch.testing.assert_close(got[1] / bscale, ref[1] / bscale, rtol=0, atol=5e-4)
+
+    close(out, gicp_linearize_listed_plain(tables, T, max_d2, robust, c))
+    live = swept_live_tiles(tables, T, max_d2)
+    for chunks in (1, swept_plan(tables), int(live.sum(dim=1).max()) + 3):
+        got = _gicp_linearize_listed_cuda(tables, T, max_d2, robust, c, chunks)
+        close(got, gicp_linearize_swept_split_plain(tables, T, max_d2, robust, c,
+                                                   chunks=chunks))
+        assert torch.equal(got[3], out[3]) and torch.equal(got[2], out[2]), chunks
+    old = _gicp_linearize_v1(tables, T, max_d2, robust, c)
+    mask = out[3][:, 12] > 0.5
+    assert torch.equal(mask, old[3][:, 12] > 0.5) and int(out[2]) == int(old[2])
+    assert torch.equal(out[3][mask][:, [0, 1, 2, 13]], old[3][mask][:, [0, 1, 2, 13]])
+    assert not out[3][~mask][:, :13].any() and bool((out[3][~mask][:, 13] == 3e38).all())
+    scale = max(1.0, old[0].abs().max().item())
+    torch.testing.assert_close(out[0] / scale, old[0] / scale, rtol=0, atol=5e-4)
+    return out
+
+
+@pytest.mark.parametrize("factor", ["gicp", "plane_icp", "icp"])
+def test_listed_kernel_matches_plain_split_and_first_form(dev, pair, factor):
+    T = pair[2]
+    for tgt, src in ((pair[0], pair[1]), _far_pair(dev)):
+        tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                              factor, tgt.covs, src.covs, tgt.normals)
+        assert tables.route == "listed" and tables.sperm is not None
+        for robust, c in ROBUST:
+            _listed_checks(tables, T, 1.0, robust, c)
+    ws = gicp_fused_cuda._swept_buffers[(dev.index if dev.index is not None else 0,
+                                         torch.cuda.current_stream(dev).cuda_stream)]
+    assert bool((ws.keys == -1).all()) and bool((ws.tickets == 0).all())
+
+
+def test_listed_kernel_edges(dev, pair):
+    tgt, src, T = pair
+    args = (tgt.points, tgt.num_points, src.points, src.num_points, "gicp", tgt.covs,
+            src.covs)
+    tables = gicp_prepare(*args)
+    far = T.clone()
+    far[:3, 3] += 1000.0
+    out = _listed_checks(tables, far, 1.0, None, 1.0)
+    assert int(out[2]) == 0 and not out[0].any()
+    out = _listed_checks(tables, T, float("inf"), None, 1.0)
+    assert int(out[2]) == int(src.num_points)
+    # In the source's row order (blocks of 64 consecutive rows): the same
+    # winners, the block sums over other groups of rows.
+    rows = gicp_prepare(*args)
+    rows.sperm = torch.arange(rows.qtab.shape[0], dtype=torch.int32, device=dev)
+    a = _listed_checks(rows, T, 1.0, "huber", 0.5)
+    b = gicp_linearize_tables(tables, T, 1.0, "huber", 0.5)
+    assert torch.equal(a[3], b[3]) and int(a[2]) == int(b[2])
+    for tn, sn in ((0, None), (None, 0)):
+        t = gicp_prepare(tgt.points, tgt.num_points if tn is None else
+                         torch.zeros_like(tgt.num_points), src.points,
+                         src.num_points if sn is None else torch.zeros_like(src.num_points),
+                         "gicp", tgt.covs, src.covs)
+        out = _listed_checks(t, T, 1.0, None, 1.0)
+        assert int(out[2]) == 0 and not out[3][:, :13].any()
+

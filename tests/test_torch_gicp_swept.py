@@ -209,7 +209,8 @@ def test_routes_by_size_and_by_force(pair, monkeypatch):
     assert fused.LISTED_MP_CAP == 1_572_864
     T = torch.as_tensor(_T())
     auto = _tables(pair, "gicp", None)
-    assert auto.route == "listed" and auto.tsorted is None
+    # The listed tables of one float32 pair carry K1's walk: the same sort.
+    assert auto.route == "listed" and auto.tsorted is not None
     monkeypatch.setattr(fused, "LISTED_MP_CAP", 500)
     swept = _tables(pair, "gicp", None)  # 920 target rows > 500
     assert swept.route == "swept" and swept.tbox.shape == (4, 8)
@@ -226,7 +227,13 @@ def test_routes_by_size_and_by_force(pair, monkeypatch):
     assert calls == [1, 1] and torch.equal(again[3], out[3])
     with pytest.raises(ValueError, match="route"):
         _tables(pair, "gicp", "dense")
-    with pytest.raises(ValueError, match="swept"):
-        gicp_linearize_tables(auto, T, 1.0, route="swept")
     # the listed tables are the same on either route
     assert torch.equal(auto.ttab, swept.ttab) and torch.equal(auto.qtab, swept.qtab)
+    assert all(torch.equal(getattr(auto, f), getattr(swept, f))
+               for f in ("tsorted", "tbox", "sperm"))
+    # The listed tables of one pair serve the swept route too; tables
+    # without the sort do not.
+    assert torch.equal(gicp_linearize_tables(auto, T, 1.0, route="swept")[3], out[3])
+    auto.tsorted = None
+    with pytest.raises(ValueError, match="swept"):
+        gicp_linearize_tables(auto, T, 1.0, route="swept")

@@ -164,13 +164,15 @@ for what, (tgt, T) in cases.items():
 """
 
 # csrc constants whose value a Python module repeats: name → (file, name there).
-MIRRORED = {"kCullPass": ("ops/morton_boxes.py", "CULL_PASS")}
+MIRRORED = {"kCullPass": ("ops/morton_boxes.py", "CULL_PASS"),
+            "kTeam": ("ops/cov_fused_cuda.py", "MOMENTS_TEAM")}
 
 
-def make_variant(spec: str) -> Path:
-    """A copy of the package with the constants of ``spec`` set; its root."""
+def make_variant(spec: str, work: Path = WORK) -> Path:
+    """A copy of the package under ``work`` with the constants of ``spec``
+    set; its root."""
     consts = dict(item.split("=") for item in spec.split(",") if item)
-    root = WORK / (spec.replace("=", "").replace(",", "_") or "compiled")
+    root = work / (spec.replace("=", "").replace(",", "_") or "compiled")
     if root.exists():
         shutil.rmtree(root)
     shutil.copytree(ROOT / "small_gicp_tpu_torch", root / "small_gicp_tpu_torch",
