@@ -39,12 +39,13 @@ Phases (any failure exits non-zero):
   7. search   — K9 (both variants) at the registration shape and K10, K11,
                 K12 at the covariance shape (k = 10, 20) and at raw-scan
                 scale (≈108k × 108k, k = 20) against their plain versions
-                and each other; K9 and K10 also against their first forms
-                (the PR 3 kernels) at Q = 1, 64, 4096 and all rows, k = 10,
-                20, 64, on the scan and on a duplicate-heavy grid, with one
-                launch a call (counters and profiler); K9 and K10 timed in
-                turns with their first forms (and K10 with K11 by query
-                count); K9's and K12's launches timed apart from their
+                and each other; K9, K10 and K11 also against their first
+                forms (the original ports) at Q = 1, 64, 4096 and all rows, k =
+                10, 20, 64, on the scan and on a duplicate-heavy grid, with
+                one launch a call (counters and profiler); K10 and K11 timed
+                alone (the profiler) and in turns with both first forms by
+                query count and at raw-scan scale, K9 in turns with its first
+                form; K9's and K12's launches timed apart from their
                 wrappers' prologues, K12 bounded by the pairs this data
                 leaves a pruned search; then the neighbour-search path with
                 the counts at 0: KdTree searches, knn_T, knn_pruned, the
@@ -54,25 +55,29 @@ Phases (any failure exits non-zero):
                 through the first forms and once more through the new ones;
   8. map      — 17 frames: two submaps of 8 raw frames each in the world
                 frame (≈864k rows) and their union, the map (≈1.73 M rows).
-                K4 on both submaps against its first form (the PR 4 kernel)
+                K4 on both submaps against its first form (the original port)
                 on every row (k = 10, 20) and its plain version on 8,192
-                sampled rows of each, and against K3 forced; K5 against its
-                plain version and K3 at the scan shape and at raw-scan
-                scale; K6 on the map and at the scan shape against its first
-                form (corr and float64 sums), its split plain account at the
-                planned chunk count, at one chunk and above the live tiles,
-                its plain version and K1 forced on the same tables, with the
-                share of (block, tile) pairs it skips; one launch a call for
-                K4 and K6 (counters and profiler), each timed alone (the
-                profiler) and in turns with its first form; K1's score form
-                against its plain version and the difference form; then,
+                sampled rows of each, and against K3 forced; K5 over the
+                cloud's kept sort at the scan shape and at raw-scan scale (k
+                = 10, 20) against its plain version, and bit for bit against
+                K3, its first form (the original port) and itself with the sort
+                made in the call, one launch a call, timed alone and in turns
+                with K3 and the first form, bounded by the pairs its walk
+                cannot avoid; K6 on the map and at the scan shape against its
+                first form (corr and float64 sums), its split plain account
+                at the planned chunk count, at one chunk and above the live
+                tiles, its plain version and K1 forced on the same tables,
+                with the share of (block, tile) pairs it skips; one launch a
+                call for K4 and K6 (counters and profiler), each timed alone
+                (the profiler) and in turns with its first form; K1's score
+                form against its plain version and the difference form; then,
                 with the counts at 0, the map-scale path: covariances of both
                 submaps (K4), the align of frame 16 against the map (K6 per
                 linearization, K2 per iteration, K1 never) within 2.5° /
-                0.2 m, a layout "q" call (K5) and a score-form
-                linearization; the covariances and the align with the map's
-                sort kept timed in turns with the same path through the
-                first forms.
+                0.2 m, a layout "q" call over the scan's kept sort (K5) and a
+                score-form linearization; the covariances and the align with
+                the map's sort kept timed in turns with the same path through
+                the first forms.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -97,6 +102,7 @@ from small_gicp_tpu_torch.interop import result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops import cov_fused_cuda, gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    _knn_moments_rows_q_v1,
     _knn_moments_rows_v1,
     _knn_topk_idx_v1,
     auto_layout as cov_layout,
@@ -141,6 +147,7 @@ from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops.knn_cuda import (
     BLOCK_QUERIES,
     VARIANTS,
+    _knn_T_v1,
     _knn_v1,
     _nearest_neighbor_v1,
     PrunedQueries,
@@ -633,12 +640,17 @@ def phase_kernels(scans, T_gt, rng, dev, card="cpu"):
     check(rel <= 1e-5, f"K2 errors differ by rel {rel}")
     ops = 40.0 * n * Ts.shape[0]
     nbytes = n * (64 + 16) + Ts.shape[0] * 48
+    # The kernel alone (the wrapper's torch ops launch kernels of their own)
+    # is the record; the wrapper in a one-call window stands beside it.
+    k2 = lambda: gicp_error_multi(corr, src.points, Ts, src.num_points)  # noqa: E731
     records["gicp_error_multi"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: gicp_error_multi(corr, src.points, Ts, src.num_points)),
+        max_abs_err=err, ms=one_kernel_per_call(k2, "gicp_error_multi_kernel", alone=False),
         plain_ms=time_ms(
             lambda: gicp_error_multi_plain(corr, src.points, Ts, src.num_points)),
         library_ms=None, pairs=n * Ts.shape[0], bound=bound(ops, nbytes))
+    print(f"K2 at {n} rows × {Ts.shape[0]} poses: kernel alone (profiler, one a call) "
+          f"{records['gicp_error_multi']['ms']:.4f} ms, its wrapper {time_ms(k2):.4f} ms "
+          f"by one-call events on {card}")
     return records
 
 
@@ -1113,12 +1125,12 @@ def pruned_pairs(target, queries, query, d_k, m: int, block: int = BLOCK_QUERIES
 
 
 def split_checks(tpts, tnum, qs, m: int, rng, card) -> dict:
-    """K9 (both variants) and K10 (k = 10, 20, 64) against their plain
+    """K9 (both variants), K10 and K11 (k = 10, 20, 64) against their plain
     versions and their first forms at Q = 1, 64, 4096 and m, on the scan and
     on a duplicate-heavy grid of m points in 24³ cells queried with itself;
-    one launch a call, by the counters and (K10 at m², k = 10) by the
-    profiler. Then K10, its first form and K11 in turns by query count (k =
-    10; at m also k = 20). Returns {(Q, k): {name: ms}}."""
+    one launch a call, by the counters and by the profiler. Then K10, K11
+    and their first forms in turns by query count (k = 10; at m also k =
+    20), and each kernel alone. Returns {(Q, k): {name: ms}}."""
     dev = tpts.device
     grid = PointCloud.from_points(rng.integers(0, 24, (m, 3)).astype(np.float32),
                                   device=dev)
@@ -1145,9 +1157,16 @@ def split_checks(tpts, tnum, qs, m: int, rng, card) -> dict:
                       f"at Q={nq}, k={k}")
                 check(launches_per_call(knn, lambda: knn(t, num, sub, k)) == 1,
                       "K10 launched other than once a call")
-    print(f"K9 (vpu, mxu) and K10 (k = 10, 20, 64) equal to their plain versions and "
-          f"first forms at Q = 1, 64, 4096, {m} on the scan and on a grid of {m} "
-          f"points in 24³ cells; one launch a call")
+                new11, old11 = knn_T(t, num, sub, k), _knn_T_v1(t, num, sub, k)
+                check(all(torch.equal(a, b) and torch.equal(a, c)
+                          for a, b, c in zip(new11, ref, old11)),
+                      f"K11 differs from its plain version, K10 or its first form on "
+                      f"the {cloud} at Q={nq}, k={k}")
+                check(launches_per_call(knn_T, lambda: knn_T(t, num, sub, k)) == 1,
+                      "K11 launched other than once a call")
+    print(f"K9 (vpu, mxu), K10 and K11 (k = 10, 20, 64) equal to their plain versions "
+          f"and first forms (K11 to K10) at Q = 1, 64, 4096, {m} on the scan and on a "
+          f"grid of {m} points in 24³ cells; one launch a call")
     alone = one_kernel_per_call(lambda: knn(tpts, tnum, qs, K_NEIGHBORS),
                                 "knn_split_kernel")
     sms = knn_cuda._sm_count(dev.index)
@@ -1158,7 +1177,8 @@ def split_checks(tpts, tnum, qs, m: int, rng, card) -> dict:
             t = turns[nq, k] = time_turns({
                 "knn": lambda: knn(tpts, tnum, sub, k),
                 "knn v1": lambda: _knn_v1(tpts, tnum, sub, k),
-                "knn_T": lambda: knn_T(tpts, tnum, sub, k)})
+                "knn_T": lambda: knn_T(tpts, tnum, sub, k),
+                "knn_T v1": lambda: _knn_T_v1(tpts, tnum, sub, k)})
             fastest = min(t, key=t.get)
             # The kernels alone: a one-call event window holds the wrapper's
             # host time too, which dominates at a few queries.
@@ -1166,14 +1186,25 @@ def split_checks(tpts, tnum, qs, m: int, rng, card) -> dict:
                                               "knn_split_kernel")
             t["kernel v1"] = one_kernel_per_call(lambda: _knn_v1(tpts, tnum, sub, k),
                                                  "knn_kernel")
+            t["K11 kernel"] = one_kernel_per_call(lambda: knn_T(tpts, tnum, sub, k),
+                                                  "knn_warp_split_kernel")
+            t["K11 kernel v1"] = one_kernel_per_call(
+                lambda: _knn_T_v1(tpts, tnum, sub, k), "knn_warp_kernel_v1")
+            fastest_alone = min(("K10", t["kernel"]), ("K11", t["K11 kernel"]),
+                                key=lambda x: x[1])[0]
             nsplit = knn_cuda.split_plan(nq, tpts.shape[0], knn_cuda.KNN_BLOCK_QUERIES, sms)
             chunk = knn_cuda.split_chunk(m, nsplit,
                                          least=knn_cuda.knn_least_rows(nq, k, sms))
-            print(f"K10 in turns at Q={nq}, M={m}, k={k}: knn {t['knn']:.4f} ms "
+            wsplit = knn_cuda.warp_plan(nq, tpts.shape[0], k, sms)
+            print(f"K10, K11 in turns at Q={nq}, M={m}, k={k}: knn {t['knn']:.4f} ms "
                   f"({nsplit} chunks of {chunk} rows planned), first "
                   f"form {t['knn v1']:.4f} ms, K11 knn_T {t['knn_T']:.4f} ms "
-                  f"({fastest} fastest); kernels alone by the profiler: knn "
-                  f"{t['kernel']:.4f} ms, first form {t['kernel v1']:.4f} ms on {card}")
+                  f"({wsplit} chunks of {knn_cuda.split_chunk(m, wsplit)} rows, "
+                  f"{knn_cuda.warp_block_queries(k)} queries a block), its first form "
+                  f"{t['knn_T v1']:.4f} ms ({fastest} fastest); kernels alone by the "
+                  f"profiler: knn {t['kernel']:.4f} ms, first form {t['kernel v1']:.4f} "
+                  f"ms, K11 {t['K11 kernel']:.4f} ms, its first form "
+                  f"{t['K11 kernel v1']:.4f} ms ({fastest_alone} faster alone) on {card}")
     print(f"K10 kernel alone by the profiler at {m}², k={K_NEIGHBORS}: {alone:.4f} ms, "
           f"one kernel a call on {card}")
     return turns
@@ -1308,10 +1339,14 @@ def phase_search(scans, T_gt, rng, dev, card):
         "target": time_ms(lambda: pruned_prepare_target(tpts, tnum)),
         "queries": time_ms(lambda: pruned_prepare_queries(ptgt, qs)),
     }
+    pruned_ms["alone"] = one_kernel_per_call(
+        lambda: knn_pruned_launch(ptgt, tnum, qs, pqry, k), "knn_pruned_kernel")
     records["knn_pruned"].update(
-        ms=pruned_ms["launch"], pairs=need, bound=search_bound(m, m, k, need),
+        ms=pruned_ms["alone"], pairs=need, bound=search_bound(m, m, k, need),
         plain_ms=time_ms(lambda: knn_pruned_plain(tpts, tnum, qs, k), reps=3))
-    print(f"K12 at {m} × {m}, k={k}: launch alone {pruned_ms['launch']:.4f} ms over "
+    print(f"K12 at {m} × {m}, k={k}: kernel alone (profiler) {pruned_ms['alone']:.4f} ms, "
+          f"issue-rate floor {issue_floor_ms(need):.4f} ms; launch alone "
+          f"{pruned_ms['launch']:.4f} ms by one-call events over "
           f"{need} needed pairs ({100 * need / (m * m):.2f} % of Q·M); wrapper with "
           f"the target half kept {pruned_ms['kept']:.4f} ms, whole "
           f"{pruned_ms['whole']:.4f} ms; prologue alone: target half "
@@ -1322,6 +1357,14 @@ def phase_search(scans, T_gt, rng, dev, card):
     # K11 by query count (the first Q rows as queries).
     turns = split_checks(tpts, tnum, qs, m, rng, card)
     records["knn"]["ms"] = turns[m, K_NEIGHBORS]["knn"]
+    # K11's record is its kernel alone (the profiler), as K3's and K4's are.
+    t11 = turns[m, K_NEIGHBORS]
+    records["knn_T"]["ms"] = t11["K11 kernel"]
+    print(f"K11 at {m}², k={K_NEIGHBORS}: kernel alone {t11['K11 kernel']:.4f} ms against "
+          f"its first form's {t11['K11 kernel v1']:.4f} and K10's {t11['kernel']:.4f}; "
+          f"one-call events {t11['knn_T']:.4f} / {t11['knn_T v1']:.4f} / {t11['knn']:.4f} "
+          f"ms; bound {records['knn_T']['bound'][0]:.4f} ms by operations, issue-rate "
+          f"floor {issue_floor_ms(m * m):.4f} ms on {card}")
 
     # Raw-scan scale: the whole first frame against itself, k = 20.
     raw = PointCloud.from_points(scans[0], device=dev)
@@ -1338,6 +1381,9 @@ def phase_search(scans, T_gt, rng, dev, card):
     d11, i11 = knn_T(rpts, rnum, rq, 20)
     check(torch.equal(d10, d11) and torch.equal(i10, i11),
           "K11 differs from K10 at raw-scan scale")
+    d11, i11 = _knn_T_v1(rpts, rnum, rq, 20)
+    check(torch.equal(d10, d11) and torch.equal(i10, i11),
+          "K11's first form differs from K10 at raw-scan scale")
     d1, i1 = _knn_v1(rpts, rnum, rq, 20)
     check(torch.equal(d10, d1) and torch.equal(i10, i1),
           "K10 differs from its first form at raw-scan scale")
@@ -1348,9 +1394,12 @@ def phase_search(scans, T_gt, rng, dev, card):
         check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, ref, old)),
               f"K9 ({v}) differs from its plain version or first form at raw-scan scale")
     raw_ms = time_turns({"knn": lambda: knn(rpts, rnum, rq, 20),
-                         "knn v1": lambda: _knn_v1(rpts, rnum, rq, 20)}, reps=3)
-    raw_ms.update({name: time_ms(lambda: fn(rpts, rnum, rq, 20), reps=3)
-                   for name, fn in searches[1:]})
+                         "knn v1": lambda: _knn_v1(rpts, rnum, rq, 20),
+                         "knn_T": lambda: knn_T(rpts, rnum, rq, 20),
+                         "knn_T v1": lambda: _knn_T_v1(rpts, rnum, rq, 20)}, reps=3)
+    raw_ms["knn_pruned"] = time_ms(lambda: knn_pruned(rpts, rnum, rq, 20), reps=3)
+    raw_ms["K11 alone"] = one_kernel_per_call(lambda: knn_T(rpts, rnum, rq, 20),
+                                              "knn_warp_split_kernel")
     raw_tree = KdTree(points=rpts, num_points=rnum)
     rtgt = raw_tree.pruned_target()
     rqry = pruned_prepare_queries(rtgt, rq)
@@ -1360,11 +1409,13 @@ def phase_search(scans, T_gt, rng, dev, card):
     raw_ms["kept"] = time_ms(lambda: knn_pruned(rpts, rnum, rq, 20, target=rtgt), reps=3)
     b_ms, b_by = search_bound(nr, nr, 20)
     p_ms, p_by = search_bound(nr, nr, 20, need)
-    print(f"raw-scan scale, {nr} × {nr}, k=20: K11, K12 and K10's first form equal "
-          f"to K10, K10 and K9 equal to their plain versions on {len(pick)} sampled "
-          f"queries; knn {raw_ms['knn']:.3f} ms (first form {raw_ms['knn v1']:.3f}, in "
-          f"turns), knn_T {raw_ms['knn_T']:.3f} ms (bound "
-          f"{b_ms:.4f} ms by {b_by}); knn_pruned launch alone "
+    print(f"raw-scan scale, {nr} × {nr}, k=20: K11, K12 and the first forms of K10 and "
+          f"K11 equal to K10, K10 and K9 equal to their plain versions on {len(pick)} "
+          f"sampled queries; in turns: knn {raw_ms['knn']:.3f} ms (first form "
+          f"{raw_ms['knn v1']:.3f}), knn_T {raw_ms['knn_T']:.3f} ms (first form "
+          f"{raw_ms['knn_T v1']:.3f}; kernel alone {raw_ms['K11 alone']:.3f}; bound "
+          f"{b_ms:.4f} ms by {b_by}, issue-rate floor {issue_floor_ms(nr * nr):.3f} ms); "
+          "knn_pruned launch alone "
           f"{raw_ms['launch']:.3f} ms, with the target half kept "
           f"{raw_ms['kept']:.3f} ms, whole {raw_ms['knn_pruned']:.3f} ms over {need} "
           f"needed pairs, {100 * need / (nr * nr):.2f} % of Q·M (bound {p_ms:.4f} ms "
@@ -1644,45 +1695,74 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
           and knn_moments_rows.launches == before[1],
           "estimate_covariances of a submap does not go through K4 alone")
 
-    # K5 at the scan shape and at raw-scan scale against its plain version
-    # and K3; K3 against K4 at the scan shape.
+    # K5 at the scan shape and at raw-scan scale, k = 10 and 20, over the
+    # cloud's kept sort: against its plain version (every row at the scan
+    # shape, `sample` rows at raw-scan scale), and bit for bit against itself
+    # with the sort made in the call, K3 over the same sort and its first form
+    # (the original port); one launch a call; timed alone (the profiler) and in
+    # turns with K3 and the first form, bounded by the pairs its box walk
+    # cannot avoid. Then K3 against K4 at the scan shape.
     scan_t, tree = preprocess_points(scans[2 * nf - 1], LEAF, num_neighbors=k, device=dev)
     raw = PointCloud.from_points(scans[0], device=dev)
-    for cloud, label in ((scan_t, "scan shape"), (raw, "raw-scan scale")):
+    raw_kept = KdTree(points=raw.points, num_points=raw.num_points).pruned_target()
+    team = cov_fused_cuda.MOMENTS_Q_TEAM
+    for cloud, label, kept in ((scan_t, "scan shape", tree.pruned_target()),
+                               (raw, "raw-scan scale", raw_kept)):
         cp, cn, m = cloud.points, cloud.num_points, int(cloud.num_points)
         rows = None if m <= 32768 else torch.as_tensor(
             np.sort(rng.choice(m, size=sample, replace=False)), device=dev)
         for kk in (k, 20):
-            got = knn_moments_rows_q(cp, cn, kk)
+            new5 = lambda: knn_moments_rows_q(cp, cn, kk, target=kept)  # noqa: E731
+            old5 = lambda: _knn_moments_rows_q_v1(cp, cn, kk)  # noqa: E731
+            k3n = lambda: knn_moments_rows(cp, cn, kk, target=kept)  # noqa: E731
+            got = new5()
             ref = knn_moments_rows_q_plain(cp, cn, kk, rows=rows)
-            k3 = knn_moments_rows(cp, cn, kk)
             sel = got if rows is None else got[rows]
             check(torch.equal(sel[:, 9:11], ref[:, 9:11]),
                   f"K5 neighbour counts or kth distances differ at {label}, k={kk}")
             err = (sel[:, :9] - ref[:, :9]).abs()
             check((err - 1e-5 * ref[:, :9].abs()).max().item() <= 1e-4,
                   f"K5 moments differ from the plain version at {label}, k={kk}")
-            check(torch.equal(got[:, 9:11], k3[:, 9:11]),
-                  f"K5 and K3 choose different neighbours at {label}, k={kk}")
-            d3 = (got[:, :9] - k3[:, :9]).abs().max().item()
-            check(d3 <= 1e-5, f"K5's rows differ from K3's by {d3} at {label}, k={kk}")
+            check(torch.equal(got, knn_moments_rows_q(cp, cn, kk)),
+                  f"K5 with its sort made in the call differs at {label}, k={kk}")
+            check(torch.equal(got, k3n()), f"K5's rows differ from K3's at {label}, k={kk}")
+            check(torch.equal(got, old5()),
+                  f"K5 differs from its first form at {label}, k={kk}")
             check(bool(torch.all(got[m:] == 0)), "K5 padding rows are not zero")
-            t5 = time_ms(lambda: knn_moments_rows_q(cp, cn, kk), reps=None)
-            t3 = time_ms(lambda: knn_moments_rows(cp, cn, kk), reps=None)
-            print(f"K5 knn_moments_q at {label} ({m} rows), k={kk}: counts and d_k "
-                  f"equal to the plain version"
+            check(launches_per_call(knn_moments_rows_q, new5) == 1,
+                  "K5 launched other than once a call")
+            t5 = time_turns({"K5": new5, "first form": old5, "K3": k3n,
+                             "K5, sorting": lambda: knn_moments_rows_q(cp, cn, kk)},
+                            reps=REPS if rows is None else 5)
+            t5["alone"] = one_kernel_per_call(new5, "knn_moments_warp_walk_kernel")
+            t5["first form alone"] = one_kernel_per_call(old5, "knn_moments_warp_kernel_v1")
+            t5["K3 alone"] = one_kernel_per_call(k3n, r"knn_moments_kernel(?!_v1)")
+            self_q = PrunedQueries(qperm=kept.tperm[:m].to(torch.int32), qpos=None)
+            need = pruned_pairs(kept, self_q, cp[:m], got[:, 10], m, block=64 // team)
+            nbytes = 16.0 * m + 64.0 * cloud.capacity
+            b5 = bound(9.0 * need + 9.0 * kk * m, nbytes)
+            full_ms, full_by = bound(9.0 * m * m + 9.0 * kk * m, nbytes)
+            print(f"K5 knn_moments_q at {label} ({m} rows), k={kk}, {team} lanes a query: "
+                  f"counts and d_k equal to the plain version"
                   f"{'' if rows is None else f' on {len(rows)} sampled rows'}, max "
-                  f"|Δ moments| {err.max().item():.3e}; against K3: counts and d_k "
-                  f"equal, max |Δ| {d3:.2e}; K5 {t5:.3f} ms, K3 {t3:.3f} ms on {card}")
+                  f"|Δ moments| {err.max().item():.3e}; every row equal to K3's, to its "
+                  f"first form's and to its own with the sort made in the call; one "
+                  f"launch a call; kernel alone {t5['alone']:.4f} ms, its first form "
+                  f"{t5['first form alone']:.4f} ms, K3 {t5['K3 alone']:.4f} ms; in turns "
+                  f"(events) {t5['K5']:.4f} / {t5['first form']:.4f} / {t5['K3']:.4f} ms, "
+                  f"{t5['K5, sorting']:.4f} ms with its sort made in the call; over the "
+                  f"{need} pairs a pruned search of {64 // team}-query blocks cannot avoid "
+                  f"({100 * need / (m * m):.2f} % of N²) bound {b5[0]:.4f} ms by {b5[1]}, "
+                  f"issue-rate floor {issue_floor_ms(need):.4f} ms; over all N² pairs "
+                  f"{full_ms:.4f} ms by {full_by} on {card}")
             if label == "scan shape" and kk == k:
                 t1 = cp[:m, :3].contiguous()
                 records["knn_moments_q"] = dict(
-                    max_abs_err=err.max().item(), ms=t5,
+                    max_abs_err=err.max().item(), ms=t5["alone"],
                     plain_ms=time_ms(lambda: knn_moments_rows_q_plain(cp, cn, kk), reps=3),
                     library_ms=time_ms(
                         lambda: torch.topk(torch.cdist(t1, t1), kk, largest=False), reps=3),
-                    pairs=m * m,
-                    bound=bound(9.0 * m * m, 16.0 * m + 64.0 * cloud.capacity))
+                    pairs=need, bound=b5)
     m = int(scan_t.num_points)
     stgt = pruned_prepare_target(scan_t.points, scan_t.num_points)
     print(f"K3 against K4 at the scan shape ({m} rows, k={k}): K3 "
@@ -1862,9 +1942,15 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
           f"{n} rows differ ({100 * (~same & found).float().mean().item():.3f} %); "
           f"inliers {int(outs[2])} against {int(o1[2])}")
     ttq = scan_t.points[:m, :3].contiguous()
+    score = lambda: gicp_linearize_score(scan_tables, Ts, MAX_DIST_SQ)  # noqa: E731
+    score_ms = {"alone": one_kernel_per_call(score, r"gicp_linearize_kernel<[^>]*true>",
+                                             alone=False),
+                "wrapper": time_ms(score)}
+    print(f"K1's score form at {n} × {m}: kernel alone (profiler, one a call) "
+          f"{score_ms['alone']:.4f} ms, its wrapper {score_ms['wrapper']:.4f} ms by "
+          f"one-call events; issue-rate floor {issue_floor_ms(n * m):.4f} ms on {card}")
     records["gicp_linearize_score"] = dict(
-        max_abs_err=h_err,
-        ms=time_ms(lambda: gicp_linearize_score(scan_tables, Ts, MAX_DIST_SQ)),
+        max_abs_err=h_err, ms=score_ms["alone"],
         plain_ms=time_ms(lambda: gicp_linearize_score_plain(scan_tables, Ts, MAX_DIST_SQ),
                          reps=3),
         library_ms=time_ms(lambda: torch.cdist(q, ttq).min(dim=1), reps=3),
@@ -1905,7 +1991,8 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     check(counts["gicp_error_multi"] == r["iterations"] + 1,
           f"K2 launches {counts['gicp_error_multi']} != iterations + 1")
     check(counts["gicp_linearize"] == 0, "the map align launched K1")
-    m1q, _, _ = knn_moments(scan_t.points, scan_t.num_points, k, layout="q")
+    m1q, _, _ = knn_moments(scan_t.points, scan_t.num_points, k, layout="q",
+                            target=tree.pruned_target())
     check(bool(torch.isfinite(m1q).all()), "layout q moments not finite")
     Hs, _, inl_s, _ = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ,
                                             route="listed", mxu_dist=True)

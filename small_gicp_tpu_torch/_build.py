@@ -72,7 +72,8 @@ SIGNATURES = {
         "sgt_knn_moments_geometry": [_P],
         "sgt_knn_topk_idx": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
         "sgt_knn_topk_idx_v1": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
-        "sgt_knn_moments_warp": [_P, _P, _I, _I, _P, _P],
+        "sgt_knn_moments_warp": [_P, _P, _P, _I, _P, _I, _I, _P, _P],
+        "sgt_knn_moments_warp_v1": [_P, _P, _I, _I, _P, _P],
         "sgt_box_geometry": [_P],
     },
     "knn": {
@@ -80,7 +81,9 @@ SIGNATURES = {
         "sgt_knn": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
         "sgt_nn1_v1": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P],
         "sgt_knn_v1": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
-        "sgt_knn_warp": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+        "sgt_knn_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "sgt_knn_warp_v1": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+        "sgt_knn_warp_geometry": [_P],
         "sgt_knn_pruned": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
         "sgt_box_geometry": [_P],
         "sgt_knn_seed_tiles": [],

@@ -385,10 +385,12 @@ __device__ __forceinline__ void store_list(const float (&d)[KMAX],
 }
 
 // ------------------------------------------------------------------------
-// One warp per query (K11, K5): every lane keeps a private sorted list of
-// (d², row) in shared memory, ld / li [k][32] with one bank per lane, over
-// the rows it visits in index order; k rounds of a warp-wide arg-min on
-// (d², row) merge the 32 lists.
+// Lane lists (K11, K5): every lane keeps a private sorted list of (d², row)
+// in shared memory, ld / li [k][32] with one bank per lane; k rounds of an
+// arg-min on (d², row) over a team of lanes merge the team's lists. K11's
+// lanes see their rows in index order (lane_list_push); K5's see the sorted
+// tiles out of index order and insert in (d², row) order
+// (lane_list_push_lex). The first forms insert with lane_list_insert.
 
 __device__ __forceinline__ void lane_list_clear(float* ld, int* li, int lane, int k) {
   for (int s = 0; s < k; ++s) {
@@ -412,8 +414,58 @@ __device__ __forceinline__ void lane_list_insert(float* ld, int* li, int lane, i
   kth = ld[(k - 1) * 32 + lane];
 }
 
-// The smallest head over the lanes in (d², row) order, to every lane; the
-// lane that held it advances its head. Exhausted: (kBig, kNoIndex).
+// The new kernels' lists keep a fill count n ≤ k in a register: the slots
+// from n on hold what the caller filled them with (kBig / kNoIndex, or a
+// seed), so an insertion shifts only over the real entries behind it, and
+// the list's last entry is read back only once it is full. The caller has
+// checked that (d2, idx) goes in: below the fill value while n < k, below
+// the last entry after.
+__device__ __forceinline__ void lane_list_push(float* ld, int* li, int lane, int k,
+                                               int& n, float d2, int idx) {
+  int s = n < k ? n : k - 1;
+  while (s > 0 && ld[(s - 1) * 32 + lane] > d2) {
+    ld[s * 32 + lane] = ld[(s - 1) * 32 + lane];
+    li[s * 32 + lane] = li[(s - 1) * 32 + lane];
+    --s;
+  }
+  ld[s * 32 + lane] = d2;
+  li[s * 32 + lane] = idx;
+  if (n < k) ++n;
+}
+
+// The same in (d², row) order, whatever the order of arrival.
+__device__ __forceinline__ void lane_list_push_lex(float* ld, int* li, int lane, int k,
+                                                   int& n, float d2, int idx) {
+  int s = n < k ? n : k - 1;
+  while (s > 0 && lex_before(d2, idx, ld[(s - 1) * 32 + lane], li[(s - 1) * 32 + lane])) {
+    ld[s * 32 + lane] = ld[(s - 1) * 32 + lane];
+    li[s * 32 + lane] = li[(s - 1) * 32 + lane];
+    --s;
+  }
+  ld[s * 32 + lane] = d2;
+  li[s * 32 + lane] = idx;
+  if (n < k) ++n;
+}
+
+// The m-th smallest (1 ≤ m ≤ 32) of the 32 values v of a warp, to every
+// lane: each lane ranks its value by (v, lane) against all 32.
+__device__ __forceinline__ float warp_mth_smallest(float v, int m) {
+  const int lane = threadIdx.x & 31;
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float o = __shfl_sync(0xffffffffu, v, j);
+    rank += (o < v || (o == v && j < lane)) ? 1 : 0;
+  }
+  const unsigned at = __ballot_sync(0xffffffffu, rank == m - 1);
+  return __shfl_sync(0xffffffffu, v, __ffs(at) - 1);
+}
+
+// The smallest head over the TEAM lanes of a team (aligned groups of TEAM
+// lanes of a warp) in (d², row) order, to every lane of the team; the lane
+// that held it advances its head. Exhausted: (kBig, kNoIndex). Called by
+// every lane of the warp.
+template <int TEAM = 32>
 __device__ __forceinline__ void lane_lists_pop(const float* ld, const int* li,
                                                int lane, int k, int& head, float& bd,
                                                int& bi) {
@@ -421,7 +473,7 @@ __device__ __forceinline__ void lane_lists_pop(const float* ld, const int* li,
   bd = head < k ? ld[head * 32 + lane] : kBig;
   bi = hi;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = TEAM / 2; off > 0; off >>= 1) {
     const float od = __shfl_xor_sync(0xffffffffu, bd, off);
     const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
     if (lex_before(od, oi, bd, bi)) {

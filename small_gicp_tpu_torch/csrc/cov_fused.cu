@@ -5,7 +5,7 @@
 //
 //   knn_moments_kernel<KMAX>       `_make_moments_kernel_T`   (layout "t")
 //   knn_topk_idx_kernel<KMAX>      `_make_topk_idx_kernel_T`  (layout "ti")
-//   knn_moments_warp_kernel        `_make_moments_kernel`     (layout "q")
+//   knn_moments_warp_walk_kernel   `_make_moments_kernel`     (layout "q")
 //
 // K3 and K5: for every valid row q, the k nearest valid rows p (self
 // included) by exact difference-form d², and the query-centred moments of
@@ -59,13 +59,25 @@
 // and scanned every valid row in original order through a 512-row shared
 // tile, bounded by the kth d² over the ±32 rows around it in row order.
 //
-// K5 (the other work mapping of K3's first form, as K11 is to K10): one
-// warp per query. Lanes stride the rows, each lane keeps a private sorted
-// list of (d², row) in shared memory, k rounds of a shuffle arg-min on
-// (d², row) merge them (common.cuh), and the warp gathers the k winners'
-// rows and sums their offsets in slot order, in K3's operation order. It
-// picks the neighbours K3 picks. It fills the card where queries are few;
-// at scan sizes it pays 32 lanes' insertions for every query.
+// K5 (layout "q", the other work mapping of K3): a team of kWarpTeam lanes
+// a query, 64 / kWarpTeam queries a block, over the same walk as K3 — the
+// Morton window bound, the parallel cull passes from the block's own box
+// outwards, the two-stage ring — as the Pallas kernel walks its live-tile
+// lists over the sorted cloud. The team's lanes deal each staged tile's
+// rows (member t takes rows t, t + kWarpTeam, …, kWarpBatch of them loaded
+// before their distances), each into its own sorted list in shared memory
+// (common.cuh's lane lists, k × 32 entries a warp, in (d², original row)
+// order since tiles come out of row order) seeded with the query's window
+// bound and kept with a fill count, so that an insertion shifts only over
+// real entries; the team also deals the window's rows to take that bound.
+// k rounds of a team-wide arg-min merge the lists, and every lane of the
+// team sums the winners' offsets in slot order with K3's add_offset, so
+// the rows equal K3's bit for bit. What bounds it is K3's: the pairs the
+// walk cannot avoid (operations). Teams of 8 lanes (8 queries a block) beat
+// 16 and 32 (tools/warp_kernel_sweep.py). The first form (knn_moments_warp_kernel_v1, entry
+// sgt_knn_moments_warp_v1, on no path) gave a warp to each query over every
+// valid row in row order, staged synchronously, with cold lists: a dense
+// scan where the Pallas kernel walks live tiles.
 
 #include <cuda_runtime.h>
 
@@ -78,7 +90,7 @@ using sgt::kBig;
 constexpr int kMomThreads = 64;
 constexpr int kMomTile = 512;
 constexpr int kWindow = 32;
-constexpr int kWarpTile = 256;  // rows staged at once (K5)
+constexpr int kWarpTile = 256;  // rows staged at once (K5's first form)
 constexpr float kValidSq = 1e16f;
 
 // Add one neighbour's offset d = p − q to the moment row o.
@@ -255,9 +267,14 @@ knn_topk_idx_kernel_v1(const float* __restrict__ tsorted, const int* __restrict_
 constexpr int kOutward = 1;
 constexpr int kWalkMinBlocks = 16;
 constexpr int kTeam = 4;
+constexpr int kWarpTeam = 8;   // lanes that serve one of K5's queries
+constexpr int kWarpBatch = 8;  // rows a lane of K5 loads before their distances
 constexpr int kWalkWarps = sgt::kPrunedThreads / 32;
-static_assert(kTeam >= 1 && kTeam <= 32 && 32 % kTeam == 0,
+static_assert(kTeam >= 1 && kTeam <= 32 && 32 % kTeam == 0 && kWarpTeam >= 1 &&
+                  kWarpTeam <= 32 && 32 % kWarpTeam == 0,
               "a team is a power of two of a warp's lanes");
+static_assert(sgt::kBoxRows % (kWarpTeam * kWarpBatch) == 0,
+              "K5's batches cover a full tile");
 
 // Offer the cnt staged rows of sorted tile t to the block's seeded lists,
 // in (d², original index) order: team member `member` of TEAM takes rows
@@ -290,34 +307,24 @@ __device__ __forceinline__ void offer_seeded(const float4* tile, int cnt,
 static_assert(2 * sgt::kBoxRows * 16 + sgt::kCullPass * 9 + 64 <= 232448 / 16,
               "the walk's shared memory keeps fewer than 16 blocks on an SM");
 
-// The walk of a block whose first query is valid (the same for all its
+// The passes of a block whose first query is valid (the same for all its
 // threads): TEAM threads serve one query, kPrunedThreads / TEAM queries a
 // block; thread tid holds the query at sorted position i (active: i < m)
-// with point q, as member tid % TEAM. On return its list (d, p0) holds the k
-// first of its rows within the query's reach in (d², original index)
-// order, empty slots (reach', kNoIndex) as above. Called by all threads.
-template <int KMAX, int TEAM>
-__device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m,
-                                            const float* __restrict__ tbox, int k,
-                                            int window, int i, bool active, float qx,
-                                            float qy, float qz, float (&d)[KMAX],
-                                            unsigned (&p0)[KMAX], float& kth,
-                                            unsigned& kth0) {
+// with point q, whose bound is `reach`. Each live tile that is staged goes
+// to offer(tile, rows, tile index), called by all threads; R starts at the
+// largest reach and tightens after each pass to the largest kth() over the
+// block (each thread's kth() ≤ its reach bounds its query's kth distance).
+template <int TEAM, class Offer, class Kth>
+__device__ __forceinline__ void walk_passes(const float4* __restrict__ t4, int m,
+                                            const float* __restrict__ tbox, bool active,
+                                            float qx, float qy, float qz, float reach,
+                                            Offer&& offer, Kth&& kth) {
   __shared__ __align__(16) float4 tile[2][sgt::kBoxRows];
   __shared__ int live[sgt::kCullPass];
   __shared__ float live_gap[sgt::kCullPass];
   __shared__ int counts[sgt::kCullWords];
   __shared__ float sw[kWalkWarps];
-  const int member = TEAM == 1 ? 0 : (int)threadIdx.x % TEAM;
 
-  // The query's bound: the kth smallest d² over its Morton window.
-  float reach = kBig;
-  if (active) {
-    const int lo = max(0, min(i - window / 2, m - window));
-    reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
-  }
-  kth = fminf(reach, nextafterf(kBig, 0.f));
-  sgt::topk_fill<KMAX>(d, kth);
   float lo[3], hi[3];  // the block's query box
   sgt::block_box(active, qx, qy, qz, sw, lo, hi);
   float bound = sgt::block_max(active ? reach : 0.f, sw);
@@ -348,14 +355,12 @@ __device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m
       __pipeline_wait_prior(1);  // this thread's copies of tile j landed
       __syncthreads();           // and every other thread's
       const int tt = live[j];
-      offer_seeded<KMAX, TEAM>(tile[slot], min(sgt::kBoxRows, m - tt * sgt::kBoxRows),
-                               tbox, tt, member, active, qx, qy, qz, k, d, p0, kth,
-                               kth0);
+      offer(tile[slot], min(sgt::kBoxRows, m - tt * sgt::kBoxRows), tt);
       __syncthreads();  // the slot is read; tile `next + 1` may land there
       j = next;
       slot ^= 1;
     }
-    bound = sgt::block_max(active ? kth : 0.f, sw);  // kth ≤ reach
+    bound = sgt::block_max(active ? kth() : 0.f, sw);
     // The next pass: the adjacent P boxes above and below in turn.
     if (above < ntiles && (up || below == 0)) {
       first = above;
@@ -368,6 +373,35 @@ __device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m
     }
     up = !up;
   }
+}
+
+// The walk of K4 and K3 (walk_passes) with each thread's list (d, p0) in
+// registers: on return it holds the k first of the thread's rows within the
+// query's reach — the kth smallest d² over its Morton window — in (d²,
+// original index) order, empty slots (reach', kNoIndex) as above. Called by
+// all threads.
+template <int KMAX, int TEAM>
+__device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m,
+                                            const float* __restrict__ tbox, int k,
+                                            int window, int i, bool active, float qx,
+                                            float qy, float qz, float (&d)[KMAX],
+                                            unsigned (&p0)[KMAX], float& kth,
+                                            unsigned& kth0) {
+  const int member = TEAM == 1 ? 0 : (int)threadIdx.x % TEAM;
+  float reach = kBig;
+  if (active) {
+    const int lo = max(0, min(i - window / 2, m - window));
+    reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
+  }
+  kth = fminf(reach, nextafterf(kBig, 0.f));
+  sgt::topk_fill<KMAX>(d, kth);
+  walk_passes<TEAM>(
+      t4, m, tbox, active, qx, qy, qz, reach,
+      [&](const float4* tile, int cnt, int tt) {
+        offer_seeded<KMAX, TEAM>(tile, cnt, tbox, tt, member, active, qx, qy, qz, k, d,
+                                 p0, kth, kth0);
+      },
+      [&] { return kth; });
 }
 
 // Empty slots of a walked list back to (kBig, kNoIndex).
@@ -490,7 +524,7 @@ knn_moments_kernel(const float* __restrict__ pts, const float* __restrict__ tsor
 // ---------------------------------------------------------------- K5 ----
 
 __global__ void __launch_bounds__(128)
-knn_moments_warp_kernel(const float* __restrict__ pts, const int* __restrict__ num,
+knn_moments_warp_kernel_v1(const float* __restrict__ pts, const int* __restrict__ num,
                         int n, int k, float* __restrict__ out) {
   // tile [kWarpTile] float4 | per warp: d [k][32] float, row [k][32] int
   extern __shared__ float4 smem[];
@@ -554,6 +588,138 @@ knn_moments_warp_kernel(const float* __restrict__ pts, const int* __restrict__ n
   if (lane == 0) store_row(out, i, o);
 }
 
+
+// pts [n,4] in original order; tsorted / tbox as K3's; out [n,16] in
+// original row order. Dynamic shared memory: per warp the lane lists, d
+// [k][32] float then row [k][32] int.
+template <int TEAM>
+__global__ void __launch_bounds__(sgt::kPrunedThreads)
+knn_moments_warp_walk_kernel(const float* __restrict__ pts,
+                             const float* __restrict__ tsorted,
+                             const int* __restrict__ num, int n,
+                             const float* __restrict__ tbox, int k, int window,
+                             float* __restrict__ out) {
+  extern __shared__ float lane_lists[];
+  constexpr int kQueries = sgt::kPrunedThreads / TEAM;
+  const int lane = threadIdx.x & 31, member = lane % TEAM;
+  float* ld = lane_lists + (threadIdx.x >> 5) * k * 64;
+  int* li = reinterpret_cast<int*>(ld + k * 32);
+  const int i = blockIdx.x * kQueries + threadIdx.x / TEAM;  // sorted position
+  const int m = min(*num, n);
+  const bool active = i < m;
+  const float4* t4 = reinterpret_cast<const float4*>(tsorted);
+  const float4* p4 = reinterpret_cast<const float4*>(pts);
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  int row = 0;
+  if (i < n) {
+    const float4 q = t4[i];
+    qx = q.x;
+    qy = q.y;
+    qz = q.z;
+    row = __float_as_int(q.w);
+  }
+
+  float o[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) o[c] = 0.f;
+  // A block of padding rows only writes zero rows.
+  if (blockIdx.x * kQueries < m) {
+    // The query's bound: the kth smallest d² over its Morton window, whose
+    // rows the team deals into cold lists (the sorted position as the
+    // index), then k pops.
+    sgt::lane_list_clear(ld, li, lane, k);
+    float kth = kBig;
+    int n = 0;  // entries in the lane's list
+    if (active) {
+      const int lo = max(0, min(i - window / 2, m - window));
+      const int hi = min(m, lo + window);
+      for (int j = lo + member; j < hi; j += TEAM) {
+        const float4 p = t4[j];
+        float dx, dy, dz;
+        const float d2 = sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
+        if (d2 < kth) {
+          sgt::lane_list_push(ld, li, lane, k, n, d2, j);
+          if (n == k) kth = ld[(k - 1) * 32 + lane];
+        }
+      }
+    }
+    float reach = kBig;
+    int head = 0;
+    for (int r = 0; r < k; ++r) {
+      int bi;
+      sgt::lane_lists_pop<TEAM>(ld, li, lane, k, head, reach, bi);
+    }
+    if (!active) reach = kBig;
+    // Seed every slot with (reach', kNoIndex): one (d², row) compare against
+    // the list's end also tests d² ≤ reach and d² < kBig.
+    kth = fminf(reach, nextafterf(kBig, 0.f));
+    int kth0 = sgt::kNoIndex;
+    n = 0;
+    for (int s = 0; s < k; ++s) {
+      ld[s * 32 + lane] = kth;
+      li[s * 32 + lane] = sgt::kNoIndex;
+    }
+    walk_passes<TEAM>(
+        t4, m, tbox, active, qx, qy, qz, reach,
+        [&](const float4* tile, int cnt, int tt) {
+          // The warp skips the tile if its box lies beyond each lane's kth.
+          const bool wanted =
+              active &&
+              !(sgt::box_gap2(tbox + (size_t)tt * 8, qx, qy, qz, qx, qy, qz) > kth);
+          if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
+          // kWarpBatch rows a lane at a time: the loads first, then the
+          // distances; only a batch with a candidate inserts, each row
+          // tested again against the list's end.
+          for (int j0 = member; j0 < cnt; j0 += TEAM * kWarpBatch) {
+            float4 p[kWarpBatch];
+            float d2[kWarpBatch];
+#pragma unroll
+            for (int u = 0; u < kWarpBatch; ++u) p[u] = tile[min(j0 + TEAM * u, cnt - 1)];
+            bool any = false;
+#pragma unroll
+            for (int u = 0; u < kWarpBatch; ++u) {
+              float dx, dy, dz;
+              d2[u] = sgt::sq_dist(qx, qy, qz, p[u].x, p[u].y, p[u].z, dx, dy, dz);
+              any |= j0 + TEAM * u < cnt &&
+                     sgt::lex_before(d2[u], __float_as_int(p[u].w), kth, kth0);
+            }
+            if (!any) continue;
+#pragma unroll
+            for (int u = 0; u < kWarpBatch; ++u) {
+              const int idx = __float_as_int(p[u].w);  // original row index
+              if (j0 + TEAM * u < cnt && sgt::lex_before(d2[u], idx, kth, kth0)) {
+                sgt::lane_list_push_lex(ld, li, lane, k, n, d2[u], idx);
+                if (n == k) {
+                  kth = ld[(k - 1) * 32 + lane];
+                  kth0 = li[(k - 1) * 32 + lane];
+                }
+              }
+            }
+          }
+        },
+        [&] { return kth; });
+    // Empty slots back to (kBig, kNoIndex); then merge, and sum the winners'
+    // offsets in slot order (every lane of the team alike).
+    for (int s = 0; s < k; ++s)
+      if (li[s * 32 + lane] == sgt::kNoIndex) ld[s * 32 + lane] = kBig;
+    head = 0;
+    float d_k = kBig;
+    for (int r = 0; r < k; ++r) {
+      int wi;
+      sgt::lane_lists_pop<TEAM>(ld, li, lane, k, head, d_k, wi);
+      if (active && d_k < kValidSq) {
+        const float4 p = p4[wi];
+        float dx, dy, dz;
+        sgt::sq_dist(p.x, p.y, p.z, qx, qy, qz, dx, dy, dz);
+        add_offset(o, dx, dy, dz);
+      }
+    }
+    if (active) o[10] = d_k;
+  }
+  if (i < n && member == 0) store_row(out, row, o);
+}
+
 }  // namespace
 
 extern "C" {
@@ -593,10 +759,11 @@ int sgt_knn_moments_v1(const float* pts, const int* num, int n, int k, float* ou
   return (int)cudaGetLastError();
 }
 
-// K3's team size, which the wrapper's plain account repeats: out[0] =
-// threads a query.
+// K3's and K5's team sizes, which the wrapper's plain accounts repeat:
+// out[0..1] = threads a query of K3, lanes a query of K5.
 int sgt_knn_moments_geometry(int* out) {
   out[0] = kTeam;
+  out[1] = kWarpTeam;
   return 0;
 }
 
@@ -638,15 +805,31 @@ int sgt_knn_topk_idx_v1(const float* tsorted, const int* num, int n, const float
   return (int)cudaGetLastError();
 }
 
-// K5. Arguments as K3's first form's. Four queries (warps) per block up to k = 32, two
-// above, so the lists stay within 32 KB of shared memory.
-int sgt_knn_moments_warp(const float* pts, const int* num, int n, int k, float* out,
+// K5. Arguments as K3's; a block of kPrunedThreads threads serves
+// kPrunedThreads / kWarpTeam queries.
+int sgt_knn_moments_warp(const float* pts, const float* tsorted, const int* num, int n,
+                         const float* tbox, int k, int window, float* out,
                          void* stream) {
+  if (k < 1 || k > 64 || n <= 0 || window < k) return (int)cudaErrorInvalidValue;
+  constexpr int kQueries = sgt::kPrunedThreads / kWarpTeam;
+  const int blocks = (n + kQueries - 1) / kQueries;
+  const size_t shared = (size_t)(sgt::kPrunedThreads / 32) * k * 32 * 8;
+  knn_moments_warp_walk_kernel<kWarpTeam>
+      <<<blocks, sgt::kPrunedThreads, shared, (cudaStream_t)stream>>>(
+          pts, tsorted, num, n, tbox, k, window, out);
+  return (int)cudaGetLastError();
+}
+
+// K5's first form. Arguments as K3's first form's. Four queries (warps) per
+// block up to k = 32, two above, so the lists stay within 32 KB of shared
+// memory.
+int sgt_knn_moments_warp_v1(const float* pts, const int* num, int n, int k, float* out,
+                            void* stream) {
   if (k < 1 || k > 64 || n <= 0) return (int)cudaErrorInvalidValue;
   const int warps = k <= 32 ? 4 : 2;
   const int blocks = (n + warps - 1) / warps;
   const size_t shared = kWarpTile * sizeof(float4) + (size_t)warps * k * 32 * 8;
-  knn_moments_warp_kernel<<<blocks, warps * 32, shared, (cudaStream_t)stream>>>(
+  knn_moments_warp_kernel_v1<<<blocks, warps * 32, shared, (cudaStream_t)stream>>>(
       pts, num, n, k, out);
   return (int)cudaGetLastError();
 }

@@ -5,12 +5,13 @@
 //   nn1_split_kernel<false|true>  `_nn1_kernel_vpu` / `_nn1_kernel`
 //                                 (nearest_neighbor_pallas, "vpu" / "mxu")
 //   knn_split_kernel<KMAX>        `_make_knn_kernel`        (knn_pallas)
-//   knn_warp_kernel               `_make_knn_kernel_T`      (knn_pallas_T)
+//   knn_warp_split_kernel<QW>     `_make_knn_kernel_T`      (knn_pallas_T)
 //   knn_pruned_kernel<KMAX>       `_make_knn_listed_kernel` (knn_pallas_pruned)
 //
 // nn1_kernel and knn_kernel are the first forms of K9 and K10, one thread
-// per query over every row; they stay as yardsticks (entries sgt_nn1_v1,
-// sgt_knn_v1) and are on no path.
+// per query over every row, and knn_warp_kernel_v1 the first form of K11;
+// they stay as yardsticks (entries sgt_nn1_v1, sgt_knn_v1, sgt_knn_warp_v1)
+// and are on no path.
 //
 // Shared contract. Targets are [M,4] float32 rows (x y z w) of which the
 // first *tnum are valid (a device int32 read in place; sentinel rows beyond
@@ -76,13 +77,45 @@
 //       per-query word after every tile, and each keeps only rows within
 //       the smallest: a row of the final list is never cut.
 //
-// K11 (kNN, one warp per query): the other work mapping of the same
-// search, for few queries. Lanes stride the target rows, each lane keeps a
-// private sorted list in shared memory (k × 32 entries per warp, one bank
-// per lane), and the lists are merged by k rounds of a warp-wide arg-min on
-// (d², index) through shuffles. Bit-identical to K10: each lane keeps its k
-// first rows in (d², index) order, every row of the global top-k is among
-// its lane's, and the merge emits them in that order.
+// K11 (kNN, a warp per few queries): the other work mapping of the same
+// search, for few queries. A warp holds QW queries in registers and its
+// lanes stride the rows of each staged tile: lane l takes the rows whose
+// index is l mod 32, in index order, and computes QW distances a row. Each
+// lane keeps a private sorted list per query in shared memory (k × 32
+// entries a query, one bank per lane), and the lists are merged by k rounds
+// of a warp-wide arg-min on (d², index) through shuffles. A block holds up
+// to kWarpMaxWarps warps, as many as kWarpListBytes of lists allow; QW is
+// kWarpQueries up to k = 16 and halves at k = 32 and above. The first form
+// (knn_warp_kernel_v1: one query a warp, four warps a block, the whole
+// target staged synchronously, cold lists, no split) re-read the target
+// for every 4 queries, inserted most rows of a scan-ordered cloud and left
+// the card idle at a few queries. This one splits as K10 does: gridDim.y
+// chunks of the valid rows (split_chunk; the wrapper plans them from the
+// query blocks and the SM count), each streamed through a two-stage
+// cp.async ring of kWarpStage rows (a lane takes kWarpStage / 32 rows of
+// a stage, QW distances each, between two barriers; kScanBatch rows a lane
+// are loaded before their distances, and only a batch holding a candidate
+// takes the branch that inserts); each query of a chunk
+// first takes a bound B ≥ its kth d² over the chunk from a strided sample
+// of the chunk's rows (every kWarpSampleStep-th, streamed through the ring
+// before the scan) — sample s goes to lane s mod 32, each lane
+// keeps its smallest d² (its two smallest above k = 32) in registers, and B
+// is the k-th smallest of the lanes' values (the ⌈k/2⌉-th of their second
+// smallest), a value with k distinct rows at or below it — and a lane then
+// keeps only rows with d² ≤ B. Each lane list keeps a fill count, so an
+// insertion shifts only over its real entries. With more than one
+// chunk every chunk's list (popped in (d², index) order) goes to a
+// workspace [S, k, Q], and the last block of the query block (a ticket)
+// merges them: the lists laid end to end, lane l takes entries l, l + 32,
+// … into its lane list in (d², index) order, and k pops give the query's
+// list. The merge's loads go out kMergeBatch at a time.
+// Bit-identical to K10: every row of the global top-k is among its chunk's
+// k first within B, among its lane's k first, and the merges keep (d²,
+// index) order. What bounds it is K10's: all Q·M pairs (operations).
+// Its time follows the warps an SM holds (the lists' shared memory sets
+// them) and the insertions; tools/warp_kernel_sweep.py chose 96 KB of lists
+// a block over 64 KB, 4 queries a warp over 8 and 1,024-row stages over 512
+// and 2,048.
 //
 // K12 (pruned kNN): work ∝ local density. The wrapper sorts the target by
 // Morton code (valid rows first) into rows (x y z | original index), builds
@@ -104,6 +137,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -120,7 +155,19 @@ constexpr int kSplitTile = 256;    // rows per ring stage; chunks are multiples
 constexpr int kSampleStep = 8;     // K10's bound samples every 8th row of a
 constexpr int kChunkSample = 2048;  // chunk, or a larger step above this many
 constexpr int kRegList = 16;       // K10's lists up to this long live in registers
-constexpr int kWarpTile = 256;     // target rows staged at once (K11)
+constexpr int kWarpTile = 256;     // target rows staged at once (K11 v1)
+// K11: queries a warp holds (up to k = 16; half that up to k = 32, a
+// quarter above), warps a block at most, bytes of lane lists a block at
+// most, rows a ring stage (tools/warp_kernel_sweep.py).
+constexpr int kWarpQueries = 4;
+constexpr int kWarpMaxWarps = 8;
+constexpr int kWarpListBytes = 98304;
+constexpr int kWarpStage = 1024;   // K11's rows a ring stage
+constexpr int kMergeBatch = 8;     // K11's merge loads a lane issues at once
+constexpr int kWarpSampleStep = 4;  // K11's bound samples every 4th row of a chunk
+constexpr int kScanBatch = 8;      // K11's rows a lane loads before their distances
+static_assert(kScanBatch < 32, "K11's candidate bits of one query fit a word");
+static_assert(kWarpStage % kSplitTile == 0, "K11's stage is whole ring tiles");
 constexpr int kTile = sgt::kBoxRows;  // sorted rows per box (K12)
 constexpr int kSeedTiles = 5;      // tiles around the anchor scanned first
 using sgt::kNoIndex;
@@ -638,7 +685,7 @@ knn_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
 // --------------------------------------------------------------- K11 ----
 
 __global__ void __launch_bounds__(128)
-knn_warp_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
+knn_warp_kernel_v1(const float* __restrict__ tgt, const int* __restrict__ tnum,
                 int mcap, const float* __restrict__ qry, int qstride, int nq, int k,
                 float* __restrict__ out_d, int* __restrict__ out_i) {
   // tile [kWarpTile] float4 | per warp: d [k][32] float, idx [k][32] int
@@ -686,6 +733,243 @@ knn_warp_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
       out_i[(size_t)i * k + r] = bd < kBig ? bi : 0;
     }
   }
+}
+
+
+// Queries a warp of K11 holds for k neighbours, and warps a block.
+__host__ __device__ __forceinline__ int warp_queries(int k) {
+  const int qw = k <= 16 ? kWarpQueries : k <= 32 ? kWarpQueries / 2 : kWarpQueries / 4;
+  return qw < 1 ? 1 : qw;
+}
+
+__host__ __device__ __forceinline__ int warp_block_warps(int k) {
+  const int w = kWarpListBytes / (warp_queries(k) * k * 32 * 8);
+  return w < 1 ? 1 : w > kWarpMaxWarps ? kWarpMaxWarps : w;
+}
+
+// Stream the rows lo + r · step, r < count, through K11's two-stage ring
+// of kWarpStage rows: body(tile, first r of the stage, rows) runs once a
+// stage has landed, while the next one is copied. Called by all threads.
+template <class Body>
+__device__ __forceinline__ void stream_rows(float4* ring, const float4* t4, int lo,
+                                            int count, int step, Body&& body) {
+  auto stage = [&](int t) {
+    float4* dst = ring + (t & 1) * kWarpStage;
+    const int first = t * kWarpStage, rows = min(kWarpStage, count - first);
+    for (int j = threadIdx.x; j < rows; j += blockDim.x)
+      __pipeline_memcpy_async(dst + j, t4 + lo + (size_t)(first + j) * step,
+                              sizeof(float4));
+  };
+  const int nstages = (count + kWarpStage - 1) / kWarpStage;
+  if (nstages > 0) stage(0);
+  __pipeline_commit();
+  for (int t = 0; t < nstages; ++t) {
+    if (t + 1 < nstages) stage(t + 1);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    body(ring + (t & 1) * kWarpStage, t * kWarpStage,
+         min(kWarpStage, count - t * kWarpStage));
+    __syncthreads();  // the stage is read; stage t + 2 may land there
+  }
+}
+
+// Pop the k entries of a warp's lane lists in (d², index) order: lane 0
+// writes entry s to d[s · stride], i[s · stride] (index 0 for an empty
+// slot where `clean`, else kNoIndex as it is).
+__device__ __forceinline__ void pop_list(const float* ld, const int* li, int lane, int k,
+                                         float* __restrict__ d, int* __restrict__ i,
+                                         size_t stride, bool clean) {
+  int head = 0;
+  for (int s = 0; s < k; ++s) {
+    float bd;
+    int bi;
+    sgt::lane_lists_pop(ld, li, lane, k, head, bd, bi);
+    if (lane == 0) {
+      d[s * stride] = bd;
+      i[s * stride] = clean && !(bd < kBig) ? 0 : bi;
+    }
+  }
+}
+
+// ws_d / ws_i [gridDim.y, k, nq] (used when gridDim.y > 1), tickets [query
+// blocks], 0 between launches. Dynamic shared memory: the ring of two
+// kWarpStage-row stages, then per warp QW lists of k × 32 (d², index)
+// entries.
+template <int QW>
+__global__ void __launch_bounds__(kWarpMaxWarps * 32)
+knn_warp_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum,
+                      int mcap, const float* __restrict__ qry, int qstride, int nq, int k,
+                      float* __restrict__ ws_d, int* __restrict__ ws_i,
+                      unsigned* __restrict__ tickets, float* __restrict__ out_d,
+                      int* __restrict__ out_i) {
+  using Mask = typename std::conditional<(QW * kScanBatch > 32), unsigned long long,
+                                         unsigned>::type;
+  extern __shared__ float4 smem[];
+  float4* ring = smem;  // [2][kWarpStage]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* lists = reinterpret_cast<float*>(smem + 2 * kWarpStage) +
+                 (size_t)warp * QW * k * 64;  // query r: d at r·k·64, index beside
+  const int q0 = (blockIdx.x * (blockDim.x >> 5) + warp) * QW;  // the warp's first query
+  const int m = min(*tnum, mcap);
+  const int chunk = split_chunk(m, kSplitTile);
+  const int lo = blockIdx.y * chunk;
+  const int cnt = max(0, min(m - lo, chunk));
+  const bool busy = q0 < nq;  // the same over the warp
+  const float4* t4 = reinterpret_cast<const float4*>(tgt);
+  const float inf = __int_as_float(0x7f800000);
+  auto ld = [&](int r) { return lists + (size_t)r * k * 64; };
+  auto li = [&](int r) { return reinterpret_cast<int*>(lists + (size_t)r * k * 64 + k * 32); };
+
+  float qx[QW], qy[QW], qz[QW], lim[QW], bnd[QW];
+  int n[QW];  // entries in lane list r
+#pragma unroll
+  for (int r = 0; r < QW; ++r) {
+    qx[r] = qy[r] = qz[r] = 0.f;
+    if (q0 + r < nq) load_query(qry, qstride, q0 + r, qx[r], qy[r], qz[r]);
+    sgt::lane_list_clear(ld(r), li(r), lane, k);
+    bnd[r] = kBig;
+    n[r] = 0;
+  }
+  // The chunk's bound B: every kWarpSampleStep-th row of the chunk,
+  // streamed through the ring, sample s taken by lane s mod 32. Each lane
+  // keeps the t smallest d² of its samples (t = 1 up to k = 32, 2 above) in
+  // registers; B is the ⌈k/t⌉-th smallest of the lanes' t-th values: the
+  // lanes at or below it hold at least k distinct rows within it, so B
+  // bounds the query's kth d² over the chunk.
+  if (cnt > kSplitTile) {
+    float v1[QW], v2[QW];  // the lane's smallest and second smallest
+#pragma unroll
+    for (int r = 0; r < QW; ++r) v1[r] = v2[r] = kBig;
+    stream_rows(ring, t4, lo, (cnt + kWarpSampleStep - 1) / kWarpSampleStep,
+                kWarpSampleStep, [&](const float4* tl, int, int rows) {
+                  if (!busy) return;
+#pragma unroll 4
+                  for (int j = lane; j < rows; j += 32) {
+                    const float4 p = tl[j];
+#pragma unroll
+                    for (int r = 0; r < QW; ++r) {
+                      float dx, dy, dz;
+                      const float d2 =
+                          sgt::sq_dist(qx[r], qy[r], qz[r], p.x, p.y, p.z, dx, dy, dz);
+                      v2[r] = fminf(v2[r], fmaxf(v1[r], d2));
+                      v1[r] = fminf(v1[r], d2);
+                    }
+                  }
+                });
+    const bool two = k > 32;
+    if (busy) {
+#pragma unroll
+      for (int r = 0; r < QW; ++r)
+        bnd[r] = sgt::warp_mth_smallest(two ? v2[r] : v1[r], two ? (k + 1) / 2 : k);
+    }
+  }
+  // A row enters lane list r if d² < lim[r] = min(the list's kth once
+  // full, the float above B).
+  float bnd_up[QW];
+#pragma unroll
+  for (int r = 0; r < QW; ++r) {
+    bnd_up[r] = nextafterf(bnd[r], inf);
+    lim[r] = fminf(kBig, bnd_up[r]);
+  }
+
+  // The scan: kScanBatch rows a lane at a time, all their loads first, then
+  // the distances, the candidates (d² < lim) as bits r · kScanBatch + u;
+  // only a batch with a candidate takes the branch that inserts them, query
+  // by query in row order (a lane sees its rows in index order, so ties keep
+  // the lower row), each tested again against its tightened limit.
+  stream_rows(ring, t4, lo, cnt, 1, [&](const float4* tl, int first, int rows) {
+    if (!busy) return;
+    const int base = lo + first;
+    for (int j0 = lane; j0 < rows; j0 += 32 * kScanBatch) {
+      float4 p[kScanBatch];
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) p[u] = tl[min(j0 + 32 * u, rows - 1)];
+      Mask bits = 0;
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+#pragma unroll
+        for (int r = 0; r < QW; ++r) {
+          float dx, dy, dz;
+          const float d2 =
+              sgt::sq_dist(qx[r], qy[r], qz[r], p[u].x, p[u].y, p[u].z, dx, dy, dz);
+          if (d2 < lim[r] && j0 + 32 * u < rows) bits |= Mask(1) << (r * kScanBatch + u);
+        }
+      }
+      if (!bits) continue;
+#pragma unroll
+      for (int r = 0; r < QW; ++r) {
+        unsigned b = (unsigned)(bits >> (r * kScanBatch)) & ((1u << kScanBatch) - 1u);
+        while (b) {
+          const int j = j0 + 32 * (__ffs(b) - 1);
+          b &= b - 1u;
+          const float4 pj = tl[j];
+          float dx, dy, dz;
+          const float d2 = sgt::sq_dist(qx[r], qy[r], qz[r], pj.x, pj.y, pj.z, dx, dy, dz);
+          if (d2 < lim[r]) {
+            sgt::lane_list_push(ld(r), li(r), lane, k, n[r], d2, base + j);
+            if (n[r] == k) lim[r] = fminf(ld(r)[(k - 1) * 32 + lane], bnd_up[r]);
+          }
+        }
+      }
+    }
+  });
+
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int r = 0; r < QW; ++r)
+      if (q0 + r < nq)
+        pop_list(ld(r), li(r), lane, k, out_d + (size_t)(q0 + r) * k,
+                 out_i + (size_t)(q0 + r) * k, 1, true);
+    return;
+  }
+  if (cnt > 0) {  // the merge skips empty chunks
+#pragma unroll
+    for (int r = 0; r < QW; ++r)
+      if (q0 + r < nq) {
+        const size_t at = (size_t)blockIdx.y * k * nq + q0 + r;
+        pop_list(ld(r), li(r), lane, k, ws_d + at, ws_i + at, nq, false);
+      }
+  }
+  if (!last_chunk(tickets)) return;
+  // Merge the chunks' lists: lane l takes entries l, l + 32, … of the
+  // non-empty chunks' lists laid end to end (entry f: chunk f / k, slot
+  // f % k), kMergeBatch at a time, into its list in (d², index) order.
+  const int entries = (m + chunk - 1) / chunk * k;
+#pragma unroll
+  for (int r = 0; r < QW; ++r) {
+    const int q = q0 + r;
+    if (q >= nq) continue;  // the same over the warp
+    sgt::lane_list_clear(ld(r), li(r), lane, k);
+    float kth = kBig;
+    int kth0 = kNoIndex, fill = 0;
+    for (int f0 = lane; f0 < entries; f0 += 32 * kMergeBatch) {
+      float d2[kMergeBatch];
+      int row[kMergeBatch];
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u) {
+        const int f = f0 + 32 * u;
+        d2[u] = kBig;
+        row[u] = kNoIndex;
+        if (f < entries) {
+          const size_t at = (size_t)f * nq + q;  // (chunk · k + slot) · nq + q
+          d2[u] = __ldcg(ws_d + at);
+          row[u] = __ldcg(ws_i + at);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u)
+        if (sgt::lex_before(d2[u], row[u], kth, kth0)) {
+          sgt::lane_list_push_lex(ld(r), li(r), lane, k, fill, d2[u], row[u]);
+          if (fill == k) {
+            kth = ld(r)[(k - 1) * 32 + lane];
+            kth0 = li(r)[(k - 1) * 32 + lane];
+          }
+        }
+    }
+    pop_list(ld(r), li(r), lane, k, out_d + (size_t)q * k, out_i + (size_t)q * k, 1, true);
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
 }
 
 // --------------------------------------------------------------- K12 ----
@@ -858,17 +1142,60 @@ int sgt_knn_v1(const float* tgt, const int* tnum, int mcap, const float* qry,
   return (int)cudaGetLastError();
 }
 
-// K11. Four queries (warps) per block up to k = 32, two above, so the
-// lists stay within 32 KB of shared memory.
+// K11. Chunks as for K9 (nsplit, split_chunk); ws_d / ws_i hold nsplit ·
+// k · nq entries when nsplit > 1; tickets are 0 between launches and left
+// so. A block holds warp_block_warps(k) warps of warp_queries(k) queries.
 int sgt_knn_warp(const float* tgt, const int* tnum, int mcap, const float* qry,
-                 int qstride, int nq, int k, float* out_d, int* out_i,
-                 void* stream) {
+                 int qstride, int nq, int k, int nsplit, float* ws_d, int* ws_i,
+                 unsigned* tickets, float* out_d, int* out_i, void* stream) {
+  if (bad_search(mcap, qstride, nq) || nsplit < 1 || nsplit > 65535 || k < 1 || k > 64)
+    return (int)cudaErrorInvalidValue;
+  const int qw = warp_queries(k), warps = warp_block_warps(k);
+  const int per_block = qw * warps;
+  const dim3 grid((nq + per_block - 1) / per_block, nsplit);
+  const size_t shared = 2 * kWarpStage * sizeof(float4) + (size_t)warps * qw * k * 32 * 8;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SGT_KNN_WARP(QW)                                                             \
+  case QW:                                                                           \
+    cudaFuncSetAttribute(knn_warp_split_kernel<QW>,                                  \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared); \
+    knn_warp_split_kernel<QW><<<grid, warps * 32, shared, s>>>(                      \
+        tgt, tnum, mcap, qry, qstride, nq, k, ws_d, ws_i, tickets, out_d, out_i);    \
+    break;
+  switch (qw) {
+    SGT_KNN_WARP(1)
+    SGT_KNN_WARP(2)
+    SGT_KNN_WARP(4)
+    SGT_KNN_WARP(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SGT_KNN_WARP
+  return (int)cudaGetLastError();
+}
+
+// K11's block shape and sample, which the wrapper's plan and plain
+// account repeat: out[0..3] = kWarpQueries, kWarpMaxWarps, kWarpListBytes,
+// kWarpSampleStep.
+int sgt_knn_warp_geometry(int* out) {
+  out[0] = kWarpQueries;
+  out[1] = kWarpMaxWarps;
+  out[2] = kWarpListBytes;
+  out[3] = kWarpSampleStep;
+  return 0;
+}
+
+// K11's first form: four queries (warps) per block up to k = 32, two
+// above, so the lists stay within 32 KB of shared memory.
+int sgt_knn_warp_v1(const float* tgt, const int* tnum, int mcap, const float* qry,
+                    int qstride, int nq, int k, float* out_d, int* out_i,
+                    void* stream) {
   if (bad_search(mcap, qstride, nq) || k < 1 || k > 64)
     return (int)cudaErrorInvalidValue;
   const int warps = k <= 32 ? 4 : 2;
   const int blocks = (nq + warps - 1) / warps;
   const size_t shared = kWarpTile * sizeof(float4) + (size_t)warps * k * 32 * 8;
-  knn_warp_kernel<<<blocks, warps * 32, shared, (cudaStream_t)stream>>>(
+  knn_warp_kernel_v1<<<blocks, warps * 32, shared, (cudaStream_t)stream>>>(
       tgt, tnum, mcap, qry, qstride, nq, k, out_d, out_i);
   return (int)cudaGetLastError();
 }

@@ -21,8 +21,11 @@ Three layouts, named as the JAX package names them:
     boxes culled in parallel passes — ``knn_topk_idx_walk_plain`` is the
     plain account of that walk); the winners are gathered and summed here
     with torch ops — the default above ``TI_MIN_ROWS`` rows;
-  * ``"q"`` (K5): K3's moment rows by the other work mapping, one warp per
-    query; by request only.
+  * ``"q"`` (K5): K3's moment rows by the other work mapping — the same
+    walk over the cloud's Morton sort and boxes with ``MOMENTS_Q_TEAM``
+    lanes a query, each lane's list in shared memory
+    (``knn_moments_walk_plain(team=MOMENTS_Q_TEAM)`` is the plain
+    account); by request only.
 
 ``knn_moments_rows`` returns the [N,16] rows of ``"t"`` and ``"q"``,
 
@@ -32,7 +35,7 @@ with d_k the kth d². The routing thresholds are the JAX package's; they
 were set by TPU memory and bind nothing on this card, and moving them is a
 measured decision for later.
 
-K3 and K4 take the cloud's sort and boxes (``morton_boxes``) as
+K3, K4 and K5 take the cloud's sort and boxes (``morton_boxes``) as
 ``target=`` when the caller keeps them (``KdTree.pruned_target()``: the
 covariance stage of ``preprocess_points`` and the align that follows share
 one sort of each cloud); without it they sort the cloud themselves.
@@ -40,8 +43,9 @@ one sort of each cloud); without it they sort the cloud themselves.
 On a CUDA tensor every wrapper launches its kernel (``csrc/cov_fused.cu``)
 or raises; on a CPU tensor it runs the plain version beside it. The first
 forms stay as yardsticks reached from no path: K3's brute-force scan in
-row order (``_knn_moments_rows_v1``) and K4's walk that tested the boxes
-one after another (``_knn_topk_idx_v1``).
+row order (``_knn_moments_rows_v1``), K4's walk that tested the boxes
+one after another (``_knn_topk_idx_v1``) and K5's dense scan with a warp a
+query (``_knn_moments_rows_q_v1``).
 """
 
 from __future__ import annotations
@@ -72,9 +76,11 @@ LAYOUTS = ("t", "ti", "q")
 # many rows, "ti" above, nothing above MAX_ROWS.
 TI_MIN_ROWS = 262_144
 MAX_ROWS = 1_048_576
-# Threads that serve one of K3's queries (kTeam of csrc/cov_fused.cu, held
-# against it when the library loads; tools/scan_walk_sweep.py).
+# Threads that serve one of K3's queries and lanes that serve one of K5's
+# (kTeam and kWarpTeam of csrc/cov_fused.cu, held against them when the
+# library loads; tools/scan_walk_sweep.py, tools/warp_kernel_sweep.py).
 MOMENTS_TEAM = 4
+MOMENTS_Q_TEAM = 8
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -87,7 +93,7 @@ def _check_k(k: int) -> None:
 def _library():
     morton_boxes.library("cov_fused")  # the box constants held
     return _build.library_with_geometry("cov_fused", "sgt_knn_moments_geometry",
-                                        (MOMENTS_TEAM,))
+                                        (MOMENTS_TEAM, MOMENTS_Q_TEAM))
 
 
 def _stream() -> int:
@@ -156,10 +162,10 @@ def knn_moments_rows_q_plain(points: torch.Tensor, num_points: torch.Tensor,
     return knn_moments_rows_plain(points, num_points, k, rows)
 
 
-def _launch_rows(wrapper, entry: str, points: torch.Tensor,
-                 num_points: torch.Tensor, k: int) -> torch.Tensor:
-    """Launch the entry ``entry`` of K5 or K3's first form (no sort) and
-    count it on ``wrapper`` (None: not counted)."""
+def _launch_rows(entry: str, points: torch.Tensor, num_points: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """Launch the first form ``entry`` of K3 or K5 (no sort), uncounted."""
+    _check_k(k)
     _build.require(points, "points", torch.float32, (None, 4))
     _build.require(num_points, "num_points", torch.int32, ())
     n = points.shape[0]
@@ -171,32 +177,23 @@ def _launch_rows(wrapper, entry: str, points: torch.Tensor,
         rc = getattr(lib, entry)(points.data_ptr(), num_points.data_ptr(), n, k,
                                  out.data_ptr(), _stream())
     _build.check(rc, entry)
-    if wrapper is not None:
-        wrapper.launches += 1
     return out
-
-
-def knn_moments_rows_q(points: torch.Tensor, num_points: torch.Tensor,
-                       k: int) -> torch.Tensor:
-    """[N,4] padded cloud → [N,16] moment rows, one warp per query (kernel
-    K5 on CUDA, plain version on the CPU)."""
-    _check_k(k)
-    if points.device.type == "cpu":
-        return knn_moments_rows_q_plain(points, num_points, k)
-    return _launch_rows(knn_moments_rows_q, "sgt_knn_moments_warp", points,
-                        num_points, k)
-
-
-knn_moments_rows_q.launches = 0
 
 
 def _knn_moments_rows_v1(points: torch.Tensor, num_points: torch.Tensor,
                          k: int) -> torch.Tensor:
     """K3's first form (one thread a query over every valid row in row
-    order, bounded by the ±32 rows around it): the yardstick of the kernel
-    below, on no path and counted nowhere."""
-    _check_k(k)
-    return _launch_rows(None, "sgt_knn_moments_v1", points, num_points, k)
+    order, bounded by the ±32 rows around it): the yardstick of K3, on no
+    path and counted nowhere."""
+    return _launch_rows("sgt_knn_moments_v1", points, num_points, k)
+
+
+def _knn_moments_rows_q_v1(points: torch.Tensor, num_points: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """K5's first form (one warp a query over every valid row in row
+    order, cold lane lists): the yardstick of K5, on no path and counted
+    nowhere."""
+    return _launch_rows("sgt_knn_moments_warp_v1", points, num_points, k)
 
 
 def _sorted_cloud(points: torch.Tensor, num_points: torch.Tensor,
@@ -210,10 +207,11 @@ def _sorted_cloud(points: torch.Tensor, num_points: torch.Tensor,
     return target
 
 
-def _knn_moments_rows_cuda(points: torch.Tensor, num_points: torch.Tensor, k: int,
-                           target: Optional[PrunedTarget]) -> torch.Tensor:
-    """Kernel K3 over the cloud's sort and boxes (made here without
-    ``target``)."""
+def _moments_walk_launch(wrapper, entry: str, points: torch.Tensor,
+                         num_points: torch.Tensor, k: int,
+                         target: Optional[PrunedTarget]) -> torch.Tensor:
+    """Launch the walk ``entry`` (K3 or K5) over the cloud's sort and boxes
+    (made here without ``target``) and count it on ``wrapper``."""
     _build.require(points, "points", torch.float32, (None, 4))
     _build.require(num_points, "num_points", torch.int32, ())
     n = points.shape[0]
@@ -224,12 +222,36 @@ def _knn_moments_rows_cuda(points: torch.Tensor, num_points: torch.Tensor, k: in
     _build.require(target.tsorted, "sorted rows", torch.float32, (n, 4))
     lib = _library()
     with torch.cuda.device(points.device):
-        rc = lib.sgt_knn_moments(points.data_ptr(), target.tsorted.data_ptr(),
+        rc = getattr(lib, entry)(points.data_ptr(), target.tsorted.data_ptr(),
                                  num_points.data_ptr(), n, target.tbox.data_ptr(), k,
                                  bound_window(k), out.data_ptr(), _stream())
-    _build.check(rc, "knn_moments_rows")
-    knn_moments_rows.launches += 1
+    _build.check(rc, entry)
+    wrapper.launches += 1
     return out
+
+
+def _knn_moments_rows_cuda(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                           target: Optional[PrunedTarget]) -> torch.Tensor:
+    """Kernel K3 over the cloud's sort and boxes (made here without
+    ``target``)."""
+    return _moments_walk_launch(knn_moments_rows, "sgt_knn_moments", points, num_points,
+                                k, target)
+
+
+def knn_moments_rows_q(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                       target: Optional[PrunedTarget] = None) -> torch.Tensor:
+    """[N,4] padded cloud → [N,16] moment rows with ``MOMENTS_Q_TEAM`` lanes
+    a query: kernel K5 on CUDA over the cloud's sort and boxes (``target``
+    when the caller keeps them, else made here), plain version on the
+    CPU."""
+    _check_k(k)
+    if points.device.type == "cpu":
+        return knn_moments_rows_q_plain(points, num_points, k)
+    return _moments_walk_launch(knn_moments_rows_q, "sgt_knn_moments_warp", points,
+                                num_points, k, target)
+
+
+knn_moments_rows_q.launches = 0
 
 
 def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor, k: int,
@@ -238,11 +260,11 @@ def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor, k: int,
     """[N,4] padded cloud → [N,16] moment rows: layout ``"t"`` (kernel K3 on
     CUDA over the cloud's sort and boxes, which ``target`` passes in when
     the caller keeps them; plain version on the CPU) or ``"q"``
-    (``knn_moments_rows_q``). Layout ``"ti"`` forms no rows: see
-    ``knn_topk_idx``."""
+    (``knn_moments_rows_q``, over the same ``target``). Layout ``"ti"``
+    forms no rows: see ``knn_topk_idx``."""
     _check_k(k)
     if layout == "q":
-        return knn_moments_rows_q(points, num_points, k)
+        return knn_moments_rows_q(points, num_points, k, target=target)
     if layout != "t":
         raise ValueError(f"moment rows come in layout 't' or 'q', got {layout!r}")
     if points.device.type == "cpu":
@@ -382,10 +404,11 @@ def knn_topk_idx_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: i
 def knn_moments_walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
                            team: int = MOMENTS_TEAM, cull_pass: int = CULL_PASS,
                            target: Optional[PrunedTarget] = None) -> torch.Tensor:
-    """Plain account of K3: the walk of ``_walk_plain`` with ``team``
-    threads a query, the team's merged list, and the offsets d = p − q of
-    its slots in slot order summed as ``knn_moments_rows_plain`` sums them
-    — the same [N,16] rows, bit for bit."""
+    """Plain account of K3 (``team`` = ``MOMENTS_TEAM``) and of K5
+    (``MOMENTS_Q_TEAM``): the walk of ``_walk_plain`` with ``team`` threads
+    a query, the team's merged list, and the offsets d = p − q of its slots
+    in slot order summed as ``knn_moments_rows_plain`` sums them — the same
+    [N,16] rows, bit for bit."""
     n = points.shape[0]
     d_k, idx = _walk_plain(points, num_points, k, team, cull_pass, True, target)
     out = torch.zeros((n, 16), dtype=points.dtype, device=points.device)
@@ -476,8 +499,8 @@ def knn_moments(points: torch.Tensor, num_points: torch.Tensor, k: int,
                 layout: Optional[str] = None, target: Optional[PrunedTarget] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(m1 [N,3] = Σd, m2 [N,3,3] = Σddᵀ, counts [N]) in original row order.
-    ``target``: the cloud's Morton sort and boxes, which layouts "t" and
-    "ti" walk on the card (``KdTree.pruned_target()`` keeps them)."""
+    ``target``: the cloud's Morton sort and boxes, which every layout walks
+    on the card (``KdTree.pruned_target()`` keeps them)."""
     if layout is None:
         layout = auto_layout(points.shape[0])
     if k > MAX_K:

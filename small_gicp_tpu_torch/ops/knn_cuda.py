@@ -14,9 +14,10 @@ Counterpart of ``small_gicp_tpu/ops/knn_pallas.py``:
     kNN for k ≤ 64, (d² [Q,k] ascending, idx [Q,k]), difference form, no
     centring, ties to the lower index.
   * ``knn_T`` (K11) replaces ``knn_pallas_T`` (``_make_knn_kernel_T``):
-    K10's contract with the other work mapping — one warp per query —
-    bit-identical to K10. Reachable by this wrapper only, as in the JAX
-    package.
+    K10's contract with the other work mapping — a warp holds a few
+    queries and its lanes stride the target rows, each lane with its own
+    list per query — bit-identical to K10. Reachable by this wrapper only,
+    as in the JAX package.
   * ``knn_pruned`` (K12) replaces ``knn_pallas_pruned``
     (``_make_knn_listed_kernel``): K10's contract with work ∝ local
     density: Morton-sorted target, 256-row tile boxes, a seed pass over
@@ -51,11 +52,19 @@ the same launch by the last block of each query block:
     rows, which bounds its own list and so changes nothing — and the
     chunks' lists are merged in (d², row) order.
 
-``nearest_neighbor_split_plain`` and ``knn_split_plain`` are the plain
-account of that: for every plan they equal ``nearest_neighbor_plain`` and
-``knn_plain``, which stay the contract. The first forms of K9 and K10 (one
-thread per query over every row) stay as the yardsticks ``_nearest_neighbor_v1``
-and ``_knn_v1``, reached from no path.
+K11 splits the same way (``warp_plan``: fewer, larger blocks): in a
+chunk each query takes a bound from a strided sample of the chunk's rows
+(every ``WARP_SAMPLE_STEP``-th; the kth smallest of 32 lanes' minima),
+every lane keeps the k first of its rows (every 32nd) within it, the lanes' lists
+give the chunk's list, and the last block merges the chunks' lists laid
+end to end, lane l taking every 32nd entry.
+
+``nearest_neighbor_split_plain``, ``knn_split_plain`` and
+``knn_T_split_plain`` are the plain account of that: for every plan they
+equal ``nearest_neighbor_plain`` and ``knn_plain``, which stay the
+contract. The first forms of K9, K10 and K11 (one thread or one warp per
+query over every row) stay as the yardsticks ``_nearest_neighbor_v1``,
+``_knn_v1`` and ``_knn_T_v1``, reached from no path.
 
 What a search derives from the target alone — K9's centre, the target
 half of K12's prologue (the sort and boxes of ``ops/morton_boxes.py``) —
@@ -112,6 +121,17 @@ SPLIT_BLOCKS_PER_SM = 32
 # floor).
 FILLED_BLOCKS_PER_SM = 2
 KNN_ROWS_PER_K = 512
+# K11's queries a warp (up to k = 16; half up to 32, a quarter above), warps
+# a block at most, bytes of lane lists a block at most and its bound's
+# sample step (kWarpQueries, kWarpMaxWarps, kWarpListBytes, kWarpSampleStep
+# of csrc/knn.cu, held against the compiled values when the library loads),
+# and the blocks its launch aims at per SM.
+WARP_QUERIES = 4
+WARP_MAX_WARPS = 8
+WARP_LIST_BYTES = 98304
+WARP_SAMPLE_STEP = 4
+WARP_BLOCKS_PER_SM = 4
+LANES = 32
 _EMPTY_KEY = 2 ** 63 - 1
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -176,6 +196,9 @@ def _library():
     if lib.sgt_knn_seed_tiles() != SEED_TILES:
         raise RuntimeError(f"csrc/knn.cu scans {lib.sgt_knn_seed_tiles()} seed "
                            f"tiles; the Python wrapper has {SEED_TILES}")
+    _build.library_with_geometry(
+        "knn", "sgt_knn_warp_geometry",
+        (WARP_QUERIES, WARP_MAX_WARPS, WARP_LIST_BYTES, WARP_SAMPLE_STEP))
     return _build.library_with_geometry(
         "knn", "sgt_knn_split_geometry",
         (NN1_BLOCK_QUERIES, KNN_BLOCK_QUERIES, SPLIT_TILE, SAMPLE_STEP, CHUNK_SAMPLE))
@@ -185,15 +208,33 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(nq: int, mcap: int, block_queries: int, sms: int) -> int:
-    """Chunks of a K9 or K10 launch over ``nq`` queries and a target of
-    ``mcap`` rows: as many as it takes for the query blocks times the
-    chunks to reach ``SPLIT_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs,
-    but not more than the capacity has ring stages. One where the queries
-    alone reach it."""
+def split_plan(nq: int, mcap: int, block_queries: int, sms: int,
+               per_sm: Optional[int] = None) -> int:
+    """Chunks of a K9, K10 or K11 launch over ``nq`` queries and a target
+    of ``mcap`` rows: as many as it takes for the query blocks times the
+    chunks to reach ``per_sm`` (default ``SPLIT_BLOCKS_PER_SM``) blocks on
+    each of ``sms`` SMs, but not more than the capacity has ring stages.
+    One where the queries alone reach it."""
+    per_sm = SPLIT_BLOCKS_PER_SM if per_sm is None else per_sm
     qblocks = _cdiv(max(nq, 1), block_queries)
-    return max(1, min(_cdiv(SPLIT_BLOCKS_PER_SM * sms, qblocks),
+    return max(1, min(_cdiv(per_sm * sms, qblocks),
                       _cdiv(max(mcap, 1), SPLIT_TILE), 65535))
+
+
+def warp_block_queries(k: int) -> int:
+    """Queries a K11 block holds for k neighbours: warps of
+    ``WARP_QUERIES`` queries (half that above k = 16, a quarter above 32),
+    as many warps as ``WARP_LIST_BYTES`` of k × 32 lane lists a query
+    allow, at least one and at most ``WARP_MAX_WARPS``."""
+    qw = max(1, WARP_QUERIES if k <= 16 else WARP_QUERIES // 2 if k <= 32
+             else WARP_QUERIES // 4)
+    return qw * min(WARP_MAX_WARPS, max(1, WARP_LIST_BYTES // (qw * k * LANES * 8)))
+
+
+def warp_plan(nq: int, mcap: int, k: int, sms: int) -> int:
+    """Chunks of a K11 launch: ``split_plan`` over its blocks, aiming at
+    ``WARP_BLOCKS_PER_SM`` of them on each SM."""
+    return split_plan(nq, mcap, warp_block_queries(k), sms, WARP_BLOCKS_PER_SM)
 
 
 def split_chunk(m: int, nsplit: int, tile: int = SPLIT_TILE,
@@ -497,9 +538,117 @@ def knn_split_plain(target_points: torch.Tensor, num_points: torch.Tensor,
     return d_sorted[:, :k], i_all.gather(1, pos[:, :k])
 
 
+_NO_ROW = 2 ** 40  # the row of a padding entry: after every real row
+
+
+def _lex_order(d: torch.Tensor, i: torch.Tensor, dim: int) -> Pair:
+    """(d, i) sorted along ``dim`` in (d², row) order: by row, then stably
+    by d²."""
+    by_row = torch.argsort(i, dim=dim, stable=True)
+    d, i = torch.gather(d, dim, by_row), torch.gather(i, dim, by_row)
+    by_d = torch.argsort(d, dim=dim, stable=True)
+    return torch.gather(d, dim, by_d), torch.gather(i, dim, by_d)
+
+
+def _lane_lists(d: torch.Tensor, i: torch.Tensor, k: int, lex: bool) -> Pair:
+    """Entry j of the rows of (d [B,L], i [B,L] int64) goes to lane j mod
+    32; each lane keeps its k first entries, in (d², row) order where
+    ``lex``, else by a stable sort on d² (its entries then come in row
+    order). Returns the 32 lists side by side, [B, 32·k], padding entries
+    (3e38, _NO_ROW) where a lane holds fewer than k."""
+    b, n = d.shape
+    per_lane = max(k, _cdiv(n, LANES))
+    pad = per_lane * LANES - n
+    d = torch.cat([d, d.new_full((b, pad), _BIG)], dim=1).view(b, per_lane, LANES)
+    i = torch.cat([i, i.new_full((b, pad), _NO_ROW)], dim=1).view(b, per_lane, LANES)
+    if lex:
+        d, i = _lex_order(d, i, 1)
+    else:
+        by_d = torch.argsort(d, dim=1, stable=True)
+        d, i = torch.gather(d, 1, by_d), torch.gather(i, 1, by_d)
+    return d[:, :k].reshape(b, -1), i[:, :k].reshape(b, -1)
+
+
+def _lex_first_k_flat(d: torch.Tensor, i: torch.Tensor, k: int) -> Pair:
+    """The k first of the rows of (d, i) in (d², row) order; empty slots as
+    d² 3e38 and row 0."""
+    d, i = _lex_order(d, i, 1)
+    d, i = d[:, :k], i[:, :k]
+    return d, torch.where(d < _BIG, i, 0).to(torch.int32)
+
+
+def _lane_bound(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """[B] K11's bound over a chunk of L rows (``d2`` [B,L]): its columns 0,
+    ``WARP_SAMPLE_STEP``, … as the sample, sample s dealt to lane s mod 32;
+    each lane's t-th smallest (t = 1 up to k = 32, 2 above; 3e38 for a lane
+    with fewer samples); the ⌈k/t⌉-th smallest of the 32 lanes' values. At
+    least k distinct rows lie at or below it."""
+    sample = d2[:, ::WARP_SAMPLE_STEP]
+    t = 1 if k <= 32 else 2
+    ns = sample.shape[1]
+    per_lane = _cdiv(ns, LANES) * LANES
+    lanes = torch.cat([sample, sample.new_full((d2.shape[0], per_lane - ns), _BIG)], dim=1)
+    lanes = lanes.view(d2.shape[0], -1, LANES)  # [B, samples a lane, lane]
+    if lanes.shape[1] < t:
+        return d2.new_full((d2.shape[0],), _BIG)
+    tth = torch.sort(lanes, dim=1).values[:, t - 1]  # [B, 32]
+    return torch.sort(tth, dim=1).values[:, _cdiv(k, t) - 1]
+
+
+def knn_T_split_plain(target_points: torch.Tensor, num_points: torch.Tensor,
+                      query: torch.Tensor, k: int, nsplit: int,
+                      tile: int = SPLIT_TILE) -> Pair:
+    """Plain account of K11 over ``nsplit`` chunks (``split_chunk``; the
+    kernel's ``tile`` is SPLIT_TILE), step by step: in each non-empty chunk
+    each query's bound B — ``_lane_bound`` over the chunk's rows lo, lo +
+    step, … where the chunk holds more than ``tile`` rows, else 3e38; lane
+    l's list, the k first in (d², row) order of the chunk's rows with row ≡
+    l (mod 32) and d² ≤ B; the chunk's list, the k first of its lanes'
+    lists. With one chunk that is the result; with more, the chunks' lists
+    are laid end to end, lane l of the merge keeps the k first of entries l,
+    l + 32, …, and the result is the k first of the lanes' lists. Equal to
+    ``knn_plain`` for every plan."""
+    nq = query.shape[0]
+    if nq == 0:
+        return _empty(query, (0, k))
+    m = min(int(num_points), target_points.shape[0])
+    chunk = split_chunk(m, nsplit, tile)
+    t = target_points[:, :3]
+    out_d, out_i = [], []
+    for b0 in range(0, nq, QUERY_BLOCK):
+        q = query[b0:b0 + QUERY_BLOCK, :3]
+        lists_d, lists_i = [], []
+        for s in range(nsplit):
+            lo = s * chunk
+            ids = torch.arange(lo, max(lo, min(m, lo + chunk)), device=t.device)
+            if ids.shape[0] == 0:
+                continue  # the merge skips empty chunks
+            d2 = _masked_sq_dists(q, t[ids], ids >= 0)
+            if ids.shape[0] > tile:
+                d2 = torch.where(d2 <= _lane_bound(d2, k)[:, None], d2, _BIG)
+            # A chunk starts at a multiple of 32: row lo + j is lane j mod 32.
+            d, i = _lane_lists(d2, ids.expand_as(d2), k, lex=False)
+            d, i = _lex_order(d, i, 1)
+            lists_d.append(d[:, :k])
+            lists_i.append(i[:, :k])
+        if not lists_d:
+            d = q.new_full((q.shape[0], k), _BIG)
+            i = torch.zeros((q.shape[0], k), dtype=torch.int32, device=q.device)
+        elif nsplit == 1:
+            d, i = _lex_first_k_flat(lists_d[0], lists_i[0], k)
+        else:
+            d, i = _lane_lists(torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1), k,
+                               lex=True)
+            d, i = _lex_first_k_flat(d, i, k)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 def _knn_launch(wrapper, entry: str, target_points, num_points, query, k) -> Pair:
-    """Launch the K10 v1 / K11 entry ``entry`` (one thread or one warp per
-    query over every row) and count it on ``wrapper`` (None: uncounted)."""
+    """Launch the K10 v1 / K11 v1 entry ``entry`` (one thread or one warp
+    per query over every row) and count it on ``wrapper`` (None:
+    uncounted)."""
     _require_search(target_points, num_points, query)
     q = _query_rows(query)
     nq = q.shape[0]
@@ -560,14 +709,42 @@ def _knn_v1(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.
 
 def knn_T(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,
           k: int) -> Pair:
-    """``knn`` with one warp per query (kernel K11); bit-identical to it."""
+    """``knn`` with a warp per few queries (kernel K11); bit-identical to
+    it. Plain version on the CPU."""
     _check_k(k, "knn_T")
     if target_points.device.type == "cpu":
         return knn_plain(target_points, num_points, query, k)
-    return _knn_launch(knn_T, "sgt_knn_warp", target_points, num_points, query, k)
+    _require_search(target_points, num_points, query)
+    q = _query_rows(query)
+    nq, mcap = q.shape[0], target_points.shape[0]
+    d, i = _empty(q, (nq, k))
+    if nq == 0:
+        return d, i
+    lib = _library()
+    nsplit = warp_plan(nq, mcap, k, _sm_count(q.device.index))
+    buf = _split_buffers(q.device, nq, _cdiv(nq, warp_block_queries(k)),
+                         nsplit * k * nq if nsplit > 1 else 0)
+    with torch.cuda.device(q.device):
+        rc = lib.sgt_knn_warp(target_points.data_ptr(), num_points.data_ptr(), mcap,
+                              q.data_ptr(), q.stride(0), nq, k, nsplit,
+                              buf.ws_d.data_ptr(), buf.ws_i.data_ptr(),
+                              buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(),
+                              _stream())
+    _build.check(rc, "knn_T")
+    knn_T.launches += 1
+    return d, i
 
 
 knn_T.launches = 0
+
+
+def _knn_T_v1(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,
+              k: int) -> Pair:
+    """K11's first form (one warp per query over every row, staged
+    synchronously, cold lists, no split), for timing K11 against on the
+    card. Not counted and not on any path."""
+    _check_k(k, "knn_T")
+    return _knn_launch(None, "sgt_knn_warp_v1", target_points, num_points, query, k)
 
 
 # ----------------------------------------------------------------- K12 ----

@@ -4,7 +4,8 @@ Every compiled instance runs here — K1 (difference and score form), K6 and
 K7 (the box-pruned fleet kernel, against its plain version and against the
 brute-force lane kernel it replaced) for each factor × robust kernel, K2 and
 K8 for each robust kernel and pose count, K3 for both top-k bounds, the
-three list bounds of K4, K10 and K12, K5 and K11 below and above 32 neighbours, both K9 variants — at small shapes
+three list bounds of K4, K10 and K12, K5 and K11 below and above 32 neighbours (K11 and K5 also
+against their first forms, K5 against K3 bit for bit over the kept sort), both K9 variants — at small shapes
 with padding rows, K9 and K10 with one chunk and with many and against
 their first forms, K4 and K6 against their first forms (K4 over more than
 one cull pass, K6 at one chunk, at the planned count and above the live
@@ -34,6 +35,8 @@ from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
 from small_gicp_tpu_torch.models.helper import align, preprocess_points
 from small_gicp_tpu_torch.ops import gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    MOMENTS_Q_TEAM,
+    _knn_moments_rows_q_v1,
     _knn_moments_rows_v1,
     _knn_topk_idx_v1,
     knn_moments,
@@ -79,6 +82,7 @@ from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops import knn_cuda
 from small_gicp_tpu_torch.ops.knn_cuda import (
+    _knn_T_v1,
     _knn_v1,
     _nearest_neighbor_v1,
     knn,
@@ -457,7 +461,7 @@ def test_nearest_neighbor_kernel_matches_plain(dev, variant):
 
 
 # K10 and K12 have list bounds 16, 32 and 64 (the smallest that holds k);
-# K11 runs four warps per block up to k = 32 and two above.
+# K11 holds 4 queries a warp up to k = 16, 2 up to 32 and 1 above.
 @pytest.mark.parametrize("ks", [(1, 10, 16), (17, 32, 33, 64)])
 @pytest.mark.parametrize("search", [knn, knn_T, knn_pruned])
 def test_knn_kernels_match_plain(dev, search, ks):
@@ -475,19 +479,22 @@ def test_knn_kernels_match_plain(dev, search, ks):
             # and the plain version: exact, ties included.
             assert torch.equal(d, dp), what
             assert torch.equal(i, ip), what
-            if search is knn:
-                d1, i1 = _knn_v1(tgt, num, q, k)
+            first = {knn: _knn_v1, knn_T: _knn_T_v1}.get(search)
+            if first is not None:
+                d1, i1 = first(tgt, num, q, k)
                 torch.cuda.synchronize()
                 assert torch.equal(d, d1) and torch.equal(i, i1), what
             if kind == "tiny":
                 assert torch.all(d[:, 3:] == 3e38) and torch.all(i[:, 3:] == 0), what
 
 
-# SPLIT_BLOCKS_PER_SM = 0 plans one chunk (the block writes its results);
-# 10⁶ plans one 256-row ring stage per chunk, the most chunks there can be.
+# SPLIT_BLOCKS_PER_SM (K11: WARP_BLOCKS_PER_SM) = 0 plans one chunk (the
+# block writes its results); 10⁶ plans one 256-row ring tile per chunk, the
+# most chunks there can be.
 @pytest.mark.parametrize("per_sm", [0, 10 ** 6])
 def test_split_kernels_at_one_chunk_and_at_many(dev, monkeypatch, per_sm):
     monkeypatch.setattr(knn_cuda, "SPLIT_BLOCKS_PER_SM", per_sm)
+    monkeypatch.setattr(knn_cuda, "WARP_BLOCKS_PER_SM", per_sm)
     for kind in ("scan", "grid", "tiny", "empty"):
         tgt, num, q = _search_clouds(dev, kind)
         for nq in (1, 64, q.shape[0]):
@@ -497,22 +504,27 @@ def test_split_kernels_at_one_chunk_and_at_many(dev, monkeypatch, per_sm):
                 torch.cuda.synchronize()
                 assert torch.equal(d, dp) and torch.equal(i, ip), (per_sm, kind, nq)
             for k in (1, 10, 33):
-                d, i = knn(tgt, num, q[:nq], k)
                 dp, ip = knn_plain(tgt, num, q[:nq], k)
-                torch.cuda.synchronize()
-                assert torch.equal(d, dp) and torch.equal(i, ip), (per_sm, kind, nq, k)
+                for search in (knn, knn_T):
+                    d, i = search(tgt, num, q[:nq], k)
+                    torch.cuda.synchronize()
+                    assert torch.equal(d, dp) and torch.equal(i, ip), (
+                        search.__name__, per_sm, kind, nq, k)
 
 
 def test_split_buffers_are_zero_between_launches(dev):
-    """K9's keys, K10's bounds and both kernels' tickets go back to 0 in
-    every launch: the same calls again, and calls on other query counts in
-    between, give the same results."""
+    """K9's keys, K10's bounds and the tickets of K9, K10 and K11 go back
+    to 0 in every launch: the same calls again, and calls on other query
+    counts in between, give the same results."""
     tgt, num, q = _search_clouds(dev, "scan")
-    first = [nearest_neighbor(tgt, num, q, "mxu"), knn(tgt, num, q, 12)]
+    first = [nearest_neighbor(tgt, num, q, "mxu"), knn(tgt, num, q, 12),
+             knn_T(tgt, num, q[:3], 12)]
     for nq in (5, 700, 1234):
         nearest_neighbor(tgt, num, q[:nq])
         knn(tgt, num, q[:nq], 20)
-    again = [nearest_neighbor(tgt, num, q, "mxu"), knn(tgt, num, q, 12)]
+        knn_T(tgt, num, q[:nq], 20)
+    again = [nearest_neighbor(tgt, num, q, "mxu"), knn(tgt, num, q, 12),
+             knn_T(tgt, num, q[:3], 12)]
     torch.cuda.synchronize()
     for (d, i), (d2, i2) in zip(first, again):
         assert torch.equal(d, d2) and torch.equal(i, i2)
@@ -646,10 +658,13 @@ def test_topk_idx_kernel_with_fewer_rows_than_k(dev):
     assert torch.all(d[:7, 7:] == 3.0e38) and torch.all(d[:7, :7] < 1e16)
 
 
-# K5's two block shapes: four warps up to k = 32, two above.
+# K5's team walk against its plain version, K3 (bit for bit: the same
+# neighbours summed in the same order), its first form and its plain account,
+# with and without the cloud's kept sort; below and above 32 neighbours.
 @pytest.mark.parametrize("ks", [(1, 10, 20, 32), (33, 64)])
 def test_moments_warp_kernel_matches_plain_and_k3(dev, scan_cloud, ks):
     pts, num = scan_cloud
+    kept = pruned_prepare_target(pts, num)
     for k in ks:
         before = knn_moments_rows_q.launches
         got = knn_moments_rows_q(pts, num, k)
@@ -659,9 +674,11 @@ def test_moments_warp_kernel_matches_plain_and_k3(dev, scan_cloud, ks):
         assert knn_moments_rows_q.launches == before + 1
         assert torch.equal(got[:, 9:11], ref[:, 9:11]), k
         torch.testing.assert_close(got[:, :9], ref[:, :9], rtol=1e-5, atol=1e-4)
-        # The same neighbours summed in the same order as K3.
-        assert torch.equal(got[:, 9:11], k3[:, 9:11]), k
-        torch.testing.assert_close(got[:, :9], k3[:, :9], rtol=1e-6, atol=1e-5)
+        assert torch.equal(got, k3), k
+        assert torch.equal(got, knn_moments_rows_q(pts, num, k, target=kept)), k
+        assert torch.equal(got, _knn_moments_rows_q_v1(pts, num, k)), k
+        walk = knn_moments_walk_plain(pts.cpu(), num.cpu(), k, team=MOMENTS_Q_TEAM)
+        assert torch.equal(got[:, 9:11].cpu(), walk[:, 9:11]), k
         assert torch.all(got[3000:] == 0), k
 
 

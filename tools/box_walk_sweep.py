@@ -165,7 +165,12 @@ for what, (tgt, T) in cases.items():
 
 # csrc constants whose value a Python module repeats: name → (file, name there).
 MIRRORED = {"kCullPass": ("ops/morton_boxes.py", "CULL_PASS"),
-            "kTeam": ("ops/cov_fused_cuda.py", "MOMENTS_TEAM")}
+            "kTeam": ("ops/cov_fused_cuda.py", "MOMENTS_TEAM"),
+            "kWarpTeam": ("ops/cov_fused_cuda.py", "MOMENTS_Q_TEAM"),
+            "kWarpQueries": ("ops/knn_cuda.py", "WARP_QUERIES"),
+            "kWarpMaxWarps": ("ops/knn_cuda.py", "WARP_MAX_WARPS"),
+            "kWarpListBytes": ("ops/knn_cuda.py", "WARP_LIST_BYTES"),
+            "kWarpSampleStep": ("ops/knn_cuda.py", "WARP_SAMPLE_STEP")}
 
 
 def make_variant(spec: str, work: Path = WORK) -> Path:
