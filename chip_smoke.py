@@ -45,9 +45,14 @@ Phases (any failure exits non-zero):
                 one launch a call (counters and profiler); K10 and K11 timed
                 alone (the profiler) and in turns with both first forms by
                 query count and at raw-scan scale, K9 in turns with its first
-                form; K9's and K12's launches timed apart from their
-                wrappers' prologues, K12 bounded by the pairs this data
-                leaves a pruned search; then the neighbour-search path with
+                form; K9's launch timed apart from its wrapper's prologue;
+                K12 over the KdTree's kept sort against its plain version
+                and its first form (the original port) at 21k × 21k (k = 10,
+                20) and at raw-scan scale (k = 20), one launch a call, timed
+                alone and in turns with its first form, bounded by the pairs
+                its walk cannot avoid, with both halves of its prologue
+                (time, and the query half's launches against its first form's);
+                then the neighbour-search path with
                 the counts at 0: KdTree searches, knn_T, knn_pruned, the
                 unfused align_impl (within the bounds, in agreement with the
                 fused one, K9 once per linearization and no K1/K2) and the
@@ -70,7 +75,12 @@ Phases (any failure exits non-zero):
                 with the share of (block, tile) pairs it skips; one launch a
                 call for K4 and K6 (counters and profiler), each timed alone
                 (the profiler) and in turns with its first form; K1's score
-                form against its plain version and the difference form; then,
+                form (the box walk) at the scan shape against its plain
+                account, its brute-force plain version and its first form
+                (the original port) on the rows where the score's rounding
+                cannot change the winner's acceptance, and against the
+                difference form, one launch a call, timed alone and in
+                turns with its first form; then,
                 with the counts at 0, the map-scale path: covariances of both
                 submaps (K4), the align of frame 16 against the map (K6 per
                 linearization, K2 per iteration, K1 never) within 2.5° /
@@ -125,6 +135,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     _gicp_linearize_fleet_brute,
     _gicp_linearize_listed_cuda,
     _gicp_linearize_swept_cuda,
+    _gicp_linearize_score_v1,
     _gicp_linearize_swept_v1,
     _gicp_linearize_v1,
     fleet_live_tiles,
@@ -133,6 +144,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_listed_plain,
     gicp_linearize_score,
     gicp_linearize_score_plain,
+    gicp_linearize_score_walk_plain,
     gicp_linearize_swept,
     gicp_linearize_swept_plain,
     gicp_linearize_swept_split_plain,
@@ -149,6 +161,7 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
     VARIANTS,
     _knn_T_v1,
     _knn_v1,
+    _knn_pruned_v1,
     _nearest_neighbor_v1,
     PrunedQueries,
     knn,
@@ -160,7 +173,9 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
     nearest_neighbor,
     nearest_neighbor_plain,
     pruned_prepare_queries,
+    pruned_query_positions,
 )
+from small_gicp_tpu_torch.ops import knn_window
 from small_gicp_tpu_torch.ops.morton_boxes import TILE_ROWS, pruned_prepare_target
 from small_gicp_tpu_torch.ops.normals import (
     estimate_covariances,
@@ -202,7 +217,7 @@ KERNELS = {
                              "small_gicp_tpu/ops/gicp_fused_pallas.py:92",
                              gicp_linearize_swept),
     "gicp_linearize_score": ("K1 score form",
-                             "small_gicp_tpu_torch/csrc/gicp_fused.cu",
+                             "small_gicp_tpu_torch/csrc/gicp_listed.cu",
                              "small_gicp_tpu/ops/gicp_fused_pallas.py:521",
                              gicp_linearize_score),
     "gicp_linearize_fleet": ("K7", "small_gicp_tpu_torch/csrc/gicp_fleet.cu",
@@ -333,15 +348,17 @@ def one_kernel_per_call(fn, name: str, alone: bool = True) -> float:
     """ms of the kernel alone (``kernel_ms``), after checking that the
     profiler saw exactly one kernel named ``name`` per call and, where
     ``alone``, no other device work (a wrapper whose torch ops launch kernels
-    of their own passes False). A window in which the profiler lost an event
-    (it has returned 19, and 10, kernels for 20 calls) is taken again, up to
-    three times."""
-    for _ in range(3):
+    of their own passes False). A window in which the profiler lost events
+    (it has returned 19, 10, and in three windows running 13, 4 and 2
+    kernels for 20 calls) is taken again after a pause, up to six times."""
+    for attempt in range(6):
         ms, count, others = kernel_ms(fn, name)
         if count in (None, REPS) and not (alone and others):
             return ms
         print(f"{name}: the profiler saw {count} kernels and {others} in {REPS} calls")
-    check(False, f"{name}: {count} kernels and {others} in {REPS} calls, three times")
+        torch.cuda.synchronize()
+        time.sleep(1.0 + attempt)
+    check(False, f"{name}: {count} kernels and {others} in {REPS} calls, six times")
 
 
 def launches_per_call(wrapper, fn) -> int:
@@ -504,7 +521,7 @@ def phase_kernels(scans, T_gt, rng, dev, card="cpu"):
     k3["alone"] = one_kernel_per_call(new3, r"knn_moments_kernel(?!_v1)")
     k3["first form alone"] = one_kernel_per_call(old3, "knn_moments_kernel_v1")
     team = cov_fused_cuda.MOMENTS_TEAM
-    self_q = PrunedQueries(qperm=stgt.tperm[:m].to(torch.int32), qpos=None)
+    self_q = PrunedQueries(qperm=stgt.tperm[:m], qkey=None)
     need = pruned_pairs(stgt, self_q, pts[:m], d_k, m, block=64 // team)
     need64 = pruned_pairs(stgt, self_q, pts[:m], d_k, m)
     t1 = tgt.points[:m, :3].contiguous()
@@ -1210,6 +1227,111 @@ def split_checks(tpts, tnum, qs, m: int, rng, card) -> dict:
     return turns
 
 
+def old_morton(xyz, origin):
+    """Morton codes (cell 1.0) as the first form's prologue formed them: by
+    shifts and masks."""
+    c = torch.floor(xyz - origin)
+    finite_c = torch.isfinite(c)
+    ci = torch.where(finite_c, c, torch.zeros_like(c)).clamp(0.0, 1023.0).to(torch.int32)
+    bits = knn_window._dilate10_32(ci)
+    code = (bits[..., 2] << 2) | (bits[..., 1] << 1) | bits[..., 0]
+    return torch.where(finite_c.all(dim=-1), code, torch.full_like(code, 2 ** 31 - 1))
+
+
+def old_query_half(target, query):
+    """The query half of K12's first-form prologue (``old_morton``
+    widened to int64, a sort, a searchsorted, two conversions), for its time
+    and launches."""
+    codes = old_morton(query[:, :3], target.origin).to(torch.int64)
+    qkey, qperm = torch.sort(codes, stable=True)
+    return qperm.to(torch.int32), torch.searchsorted(target.tkey, qkey).to(torch.int32)
+
+
+def device_launches(fn) -> float:
+    """Kernels, copies and memsets on the card per call of ``fn``: every
+    device event of ``REPS`` calls profiled after a warm-up step, per call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof)) / REPS
+
+
+def pruned_checks(tpts, tnum, qs, ptgt, card, ks=(K_NEIGHBORS, 20), ref=None,
+                  reps=REPS) -> dict:
+    """K12 over the kept target half ``ptgt``: equal to ``knn_plain`` (or
+    ``ref``, (d², idx) of the largest k) and to its first form at each k of
+    ``ks``, one launch a call (counter and profiler); the kernel alone and its
+    first form alone (the profiler), both launches in turns (CUDA events),
+    the pairs a walk of its blocks cannot avoid, and the prologue's halves
+    (time, and the query half's launches, also in its first form). Returns
+    {"alone", "pairs", ...} at the first k."""
+    m, nq = int(tnum), qs.shape[0]
+    pqry = pruned_prepare_queries(ptgt, qs)
+    qpos = pruned_query_positions(ptgt, pqry).to(torch.int32)
+    team = knn_cuda.pruned_plan(nq, knn_cuda._sm_count(qs.device.index))
+    out = {}
+    for kk in ks:
+        got = knn_pruned_launch(ptgt, tnum, qs, pqry, kk)
+        old = _knn_pruned_v1(ptgt, tnum, qs, pqry, kk, qpos)
+        want = ref if ref is not None else knn_plain(tpts, tnum, qs, kk)
+        check(all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(got, want, old)),
+              f"K12 differs from its plain version or its first form at {nq} × {m}, "
+              f"k={kk}")
+        check(launches_per_call(knn_pruned, lambda: knn_pruned_launch(
+            ptgt, tnum, qs, pqry, kk)) == 1, "K12 launched other than once a call")
+        need = pruned_pairs(ptgt, pqry, qs, got[0][:, kk - 1], m, block=64 // team)
+        t = time_turns({"K12": lambda: knn_pruned_launch(ptgt, tnum, qs, pqry, kk),
+                        "K12 v1": lambda: _knn_pruned_v1(ptgt, tnum, qs, pqry, kk, qpos)},
+                       reps=reps)
+        t["alone"] = one_kernel_per_call(
+            lambda: knn_pruned_launch(ptgt, tnum, qs, pqry, kk), "knn_pruned_walk_kernel")
+        t["v1 alone"] = one_kernel_per_call(
+            lambda: _knn_pruned_v1(ptgt, tnum, qs, pqry, kk, qpos), "knn_pruned_kernel_v1",
+            alone=False)
+        t["pairs"] = need
+        print(f"K12 at {nq} × {m}, k={kk} ({team} threads a query, {64 // team} queries "
+              f"a block): kernel alone (profiler) {t['alone']:.4f} ms against its first "
+              f"form's {t['v1 alone']:.4f}; launches in turns (CUDA events) "
+              f"{t['K12']:.4f} against {t['K12 v1']:.4f} ms; over the {need} pairs a "
+              f"walk of {64 // team}-query blocks cannot avoid "
+              f"({100 * need / (nq * m):.2f} % of Q·M) bound "
+              f"{search_bound(nq, m, kk, need)[0]:.4f} ms, issue-rate floor "
+              f"{issue_floor_ms(need):.4f} ms on {card}")
+        out = out or t
+    kk = ks[0]
+    half = {
+        "target half": time_ms(lambda: pruned_prepare_target(tpts, tnum), reps=reps),
+        "query half": time_ms(lambda: pruned_prepare_queries(ptgt, qs), reps=reps),
+        "query half (first form)": time_ms(lambda: old_query_half(ptgt, qs), reps=reps),
+        "kept": time_ms(lambda: knn_pruned(tpts, tnum, qs, kk, target=ptgt), reps=reps),
+        "whole": time_ms(lambda: knn_pruned(tpts, tnum, qs, kk), reps=reps),
+    }
+    codes = lambda: knn_window.morton_codes32(qs, 1.0, ptgt.origin)  # noqa: E731
+    old_codes = lambda: old_morton(qs, ptgt.origin)  # noqa: E731
+    check(torch.equal(codes(), old_codes()), "the Morton codes differ from the first form's")
+    half["codes"] = time_ms(codes, reps=reps)
+    half["codes (first form)"] = time_ms(old_codes, reps=reps)
+    launches = {"query half": device_launches(lambda: pruned_prepare_queries(ptgt, qs)),
+                "query half (first form)": device_launches(lambda: old_query_half(ptgt, qs)),
+                "codes": device_launches(codes), "codes (first form)": device_launches(old_codes)}
+    print(f"K12's prologue at {nq} × {m}: " + ", ".join(
+        f"{key} {v:.4f} ms" for key, v in half.items())
+        + f" (CUDA events); device launches a call: {launches} on {card}")
+    out.update(half)
+    return out
+
+
 def phase_search(scans, T_gt, rng, dev, card):
     """K9-K12 against their plain versions, then the neighbour-search path."""
     print("== phase 7: search", flush=True)
@@ -1322,36 +1444,16 @@ def phase_search(scans, T_gt, rng, dev, card):
         records[name] = dict(
             max_abs_err=errs[name], ms=results[name, k], plain_ms=plain_ms,
             library_ms=lib_ms, pairs=m * m, bound=search_bound(m, m, k))
-    # K12's record is the launch alone over a finished prologue, against the
-    # pairs this data leaves a pruned search; the wrapper's times (with the
-    # target half kept, as KdTree keeps it, and whole) stand beside it.
+    # K12's record is the kernel alone over a finished prologue (the
+    # target half kept, as KdTree keeps it), against the pairs this data
+    # leaves a walk of its blocks; its first form beside it, and both halves
+    # of the prologue, the query half also in its first form.
     ptgt = tree.pruned_target()
-    pqry = pruned_prepare_queries(ptgt, qs)
-    d12, i12 = knn_pruned_launch(ptgt, tnum, qs, pqry, k)
-    ref = knn_plain(tpts, tnum, qs, k)
-    check(torch.equal(d12, ref[0]) and torch.equal(i12, ref[1]),
-          "K12's launch over kept tables differs from the plain version")
-    need = pruned_pairs(ptgt, pqry, qs, d12[:, k - 1], m)
-    pruned_ms = {
-        "launch": time_ms(lambda: knn_pruned_launch(ptgt, tnum, qs, pqry, k)),
-        "kept": time_ms(lambda: knn_pruned(tpts, tnum, qs, k, target=ptgt)),
-        "whole": results["knn_pruned", k],
-        "target": time_ms(lambda: pruned_prepare_target(tpts, tnum)),
-        "queries": time_ms(lambda: pruned_prepare_queries(ptgt, qs)),
-    }
-    pruned_ms["alone"] = one_kernel_per_call(
-        lambda: knn_pruned_launch(ptgt, tnum, qs, pqry, k), "knn_pruned_kernel")
+    k12 = pruned_checks(tpts, tnum, qs, ptgt, card)
     records["knn_pruned"].update(
-        ms=pruned_ms["alone"], pairs=need, bound=search_bound(m, m, k, need),
+        ms=k12["alone"], pairs=k12["pairs"],
+        bound=search_bound(m, m, k, k12["pairs"]),
         plain_ms=time_ms(lambda: knn_pruned_plain(tpts, tnum, qs, k), reps=3))
-    print(f"K12 at {m} × {m}, k={k}: kernel alone (profiler) {pruned_ms['alone']:.4f} ms, "
-          f"issue-rate floor {issue_floor_ms(need):.4f} ms; launch alone "
-          f"{pruned_ms['launch']:.4f} ms by one-call events over "
-          f"{need} needed pairs ({100 * need / (m * m):.2f} % of Q·M); wrapper with "
-          f"the target half kept {pruned_ms['kept']:.4f} ms, whole "
-          f"{pruned_ms['whole']:.4f} ms; prologue alone: target half "
-          f"{pruned_ms['target']:.4f} ms, query half {pruned_ms['queries']:.4f} ms "
-          f"on {card}")
 
     # K9 and K10 at every query count; K10 in turns with its first form and
     # K11 by query count (the first Q rows as queries).
@@ -1401,25 +1503,16 @@ def phase_search(scans, T_gt, rng, dev, card):
     raw_ms["K11 alone"] = one_kernel_per_call(lambda: knn_T(rpts, rnum, rq, 20),
                                               "knn_warp_split_kernel")
     raw_tree = KdTree(points=rpts, num_points=rnum)
-    rtgt = raw_tree.pruned_target()
-    rqry = pruned_prepare_queries(rtgt, rq)
-    need = pruned_pairs(rtgt, rqry, rq, d12[:, 19], nr)
-    raw_ms["launch"] = time_ms(lambda: knn_pruned_launch(rtgt, rnum, rq, rqry, 20),
-                               reps=3)
-    raw_ms["kept"] = time_ms(lambda: knn_pruned(rpts, rnum, rq, 20, target=rtgt), reps=3)
     b_ms, b_by = search_bound(nr, nr, 20)
-    p_ms, p_by = search_bound(nr, nr, 20, need)
     print(f"raw-scan scale, {nr} × {nr}, k=20: K11, K12 and the first forms of K10 and "
           f"K11 equal to K10, K10 and K9 equal to their plain versions on {len(pick)} "
           f"sampled queries; in turns: knn {raw_ms['knn']:.3f} ms (first form "
           f"{raw_ms['knn v1']:.3f}), knn_T {raw_ms['knn_T']:.3f} ms (first form "
           f"{raw_ms['knn_T v1']:.3f}; kernel alone {raw_ms['K11 alone']:.3f}; bound "
           f"{b_ms:.4f} ms by {b_by}, issue-rate floor {issue_floor_ms(nr * nr):.3f} ms); "
-          "knn_pruned launch alone "
-          f"{raw_ms['launch']:.3f} ms, with the target half kept "
-          f"{raw_ms['kept']:.3f} ms, whole {raw_ms['knn_pruned']:.3f} ms over {need} "
-          f"needed pairs, {100 * need / (nr * nr):.2f} % of Q·M (bound {p_ms:.4f} ms "
-          f"by {p_by}) on {card}")
+          f"knn_pruned whole {raw_ms['knn_pruned']:.3f} ms on {card}")
+    pruned_checks(rpts, rnum, rq, raw_tree.pruned_target(), card, ks=(20,),
+                  ref=(d10, i10), reps=3)
 
     # The neighbour-search path, counted from zero.
     for _, _, _, fn in KERNELS.values():
@@ -1590,6 +1683,58 @@ def swept_checks(name, tables, T, n) -> dict:
     return {"plan": plan, "above": above}
 
 
+def score_checks(tables, T, outs, n, sms, card) -> dict:
+    """K1's score form ``outs`` on ``tables`` at T against its plain account
+    (every row: masks, μ and d² equal), its brute-force plain version and
+    its first form: those two take the score's winner over every valid row,
+    and the walk takes the same winner on every row where that winner is
+    accepted, unless its exact d² lies within the score's rounding of the
+    radius, 4·2⁻²³·(|q| + |t|)². One launch a call; the kernel alone and
+    its first form alone (the profiler), the wrappers in turns. Returns
+    {"max_abs_err", "ms", "pairs"}."""
+    walk = gicp_linearize_score_walk_plain(tables, T, MAX_DIST_SQ)
+    h_err = check_linearize("K1 score form against its plain account", outs, walk, n,
+                            True)
+    brute = gicp_linearize_score_plain(tables, T, MAX_DIST_SQ)
+    old = _gicp_linearize_score_v1(tables, T, MAX_DIST_SQ)
+    q = tables.qtab[:n, :3] @ T[:3, :3].T + T[:3, 3]
+    tol = 4.0 * 2.0 ** -23 * (q.norm(dim=1) + old[3][:n, :3].norm(dim=1)) ** 2
+    clear = (old[3][:n, 13] - MAX_DIST_SQ).abs() > tol
+    mask = outs[3][:n, 12] > 0.5
+    for name, ref in (("its brute-force plain version", brute), ("its first form", old)):
+        sel = clear & (ref[3][:n, 12] > 0.5)
+        check(torch.equal(mask[clear], ref[3][:n, 12][clear] > 0.5)
+              and torch.equal(outs[3][:n][sel][:, [0, 1, 2, 13]],
+                              ref[3][:n][sel][:, [0, 1, 2, 13]]),
+              f"K1's score form picks other winners than {name}")
+    near = int((~clear).sum())
+    check(abs(int(outs[2]) - int(brute[2])) <= near and abs(int(old[2]) - int(brute[2])) == 0,
+          "K1's score form and its brute-force forms disagree on the inliers")
+    h_rel = (outs[0] - brute[0]).abs().max().item() / max(1.0, brute[0].abs().max().item())
+    check(h_rel <= 5e-4, f"K1's score form's H differs from the brute force's by {h_rel}")
+    check(launches_per_call(gicp_linearize_score, lambda: gicp_linearize_score(
+        tables, T, MAX_DIST_SQ)) == 1, "K1's score form launched other than once a call")
+    live = swept_live_tiles(tables, T, MAX_DIST_SQ)
+    need = swept_pairs(tables, live)
+    new = lambda: gicp_linearize_score(tables, T, MAX_DIST_SQ)  # noqa: E731
+    v1 = lambda: _gicp_linearize_score_v1(tables, T, MAX_DIST_SQ)  # noqa: E731
+    t = time_turns({"new": new, "v1": v1})
+    alone = one_kernel_per_call(new, r"gicp_linearize_listed_kernel<[^>]*true>",
+                                alone=False)
+    v1_alone = one_kernel_per_call(v1, r"gicp_linearize_kernel<[^>]*true>", alone=False)
+    m = int(tables.tnum)
+    print(f"K1's score form at {n} × {m} ({swept_plan(tables)} chunks a source block): "
+          f"equal to its plain account on every row and to its brute-force plain "
+          f"version and first form on the {int(clear.sum())} rows whose winner's d² is "
+          f"clear of the radius by the score's rounding ({near} are not; inliers "
+          f"{int(outs[2])} against {int(brute[2])}, H scaled {h_rel:.2e}); kernel alone "
+          f"(profiler) {alone:.4f} ms against its first form's {v1_alone:.4f}; wrappers "
+          f"in turns {t['new']:.4f} against {t['v1']:.4f} ms; over the {need} pairs of "
+          f"the live tiles ({100 * need / (n * m):.2f} % of Q·M) issue-rate floor "
+          f"{issue_floor_ms(need, sms):.4f} ms on {card}")
+    return {"max_abs_err": h_err, "ms": alone, "pairs": need}
+
+
 def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     """K4, K5, K6 and K1's score form against their plain versions and their
     scan-scale siblings, then the map-scale path."""
@@ -1657,7 +1802,7 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
           f"{diff.max().item():.3e} (tolerance 1e-4 + 1e-5·|m|: float32 sums of k products)")
     check(excess <= 1e-4, "K4's moments differ from K3's")
     del rows3, m1, m2, got9, diff
-    self_q = PrunedQueries(qperm=ptgt.tperm[:ns].to(torch.int32), qpos=None)
+    self_q = PrunedQueries(qperm=ptgt.tperm[:ns], qkey=None)
     need = pruned_pairs(ptgt, self_q, pts[:ns], d4[:, k - 1], ns)
     chunk = pts[:lib_chunk, :3].contiguous()
     all_rows = pts[:ns, :3].contiguous()
@@ -1737,7 +1882,7 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
             t5["alone"] = one_kernel_per_call(new5, "knn_moments_warp_walk_kernel")
             t5["first form alone"] = one_kernel_per_call(old5, "knn_moments_warp_kernel_v1")
             t5["K3 alone"] = one_kernel_per_call(k3n, r"knn_moments_kernel(?!_v1)")
-            self_q = PrunedQueries(qperm=kept.tperm[:m].to(torch.int32), qpos=None)
+            self_q = PrunedQueries(qperm=kept.tperm[:m], qkey=None)
             need = pruned_pairs(kept, self_q, cp[:m], got[:, 10], m, block=64 // team)
             nbytes = 16.0 * m + 64.0 * cloud.capacity
             b5 = bound(9.0 * need + 9.0 * kk * m, nbytes)
@@ -1907,16 +2052,15 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
 
     outs = gicp_linearize_tables(scan_tables, Ts, MAX_DIST_SQ, route="listed",
                                  mxu_dist=True)
-    refs = gicp_linearize_score_plain(scan_tables, Ts, MAX_DIST_SQ)
-    h_err = check_linearize("K1 score form", outs, refs, n, False)
-    # Score form against difference form, both the brute-force kernel (the
-    # score form is an instance of K1's first form, which keeps every row's
-    # nearest row). The uncentred score ‖t‖² − 2 t·q of
-    # a row carries a rounding error of up to 2·2⁻²³·(|q| + |t|)², so between
-    # two rows it may prefer the one whose true d² is larger by twice that.
-    # Each query gets that tolerance from its own norm and its winners': the
-    # winners' d² agree within it, and the rows are equal wherever the
-    # runner-up (K10, k = 2) is farther than it.
+    score_rec = score_checks(scan_tables, Ts, outs, n, sms, card)
+    # Score form against difference form, both the brute-force first forms
+    # (which keep every row's nearest row). The uncentred score ‖t‖² − 2 t·q
+    # of a row carries a rounding error of up to 2·2⁻²³·(|q| + |t|)², so
+    # between two rows it may prefer the one whose true d² is larger by twice
+    # that. Each query gets that tolerance from its own norm and its
+    # winners': the winners' d² agree within it, and the rows are equal
+    # wherever the runner-up (K10, k = 2) is farther than it. The new score
+    # form zeroes rejected rows, so the rows compared are those it accepts.
     o1 = _gicp_linearize_v1(scan_tables, Ts, MAX_DIST_SQ)
     q = (source.points @ Ts.T)[:n, :3].contiguous()
     mu_s, mu_d = outs[3][:n, :3], o1[3][:n, :3]
@@ -1930,32 +2074,26 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     clear = found & (d2nd[:, 1] - d2nd[:, 0] > tol)
     same = (mu_s == mu_d).all(dim=1)
     check(bool(same[clear].all()), "score and difference form pick different rows")
-    check(clear.float().mean().item() >= 0.9, "too few rows have a clear runner-up")
+    clear_share = clear.sum().item() / max(1, found.sum().item())
+    check(clear_share >= 0.9, "too few rows have a clear runner-up")
     check(abs(int(outs[2]) - int(o1[2])) <= 0.001 * int(o1[2]),
           "score and difference form disagree on the inliers")
     print(f"score form against difference form, tolerance per query "
           f"4·2⁻²³·(|q|+|t|)² (median {tol.median().item():.3e}, max "
           f"{tol.max().item():.3e}): largest |Δd²|/tolerance "
           f"{(delta[found] / tol[found]).max().item():.3f}; rows equal on "
-          f"{int(clear.sum())} queries with a clear runner-up "
-          f"({100 * clear.float().mean().item():.1f} %); {int((~same & found).sum())} of "
+          f"{int(clear.sum())} accepted rows with a clear runner-up "
+          f"({100 * clear_share:.1f} %); {int((~same & found).sum())} of "
           f"{n} rows differ ({100 * (~same & found).float().mean().item():.3f} %); "
           f"inliers {int(outs[2])} against {int(o1[2])}")
     ttq = scan_t.points[:m, :3].contiguous()
-    score = lambda: gicp_linearize_score(scan_tables, Ts, MAX_DIST_SQ)  # noqa: E731
-    score_ms = {"alone": one_kernel_per_call(score, r"gicp_linearize_kernel<[^>]*true>",
-                                             alone=False),
-                "wrapper": time_ms(score)}
-    print(f"K1's score form at {n} × {m}: kernel alone (profiler, one a call) "
-          f"{score_ms['alone']:.4f} ms, its wrapper {score_ms['wrapper']:.4f} ms by "
-          f"one-call events; issue-rate floor {issue_floor_ms(n * m):.4f} ms on {card}")
     records["gicp_linearize_score"] = dict(
-        max_abs_err=h_err, ms=score_ms["alone"],
+        score_rec,
         plain_ms=time_ms(lambda: gicp_linearize_score_plain(scan_tables, Ts, MAX_DIST_SQ),
                          reps=3),
         library_ms=time_ms(lambda: torch.cdist(q, ttq).min(dim=1), reps=3),
-        pairs=n * m,
-        bound=bound(9.0 * n * m + 400.0 * n, 64.0 * (m + 2 * source.capacity)
+        bound=bound(9.0 * score_rec["pairs"] + 400.0 * n,
+                    64.0 * (m + 2 * source.capacity)
                     + 4.0 * 44 * ((source.capacity + 63) // 64)))
 
     # The map-scale path, counted from zero.

@@ -30,9 +30,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points of each library: name → argument types. All return int:
-# a launch entry returns cudaGetLastError() after its launch, a *_rows or
-# *_tiles entry a constant of its kernels that the wrapper repeats, and
-# sgt_box_geometry 0 after writing the box constants of csrc/common.cuh.
+# a launch entry returns cudaGetLastError() after its launch, a *_rows
+# entry a constant of its kernels that the wrapper repeats, and a *_geometry
+# entry 0 after writing such constants (sgt_box_geometry: those of
+# csrc/common.cuh).
 SIGNATURES = {
     "gicp_fused": {
         "sgt_gicp_linearize": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _P, _P],
@@ -64,6 +65,9 @@ SIGNATURES = {
     "gicp_listed": {
         "sgt_gicp_linearize_listed": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F,
                                       _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "sgt_gicp_linearize_listed_score": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P,
+                                            _F, _F, _I, _I, _I, _P, _P, _P, _P, _P,
+                                            _P],
         "sgt_box_geometry": [_P],
     },
     "cov_fused": {
@@ -84,9 +88,10 @@ SIGNATURES = {
         "sgt_knn_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
         "sgt_knn_warp_v1": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
         "sgt_knn_warp_geometry": [_P],
-        "sgt_knn_pruned": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+        "sgt_knn_pruned": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P,
+                           _P],
+        "sgt_knn_pruned_v1": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
         "sgt_box_geometry": [_P],
-        "sgt_knn_seed_tiles": [],
         "sgt_knn_split_geometry": [_P],
     },
 }

@@ -43,6 +43,18 @@ __device__ __forceinline__ bool lex_before(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
+// Float bits whose unsigned order is the floats' order (no NaN), and back:
+// the high word of the 64-bit merge keys of ranks that can be negative (K9's
+// and K1's score forms). Add +0 first, so that -0 keys as +0.
+__device__ __forceinline__ unsigned orderable(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_orderable(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
 // One thread's sorted list of its k nearest candidates so far, kept in
 // plain arrays that the kernel declares: d[s] is the squared distance of
 // slot s, ascending, and p0[s] (p1[s], p2[s]) its 32-bit payload words (the
@@ -382,6 +394,179 @@ __device__ __forceinline__ void store_list(const float (&d)[KMAX],
       out_i[row * k + s] = d[s] < kBig ? (int)p0[s] : 0;
     }
   }
+}
+
+// ------------------------------------------------------------------------
+// The box walk in cull passes over a Morton-sorted table (K3, K4, K5, K12).
+// TEAM threads serve one query, kPrunedThreads / TEAM queries a block; each
+// query's list is seeded with its reach, the kth smallest d² over a window
+// of sorted rows, which bounds its true kth distance from above.
+
+// Passes start at the anchor box and work outwards (kOutward; else in
+// ascending order).
+constexpr int kOutward = 1;
+constexpr int kWalkWarps = kPrunedThreads / 32;
+
+// Offer the cnt staged rows of sorted tile t to the block's seeded lists,
+// in (d², original index) order: team member `member` of TEAM takes rows
+// member, member + TEAM, …; a warp skips the tile if its box lies beyond
+// each of its queries' kth.
+template <int KMAX, int TEAM>
+__device__ __forceinline__ void offer_seeded(const float4* tile, int cnt,
+                                             const float* __restrict__ tbox, int t,
+                                             int member, bool active, float qx,
+                                             float qy, float qz, int k,
+                                             float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                             float& kth, unsigned& kth0) {
+  const bool wanted =
+      active && !(box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > kth);
+  if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
+  for (int j = member; j < cnt; j += TEAM) {
+    const float4 p = tile[j];
+    float dx, dy, dz;
+    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
+    const int idx = __float_as_int(p.w);  // original row index
+    if (lex_before(d2, idx, kth, (int)kth0)) {
+      topk_insert_lex<KMAX>(d, p0, k, d2, idx);
+      kth = topk_slot<KMAX>(d, k - 1);
+      kth0 = topk_slot<KMAX>(p0, k - 1);
+    }
+  }
+}
+
+// The ring, the pass's list and its gaps: at least 16 blocks on an SM.
+static_assert(2 * kBoxRows * 16 + kCullPass * 9 + 64 <= 232448 / 16,
+              "the walk's shared memory keeps fewer than 16 blocks on an SM");
+
+// The passes of a block with at least one active query (the same for all
+// its threads): thread tid holds a query with point q (active: a real
+// query), whose bound is `reach`; `own` is the block's anchor box, where
+// the passes start. A pass culls its kCullPass boxes in parallel against
+// the current R (cull_boxes, gap² kept beside each index) and streams the
+// live tiles through the two-stage cp.async ring; a live tile whose gap²
+// exceeds R, which has tightened since the cull, is not staged. Each staged
+// tile goes to offer(tile, rows, tile index), called by all threads. R
+// starts at the largest reach and tightens after each pass to the largest
+// kth() over the block (each thread's kth() ≤ its reach bounds its query's
+// kth distance). The next pass takes the adjacent kCullPass boxes above
+// and below in turn.
+template <int TEAM, class Offer, class Kth>
+__device__ __forceinline__ void walk_passes(const float4* __restrict__ t4, int m,
+                                            const float* __restrict__ tbox, int own,
+                                            bool active, float qx, float qy, float qz,
+                                            float reach, Offer&& offer, Kth&& kth) {
+  __shared__ __align__(16) float4 tile[2][kBoxRows];
+  __shared__ int live[kCullPass];
+  __shared__ float live_gap[kCullPass];
+  __shared__ int counts[kCullWords];
+  __shared__ float sw[kWalkWarps];
+
+  float lo[3], hi[3];  // the block's query box
+  block_box(active, qx, qy, qz, sw, lo, hi);
+  float bound = block_max(active ? reach : 0.f, sw);
+
+  const int ntiles = (m + kBoxRows - 1) / kBoxRows;
+  constexpr int P = kCullPass;
+  // The first pass: P boxes around the anchor (or the first P).
+  int below = kOutward ? max(0, min(own - P / 2, ntiles - P)) : 0;
+  int above = min(ntiles, below + P);
+  int first = below, end = above;
+  bool up = true;
+  for (;;) {
+    const int nlive = cull_boxes(tbox, first, end, lo, hi, bound, live, live_gap, counts);
+    // Live tile j goes to ring slot `slot`, one commit group per tile; the
+    // next one is the first after it whose gap² is still within R.
+    int j = 0;
+    while (j < nlive && live_gap[j] > bound) ++j;
+    if (j < nlive) stage_tile(tile[0], t4, live[j], m);
+    __pipeline_commit();
+    int slot = 0;
+    while (j < nlive) {
+      int next = j + 1;
+      while (next < nlive && live_gap[next] > bound) ++next;
+      if (next < nlive) stage_tile(tile[slot ^ 1], t4, live[next], m);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this thread's copies of tile j landed
+      __syncthreads();           // and every other thread's
+      const int tt = live[j];
+      offer(tile[slot], min(kBoxRows, m - tt * kBoxRows), tt);
+      __syncthreads();  // the slot is read; tile `next + 1` may land there
+      j = next;
+      slot ^= 1;
+    }
+    bound = block_max(active ? kth() : 0.f, sw);
+    if (above < ntiles && (up || below == 0)) {
+      first = above;
+      end = above = min(ntiles, above + P);
+    } else if (below > 0) {
+      end = below;
+      first = below = max(0, below - P);
+    } else {
+      break;
+    }
+    up = !up;
+  }
+}
+
+// The walk (walk_passes) with each thread's list (d, p0) in registers:
+// the query's reach is the kth smallest d² over the sorted rows wlo, wlo +
+// wstep, … below whi (≤ m); on return the list holds the k first of the
+// thread's rows within that reach in (d², original index) order, empty slots
+// (reach', kNoIndex) with reach' = min(reach, the float below kBig), so that
+// one (d², index) compare against the list's end also tests d² ≤ reach and
+// d² < kBig (unseed turns them back). The lists are in (d², original index)
+// order whatever the order of the tiles. Called by all threads.
+template <int KMAX, int TEAM>
+__device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m,
+                                            const float* __restrict__ tbox, int k,
+                                            int wlo, int whi, int wstep, int own,
+                                            bool active, float qx, float qy, float qz,
+                                            float (&d)[KMAX], unsigned (&p0)[KMAX],
+                                            float& kth, unsigned& kth0) {
+  const int member = TEAM == 1 ? 0 : (int)threadIdx.x % TEAM;
+  float reach = kBig;
+  if (active) reach = kth_bound<KMAX>(t4, wlo, whi, wstep, k, qx, qy, qz);
+  kth = fminf(reach, nextafterf(kBig, 0.f));
+  topk_fill<KMAX>(d, kth);
+  walk_passes<TEAM>(
+      t4, m, tbox, own, active, qx, qy, qz, reach,
+      [&](const float4* tile, int cnt, int tt) {
+        offer_seeded<KMAX, TEAM>(tile, cnt, tbox, tt, member, active, qx, qy, qz, k, d,
+                                 p0, kth, kth0);
+      },
+      [&] { return kth; });
+}
+
+// Empty slots of a walked list back to (kBig, kNoIndex).
+template <int KMAX>
+__device__ __forceinline__ void unseed(float (&d)[KMAX], const unsigned (&p0)[KMAX]) {
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s)
+    if (p0[s] == (unsigned)kNoIndex) d[s] = kBig;
+}
+
+// One round of the merge of a team's walked lists (aligned groups of TEAM
+// threads of a warp): (wd, wi) = the smallest head over the team in (d²,
+// original index) order, and the thread that held it advances `head`. k
+// rounds give the query's list in slot order. Row indices are unique within
+// a team (each row went to one member). Called by every thread of the warp.
+template <int KMAX, int TEAM>
+__device__ __forceinline__ void team_list_pop(const float (&d)[KMAX],
+                                              const unsigned (&p0)[KMAX], int k,
+                                              int& head, float& wd, int& wi) {
+  const unsigned hi = head < k ? topk_slot<KMAX>(p0, head) : (unsigned)kNoIndex;
+  wd = head < k ? topk_slot<KMAX>(d, head) : kBig;
+  wi = (int)hi;
+#pragma unroll
+  for (int off = 1; off < TEAM; off <<= 1) {
+    const float od = __shfl_xor_sync(0xffffffffu, wd, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
+    if (lex_before(od, oi, wd, wi)) {
+      wd = od;
+      wi = oi;
+    }
+  }
+  if (wi != kNoIndex && (int)hi == wi) ++head;
 }
 
 // ------------------------------------------------------------------------

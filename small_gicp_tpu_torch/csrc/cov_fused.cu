@@ -249,167 +249,30 @@ knn_topk_idx_kernel_v1(const float* __restrict__ tsorted, const int* __restrict_
   if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
 }
 
-// The walk in cull passes (K4's launch, and K3's). Passes of kCullPass
-// boxes start at the block's own box and work outwards (kOutward; else in
-// ascending order). A pass culls its boxes in parallel against the current
-// R (cull_boxes, gap² kept beside each index) and streams the live tiles
-// through the two-stage cp.async ring; a live tile whose gap² exceeds R,
-// which has tightened since the cull, is not staged. R tightens after each
-// pass. A list's empty slots start at (min(reach, the float below kBig),
-// kNoIndex), so that one (d², index) compare against its end also tests
-// d² ≤ reach and d² < kBig; the caller turns them back into (kBig,
-// kNoIndex). The lists are in (d², original index) order whatever the
-// order of the tiles, so they equal the first form's. kWalkMinBlocks: the
-// blocks an SM should hold of K4's KMAX = 16 instance, which caps its
-// registers (K3's keeps the compiler's choice: a cap of 8 or 16 blocks
-// moved it by ≤ 2 %, tools/scan_walk_sweep.py). kTeam: the threads that
-// serve one of K3's queries.
-constexpr int kOutward = 1;
+// kWalkMinBlocks: the blocks an SM should hold of K4's KMAX = 16 instance,
+// which caps its registers (K3's keeps the compiler's choice: a cap of 8 or
+// 16 blocks moved it by ≤ 2 %, tools/scan_walk_sweep.py). kTeam: the
+// threads that serve one of K3's queries. The walk itself (common.cuh's
+// walk_sorted / walk_passes) starts at the box of the block's first query.
 constexpr int kWalkMinBlocks = 16;
 constexpr int kTeam = 4;
 constexpr int kWarpTeam = 8;   // lanes that serve one of K5's queries
 constexpr int kWarpBatch = 8;  // rows a lane of K5 loads before their distances
-constexpr int kWalkWarps = sgt::kPrunedThreads / 32;
 static_assert(kTeam >= 1 && kTeam <= 32 && 32 % kTeam == 0 && kWarpTeam >= 1 &&
                   kWarpTeam <= 32 && 32 % kWarpTeam == 0,
               "a team is a power of two of a warp's lanes");
 static_assert(sgt::kBoxRows % (kWarpTeam * kWarpBatch) == 0,
               "K5's batches cover a full tile");
 
-// Offer the cnt staged rows of sorted tile t to the block's seeded lists,
-// in (d², original index) order: team member `member` of TEAM takes rows
-// member, member + TEAM, …; a warp skips the tile if its box lies beyond
-// each of its queries' kth.
-template <int KMAX, int TEAM>
-__device__ __forceinline__ void offer_seeded(const float4* tile, int cnt,
-                                             const float* __restrict__ tbox, int t,
-                                             int member, bool active, float qx,
-                                             float qy, float qz, int k,
-                                             float (&d)[KMAX], unsigned (&p0)[KMAX],
-                                             float& kth, unsigned& kth0) {
-  const bool wanted =
-      active && !(sgt::box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > kth);
-  if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
-  for (int j = member; j < cnt; j += TEAM) {
-    const float4 p = tile[j];
-    float dx, dy, dz;
-    const float d2 = sgt::sq_dist(qx, qy, qz, p.x, p.y, p.z, dx, dy, dz);
-    const int idx = __float_as_int(p.w);  // original row index
-    if (sgt::lex_before(d2, idx, kth, (int)kth0)) {
-      sgt::topk_insert_lex<KMAX>(d, p0, k, d2, idx);
-      kth = sgt::topk_slot<KMAX>(d, k - 1);
-      kth0 = sgt::topk_slot<KMAX>(p0, k - 1);
-    }
-  }
+// The window of sorted rows that the query at sorted position i of a
+// cloud of m valid rows takes its reach from, and the anchor box of a
+// block of `queries` queries: the box of its first query.
+__device__ __forceinline__ int window_start(int i, int m, int window) {
+  return max(0, min(i - window / 2, m - window));
 }
 
-// The ring, the pass's list and its gaps: at least 16 blocks on an SM.
-static_assert(2 * sgt::kBoxRows * 16 + sgt::kCullPass * 9 + 64 <= 232448 / 16,
-              "the walk's shared memory keeps fewer than 16 blocks on an SM");
-
-// The passes of a block whose first query is valid (the same for all its
-// threads): TEAM threads serve one query, kPrunedThreads / TEAM queries a
-// block; thread tid holds the query at sorted position i (active: i < m)
-// with point q, whose bound is `reach`. Each live tile that is staged goes
-// to offer(tile, rows, tile index), called by all threads; R starts at the
-// largest reach and tightens after each pass to the largest kth() over the
-// block (each thread's kth() ≤ its reach bounds its query's kth distance).
-template <int TEAM, class Offer, class Kth>
-__device__ __forceinline__ void walk_passes(const float4* __restrict__ t4, int m,
-                                            const float* __restrict__ tbox, bool active,
-                                            float qx, float qy, float qz, float reach,
-                                            Offer&& offer, Kth&& kth) {
-  __shared__ __align__(16) float4 tile[2][sgt::kBoxRows];
-  __shared__ int live[sgt::kCullPass];
-  __shared__ float live_gap[sgt::kCullPass];
-  __shared__ int counts[sgt::kCullWords];
-  __shared__ float sw[kWalkWarps];
-
-  float lo[3], hi[3];  // the block's query box
-  sgt::block_box(active, qx, qy, qz, sw, lo, hi);
-  float bound = sgt::block_max(active ? reach : 0.f, sw);
-
-  const int ntiles = (m + sgt::kBoxRows - 1) / sgt::kBoxRows;
-  constexpr int P = sgt::kCullPass;
-  // The first pass: P boxes around the block's own (or the first P).
-  const int own = blockIdx.x * (sgt::kPrunedThreads / TEAM) / sgt::kBoxRows;
-  int below = kOutward ? max(0, min(own - P / 2, ntiles - P)) : 0;
-  int above = min(ntiles, below + P);
-  int first = below, end = above;
-  bool up = true;
-  for (;;) {
-    const int nlive = sgt::cull_boxes(tbox, first, end, lo, hi, bound, live,
-                                      live_gap, counts);
-    // Live tile j goes to ring slot `slot`, one commit group per tile; the
-    // next one is the first after it whose gap² is still within R.
-    int j = 0;
-    while (j < nlive && live_gap[j] > bound) ++j;
-    if (j < nlive) sgt::stage_tile(tile[0], t4, live[j], m);
-    __pipeline_commit();
-    int slot = 0;
-    while (j < nlive) {
-      int next = j + 1;
-      while (next < nlive && live_gap[next] > bound) ++next;
-      if (next < nlive) sgt::stage_tile(tile[slot ^ 1], t4, live[next], m);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);  // this thread's copies of tile j landed
-      __syncthreads();           // and every other thread's
-      const int tt = live[j];
-      offer(tile[slot], min(sgt::kBoxRows, m - tt * sgt::kBoxRows), tt);
-      __syncthreads();  // the slot is read; tile `next + 1` may land there
-      j = next;
-      slot ^= 1;
-    }
-    bound = sgt::block_max(active ? kth() : 0.f, sw);
-    // The next pass: the adjacent P boxes above and below in turn.
-    if (above < ntiles && (up || below == 0)) {
-      first = above;
-      end = above = min(ntiles, above + P);
-    } else if (below > 0) {
-      end = below;
-      first = below = max(0, below - P);
-    } else {
-      break;
-    }
-    up = !up;
-  }
-}
-
-// The walk of K4 and K3 (walk_passes) with each thread's list (d, p0) in
-// registers: on return it holds the k first of the thread's rows within the
-// query's reach — the kth smallest d² over its Morton window — in (d²,
-// original index) order, empty slots (reach', kNoIndex) as above. Called by
-// all threads.
-template <int KMAX, int TEAM>
-__device__ __forceinline__ void walk_sorted(const float4* __restrict__ t4, int m,
-                                            const float* __restrict__ tbox, int k,
-                                            int window, int i, bool active, float qx,
-                                            float qy, float qz, float (&d)[KMAX],
-                                            unsigned (&p0)[KMAX], float& kth,
-                                            unsigned& kth0) {
-  const int member = TEAM == 1 ? 0 : (int)threadIdx.x % TEAM;
-  float reach = kBig;
-  if (active) {
-    const int lo = max(0, min(i - window / 2, m - window));
-    reach = sgt::kth_bound<KMAX>(t4, lo, min(m, lo + window), 1, k, qx, qy, qz);
-  }
-  kth = fminf(reach, nextafterf(kBig, 0.f));
-  sgt::topk_fill<KMAX>(d, kth);
-  walk_passes<TEAM>(
-      t4, m, tbox, active, qx, qy, qz, reach,
-      [&](const float4* tile, int cnt, int tt) {
-        offer_seeded<KMAX, TEAM>(tile, cnt, tbox, tt, member, active, qx, qy, qz, k, d,
-                                 p0, kth, kth0);
-      },
-      [&] { return kth; });
-}
-
-// Empty slots of a walked list back to (kBig, kNoIndex).
-template <int KMAX>
-__device__ __forceinline__ void unseed(float (&d)[KMAX], const unsigned (&p0)[KMAX]) {
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s)
-    if (p0[s] == (unsigned)sgt::kNoIndex) d[s] = kBig;
+__device__ __forceinline__ int first_box(int queries) {
+  return blockIdx.x * queries / sgt::kBoxRows;
 }
 
 template <int KMAX>
@@ -441,9 +304,11 @@ knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ n
   // A block of padding rows only (the same for all its threads) has nothing
   // to search; its rows get empty lists.
   if (blockIdx.x * sgt::kPrunedThreads < m)
-    walk_sorted<KMAX, 1>(t4, m, tbox, k, window, i, active, qx, qy, qz, bd, bi, kth,
-                         kth0);
-  unseed<KMAX>(bd, bi);
+    sgt::walk_sorted<KMAX, 1>(t4, m, tbox, k, window_start(i, m, window),
+                              min(m, window_start(i, m, window) + window), 1,
+                              first_box(sgt::kPrunedThreads), active, qx, qy, qz, bd,
+                              bi, kth, kth0);
+  sgt::unseed<KMAX>(bd, bi);
   if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
 }
 
@@ -483,9 +348,11 @@ knn_moments_kernel(const float* __restrict__ pts, const float* __restrict__ tsor
     sgt::topk_fill<KMAX>(bi, (unsigned)sgt::kNoIndex);
     float kth;
     unsigned kth0 = (unsigned)sgt::kNoIndex;
-    walk_sorted<KMAX, kTeam>(t4, m, tbox, k, window, i, active, qx, qy, qz, bd, bi,
-                             kth, kth0);
-    unseed<KMAX>(bd, bi);
+    sgt::walk_sorted<KMAX, kTeam>(t4, m, tbox, k, window_start(i, m, window),
+                                  min(m, window_start(i, m, window) + window), 1,
+                                  first_box(kQueries), active, qx, qy, qz, bd, bi, kth,
+                                  kth0);
+    sgt::unseed<KMAX>(bd, bi);
     // Merge the team's lists: round r takes the smallest head in (d²,
     // original index) order — slot r of the query's list — and its member
     // advances; the winner's offset goes into the sums in slot order. Row
@@ -494,20 +361,9 @@ knn_moments_kernel(const float* __restrict__ pts, const float* __restrict__ tsor
     int head = 0;
     float d_k = kBig;
     for (int r = 0; r < k; ++r) {
-      const unsigned hi =
-          head < k ? sgt::topk_slot<KMAX>(bi, head) : (unsigned)sgt::kNoIndex;
-      float wd = head < k ? sgt::topk_slot<KMAX>(bd, head) : kBig;
-      int wi = (int)hi;
-#pragma unroll
-      for (int off = 1; off < kTeam; off <<= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, wd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-        if (sgt::lex_before(od, oi, wd, wi)) {
-          wd = od;
-          wi = oi;
-        }
-      }
-      if (wi != sgt::kNoIndex && (int)hi == wi) ++head;
+      float wd;
+      int wi;
+      sgt::team_list_pop<KMAX, kTeam>(bd, bi, k, head, wd, wi);
       d_k = wd;
       if (active && wd < kValidSq) {
         const float4 p = p4[wi];
@@ -632,7 +488,7 @@ knn_moments_warp_walk_kernel(const float* __restrict__ pts,
     float kth = kBig;
     int n = 0;  // entries in the lane's list
     if (active) {
-      const int lo = max(0, min(i - window / 2, m - window));
+      const int lo = window_start(i, m, window);
       const int hi = min(m, lo + window);
       for (int j = lo + member; j < hi; j += TEAM) {
         const float4 p = t4[j];
@@ -660,8 +516,8 @@ knn_moments_warp_walk_kernel(const float* __restrict__ pts,
       ld[s * 32 + lane] = kth;
       li[s * 32 + lane] = sgt::kNoIndex;
     }
-    walk_passes<TEAM>(
-        t4, m, tbox, active, qx, qy, qz, reach,
+    sgt::walk_passes<TEAM>(
+        t4, m, tbox, first_box(kQueries), active, qx, qy, qz, reach,
         [&](const float4* tile, int cnt, int tt) {
           // The warp skips the tile if its box lies beyond each lane's kth.
           const bool wanted =

@@ -1,6 +1,7 @@
-// What the fused linearize kernels share (K1 of gicp_fused.cu, K6 of
-// gicp_swept.cu, K7 of gicp_fleet.cu): the factor and robust-kernel switches
-// and the per-point finalize that follows the correspondence search.
+// What the fused linearize kernels share (K1 of gicp_listed.cu and
+// gicp_fused.cu, K6 of gicp_swept.cu, K7 of gicp_fleet.cu): the factor and
+// robust-kernel switches, the per-point finalize that follows the
+// correspondence search, and the chunked box walk of K1 (both forms) and K6.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -217,6 +218,49 @@ __device__ __forceinline__ unsigned long long swept_key(float d2, int row) {
          (unsigned)row;
 }
 
+// The score form's key: the score can be negative, so its bits are made
+// orderable first.
+__device__ __forceinline__ unsigned long long score_key(float s, int row) {
+  return ((unsigned long long)orderable(__fadd_rn(s, 0.f)) << 32) | (unsigned)row;
+}
+
+// Start the copy of the ‖t‖² of sorted tile tt into dst: tnorm holds one
+// float a sorted row, padded to whole tiles, so a tile is 64 16-byte copies.
+__device__ __forceinline__ void stage_norms(float* dst, const float* tnorm, int tt) {
+  static_assert(kBoxRows == 4 * kLinThreads, "one 16-byte copy a thread");
+  __pipeline_memcpy_async(dst + 4 * threadIdx.x, tnorm + (size_t)tt * kBoxRows +
+                          4 * threadIdx.x, 16);
+}
+
+// The score form of nearest_in_tile: the row of the cnt staged rows of
+// sorted tile t (‖t‖² in norms) with the smallest score ‖t‖² − 2 t·q, in
+// (score, original row) order, folded into (best_s, best). The score is
+// formed with the rounded operations of the first form's instance
+// (gicp_fused.cu) and of the plain version, so all three rank alike. Every
+// row is a candidate: the rejector takes the winner's exact d² afterwards.
+// A warp skips the rows if the tile's box lies farther than max_d2 from each
+// of its points: no row there is accepted.
+__device__ __forceinline__ void score_in_tile(const float4* tile, const float* norms,
+                                              int cnt, const float* __restrict__ tbox,
+                                              int t, bool active, float qx, float qy,
+                                              float qz, float max_d2, float& best_s,
+                                              int& best) {
+  const bool wanted =
+      active && !(box_gap2(tbox + (size_t)t * 8, qx, qy, qz, qx, qy, qz) > max_d2);
+  if (!__any_sync(0xffffffffu, wanted) || !wanted) return;
+  for (int j = 0; j < cnt; ++j) {
+    const float4 tp = tile[j];
+    const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, tp.x), __fmul_rn(qy, tp.y)),
+                                __fmul_rn(qz, tp.z));
+    const float s = __fsub_rn(norms[j], __fmul_rn(2.f, dot));
+    const int idx = __float_as_int(tp.w);  // original target row
+    if (lex_before(s, idx, best_s, best)) {
+      best_s = s;
+      best = idx;
+    }
+  }
+}
+
 // Called by every thread of a block after the block's results are in
 // device memory: counts the block at *ticket and returns true in the one
 // that arrives as the `expected`-th.
@@ -237,11 +281,15 @@ __device__ __forceinline__ bool last_arrival(unsigned* ticket, unsigned expected
 // z | original index, the first m valid) against it at max_d2 in passes of
 // kCullPass, and scans every gridDim.y-th live tile through the cp.async
 // ring; candidates need d² ≤ max_d2 and win in (d², original index) order.
-// With more than one chunk each posts its rows' winners as keys [n] (~0
-// between launches) and returns false, except the last of the source block
-// (ticket tickets[blockIdx.x], 0 between launches), which reads and resets
-// the keys and its ticket. (best_d, best): the row's winner over the
-// target, (kBig, kNoIndex) without one.
+// SCORE (K1's score form): the tiles' ‖t‖² (tnorm, in sorted order) ride
+// in the ring beside them, every row of a tile within max_d2 of the point is
+// a candidate and candidates win in (score, original index) order. With
+// more than one chunk each posts its rows' winners as keys [n] (~0 between
+// launches) and returns false, except the last of the source block (ticket
+// tickets[blockIdx.x], 0 between launches), which reads and resets the keys
+// and its ticket. (best_v, best): the row's winner over the target and its
+// d² (SCORE: its score), (kBig, kNoIndex) without one.
+template <bool SCORE = false>
 __device__ __forceinline__ bool chunked_nearest(const float* __restrict__ tsorted,
                                                 const float* __restrict__ tbox, int m,
                                                 bool block_active, bool active, int i,
@@ -249,12 +297,14 @@ __device__ __forceinline__ bool chunked_nearest(const float* __restrict__ tsorte
                                                 float max_d2,
                                                 unsigned long long* __restrict__ keys,
                                                 unsigned* __restrict__ tickets,
-                                                float& best_d, int& best) {
+                                                float& best_v, int& best,
+                                                const float* __restrict__ tnorm = nullptr) {
   __shared__ __align__(16) float4 tile[2][kBoxRows];
+  __shared__ __align__(16) float norms[SCORE ? 2 : 1][SCORE ? kBoxRows : 4];
   __shared__ int live[kCullPass];
   __shared__ int counts[kCullWords];
   __shared__ float sw[kLinThreads / 32];
-  best_d = kBig;
+  best_v = kBig;
   best = kNoIndex;
   if (block_active) {
     float lo[3], hi[3];  // the box of the block's transformed valid points
@@ -270,16 +320,28 @@ __device__ __forceinline__ bool chunked_nearest(const float* __restrict__ tsorte
       // c goes to ring slot c & 1, one commit group per tile.
       const int j0 = ((s - before) % chunks + chunks) % chunks;
       const int mine = j0 < nlive ? (nlive - j0 + chunks - 1) / chunks : 0;
-      if (mine > 0) stage_tile(tile[0], t4, live[j0], m);
+      if (mine > 0) {
+        stage_tile(tile[0], t4, live[j0], m);
+        if constexpr (SCORE) stage_norms(norms[0], tnorm, live[j0]);
+      }
       __pipeline_commit();
       for (int c = 0; c < mine; ++c) {
-        if (c + 1 < mine) stage_tile(tile[(c + 1) & 1], t4, live[j0 + (c + 1) * chunks], m);
+        if (c + 1 < mine) {
+          const int nt = live[j0 + (c + 1) * chunks];
+          stage_tile(tile[(c + 1) & 1], t4, nt, m);
+          if constexpr (SCORE) stage_norms(norms[(c + 1) & 1], tnorm, nt);
+        }
         __pipeline_commit();
         __pipeline_wait_prior(1);  // this thread's copies of tile c landed
         __syncthreads();           // and every other thread's
         const int tt = live[j0 + c * chunks];
-        nearest_in_tile(tile[c & 1], min(kBoxRows, m - tt * kBoxRows), tbox, tt, active,
-                        qx, qy, qz, max_d2, best_d, best);
+        const int cnt = min(kBoxRows, m - tt * kBoxRows);
+        if constexpr (SCORE)
+          score_in_tile(tile[c & 1], norms[c & 1], cnt, tbox, tt, active, qx, qy, qz,
+                        max_d2, best_v, best);
+        else
+          nearest_in_tile(tile[c & 1], cnt, tbox, tt, active, qx, qy, qz, max_d2, best_v,
+                          best);
         __syncthreads();  // slot c & 1 is read; tile c + 2 may land there
       }
       before += nlive;
@@ -289,15 +351,17 @@ __device__ __forceinline__ bool chunked_nearest(const float* __restrict__ tsorte
   if (gridDim.y > 1 && block_active) {
     // Post the chunk's winners, the smallest key kept: ties to the lower
     // row, in any order of the chunks.
-    if (active && best != kNoIndex) atomicMin(keys + i, swept_key(best_d, best));
+    if (active && best != kNoIndex)
+      atomicMin(keys + i, SCORE ? score_key(best_v, best) : swept_key(best_v, best));
     if (!last_arrival(tickets + blockIdx.x, gridDim.y)) return false;
-    best_d = kBig;
+    best_v = kBig;
     best = kNoIndex;
     if (active) {
       const unsigned long long key = __ldcg(keys + i);
       keys[i] = ~0ull;
       if (key != ~0ull) {
-        best_d = __uint_as_float((unsigned)(key >> 32));
+        const unsigned hi = (unsigned)(key >> 32);
+        best_v = SCORE ? from_orderable(hi) : __uint_as_float(hi);
         best = (int)(key & 0xffffffffu);
       }
     }

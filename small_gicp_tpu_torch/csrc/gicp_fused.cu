@@ -1,11 +1,12 @@
 // Fused GICP correspondence search + linearize (K1) and the LM trial
 // errors (K2), hand-written for Hopper (sm_90a).
 //
-// K1 replaces small_gicp_tpu/ops/gicp_fused_pallas.py
-// `_fused_kernel_listed` + `_fused_finalize` (the finalize is in
-// gicp_common.cuh, shared with the swept kernel of gicp_swept.cu; the
-// `mxu_dist` branch is the SCORE instance below): exact 1-NN of T·p over the
-// valid target rows, then the per-point weight W (GICP (C_t + R C_s Rᵀ)⁻¹
+// K1's first forms (the box walks of gicp_listed.cu replaced them on every
+// path; kept as yardsticks and for the brute-force lane entries) replace
+// small_gicp_tpu/ops/gicp_fused_pallas.py `_fused_kernel_listed` +
+// `_fused_finalize` (the finalize is in gicp_common.cuh; the `mxu_dist`
+// branch is the SCORE instance below): exact 1-NN of T·p over the valid
+// target rows, then the per-point weight W (GICP (C_t + R C_s Rᵀ)⁻¹
 // by adjugate with the |det| < 1e-30 guard, plane-ICP diag(n∘n), ICP I),
 // the rejector mask d² ≤ max_d2, the optional Huber/Cauchy weight w(√e),
 // J = [R·skew(p) | −R], the per-block sums [H | b | e | inliers] and the
@@ -62,7 +63,7 @@ __device__ __forceinline__ int lane_pair(const int* uids, int u) {
 // SCORE: rank the targets by ‖t‖² − 2 t·q with ‖t‖² read from ttab column 13
 // (uncentred, as the Pallas kernel's mxu_dist branch forms it; ‖q‖² is the
 // same for every target of one query) and take the winner's exact d²
-// afterwards. On CUDA cores: the tensor-core form is later work.
+// afterwards, on CUDA cores (gicp_listed.cu says why).
 template <int FACTOR, int ROBUST, bool SCORE>
 __global__ void __launch_bounds__(kLinThreads)
 gicp_linearize_kernel(const float* __restrict__ ttab, const int* __restrict__ tnum,
@@ -311,7 +312,8 @@ int sgt_gicp_linearize(const float* ttab, const int* tnum, const float* qtab,
                    max_d2, robust_c, factor, robust, false, corr, partials, stream);
 }
 
-// K1's score-form instance: the same arguments; ttab column 13 holds ‖t‖².
+// The first form of K1's score form: the same arguments; ttab column 13
+// holds ‖t‖².
 int sgt_gicp_linearize_score(const float* ttab, const int* tnum, const float* qtab,
                              const int* qnum, int n, const float* pose, float max_d2,
                              float robust_c, int factor, int robust, float* corr,

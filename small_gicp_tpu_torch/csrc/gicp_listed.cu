@@ -1,5 +1,5 @@
-// Fused GICP correspondence search + linearize of the listed route (K1),
-// hand-written for Hopper (sm_90a).
+// Fused GICP correspondence search + linearize of the listed route (K1 and
+// its score form), hand-written for Hopper (sm_90a).
 //
 // Replaces small_gicp_tpu/ops/gicp_fused_pallas.py `_fused_kernel_listed`
 // (its XLA-side lists of the live target tiles of each source block, built
@@ -43,10 +43,29 @@
 // holds zeros and d² = 3e38, as K6's and K7's do: its nearest row may lie
 // in a tile that was never scanned.
 //
-// Against the first form (gicp_fused.cu's gicp_linearize_kernel, kept for
-// the score form, the brute-force lane entries and as K1's yardstick): that
-// one gave each source row a thread in row order and scanned every valid
-// target row. The pose comes as the caller's 4×4 matrix, read in place.
+// The score form (SCORE, the `mxu_dist` branch of `_fused_kernel_listed`)
+// walks the same boxes with the same chunks, merge and finalize, and ranks
+// the candidates by the uncentred score ‖t‖² − 2 t·q (‖t‖² as gicp_prepare
+// writes it into ttab column 13, gathered by the wrapper into the target's
+// sorted order once per tables and staged through the ring beside the
+// tiles). Every row of a tile within max_d2 of the point is a candidate
+// (the score is not a distance, so the difference form's skip of tiles
+// beyond the best d² so far does not hold for it); winners merge on (score
+// made orderable, original row) and the winner's exact d² is taken
+// afterwards for the rejector and corr. The score is formed on CUDA cores
+// with the rounded operations of the plain version: a tensor-core product
+// would have a reduction depth of only 4 (x, y, z, 1), and TF32 keeps about
+// three digits, too few to rank neighbours at 100 m coordinates, while a
+// 3xTF32 split triples the work on the few pairs the walk leaves. A row
+// whose brute-force winner lies within max_d2 gets that winner here too
+// (its tile is within max_d2 of the row, so it is scanned); a row whose
+// winner is rejected holds zeros and d² = 3e38, as in the difference form.
+//
+// Against the first forms (gicp_fused.cu's gicp_linearize_kernel<…,
+// false|true>, kept for the brute-force lane entries and as the
+// yardsticks of both forms): those gave each source row a thread in row
+// order and scanned every valid target row. The pose comes as the caller's
+// 4×4 matrix, read in place.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -63,10 +82,12 @@ using namespace sgt;
 // [4,4] row-major; corr [N,16] in original order; partials [blocks, 44];
 // keys [N] (~0 between launches); tickets [blocks + 1] (0 between
 // launches); sums [44] float64. Chunk blockIdx.y of source block blockIdx.x.
-template <int FACTOR, int ROBUST>
+// SCORE: tnorm [ceil(M / 256) · 256] holds ‖t‖² of the sorted target rows.
+template <int FACTOR, int ROBUST, bool SCORE>
 __global__ void __launch_bounds__(kLinThreads)
 gicp_linearize_listed_kernel(const float* __restrict__ ttab,
                              const float* __restrict__ tsorted,
+                             const float* __restrict__ tnorm,
                              const float* __restrict__ tbox,
                              const int* __restrict__ tnum, int mcap,
                              const float* __restrict__ qtab,
@@ -109,9 +130,15 @@ gicp_linearize_listed_kernel(const float* __restrict__ ttab,
 
   float best_d;
   int best;
-  if (!chunked_nearest(tsorted, tbox, m, block_active, active, i, qx, qy, qz, max_d2,
-                       keys, tickets, best_d, best))
+  if (!chunked_nearest<SCORE>(tsorted, tbox, m, block_active, active, i, qx, qy, qz,
+                              max_d2, keys, tickets, best_d, best, tnorm))
     return;  // a chunk whose winners another chunk finishes
+  if (SCORE && best != kNoIndex) {
+    // The score only ranks; the rejector and corr take the winner's exact d².
+    const float* row = ttab + (size_t)best * 16;
+    float dx, dy, dz;
+    best_d = sq_dist(qx, qy, qz, row[0], row[1], row[2], dx, dy, dz);
+  }
 
   linearize_finalize<FACTOR, ROBUST, true>(
       ttab, qrow, active, best == kNoIndex ? -1 : best, best_d, r, qx, qy, qz, px, py,
@@ -132,31 +159,50 @@ gicp_linearize_listed_kernel(const float* __restrict__ ttab,
   if (threadIdx.x == 0) tickets[gridDim.x] = 0u;
 }
 
-template <int F, int RB>
+template <int F, int RB, bool SCORE>
 void launch_listed(dim3 grid, cudaStream_t stream, const float* ttab,
-                   const float* tsorted, const float* tbox, const int* tnum, int mcap,
-                   const float* qtab, const int* sperm, const int* qnum, int n,
-                   const float* pose, float max_d2, float robust_c, float* corr,
-                   float* partials, unsigned long long* keys, unsigned* tickets,
-                   double* sums) {
-  gicp_linearize_listed_kernel<F, RB><<<grid, kLinThreads, 0, stream>>>(
-      ttab, tsorted, tbox, tnum, mcap, qtab, sperm, qnum, n, pose, max_d2, robust_c,
-      corr, partials, keys, tickets, sums);
+                   const float* tsorted, const float* tnorm, const float* tbox,
+                   const int* tnum, int mcap, const float* qtab, const int* sperm,
+                   const int* qnum, int n, const float* pose, float max_d2,
+                   float robust_c, float* corr, float* partials,
+                   unsigned long long* keys, unsigned* tickets, double* sums) {
+  gicp_linearize_listed_kernel<F, RB, SCORE><<<grid, kLinThreads, 0, stream>>>(
+      ttab, tsorted, tnorm, tbox, tnum, mcap, qtab, sperm, qnum, n, pose, max_d2,
+      robust_c, corr, partials, keys, tickets, sums);
 }
 
 using ListedLaunch = void (*)(dim3, cudaStream_t, const float*, const float*,
-                              const float*, const int*, int, const float*, const int*,
-                              const int*, int, const float*, float, float, float*,
-                              float*, unsigned long long*, unsigned*, double*);
+                              const float*, const float*, const int*, int,
+                              const float*, const int*, const int*, int, const float*,
+                              float, float, float*, float*, unsigned long long*,
+                              unsigned*, double*);
 
-const ListedLaunch kListed[3][3] = {
-    {launch_listed<kGicp, kNone>, launch_listed<kGicp, kHuber>,
-     launch_listed<kGicp, kCauchy>},
-    {launch_listed<kPlaneIcp, kNone>, launch_listed<kPlaneIcp, kHuber>,
-     launch_listed<kPlaneIcp, kCauchy>},
-    {launch_listed<kIcp, kNone>, launch_listed<kIcp, kHuber>,
-     launch_listed<kIcp, kCauchy>},
+#define SGT_LISTED_ROW(F, S) \
+  {launch_listed<F, kNone, S>, launch_listed<F, kHuber, S>, launch_listed<F, kCauchy, S>}
+// [score form][factor][robust]
+const ListedLaunch kListed[2][3][3] = {
+    {SGT_LISTED_ROW(kGicp, false), SGT_LISTED_ROW(kPlaneIcp, false),
+     SGT_LISTED_ROW(kIcp, false)},
+    {SGT_LISTED_ROW(kGicp, true), SGT_LISTED_ROW(kPlaneIcp, true),
+     SGT_LISTED_ROW(kIcp, true)},
 };
+#undef SGT_LISTED_ROW
+
+int listed(bool score, const float* ttab, const float* tsorted, const float* tnorm,
+           const float* tbox, const int* tnum, int mcap, const float* qtab,
+           const int* sperm, const int* qnum, int n, const float* pose, float max_d2,
+           float robust_c, int factor, int robust, int chunks, float* corr,
+           float* partials, unsigned long long* keys, unsigned* tickets, double* sums,
+           void* stream) {
+  if (factor < 0 || factor > 2 || robust < 0 || robust > 2 || n <= 0 || mcap < 0 ||
+      chunks < 1 || chunks > 65535 || !keys || !tickets || !sums || (score && !tnorm))
+    return (int)cudaErrorInvalidValue;
+  kListed[score][factor][robust](dim3((n + kLinThreads - 1) / kLinThreads, chunks),
+                                 (cudaStream_t)stream, ttab, tsorted, tnorm, tbox, tnum,
+                                 mcap, qtab, sperm, qnum, n, pose, max_d2, robust_c,
+                                 corr, partials, keys, tickets, sums);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -174,14 +220,25 @@ int sgt_gicp_linearize_listed(const float* ttab, const float* tsorted,
                               int factor, int robust, int chunks, float* corr,
                               float* partials, unsigned long long* keys,
                               unsigned* tickets, double* sums, void* stream) {
-  if (factor < 0 || factor > 2 || robust < 0 || robust > 2 || n <= 0 || mcap < 0 ||
-      chunks < 1 || chunks > 65535 || !keys || !tickets || !sums)
-    return (int)cudaErrorInvalidValue;
-  kListed[factor][robust](dim3((n + kLinThreads - 1) / kLinThreads, chunks),
-                          (cudaStream_t)stream, ttab, tsorted, tbox, tnum, mcap, qtab,
-                          sperm, qnum, n, pose, max_d2, robust_c, corr, partials, keys,
-                          tickets, sums);
-  return (int)cudaGetLastError();
+  return listed(false, ttab, tsorted, nullptr, tbox, tnum, mcap, qtab, sperm, qnum, n,
+                pose, max_d2, robust_c, factor, robust, chunks, corr, partials, keys,
+                tickets, sums, stream);
+}
+
+// K1's score form: the same arguments and tnorm [ceil(mcap / 256) · 256],
+// ‖t‖² of the sorted target rows (ttab column 13 gathered by tsorted's
+// original rows), zeros beyond them.
+int sgt_gicp_linearize_listed_score(const float* ttab, const float* tsorted,
+                                    const float* tnorm, const float* tbox,
+                                    const int* tnum, int mcap, const float* qtab,
+                                    const int* sperm, const int* qnum, int n,
+                                    const float* pose, float max_d2, float robust_c,
+                                    int factor, int robust, int chunks, float* corr,
+                                    float* partials, unsigned long long* keys,
+                                    unsigned* tickets, double* sums, void* stream) {
+  return listed(true, ttab, tsorted, tnorm, tbox, tnum, mcap, qtab, sperm, qnum, n, pose,
+                max_d2, robust_c, factor, robust, chunks, corr, partials, keys, tickets,
+                sums, stream);
 }
 
 }  // extern "C"

@@ -6,12 +6,14 @@
 //                                 (nearest_neighbor_pallas, "vpu" / "mxu")
 //   knn_split_kernel<KMAX>        `_make_knn_kernel`        (knn_pallas)
 //   knn_warp_split_kernel<QW>     `_make_knn_kernel_T`      (knn_pallas_T)
-//   knn_pruned_kernel<KMAX>       `_make_knn_listed_kernel` (knn_pallas_pruned)
+//   knn_pruned_walk_kernel<KMAX, TEAM>
+//                                 `_make_knn_listed_kernel` (knn_pallas_pruned)
 //
 // nn1_kernel and knn_kernel are the first forms of K9 and K10, one thread
-// per query over every row, and knn_warp_kernel_v1 the first form of K11;
-// they stay as yardsticks (entries sgt_nn1_v1, sgt_knn_v1, sgt_knn_warp_v1)
-// and are on no path.
+// per query over every row, knn_warp_kernel_v1 the first form of K11 and
+// knn_pruned_kernel_v1 that of K12; they stay as yardsticks (entries
+// sgt_nn1_v1, sgt_knn_v1, sgt_knn_warp_v1, sgt_knn_pruned_v1) and are on no
+// path.
 //
 // Shared contract. Targets are [M,4] float32 rows (x y z w) of which the
 // first *tnum are valid (a device int32 read in place; sentinel rows beyond
@@ -117,22 +119,37 @@
 // a block over 64 KB, 4 queries a warp over 8 and 1,024-row stages over 512
 // and 2,048.
 //
-// K12 (pruned kNN): work ∝ local density. The wrapper sorts the target by
-// Morton code (valid rows first) into rows (x y z | original index), builds
-// the bounding box of every kTile sorted rows, sorts the queries by the
-// same code and finds each query's insertion position in the sorted
-// target. One launch: a block owns kKnnThreads consecutive sorted queries,
-// scans the five tiles around its median query's position, reduces its kth
-// distance bound R = max over its queries, then walks the remaining tiles
-// and branches past every tile whose box lies farther than R from the
-// block's query box; R tightens after every scanned tile. Within a scanned
-// tile a warp skips the rows if the tile's box lies farther from each of its
-// queries than that query's own kth distance. A row that can still enter a
-// query's list has d² ≤ that query's kth ≤ R, and the gap² between the
-// boxes (same operation order, no fused multiply-add) is ≤ d², so no such
-// row is skipped. Tiles are visited out of index order, so
-// insertion is lexicographic on (d², original index): K12 equals K10 on
-// every input.
+// K12 (pruned kNN): work ∝ local density, on the box walk that K3, K4 and
+// K5 share (common.cuh's walk_sorted). The target comes sorted by Morton
+// code (valid rows first) into rows (x y z | original index), with the
+// bounding box of every kTile sorted rows and the sorted codes (a KdTree
+// keeps all three); the queries come sorted by the same code (qperm, their
+// codes qkey). TEAM threads serve one query, kKnnThreads / TEAM
+// consecutive sorted queries a block. Each thread finds its query's
+// insertion position among the sorted codes by binary search, and the
+// query's reach is the kth smallest d² over the `window` sorted rows
+// around it — or, where more rows than that share its code (a dense 1 m
+// cell of a raw scan), over `window` rows spread evenly across them, since
+// a window at one end of the run may lie a cell's width away: any k
+// distinct rows bound the true kth distance from above.
+// The block's anchor box is the one holding its median query's insertion
+// position; cull passes of kCullPass boxes go outwards from it against the
+// block's bound R (the largest reach, tightened after every pass), and the
+// live tiles stream through the two-stage cp.async ring, a kept box
+// re-checked against R as it tightens. Member t of a team takes the rows
+// t, t + TEAM, … of a staged tile into its own list seeded with the reach;
+// a warp skips a tile beyond each of its queries' kth. At the end the team
+// merges its lists in k rounds of a shuffle arg-min (team_list_pop). The
+// gap² between boxes never exceeds the d² of a pair inside them, and the
+// lists are in (d², original index) order whatever the order of the tiles,
+// so K12 equals K10 on every input. The wrapper picks TEAM from the query
+// count and the SM count (pruned_plan). What bounds it: the pairs the walk
+// cannot avoid on the data (operations, ~9 a pair).
+//
+// The first form (knn_pruned_kernel_v1, entry sgt_knn_pruned_v1, on no
+// path) gave each thread a query, 64 a block, scanned the five tiles around
+// the block's anchor for a first bound and then tested every other tile's
+// box one after another, each staged synchronously.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -169,7 +186,7 @@ constexpr int kScanBatch = 8;      // K11's rows a lane loads before their dista
 static_assert(kScanBatch < 32, "K11's candidate bits of one query fit a word");
 static_assert(kWarpStage % kSplitTile == 0, "K11's stage is whole ring tiles");
 constexpr int kTile = sgt::kBoxRows;  // sorted rows per box (K12)
-constexpr int kSeedTiles = 5;      // tiles around the anchor scanned first
+constexpr int kSeedTiles = 5;      // tiles around the anchor K12's first form scans first
 using sgt::kNoIndex;
 static_assert(kKnnThreads == sgt::kPrunedThreads, "K12 blocks use common.cuh's helpers");
 
@@ -349,16 +366,6 @@ __device__ __forceinline__ bool last_chunk(unsigned* tickets) {
   return last;
 }
 
-// Float bits whose unsigned order is the floats' order (no NaN), and back.
-__device__ __forceinline__ unsigned orderable(float v) {
-  const unsigned u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_orderable(unsigned o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
 // K9's result for query q: the winner (v, row) of the ranks; the score
 // form's d² recomputed from the uncentred query (u) and row.
 template <bool SCORE>
@@ -470,7 +477,7 @@ nn1_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
     if (q < nq && best[r] < kBig) {
       // -0 + 0 = +0: equal ranks get equal keys.
       const unsigned long long key =
-          ((unsigned long long)orderable(__fadd_rn(best[r], 0.f)) << 32) |
+          ((unsigned long long)sgt::orderable(__fadd_rn(best[r], 0.f)) << 32) |
           (unsigned)best_i[r];
       atomicMax(keys + q, ~key);
     }
@@ -484,7 +491,7 @@ nn1_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
     keys[q] = 0ull;
     const bool found = key != ~0ull;  // some chunk posted a winner
     put_nn1<SCORE>(t4, ux[r], uy[r], uz[r],
-                   found ? from_orderable((unsigned)(key >> 32)) : kBig,
+                   found ? sgt::from_orderable((unsigned)(key >> 32)) : kBig,
                    found ? (int)(key & 0xffffffffu) : 0, out_d, out_i, q);
   }
   if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
@@ -974,9 +981,11 @@ knn_warp_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnu
 
 // --------------------------------------------------------------- K12 ----
 
+// The first form. qpos [nq]: sorted position → insertion position in the
+// sorted target.
 template <int KMAX>
 __global__ void __launch_bounds__(kKnnThreads)
-knn_pruned_kernel(const float* __restrict__ tsorted, const int* __restrict__ tnum,
+knn_pruned_kernel_v1(const float* __restrict__ tsorted, const int* __restrict__ tnum,
                   int mcap, const float* __restrict__ tbox,
                   const float* __restrict__ qry, int qstride, int nq,
                   const int* __restrict__ qperm, const int* __restrict__ qpos, int k,
@@ -1029,6 +1038,81 @@ knn_pruned_kernel(const float* __restrict__ tsorted, const int* __restrict__ tnu
     bound = sgt::block_max(active ? kth : 0.f, sw);
   }
   if (active) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
+}
+
+// The first position of the m sorted keys whose key is not below v.
+__device__ __forceinline__ int code_position(const long long* __restrict__ keys, int m,
+                                           long long v) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(keys + mid) < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// tkey [mcap]: the sorted Morton codes of the target rows; qperm [nq]:
+// sorted position → query row; qkey [nq]: the queries' sorted codes.
+template <int KMAX, int TEAM>
+__global__ void __launch_bounds__(kKnnThreads)
+knn_pruned_walk_kernel(const float* __restrict__ tsorted, const int* __restrict__ tnum,
+                       int mcap, const float* __restrict__ tbox,
+                       const long long* __restrict__ tkey, const float* __restrict__ qry,
+                       int qstride, int nq, const long long* __restrict__ qperm,
+                       const int* __restrict__ qkey, int k, int window,
+                       float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int kQueries = kKnnThreads / TEAM;
+  const int i = blockIdx.x * kQueries + threadIdx.x / TEAM;  // sorted position
+  const int m = min(*tnum, mcap);
+  const bool active = i < nq;
+  const float4* t4 = reinterpret_cast<const float4*>(tsorted);
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  int row = 0, wlo = 0, whi = 0, wstep = 1;
+  if (active) {
+    row = (int)qperm[i];
+    load_query(qry, qstride, row, qx, qy, qz);
+    // The query's reach: over the `window` sorted rows around its insertion
+    // position, or, where more rows than that share its code, over `window`
+    // rows spread evenly across them.
+    const int pos = code_position(tkey, m, qkey[i]);
+    const int end = code_position(tkey, m, (long long)qkey[i] + 1);
+    if (end - pos <= window) {
+      wlo = max(0, min(pos - window / 2, m - window));
+      whi = min(m, wlo + window);
+    } else {
+      wlo = pos;
+      whi = end;
+      wstep = (end - pos + window - 1) / window;
+    }
+  }
+  // The anchor: the box of the median query's insertion position.
+  const int mid = min(blockIdx.x * kQueries + kQueries / 2, nq - 1);
+  const int own = m > 0 ? min(code_position(tkey, m, qkey[mid]), m - 1) / kTile : 0;
+
+  float bd[KMAX];
+  unsigned bi[KMAX];
+  sgt::topk_fill<KMAX>(bi, (unsigned)kNoIndex);
+  float kth;
+  unsigned kth0 = (unsigned)kNoIndex;
+  sgt::walk_sorted<KMAX, TEAM>(t4, m, tbox, k, wlo, whi, wstep, own, active, qx, qy, qz,
+                               bd, bi, kth, kth0);
+  sgt::unseed<KMAX>(bd, bi);
+  // Merge the team's lists; member 0 writes slot r of the query's row.
+  int head = 0;
+  const bool writer = active && threadIdx.x % TEAM == 0;
+  for (int r = 0; r < k; ++r) {
+    float wd;
+    int wi;
+    sgt::team_list_pop<KMAX, TEAM>(bd, bi, k, head, wd, wi);
+    if (writer) {
+      out_d[(size_t)row * k + r] = wd;
+      out_i[(size_t)row * k + r] = wd < kBig ? wi : 0;
+    }
+  }
 }
 
 inline bool bad_search(int mcap, int qstride, int nq) {
@@ -1202,30 +1286,54 @@ int sgt_knn_warp_v1(const float* tgt, const int* tnum, int mcap, const float* qr
 
 // K12. tsorted [mcap,4]: Morton-sorted rows x y z | original index (int32
 // bits), valid rows first; tbox [ceil(mcap / 256), 8]: lo 3, 0, hi 3, 0 of
-// every 256 sorted rows; qperm [nq]: sorted position → query row; qpos
-// [nq]: sorted position → insertion position in the sorted target.
-int sgt_knn_pruned(const float* tsorted, const int* tnum, int mcap,
-                   const float* tbox, const float* qry, int qstride, int nq,
-                   const int* qperm, const int* qpos, int k, float* out_d,
-                   int* out_i, void* stream) {
+// every 256 sorted rows; tkey [mcap] int64: the sorted codes; qperm [nq]
+// int64: sorted position → query row; qkey [nq] int32: the queries' sorted
+// codes; window: sorted rows a query takes its reach from (≥ k); team:
+// threads a query (2, 4 or 8: one thread a query lost to two at every
+// shape tools/pruned_walk_sweep.py measured).
+int sgt_knn_pruned(const float* tsorted, const int* tnum, int mcap, const float* tbox,
+                   const long long* tkey, const float* qry, int qstride, int nq,
+                   const long long* qperm, const int* qkey, int k, int window, int team,
+                   float* out_d, int* out_i, void* stream) {
+  if (bad_search(mcap, qstride, nq) || k < 1 || k > 64 || window < k)
+    return (int)cudaErrorInvalidValue;
+  const int kmax = k <= 16 ? 16 : k <= 32 ? 32 : 64;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SGT_PRUNED(KM, T)                                                          \
+  if (kmax == KM && team == T) {                                                  \
+    knn_pruned_walk_kernel<KM, T>                                                 \
+        <<<(nq + kKnnThreads / T - 1) / (kKnnThreads / T), kKnnThreads, 0, s>>>(  \
+            tsorted, tnum, mcap, tbox, tkey, qry, qstride, nq, qperm, qkey, k,    \
+            window, out_d, out_i);                                                \
+    return (int)cudaGetLastError();                                               \
+  }
+  SGT_PRUNED(16, 2) SGT_PRUNED(16, 4) SGT_PRUNED(16, 8)
+  SGT_PRUNED(32, 2) SGT_PRUNED(32, 4) SGT_PRUNED(32, 8)
+  SGT_PRUNED(64, 2) SGT_PRUNED(64, 4) SGT_PRUNED(64, 8)
+#undef SGT_PRUNED
+  return (int)cudaErrorInvalidValue;  // a team K12 has no instance for
+}
+
+// K12's first form: qpos [nq] int32, sorted position → insertion position
+// in the sorted target; qperm [nq] int32; no codes.
+int sgt_knn_pruned_v1(const float* tsorted, const int* tnum, int mcap,
+                      const float* tbox, const float* qry, int qstride, int nq,
+                      const int* qperm, const int* qpos, int k, float* out_d,
+                      int* out_i, void* stream) {
   if (bad_search(mcap, qstride, nq) || k < 1 || k > 64)
     return (int)cudaErrorInvalidValue;
   const int blocks = (nq + kKnnThreads - 1) / kKnnThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 16)
-    knn_pruned_kernel<16><<<blocks, kKnnThreads, 0, s>>>(
+    knn_pruned_kernel_v1<16><<<blocks, kKnnThreads, 0, s>>>(
         tsorted, tnum, mcap, tbox, qry, qstride, nq, qperm, qpos, k, out_d, out_i);
   else if (k <= 32)
-    knn_pruned_kernel<32><<<blocks, kKnnThreads, 0, s>>>(
+    knn_pruned_kernel_v1<32><<<blocks, kKnnThreads, 0, s>>>(
         tsorted, tnum, mcap, tbox, qry, qstride, nq, qperm, qpos, k, out_d, out_i);
   else
-    knn_pruned_kernel<64><<<blocks, kKnnThreads, 0, s>>>(
+    knn_pruned_kernel_v1<64><<<blocks, kKnnThreads, 0, s>>>(
         tsorted, tnum, mcap, tbox, qry, qstride, nq, qperm, qpos, k, out_d, out_i);
   return (int)cudaGetLastError();
 }
-
-// Tiles around the anchor that K12 scans first, which the wrapper's plain
-// version repeats (rows per box and queries per block: sgt_box_geometry).
-int sgt_knn_seed_tiles() { return kSeedTiles; }
 
 }  // extern "C"

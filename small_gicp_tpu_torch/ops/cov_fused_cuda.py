@@ -57,15 +57,16 @@ import torch
 from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.ops import morton_boxes
 from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK
-from small_gicp_tpu_torch.ops.knn import sq_dists
-from small_gicp_tpu_torch.ops.knn_cuda import _first_k, knn_plain
+from small_gicp_tpu_torch.ops.knn_cuda import knn_plain
 from small_gicp_tpu_torch.ops.morton_boxes import (
     BLOCK_ROWS,
     CULL_PASS,
     TILE_ROWS,
     PrunedTarget,
-    box_gap2,
+    bound_window,
     pruned_prepare_target,
+    walk_lists_plain,
+    window_reach,
 )
 
 _BIG = 3.0e38
@@ -98,12 +99,6 @@ def _library():
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
-
-
-def bound_window(k: int) -> int:
-    """Sorted rows around a query from which K4 takes its kth-distance
-    bound (``w`` of cov_fused_pallas.py:431)."""
-    return max(64, 2 * k + 24)
 
 
 # ------------------------------------------------------------ K3, K5 ----
@@ -291,45 +286,15 @@ def knn_topk_idx_plain(points: torch.Tensor, num_points: torch.Tensor, k: int,
     return torch.where(live, d, _BIG), torch.where(live, i, 0)
 
 
-def walk_passes(own: int, ntiles: int, cull_pass: int = CULL_PASS,
-                outward: bool = True):
-    """K4's cull passes over ``ntiles`` boxes for a block whose own box is
-    ``own``: [(first, end)], the first pass the ``cull_pass`` boxes around
-    ``own`` (``outward``; else the first ones), then the adjacent passes
-    above and below in turn. Every box lies in exactly one pass."""
-    below = max(0, min(own - cull_pass // 2, ntiles - cull_pass)) if outward else 0
-    above = min(ntiles, below + cull_pass)
-    passes, up = [(below, above)], True
-    while True:
-        if above < ntiles and (up or below == 0):
-            passes.append((above, min(ntiles, above + cull_pass)))
-            above = passes[-1][1]
-        elif below > 0:
-            passes.append((max(0, below - cull_pass), below))
-            below = passes[-1][0]
-        else:
-            return passes
-        up = not up
-
-
 def _walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int, team: int,
                 cull_pass: int, outward: bool, target: Optional[PrunedTarget]) -> Pair:
-    """The walk of K4 (``team`` 1) and K3 over the cloud's sort and boxes,
-    step by step: each valid row's reach (the kth smallest d² over its
-    ``bound_window(k)`` Morton-sorted neighbours); blocks of 64 // ``team``
-    sorted rows, each with the box of its rows and the bound R = the largest
-    reach; the passes of ``walk_passes``, each keeping the tiles whose box
-    gap² to the block's box does not exceed R; member t of a query's team
-    takes the rows t, t + team, … of each kept tile into its own list, those
-    within the query's reach (the lists are seeded with it), and R tightens
-    after each pass to the largest of every member's min(kth so far,
-    reach); each member's list is the k first of its rows in (d², original
-    row) order, and the team's merged list the k first of theirs. Returns
-    the merged lists as ``knn_topk_idx_plain`` does: equal to it, because no
-    bound ever cuts a true neighbour and the merge keeps the order."""
+    """The walk of K4 (``team`` 1), K3 and K5 over the cloud's sort and
+    boxes (``morton_boxes.walk_lists_plain``): the valid rows in sorted order
+    as the queries, each with its reach over its ``bound_window(k)``
+    Morton-sorted neighbours, and each block's passes anchored at the box of
+    its first row. Returns the merged lists in original row order as
+    ``knn_topk_idx_plain`` does: equal to it."""
     _check_k(k)
-    if morton_boxes.BLOCK_ROWS % team or TILE_ROWS % team:
-        raise ValueError(f"a team of {team} does not divide a block")
     n = points.shape[0]
     dev, dt = points.device, points.dtype
     out_d = torch.full((n, k), _BIG, dtype=dt, device=dev)
@@ -339,57 +304,16 @@ def _walk_plain(points: torch.Tensor, num_points: torch.Tensor, k: int, team: in
     m = min(int(num_points), n)
     if m == 0:
         return out_d, out_i
-    xyz, orig, tbox = target.tsorted[:, :3], target.tperm, target.tbox
+    xyz, orig = target.tsorted[:, :3], target.tperm
     w = bound_window(k)
     pos = torch.arange(m, device=dev)
     lo = torch.clamp(torch.clamp(pos - w // 2, max=m - w), min=0)
-    cols = lo[:, None] + torch.arange(w, device=dev)
-    d = xyz[cols.clamp(max=m - 1)] - xyz[:m, None, :]
-    wd2 = torch.where(cols < m, d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
-                      + d[..., 2] * d[..., 2], _BIG)
-    reach = torch.sort(wd2, dim=1).values[:, k - 1]
-    ntiles = -(-m // TILE_ROWS)
+    reach = window_reach(xyz, m, xyz[:m], lo, w, k)
     block = BLOCK_ROWS // team
-    tile_cols = torch.arange(TILE_ROWS, device=dev)
-
-    def kth_of(cand_d, rq):
-        if cand_d.shape[1] < k:
-            return torch.full_like(rq, _BIG)
-        return torch.sort(cand_d, dim=1).values[:, k - 1]
-
-    for q0 in range(0, m, block):
-        qpos = pos[q0:q0 + block]
-        q, rq = xyz[qpos], reach[qpos]
-        blo, bhi = q.amin(dim=0), q.amax(dim=0)
-        bound = rq.max()
-        cand_d = [q.new_zeros((len(qpos), 0)) for _ in range(team)]
-        cand_i = [orig.new_zeros(0) for _ in range(team)]
-        for first, end in walk_passes(q0 // TILE_ROWS, ntiles, cull_pass, outward):
-            live = first + (~(box_gap2(tbox[first:end], blo, bhi) > bound)).nonzero()[:, 0]
-            rows = (live[:, None] * TILE_ROWS + tile_cols).reshape(-1)
-            rows = rows[rows < m]
-            d2 = sq_dists(q, xyz[rows])
-            d2 = torch.where(d2 <= rq[:, None], d2, _BIG)
-            for t in range(team):
-                mine = rows % team == t  # the member's rows of each tile
-                cand_d[t] = torch.cat([cand_d[t], d2[:, mine]], dim=1)
-                cand_i[t] = torch.cat([cand_i[t], orig[rows[mine]]])
-            bound = torch.stack([torch.minimum(kth_of(c, rq), rq) for c in cand_d]).max()
-        lists_d, lists_i = [], []
-        for t in range(team):
-            by_row = torch.argsort(cand_i[t], stable=True)
-            dk, ik = _first_k(cand_d[t][:, by_row], cand_i[t][by_row], k)
-            lists_d.append(dk)
-            lists_i.append(torch.where(dk < _BIG, ik.long(), orig.new_full((), 2 ** 40)))
-        # The merge: the k first of the members' lists in (d², original row)
-        # order (empty slots last).
-        all_d, all_i = torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1)
-        by_row = torch.argsort(all_i, dim=1, stable=True)
-        all_d, all_i = torch.gather(all_d, 1, by_row), torch.gather(all_i, 1, by_row)
-        by_d = torch.argsort(all_d, dim=1, stable=True)[:, :k]
-        dk, ik = torch.gather(all_d, 1, by_d), torch.gather(all_i, 1, by_d)
-        out_d[orig[qpos]] = dk
-        out_i[orig[qpos]] = torch.where(dk < _BIG, ik, 0).to(torch.int32)
+    anchors = [q0 // TILE_ROWS for q0 in range(0, m, block)]
+    d, i = walk_lists_plain(xyz, orig, target.tbox, m, xyz[:m], reach, anchors, k, team,
+                            cull_pass, outward)
+    out_d[orig[:m]], out_i[orig[:m]] = d, i
     return out_d, out_i
 
 

@@ -24,7 +24,7 @@ Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
     of source rows and differ in their launch (K1 finishes the float64
     sums itself, K6 leaves them to torch); on the listed route
     ``mxu_dist=True`` ranks the targets by the score ‖t‖² − 2 t·q
-    (``gicp_linearize_score``, brute force) instead;
+    (``gicp_linearize_score``, K1's walk with a score offer) instead;
   * ``gicp_error_multi`` → [K1] float64: Σ ½ rᵀWr·mask at each of up to
     100 poses over frozen corr rows, re-weighted by w(√e) at each pose.
 
@@ -44,10 +44,11 @@ and are handed on un-truncated. On a CUDA tensor the wrappers launch the
 kernels of ``csrc/gicp_listed.cu``, ``csrc/gicp_fused.cu``,
 ``csrc/gicp_swept.cu`` and ``csrc/gicp_fleet.cu``; on a CPU tensor they run
 the plain versions below, which repeat the kernels' arithmetic. The
-single-pair plain versions are the fleet ones at one lane. K1's first form,
-a brute-force scan over every valid target row in source row order, stays
-as the yardstick ``_gicp_linearize_v1`` (its kernel also serves the score
-form and the brute-force lane entries).
+single-pair plain versions are the fleet ones at one lane. K1's first
+forms, a brute-force scan over every valid target row in source row order
+by d² and by the score, stay as the yardsticks ``_gicp_linearize_v1`` and
+``_gicp_linearize_score_v1`` (their kernel also serves the brute-force lane
+entries).
 """
 
 from __future__ import annotations
@@ -114,6 +115,9 @@ class GicpTables:
     # Host copy of qnum, read by the first launch of K1 or K6 for its chunk
     # plan: once per tables.
     qnum_host: Optional[int] = None
+    # ‖t‖² of the sorted target rows, padded to whole tiles: the score
+    # form's table, gathered at its first launch (score_norms).
+    tnorm: Optional[torch.Tensor] = None
 
 
 def auto_route(target_points: torch.Tensor) -> str:
@@ -416,8 +420,94 @@ def gicp_linearize_listed_plain(tables: GicpTables, T: torch.Tensor,
 def gicp_linearize_score_plain(tables: GicpTables, T: torch.Tensor,
                                max_dist_sq: float, robust: Optional[str] = None,
                                robust_c: float = 1.0):
-    """Plain PyTorch version of K1's score-form instance."""
-    return gicp_linearize_plain(tables, T, max_dist_sq, robust, robust_c, score=True)
+    """Plain PyTorch version of K1's score form: brute force over every
+    valid target row by the score, the winner's exact d², and rows without
+    an accepted correspondence zeroed with d² = 3e38. On every row whose
+    winner is accepted, the kernel's box walk picks the same winner (its
+    tile lies within the rejector radius of the row, so it is scanned);
+    ``gicp_linearize_score_walk_plain`` is the step-by-step account."""
+    return _plain_one_pair(tables, T, max_dist_sq, robust, robust_c, score=True,
+                           zero_unmatched=True)
+
+
+def score_norms(tables: GicpTables) -> torch.Tensor:
+    """[ceil(M/256)·256] ‖t‖² of the sorted target rows — ttab column 13
+    gathered by tsorted's original rows, zeros beyond — which the score
+    form's walk stages beside the tiles; gathered once per tables."""
+    if tables.tnorm is None:
+        _require_swept(tables)
+        if tables.ttab.dtype != torch.float32:
+            raise ValueError("the score form's walk runs float32 tables")
+        m = tables.ttab.shape[0]
+        orig = tables.tsorted[:, 3].contiguous().view(torch.int32).long()
+        tnorm = tables.ttab.new_zeros(-(-m // TILE_ROWS) * TILE_ROWS)
+        tnorm[:m] = tables.ttab[orig, 13]
+        tables.tnorm = tnorm
+    return tables.tnorm
+
+
+def gicp_linearize_score_walk_plain(tables: GicpTables, T: torch.Tensor,
+                                    max_dist_sq: float, robust: Optional[str] = None,
+                                    robust_c: float = 1.0):
+    """Plain account of K1's score form on the card: for every block of 64
+    Morton-sorted source rows, the live tiles by their boxes
+    (``swept_live_tiles``); for each of its rows, every row of those tiles
+    whose box lies within ``max_dist_sq`` of the row's point (a NaN gap
+    keeps the tile), ranked by the score ‖t‖² − 2 t·q (``score_norms``) in
+    (score, original row) order; the winner's exact d², then K1's finalize
+    with unmatched rows zeroed. (The launch's chunks deal out the tiles and
+    merge their winners in the same order, so they change nothing.)"""
+    _robust_code(robust)
+    _require_swept(tables)
+    qtab, dev, dt = tables.qtab, tables.qtab.device, tables.qtab.dtype
+    n = qtab.shape[0]
+    pose = _pose12(T.to(dev), dt)[None]
+    q = _transform_lanes(qtab[None], pose)[0]
+    live = swept_live_tiles(tables, T, max_dist_sq)
+    norms = score_norms(tables)
+    m = min(int(tables.tnum), tables.tsorted.shape[0])
+    orig = tables.tsorted[:, 3].contiguous().view(torch.int32).long()
+    best_s = torch.full((n,), _BIG, dtype=dt, device=dev)
+    best = torch.zeros(n, dtype=torch.int64, device=dev)
+    sperm = tables.sperm.long()
+    cols = torch.arange(TILE_ROWS, device=dev)
+    for b in range(live.shape[0]):
+        tiles = live[b].nonzero()[:, 0]
+        if len(tiles) == 0:
+            continue
+        rows = sperm[b * SWEPT_BLOCK_ROWS:(b + 1) * SWEPT_BLOCK_ROWS]
+        qb = q[rows]
+        box = tables.tbox[tiles]
+        g = torch.clamp(torch.maximum(box[None, :, 0:3] - qb[:, None],
+                                      qb[:, None] - box[None, :, 4:7]), min=0.0)
+        near = ~(g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+                 > max_dist_sq)  # [rows, tiles]
+        sel = (tiles[:, None] * TILE_ROWS + cols).reshape(-1)
+        of_tile = torch.arange(len(tiles), device=dev).repeat_interleave(TILE_ROWS)
+        keep = sel < m
+        sel, of_tile = sel[keep], of_tile[keep]
+        # Columns in ascending original row: the first minimum is the lower
+        # original row among equal scores.
+        ids, by_id = torch.sort(orig[sel])
+        sel, of_tile = sel[by_id], of_tile[by_id]
+        t = tables.tsorted[sel, :3]
+        dot = (qb[:, None, 0] * t[None, :, 0] + qb[:, None, 1] * t[None, :, 1]
+               + qb[:, None, 2] * t[None, :, 2])
+        score = norms[sel][None, :] - 2.0 * dot
+        score = torch.where(near[:, of_tile] & (score < _BIG), score, _BIG)
+        best_s[rows], j = torch.min(score, dim=1)
+        best[rows] = ids[j]
+    mu = tables.ttab[best, :3]
+    diff = q - mu
+    exact = diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1] + diff[:, 2] * diff[:, 2]
+    best_d = torch.where(best_s < _BIG, exact, _BIG)
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    active[sperm] = torch.arange(n, device=dev) < tables.qnum
+    sums, corr = _finalize_plain_lanes(
+        tables.ttab[None], qtab[None], pose, q[None], active[None], best[None],
+        best_d[None], max_dist_sq, robust, robust_c, tables.factor,
+        zero_unmatched=True)
+    return (*_finish(sums[0]), corr[0])
 
 
 def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tensor,
@@ -461,21 +551,31 @@ def _gicp_linearize_v1(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
                                 robust, robust_c)
 
 
+def _gicp_linearize_score_v1(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                             robust: Optional[str] = None, robust_c: float = 1.0):
+    """The first form of K1's score form (a thread a source row in row
+    order, a scan of every valid target row; rows without an accepted
+    correspondence hold their nearest row by the score): the yardstick of
+    the kernel below, on no path and counted nowhere."""
+    return _gicp_linearize_cuda(None, "sgt_gicp_linearize_score", tables, T,
+                                max_dist_sq, robust, robust_c)
+
+
 def gicp_linearize_score(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
                          robust: Optional[str] = None, robust_c: float = 1.0):
     """K1 with the targets ranked by the score ‖t‖² − 2 t·q (uncentred,
     ‖t‖² from the table) and the winner's exact d² taken afterwards: the
-    ``mxu_dist=True`` branch of the JAX kernel, on CUDA cores, over every
-    valid target row (the first form's kernel). Near-exact: between two
-    targets whose d² differ by less than the score's float32 rounding
-    (~‖q‖²·2⁻²³) it may pick the other. Same outputs as
-    ``gicp_linearize_tables`` except on rows without an accepted
-    correspondence, which hold their nearest row; plain version on the
-    CPU."""
+    ``mxu_dist=True`` branch of the JAX kernel, on CUDA cores, over K1's box
+    walk (the tiles within the rejector radius of a block of source rows).
+    Near-exact: between two targets whose d² differ by less than the score's
+    float32 rounding (~‖q‖²·2⁻²³) it may pick the other. Same outputs as
+    ``gicp_linearize_tables`` there: rows without an accepted
+    correspondence hold zeros and d² = 3e38. Kernel on CUDA (float32 tables
+    of one pair), plain version on the CPU."""
     if tables.qtab.device.type == "cpu":
         return gicp_linearize_score_plain(tables, T, max_dist_sq, robust, robust_c)
-    return _gicp_linearize_cuda(gicp_linearize_score, "sgt_gicp_linearize_score",
-                                tables, T, max_dist_sq, robust, robust_c)
+    return _gicp_linearize_listed_cuda(tables, T, max_dist_sq, robust, robust_c,
+                                       score=True)
 
 
 gicp_linearize_score.launches = 0
@@ -774,9 +874,11 @@ gicp_linearize_swept.launches = 0
 
 def _gicp_linearize_listed_cuda(tables: GicpTables, T: torch.Tensor,
                                 max_dist_sq: float, robust: Optional[str],
-                                robust_c: float, chunks: Optional[int] = None):
+                                robust_c: float, chunks: Optional[int] = None,
+                                score: bool = False):
     """Kernel K1 at ``chunks`` chunks per source block (None:
-    ``swept_plan``), counted on ``gicp_linearize_tables``."""
+    ``swept_plan``), counted on ``gicp_linearize_tables``; ``score``: its
+    score form, counted on ``gicp_linearize_score``."""
     f32 = torch.float32
     _build.require(tables.ttab, "ttab", f32, (None, 16))
     _build.require(tables.qtab, "qtab", f32, (None, 16))
@@ -797,16 +899,20 @@ def _gicp_linearize_listed_cuda(tables: GicpTables, T: torch.Tensor,
     partials = torch.empty((blocks, 44), dtype=f32, device=dev)
     sums = torch.empty(44, dtype=torch.float64, device=dev)
     ws = _swept_workspace(dev, n, blocks + 1)
+    args = [tables.ttab.data_ptr(), tables.tsorted.data_ptr()]
+    if score:
+        args.append(score_norms(tables).data_ptr())
+    args += [tables.tbox.data_ptr(), tables.tnum.data_ptr(), m, tables.qtab.data_ptr(),
+             tables.sperm.data_ptr(), tables.qnum.data_ptr(), n, pose.data_ptr(),
+             float(max_dist_sq), float(robust_c), FACTORS.index(tables.factor),
+             _robust_code(robust), int(chunks or swept_plan(tables)), corr.data_ptr(),
+             partials.data_ptr(), ws.keys.data_ptr(), ws.tickets.data_ptr(),
+             sums.data_ptr(), _stream()]
+    entry = "sgt_gicp_linearize_listed_score" if score else "sgt_gicp_linearize_listed"
     with torch.cuda.device(dev):
-        rc = lib.sgt_gicp_linearize_listed(
-            tables.ttab.data_ptr(), tables.tsorted.data_ptr(), tables.tbox.data_ptr(),
-            tables.tnum.data_ptr(), m, tables.qtab.data_ptr(), tables.sperm.data_ptr(),
-            tables.qnum.data_ptr(), n, pose.data_ptr(), float(max_dist_sq),
-            float(robust_c), FACTORS.index(tables.factor), _robust_code(robust),
-            int(chunks or swept_plan(tables)), corr.data_ptr(), partials.data_ptr(),
-            ws.keys.data_ptr(), ws.tickets.data_ptr(), sums.data_ptr(), _stream())
-    _build.check(rc, "gicp_linearize_listed")
-    gicp_linearize_tables.launches += 1
+        rc = getattr(lib, entry)(*args)
+    _build.check(rc, entry)
+    (gicp_linearize_score if score else gicp_linearize_tables).launches += 1
     return (*_finish(sums), corr)
 
 

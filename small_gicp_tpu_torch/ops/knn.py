@@ -39,6 +39,21 @@ def sq_dists(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return dx * dx + dy * dy + dz * dz
 
 
+def first_k(d2: torch.Tensor, ids: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k smallest columns of each row of ``d2`` [B,L] by stable sort (ties
+    to the earlier column); ``ids`` [L] names the columns. Empty slots: d²
+    3e38, index 0; indices int32."""
+    big = 3.0e38
+    if d2.shape[1] < k:
+        d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - d2.shape[1]), big)], dim=1)
+        ids = torch.cat([ids, ids.new_zeros(k - ids.shape[0])])
+    d_sorted, pos = torch.sort(d2, dim=1, stable=True)
+    d_k = d_sorted[:, :k]
+    idx = ids[pos[:, :k]]
+    return d_k, torch.where(d_k < big, idx, 0).to(torch.int32)
+
+
 def brute_force_knn(target_xyz: torch.Tensor, query_xyz: torch.Tensor, k: int,
                     block: int = QUERY_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN: (sq_dists [Q,k], indices [Q,k] int32), ascending, ties to

@@ -20,11 +20,14 @@ Counterpart of ``small_gicp_tpu/ops/knn_pallas.py``:
     as in the JAX package.
   * ``knn_pruned`` (K12) replaces ``knn_pallas_pruned``
     (``_make_knn_listed_kernel``): K10's contract with work ∝ local
-    density: Morton-sorted target, 256-row tile boxes, a seed pass over
-    the five tiles around each query block's anchor, then only the tiles
-    whose box is within the block's kth-distance bound. Ties go to the
-    lower *original* index, so K12 equals K10 on every input (the Pallas
-    kernel orders ties by the sorted-frame index).
+    density: the box walk that K3, K4 and K5 share, over the Morton-sorted
+    target and its 256-row tile boxes, with the queries in the same Morton
+    order, ``pruned_plan`` threads a query, each query's list seeded with
+    the kth d² over its Morton window (or across its 1 m cell where more
+    rows than the window share its code) and each block's cull passes
+    starting at its median query's box. Ties go to the lower *original* index, so
+    K12 equals K10 on every input (the Pallas kernel orders ties by the
+    sorted-frame index).
 
 Indices are int32, as in the JAX API. Slots for which no valid target row
 is left (k > num_points) hold d² = 3e38 and index 0; the JAX kernels
@@ -35,8 +38,8 @@ Bound on the card: Q·M pairs at 9 float32 operations against 16·(Q+M)
 bytes in and 8·k·Q out — operations, at every shape a scan produces. K12
 is bounded by fewer pairs: the rows of the tiles that lie within a query
 block's true kth distance, which depend on the data.
-The kernels stream the target through shared memory; K12 skips whole
-tiles by a block-uniform branch. See ``csrc/knn.cu``.
+The kernels stream the target through shared memory; K12 culls whole
+tiles by their boxes. See ``csrc/knn.cu``.
 
 K9 and K10 split the work two ways so that one launch fills the card at
 every query count: each thread of K9 takes 4 queries (K10 one), and ``split_plan`` cuts the target rows into chunks, one grid row
@@ -63,8 +66,9 @@ end to end, lane l taking every 32nd entry.
 ``knn_T_split_plain`` are the plain account of that: for every plan they
 equal ``nearest_neighbor_plain`` and ``knn_plain``, which stay the
 contract. The first forms of K9, K10 and K11 (one thread or one warp per
-query over every row) stay as the yardsticks ``_nearest_neighbor_v1``,
-``_knn_v1`` and ``_knn_T_v1``, reached from no path.
+query over every row) and of K12 (a thread a query, the boxes tested one
+after another) stay as the yardsticks ``_nearest_neighbor_v1``,
+``_knn_v1``, ``_knn_T_v1`` and ``_knn_pruned_v1``, reached from no path.
 
 What a search derives from the target alone — K9's centre, the target
 half of K12's prologue (the sort and boxes of ``ops/morton_boxes.py``) —
@@ -73,7 +77,7 @@ and keeps it.
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it, which repeats the kernel's
-arithmetic (and, for K12, its sort, boxes, seed and pruning rule).
+arithmetic (and, for K12, its sort, boxes, reach, anchors and walk).
 """
 
 from __future__ import annotations
@@ -86,12 +90,11 @@ import torch
 
 from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.ops import morton_boxes
-from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK, sq_dists
+from small_gicp_tpu_torch.ops.knn import QUERY_BLOCK, first_k, sq_dists
 from small_gicp_tpu_torch.ops.knn_window import morton_codes32
 from small_gicp_tpu_torch.ops.morton_boxes import (
     TILE_ROWS,
     PrunedTarget,
-    box_gap2,
     pruned_prepare_target,
 )
 
@@ -99,9 +102,10 @@ _BIG = 3.0e38
 MAX_K = 64
 VARIANTS = ("vpu", "mxu")
 BLOCK_QUERIES = morton_boxes.BLOCK_ROWS
-# Tiles around a block's anchor that K12 scans first (kSeedTiles of
-# csrc/knn.cu, held against the compiled value when the library loads).
-SEED_TILES = 5
+# K12's threads a query (the instances of csrc/knn.cu) and the blocks a
+# launch aims at per SM (pruned_plan, tools/pruned_walk_sweep.py).
+PRUNED_TEAMS = (2, 4, 8)
+PRUNED_BLOCKS_PER_SM = 8
 # K9's and K10's queries per block, rows per ring stage (chunks are
 # multiples of it), K10's least sample step and most sampled rows per chunk
 # (sgt_knn_split_geometry of csrc/knn.cu, held against the compiled values
@@ -158,18 +162,6 @@ def _masked_sq_dists(q: torch.Tensor, t: torch.Tensor, cols: torch.Tensor
     return torch.where(cols[None, :] & (d2 < _BIG), d2, _BIG)
 
 
-def _first_k(d2: torch.Tensor, ids: torch.Tensor, k: int) -> Pair:
-    """k smallest columns of each row by stable sort; ``ids`` [L] names the
-    columns. Empty slots: d² 3e38, index 0."""
-    if d2.shape[1] < k:
-        d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - d2.shape[1]), _BIG)], dim=1)
-        ids = torch.cat([ids, ids.new_zeros(k - ids.shape[0])])
-    d_sorted, pos = torch.sort(d2, dim=1, stable=True)
-    d_k = d_sorted[:, :k]
-    idx = ids[pos[:, :k]]
-    return d_k, torch.where(d_k < _BIG, idx, 0).to(torch.int32)
-
-
 def _empty(query: torch.Tensor, shape) -> Pair:
     return (torch.empty(shape, dtype=query.dtype, device=query.device),
             torch.empty(shape, dtype=torch.int32, device=query.device))
@@ -190,12 +182,9 @@ def _stream() -> int:
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The knn library, its pruned-search and split constants held against
-    the Python side's (once: a launch pays no check)."""
-    lib = morton_boxes.library("knn")
-    if lib.sgt_knn_seed_tiles() != SEED_TILES:
-        raise RuntimeError(f"csrc/knn.cu scans {lib.sgt_knn_seed_tiles()} seed "
-                           f"tiles; the Python wrapper has {SEED_TILES}")
+    """The knn library, its box, warp and split constants held against the
+    Python side's (once: a launch pays no check)."""
+    morton_boxes.library("knn")
     _build.library_with_geometry(
         "knn", "sgt_knn_warp_geometry",
         (WARP_QUERIES, WARP_MAX_WARPS, WARP_LIST_BYTES, WARP_SAMPLE_STEP))
@@ -478,7 +467,7 @@ def knn_plain(target_points: torch.Tensor, num_points: torch.Tensor,
     cols = ids < num_points
     ds, idx = [], []
     for s in range(0, nq, QUERY_BLOCK):
-        d, i = _first_k(_masked_sq_dists(query[s:s + QUERY_BLOCK, :3], t, cols), ids, k)
+        d, i = first_k(_masked_sq_dists(query[s:s + QUERY_BLOCK, :3], t, cols), ids, k)
         ds.append(d)
         idx.append(i)
     return torch.cat(ds), torch.cat(idx)
@@ -528,7 +517,7 @@ def knn_split_plain(target_points: torch.Tensor, num_points: torch.Tensor,
     lists_d, lists_i = [], []
     for ids, d2, bound in chunks:
         reach = tightest if shared else bound
-        d, i = _first_k(torch.where(d2 <= reach[:, None], d2, _BIG), ids, k)
+        d, i = first_k(torch.where(d2 <= reach[:, None], d2, _BIG), ids, k)
         lists_d.append(d)
         lists_i.append(i)
     # Chunks ascend by row: a stable sort of the lists in chunk order is the
@@ -751,89 +740,140 @@ def _knn_T_v1(target_points: torch.Tensor, num_points: torch.Tensor, query: torc
 
 @dataclass
 class PrunedQueries:
-    """The query half: it changes with every query set."""
+    """The query half of K12's prologue: it changes with every query set."""
 
-    qperm: torch.Tensor  # [Q] int32, sorted position → query row
-    qpos: torch.Tensor  # [Q] int32, sorted position → position in tsorted
+    qperm: torch.Tensor  # [Q] int64, sorted position → query row
+    qkey: torch.Tensor  # [Q] int32, the queries' sorted Morton codes
 
 
 def pruned_prepare_queries(target: PrunedTarget, query: torch.Tensor) -> PrunedQueries:
-    """Sort the queries by the target's Morton code and find each one's
-    insertion position among the sorted target rows."""
-    codes = morton_codes32(query[:, :3], 1.0, target.origin).to(torch.int64)
-    qkey, qperm = torch.sort(codes, stable=True)
-    qpos = torch.searchsorted(target.tkey, qkey)
-    return PrunedQueries(qperm=qperm.to(torch.int32), qpos=qpos.to(torch.int32))
+    """Sort the queries by the target's Morton code (int32 codes, one sort;
+    the kernel finds each query's insertion position among the target's
+    sorted codes itself)."""
+    qkey, qperm = torch.sort(morton_codes32(query[:, :3], 1.0, target.origin),
+                             stable=True)
+    return PrunedQueries(qperm=qperm, qkey=qkey)
 
 
-def _lex_first_k(q: torch.Tensor, rows: torch.Tensor, orig: torch.Tensor, k: int
-                 ) -> Pair:
-    """k nearest of the sorted-frame ``rows`` [L,3] in (d², original index)
-    order: columns are put in ascending original index (the minor key), then
-    stably sorted by d² (the major key)."""
-    order = torch.argsort(orig, stable=True)
-    d2 = _masked_sq_dists(q, rows[order], torch.ones_like(order, dtype=torch.bool))
-    return _first_k(d2, orig[order], k)
+def pruned_query_positions(target: PrunedTarget, queries: PrunedQueries
+                           ) -> torch.Tensor:
+    """[Q] int64: each sorted query's insertion position among the target's
+    sorted codes (the first whose code is not below the query's), as K12
+    finds it by binary search over the valid rows (padding rows sort last,
+    above every code)."""
+    return torch.searchsorted(target.tkey, queries.qkey.to(target.tkey.dtype))
+
+
+def pruned_plan(nq: int, sms: int, per_sm: Optional[int] = None) -> int:
+    """Threads a query of K12 for ``nq`` queries on a card of ``sms`` SMs:
+    the fewest of ``PRUNED_TEAMS`` whose blocks of ``BLOCK_QUERIES // team``
+    queries reach ``per_sm`` (default ``PRUNED_BLOCKS_PER_SM``) blocks on
+    every SM, else the most."""
+    per_sm = PRUNED_BLOCKS_PER_SM if per_sm is None else per_sm
+    for team in PRUNED_TEAMS:
+        if _cdiv(nq * team, BLOCK_QUERIES) >= per_sm * sms:
+            return team
+    return PRUNED_TEAMS[-1]
 
 
 def knn_pruned_plain(target_points: torch.Tensor, num_points: torch.Tensor,
                      query: torch.Tensor, k: int,
-                     target: Optional[PrunedTarget] = None) -> Pair:
-    """Plain PyTorch version of K12: the same prologue, then for every block
-    of 64 Morton-sorted queries the seed tiles, the block's kth-distance
-    bound, the tiles whose box gap² is within it, and a search over those
-    rows in the sorted frame mapped back to original rows. (The kernel also
-    tightens the bound as it walks; the rows it skips beyond that cannot
-    enter a list either.)"""
+                     target: Optional[PrunedTarget] = None,
+                     team: int = PRUNED_TEAMS[0],
+                     cull_pass: int = morton_boxes.CULL_PASS) -> Pair:
+    """Plain PyTorch version of K12: the same prologue, each query's reach
+    over the ``bound_window(k)`` sorted target rows around its insertion
+    position (or, where more target rows than that share its code, over as
+    many rows spread evenly across them), and the box walk of
+    ``morton_boxes.walk_lists_plain`` with
+    ``team`` threads a query and passes of ``cull_pass`` boxes, each
+    block's passes anchored at the box of its median query's insertion
+    position. Equal to ``knn_plain`` for every team and pass length."""
     nq = query.shape[0]
-    out_d, out_i = _empty(query, (nq, k))
-    if nq == 0:
-        return out_d, out_i
+    out_d = torch.full((nq, k), _BIG, dtype=query.dtype, device=query.device)
+    out_i = torch.zeros((nq, k), dtype=torch.int32, device=query.device)
     if target is None:
         target = pruned_prepare_target(target_points, num_points)
-    tab = pruned_prepare_queries(target, query)
     m = min(int(num_points), target_points.shape[0])
-    ntiles = (m + TILE_ROWS - 1) // TILE_ROWS
-    rows, orig, tbox = target.tsorted[:, :3], target.tperm, target.tbox
-    tile_of_row = torch.arange(m, device=query.device) // TILE_ROWS
-    for b0 in range(0, nq, BLOCK_QUERIES):
-        qrows = tab.qperm[b0:b0 + BLOCK_QUERIES].long()
-        q = query[qrows, :3]
-        sel = torch.zeros(0, dtype=torch.int64, device=query.device)
-        if ntiles > 0:
-            mid = min(b0 + BLOCK_QUERIES // 2, nq - 1)
-            anchor = min(max(int(tab.qpos[mid]), 0), m - 1) // TILE_ROWS
-            s_lo = max(0, anchor - SEED_TILES // 2)
-            s_hi = min(ntiles - 1, anchor + SEED_TILES // 2)
-            seed = slice(s_lo * TILE_ROWS, min(m, (s_hi + 1) * TILE_ROWS))
-            d, _ = _lex_first_k(q, rows[seed], orig[seed], k)
-            bound = d[:, k - 1].max()
-            keep = ~(box_gap2(tbox[:ntiles], q.amin(dim=0), q.amax(dim=0)) > bound)
-            keep[s_lo:s_hi + 1] = True
-            sel = keep[tile_of_row].nonzero()[:, 0]
-        out_d[qrows], out_i[qrows] = _lex_first_k(q, rows[sel], orig[sel], k)
+    if nq == 0 or m == 0:
+        return out_d, out_i
+    queries = pruned_prepare_queries(target, query)
+    pos = pruned_query_positions(target, queries)
+    end = torch.searchsorted(target.tkey, queries.qkey.to(target.tkey.dtype) + 1)
+    q = query[queries.qperm, :3]
+    xyz = target.tsorted[:, :3]
+    w = morton_boxes.bound_window(k)
+    run = torch.clamp(end, max=m) - pos
+    long_run = run > w
+    lo = torch.where(long_run, pos, torch.clamp(torch.clamp(pos - w // 2, max=m - w),
+                                                  min=0))
+    hi = torch.where(long_run, end, lo + w)
+    step = torch.where(long_run, -(-run // w), 1)
+    reach = morton_boxes.window_reach(xyz, m, q, lo, w, k, hi, step)
+    block = BLOCK_QUERIES // team
+    mids = torch.clamp(torch.arange(block // 2, nq + block // 2, block, device=pos.device),
+                       max=nq - 1)
+    anchors = (torch.clamp(pos[mids], max=m - 1) // TILE_ROWS).tolist()
+    d, i = morton_boxes.walk_lists_plain(xyz, target.tperm, target.tbox, m, q, reach,
+                                         anchors, k, team, cull_pass)
+    out_d[queries.qperm], out_i[queries.qperm] = d, i
     return out_d, out_i
 
 
 def knn_pruned_launch(target: PrunedTarget, num_points: torch.Tensor,
-                      query: torch.Tensor, queries: PrunedQueries, k: int) -> Pair:
+                      query: torch.Tensor, queries: PrunedQueries, k: int,
+                      team: Optional[int] = None) -> Pair:
     """Kernel K12 alone, over a finished prologue: ``query`` float32 CUDA
-    rows 3 or 4 floats apart, as ``knn_pruned`` passes them."""
+    rows 3 or 4 floats apart, as ``knn_pruned`` passes them; ``team``
+    threads a query (default ``pruned_plan``)."""
+    _check_k(k, "knn_pruned")
+    _require_search(target.tsorted, num_points, query)
+    nq, mcap = query.shape[0], target.tsorted.shape[0]
+    _build.require(target.tkey, "sorted codes", torch.int64, (mcap,))
+    _build.require(queries.qperm, "qperm", torch.int64, (nq,))
+    _build.require(queries.qkey, "qkey", torch.int32, (nq,))
+    d, i = _empty(query, (nq, k))
+    if nq == 0:
+        return d, i
+    lib = _library()
+    if team is None:
+        team = pruned_plan(nq, _sm_count(query.device.index))
+    with torch.cuda.device(query.device):
+        rc = lib.sgt_knn_pruned(
+            target.tsorted.data_ptr(), num_points.data_ptr(), mcap,
+            target.tbox.data_ptr(), target.tkey.data_ptr(), query.data_ptr(),
+            query.stride(0), nq, queries.qperm.data_ptr(), queries.qkey.data_ptr(), k,
+            morton_boxes.bound_window(k), int(team), d.data_ptr(), i.data_ptr(),
+            _stream())
+    _build.check(rc, "knn_pruned")
+    knn_pruned.launches += 1
+    return d, i
+
+
+def _knn_pruned_v1(target: PrunedTarget, num_points: torch.Tensor, query: torch.Tensor,
+                   queries: PrunedQueries, k: int,
+                   qpos: Optional[torch.Tensor] = None) -> Pair:
+    """K12's first form (a thread a query, the seed tiles, then every other
+    box tested one after another and staged synchronously) over a finished
+    prologue and the queries' insertion positions ``qpos`` [Q] int32
+    (``pruned_query_positions``; computed here if None): the yardstick of
+    the kernel above, on no path and counted nowhere."""
     _check_k(k, "knn_pruned")
     _require_search(target.tsorted, num_points, query)
     nq = query.shape[0]
     d, i = _empty(query, (nq, k))
     if nq == 0:
         return d, i
+    if qpos is None:
+        qpos = pruned_query_positions(target, queries).to(torch.int32)
+    qperm = queries.qperm.to(torch.int32)
     lib = _library()
     with torch.cuda.device(query.device):
-        rc = lib.sgt_knn_pruned(
+        rc = lib.sgt_knn_pruned_v1(
             target.tsorted.data_ptr(), num_points.data_ptr(), target.tsorted.shape[0],
             target.tbox.data_ptr(), query.data_ptr(), query.stride(0), nq,
-            queries.qperm.data_ptr(), queries.qpos.data_ptr(), k, d.data_ptr(),
-            i.data_ptr(), _stream())
-    _build.check(rc, "knn_pruned")
-    knn_pruned.launches += 1
+            qperm.data_ptr(), qpos.data_ptr(), k, d.data_ptr(), i.data_ptr(), _stream())
+    _build.check(rc, "knn_pruned_v1")
     return d, i
 
 
@@ -841,8 +881,8 @@ def knn_pruned(target_points: torch.Tensor, num_points: torch.Tensor,
                query: torch.Tensor, k: int,
                target: Optional[PrunedTarget] = None) -> Pair:
     """Exact kNN, k ≤ 64, with work ∝ local density: K10's results through
-    a Morton-sorted, box-pruned search. Kernel K12 on CUDA, plain version
-    on the CPU. ``target`` is ``pruned_prepare_target(target_points,
+    a box walk over the Morton-sorted target. Kernel K12 on CUDA, plain
+    version on the CPU. ``target`` is ``pruned_prepare_target(target_points,
     num_points)`` when the caller has it already (``KdTree`` keeps it)."""
     _check_k(k, "knn_pruned")
     if target_points.device.type == "cpu":

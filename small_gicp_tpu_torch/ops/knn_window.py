@@ -8,6 +8,8 @@ searches of that module are not ported yet.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _INT32_MAX = 2 ** 31 - 1
@@ -21,6 +23,17 @@ def _dilate10_32(x: torch.Tensor) -> torch.Tensor:
     x = (x | (x << 4)) & 0x30C30C3
     x = (x | (x << 2)) & 0x9249249
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_bits(device: torch.device):
+    """([3·1024] int32: cell c of axis a dilated and shifted into place at
+    a·1024 + c, [3] int32: the axes' offsets a·1024). A code is the sum of
+    its three axes' entries (their bits never overlap): one gather in place
+    of the shifts and masks."""
+    c = _dilate10_32(torch.arange(1024, dtype=torch.int32, device=device))
+    return (torch.cat([c, c << 1, c << 2]),
+            torch.tensor([0, 1024, 2048], dtype=torch.int32, device=device))
 
 
 def morton_codes32(points_xyz: torch.Tensor, cell, origin=None) -> torch.Tensor:
@@ -41,8 +54,7 @@ def morton_codes32(points_xyz: torch.Tensor, cell, origin=None) -> torch.Tensor:
     finite_c = torch.isfinite(c)
     # Clamp in floating point first: a float beyond the int32 range has no
     # defined integer conversion.
-    ci = torch.where(finite_c, c, torch.zeros_like(c)).clamp(0.0, 1023.0).to(torch.int32)
-    bits = _dilate10_32(ci)  # all three axes in one pass
-    code = (bits[..., 2] << 2) | (bits[..., 1] << 1) | bits[..., 0]
-    return torch.where(finite_c.all(dim=-1), code,
-                       torch.full_like(code, _INT32_MAX))
+    bits, offsets = _axis_bits(c.device)
+    ci = torch.where(finite_c, c, 0.0).clamp(0.0, 1023.0).to(torch.int32) + offsets
+    code = bits[ci].sum(dim=-1, dtype=torch.int32)
+    return torch.where(finite_c.all(dim=-1), code, _INT32_MAX)

@@ -32,7 +32,6 @@ from small_gicp_tpu_torch.interop import cloud_from_numpy
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
     knn_topk_idx_plain,
     knn_topk_idx_walk_plain,
-    walk_passes,
 )
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     SWEPT_BLOCKS_PER_SM,
@@ -45,7 +44,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     swept_key,
     swept_live_tiles,
 )
-from small_gicp_tpu_torch.ops.morton_boxes import CULL_PASS
+from small_gicp_tpu_torch.ops.morton_boxes import CULL_PASS, walk_passes
 
 TWIST = [0.02, -0.01, 0.03, 0.05, -0.1, 0.08]
 

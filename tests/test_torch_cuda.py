@@ -1,6 +1,8 @@
 """On-card checks of the port's CUDA kernels against their plain versions.
 
-Every compiled instance runs here — K1 (difference and score form), K6 and
+Every compiled instance runs here — K1 (difference and score form, the
+score form against its plain account, its brute-force plain version and
+its first form), K12 at each of its teams, K6 and
 K7 (the box-pruned fleet kernel, against its plain version and against the
 brute-force lane kernel it replaced) for each factor × robust kernel, K2 and
 K8 for each robust kernel and pose count, K3 for both top-k bounds, the
@@ -57,6 +59,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     _gicp_linearize_fleet_brute,
     _gicp_linearize_listed_cuda,
     _gicp_linearize_swept_cuda,
+    _gicp_linearize_score_v1,
     _gicp_linearize_v1,
     _gicp_linearize_swept_v1,
     fleet_live_tiles,
@@ -70,6 +73,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_plain,
     gicp_linearize_score,
     gicp_linearize_score_plain,
+    gicp_linearize_score_walk_plain,
     gicp_linearize_swept,
     gicp_linearize_swept_plain,
     gicp_linearize_swept_split_plain,
@@ -82,13 +86,16 @@ from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops import knn_cuda
 from small_gicp_tpu_torch.ops.knn_cuda import (
+    PRUNED_TEAMS,
     _knn_T_v1,
+    _knn_pruned_v1,
     _knn_v1,
     _nearest_neighbor_v1,
     knn,
     knn_plain,
     knn_pruned,
     knn_pruned_launch,
+    knn_pruned_plain,
     knn_T,
     nearest_neighbor,
     nearest_neighbor_plain,
@@ -460,6 +467,12 @@ def test_nearest_neighbor_kernel_matches_plain(dev, variant):
     assert bool(((dm - dv).abs() <= tol).all())
 
 
+def _pruned_v1(tgt, num, q, k):
+    """K12's first form over the prologue that the wrapper makes."""
+    target = pruned_prepare_target(tgt, num)
+    return _knn_pruned_v1(target, num, q, pruned_prepare_queries(target, q), k)
+
+
 # K10 and K12 have list bounds 16, 32 and 64 (the smallest that holds k);
 # K11 holds 4 queries a warp up to k = 16, 2 up to 32 and 1 above.
 @pytest.mark.parametrize("ks", [(1, 10, 16), (17, 32, 33, 64)])
@@ -479,13 +492,45 @@ def test_knn_kernels_match_plain(dev, search, ks):
             # and the plain version: exact, ties included.
             assert torch.equal(d, dp), what
             assert torch.equal(i, ip), what
-            first = {knn: _knn_v1, knn_T: _knn_T_v1}.get(search)
-            if first is not None:
-                d1, i1 = first(tgt, num, q, k)
-                torch.cuda.synchronize()
-                assert torch.equal(d, d1) and torch.equal(i, i1), what
+            first = {knn: _knn_v1, knn_T: _knn_T_v1, knn_pruned: _pruned_v1}[search]
+            d1, i1 = first(tgt, num, q, k)
+            torch.cuda.synchronize()
+            assert torch.equal(d, d1) and torch.equal(i, i1), what
             if kind == "tiny":
                 assert torch.all(d[:, 3:] == 3e38) and torch.all(i[:, 3:] == 0), what
+
+
+@pytest.mark.parametrize("team", PRUNED_TEAMS)
+def test_pruned_walk_at_every_team(dev, team):
+    """K12 at each of its teams (queries a block 64 / team) and at 1, 64 and
+    every query equals ``knn_plain`` and its plain account, which keeps the
+    kernel's team and anchors; one launch a call."""
+    for kind in ("scan", "grid", "tiny", "empty"):
+        tgt, num, q = _search_clouds(dev, kind)
+        target = pruned_prepare_target(tgt, num)
+        for nq in (1, 64, q.shape[0]):
+            sub = q[:nq]
+            queries = pruned_prepare_queries(target, sub)
+            for k in (1, 10, 33):
+                before = knn_pruned.launches
+                d, i = knn_pruned_launch(target, num, sub, queries, k, team=team)
+                dp, ip = knn_plain(tgt, num, sub, k)
+                torch.cuda.synchronize()
+                what = (team, kind, nq, k)
+                assert knn_pruned.launches == before + 1, what
+                assert torch.equal(d, dp) and torch.equal(i, ip), what
+        da, ia = knn_pruned_plain(tgt.cpu(), num.cpu(), q.cpu(), 10, team=team)
+        d, i = knn_pruned_launch(target, num, q, queries, 10, team=team)
+        assert torch.equal(da, d.cpu()) and torch.equal(ia, i.cpu()), (team, kind)
+    # 1,500 points in a 2 m cube: ≈190 rows share each 1 m Morton cell, more
+    # than the window, so each reach is taken across its cell's rows.
+    rng = np.random.default_rng(3)
+    tgt = torch.as_tensor(_padded(rng.uniform(0, 2, (1500, 3)), 1600), device=dev)
+    num = torch.tensor(1500, dtype=torch.int32, device=dev)
+    for k in (10, 33):
+        d, i = knn_pruned(tgt, num, tgt[:, :3], k)
+        dp, ip = knn_plain(tgt, num, tgt[:, :3], k)
+        assert torch.equal(d, dp) and torch.equal(i, ip), (team, "dense", k)
 
 
 # SPLIT_BLOCKS_PER_SM (K11: WARP_BLOCKS_PER_SM) = 0 plans one chunk (the
@@ -743,20 +788,45 @@ def test_swept_kernel_matches_plain_and_k1(dev, pair, factor):
 
 @pytest.mark.parametrize("factor", ["gicp", "plane_icp", "icp"])
 def test_score_form_kernel_matches_plain(dev, pair, factor):
+    """K1's score form (the box walk) against its plain account (every row:
+    masks, μ and d² equal), its brute-force plain version and its first
+    form. Those two take the score's winner over every valid row: the walk
+    takes the same winner on every row where it is accepted, unless its
+    exact d² lies within the score's rounding of the radius, 4·2⁻²³·(|q| +
+    |t|)² (the score of a row is off by up to 2·2⁻²³·(|q| + |t|)², twice
+    that between two rows)."""
     tgt, src, T = pair
     tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
                           factor, tgt.covs, src.covs, tgt.normals)
-    for robust, c in ROBUST:
+    n = int(src.num_points)
+    q = (src.points[:, :3] @ T[:3, :3].T + T[:3, 3])[:n]
+    # The registration's radius, and inf (every tile live: the brute force's
+    # winner on every row).
+    for (robust, c), r in zip(ROBUST, (1.0, float("inf"), 1.0)):
         before = gicp_linearize_score.launches
-        H, b, inl, corr = gicp_linearize_tables(tables, T, 1.0, robust, c,
+        H, b, inl, corr = gicp_linearize_tables(tables, T, r, robust, c,
                                                 mxu_dist=True)
-        Hp, bp, inlp, corrp = gicp_linearize_score_plain(tables, T, 1.0, robust, c)
+        Hw, bw, inlw, corrw = gicp_linearize_score_walk_plain(tables, T, r, robust, c)
+        Hp, bp, inlp, corrp = gicp_linearize_score_plain(tables, T, r, robust, c)
+        _, _, _, corr1 = _gicp_linearize_score_v1(tables, T, r, robust, c)
         torch.cuda.synchronize()
         assert gicp_linearize_score.launches == before + 1
         mask = corr[:, 12] > 0.5
-        assert torch.equal(mask, corrp[:, 12] > 0.5) and int(inl) == int(inlp)
-        assert torch.equal(corr[mask][:, [0, 1, 2, 13]], corrp[mask][:, [0, 1, 2, 13]])
-        torch.testing.assert_close(corr[mask][:, 3:12], corrp[mask][:, 3:12],
+        assert torch.equal(mask, corrw[:, 12] > 0.5) and int(inl) == int(inlw)
+        assert torch.equal(corr[:, [0, 1, 2, 13]], corrw[:, [0, 1, 2, 13]])
+        assert torch.all(corr[~mask][:, :13] == 0)
+        # The first form keeps every row's winner: its d² decides the rule.
+        d_bf = corr1[:n, 13]
+        tol = 4.0 * 2.0 ** -23 * (q.norm(dim=1) + corr1[:n, :3].norm(dim=1)) ** 2
+        clear = (d_bf - r).abs() > tol
+        for ref in (corrp, corr1):
+            sel = clear & (ref[:n, 12] > 0.5)
+            assert torch.equal(mask[:n][clear], ref[:n, 12][clear] > 0.5)
+            assert torch.equal(corr[:n][sel][:, [0, 1, 2, 13]],
+                               ref[:n][sel][:, [0, 1, 2, 13]])
+        assert abs(int(inl) - int(inlp)) <= int((~clear).sum())
+        sel = mask[:n] & clear
+        torch.testing.assert_close(corr[:n][sel][:, 3:12], corrp[:n][sel][:, 3:12],
                                    rtol=2e-3, atol=2e-3)
         scale = max(1.0, Hp.abs().max().item())
         torch.testing.assert_close(H / scale, Hp / scale, rtol=0, atol=5e-4)

@@ -20,6 +20,7 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
     knn_T,
     nearest_neighbor,
     pruned_prepare_queries,
+    pruned_query_positions,
     target_centre,
 )
 from small_gicp_tpu_torch.utils.io import read_kitti_bin, read_ply
@@ -98,7 +99,9 @@ def test_kept_target_tables_give_the_same_results():
         assert torch.equal(tree.nearest_neighbor_search(q)[1], in_)
         half = pruned_prepare_queries(tables, q)
         assert sorted(half.qperm.tolist()) == list(range(q.shape[0]))
-        assert torch.all(half.qpos[1:] >= half.qpos[:-1]) and int(half.qpos.max()) <= 900
+        qpos = pruned_query_positions(tables, half)
+        assert torch.all(half.qkey[1:] >= half.qkey[:-1])
+        assert torch.all(qpos[1:] >= qpos[:-1]) and int(qpos.max()) <= 900
 
 
 def test_readers_and_kdtree_benchmark_cli(tmp_path, capsys):

@@ -75,19 +75,19 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def scans():
-    return generate_sequence(n_frames=1, rings=16, azimuth_steps=256)
+    return generate_sequence(n_frames=1, rings=16, azimuth_steps=128)
 
 
 @pytest.fixture(scope="module")
 def clouds(scans):
-    """A downsampled 16-ring frame (≈3k rows in a 3,776-row table) and
-    2,500 points in 14³ integer cells (every distance ties many times) in a
-    2,600-row table."""
+    """A downsampled 16-ring × 128-step frame (≈1.5k rows) and 1,300 points
+    in 14³ integer cells (every distance ties many times) in a 1,400-row
+    table: several 256-row ring tiles and chunks each."""
     scan = voxelgrid_sampling(scans[0][0], 0.25, device="cpu")
     rng = np.random.default_rng(24)
-    grid = _pad4(rng.integers(0, 14, (2500, 3)).astype(np.float32), 2600)
+    grid = _pad4(rng.integers(0, 14, (1300, 3)).astype(np.float32), 1400)
     return {"scan": (scan.points, scan.num_points),
-            "grid": (torch.as_tensor(grid), _num(2500))}
+            "grid": (torch.as_tensor(grid), _num(1300))}
 
 
 # ---- K11 --------------------------------------------------------------------
