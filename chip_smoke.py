@@ -10,7 +10,14 @@ Phases (any failure exits non-zero):
   3. data     — two consecutive KITTI HDL-64-like synthetic frames
                 (64 rings × 1800 azimuth steps, ≈108k points each);
   4. kernels  — K1, K2 and K3 at the main path's shapes against their plain
-                versions; K3 (k = 10, 20, on the scan and on a
+                versions; K2 is the LM step kernel (the λ-trial solves,
+                se3_exp, the trial errors and the accept in one launch),
+                checked at the first iteration's sums and corr in LM,
+                float64-solve, Huber, DoF-mask and GN modes (trials within
+                1e-6, errors within 1e-5 relative, the accept equal outside
+                the 1e-5 band), its errors-only mode against the plain
+                version and K2's first form, each timed alone and in turns
+                with the body it replaced; K3 (k = 10, 20, on the scan and on a
                 duplicate-heavy grid) equal to its first form (the
                 brute-force scan it replaced) on every row, K1 against its
                 first form, its split
@@ -19,11 +26,15 @@ Phases (any failure exits non-zero):
                 first form, bounded by the pairs its box walk cannot avoid;
   5. e2e      — preprocess_points on both frames, then GICP/LM align within
                 2.5° / 0.2 m of ground truth, with K3 launched once a cloud
-                and K1, K2 once a linearization (the launch counters);
-                preprocessing per frame pair and registrations/s over noisy
-                initial guesses, each in turns with the same path through
-                K3's and K1's first forms (first_forms_scan), with the
-                card's busy share; the card path against the plain CPU path
+                and K1 and the step kernel once a linearization (the launch
+                counters); K1's wrapper host time with and without its
+                per-call checks; preprocessing per frame pair and
+                registrations/s over noisy initial guesses, each in turns
+                with the same path through K3's, K1's and K2's first forms
+                and the LM iteration's torch body (first_forms_scan); device
+                launches, copies and memsets per LM iteration (at most 4)
+                and the card's busy share over three profiled aligns each
+                way; the card path against the plain CPU path
                 on a small pair;
   6. fleet    — three frames preprocessed at one capacity (two pairs); K7
                 (box-pruned) and K8 at 32 lanes against their plain versions,
@@ -82,8 +93,8 @@ Phases (any failure exits non-zero):
                 difference form, one launch a call, timed alone and in
                 turns with its first form; then,
                 with the counts at 0, the map-scale path: covariances of both
-                submaps (K4), the align of frame 16 against the map (K6 per
-                linearization, K2 per iteration, K1 never) within 2.5° /
+                submaps (K4), the align of frame 16 against the map (K6 and
+                the step kernel per linearization, K1 never) within 2.5° /
                 0.2 m, a layout "q" call over the scan's kept sort (K5) and a
                 score-form linearization; the covariances and the align with
                 the map's sort kept timed in turns with the same path through
@@ -127,6 +138,7 @@ from small_gicp_tpu_torch.ops.cov_fused_cuda import (
 from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
+    _gicp_error_multi_v1,
     gicp_error_multi,
     gicp_error_multi_fleet,
     gicp_error_multi_fleet_plain,
@@ -148,12 +160,16 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     gicp_linearize_swept,
     gicp_linearize_swept_plain,
     gicp_linearize_swept_split_plain,
+    gicp_linearize_sums,
     gicp_linearize_tables,
     gicp_prepare,
+    linearize_buffers,
     swept_live_tiles,
     swept_plan,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
+from small_gicp_tpu_torch.ops import lm_step
+from small_gicp_tpu_torch.ops.lm_step import gicp_lm_step, gicp_lm_step_plain, lm_state
 from small_gicp_tpu_torch.ops import knn_cuda
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops.knn_cuda import (
@@ -202,9 +218,8 @@ KERNELS = {
     "gicp_linearize": ("K1", "small_gicp_tpu_torch/csrc/gicp_listed.cu",
                        "small_gicp_tpu/ops/gicp_fused_pallas.py:466",
                        gicp_linearize_tables),
-    "gicp_error_multi": ("K2", "small_gicp_tpu_torch/csrc/gicp_fused.cu",
-                         "small_gicp_tpu/ops/gicp_fused_pallas.py:1033",
-                         gicp_error_multi),
+    "gicp_lm_step": ("K2", "small_gicp_tpu_torch/csrc/gicp_step.cu",
+                     "small_gicp_tpu/ops/gicp_fused_pallas.py:1033", gicp_lm_step),
     "knn_moments": ("K3", "small_gicp_tpu_torch/csrc/cov_fused.cu",
                     "small_gicp_tpu/ops/cov_fused_pallas.py:171",
                     knn_moments_rows),
@@ -235,7 +250,7 @@ KERNELS = {
     "knn_pruned": ("K12", "small_gicp_tpu_torch/csrc/knn.cu",
                    "small_gicp_tpu/ops/knn_pallas.py:117", knn_pruned),
 }
-MAIN_KERNELS = ("gicp_linearize", "gicp_error_multi", "knn_moments")
+MAIN_KERNELS = ("gicp_linearize", "gicp_lm_step", "knn_moments")
 FLEET_KERNELS = ("gicp_linearize_fleet", "gicp_error_multi_fleet")
 SEARCH_KERNELS = ("nearest_neighbor", "knn", "knn_T", "knn_pruned")
 MAP_KERNELS = ("knn_topk_idx", "knn_moments_q", "gicp_linearize_swept",
@@ -414,21 +429,60 @@ def first_forms_map():
         cov_fused_cuda.knn_topk_idx_launch, gicp_fused_cuda._gicp_linearize_swept_cuda = saved
 
 
+def _step_first_form(state, sums, corr, src, num, robust, robust_c, solve_dtype):
+    """The LM iteration's body before the step kernel: the plain step's torch
+    ops with the errors through K2's first form."""
+    return gicp_lm_step_plain(
+        state, sums, corr, src, num, robust, robust_c, solve_dtype,
+        errors=lambda P: _gicp_error_multi_v1(corr, src, P, num, robust, robust_c))
+
+
 @contextlib.contextmanager
 def first_forms_scan():
     """Route K3 and K1 through their first forms (the yardsticks
-    ``_knn_moments_rows_v1`` / ``_gicp_linearize_v1``, uncounted) inside
-    the block."""
+    ``_knn_moments_rows_v1`` / ``_gicp_linearize_v1``, uncounted) and the
+    LM iteration's body through the torch ops and K2's first form
+    (``_step_first_form``) inside the block."""
     k3, k1 = cov_fused_cuda._knn_moments_rows_cuda, gicp_fused_cuda._gicp_linearize_listed_cuda
+    step = lm_step._gicp_lm_step_cuda
     cov_fused_cuda._knn_moments_rows_cuda = (
         lambda points, num, k, target: _knn_moments_rows_v1(points, num, k))
     gicp_fused_cuda._gicp_linearize_listed_cuda = (
-        lambda tables, T, d2, robust, c: _gicp_linearize_v1(tables, T, d2, robust, c))
+        lambda tables, T, d2, robust, c, out=None: _gicp_linearize_v1(
+            tables, T, d2, robust, c, out=out))
+    lm_step._gicp_lm_step_cuda = _step_first_form
     try:
         yield
     finally:
         cov_fused_cuda._knn_moments_rows_cuda = k3
         gicp_fused_cuda._gicp_linearize_listed_cuda = k1
+        lm_step._gicp_lm_step_cuda = step
+
+
+def api_counts(prof) -> dict:
+    """Kernel launches, copies and memsets issued on the host in a profile
+    (the CUDA runtime calls torch.profiler records)."""
+    calls = {e.key: e.count for e in prof.key_averages()}
+    return {"launches": calls.get("cudaLaunchKernel", 0),
+            "copies": sum(v for k, v in calls.items() if k.startswith("cudaMemcpy")),
+            "memsets": sum(v for k, v in calls.items() if k.startswith("cudaMemset"))}
+
+
+def host_enqueue_turns(fns: dict, reps: int = REPS) -> dict:
+    """{name: median ms} of the host's time in one call of each function
+    (the enqueue: no synchronize inside the window), in turns, after one
+    untimed call each; the card is synchronized between calls."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {name: float(np.median(v)) for name, v in times.items()}
 
 
 def within(fn):
@@ -643,38 +697,129 @@ def phase_kernels(scans, T_gt, rng, dev, card="cpu"):
           f"on {card}")
     H, b, corr = out[0], out[1], out[3]
 
-    # K2: the current pose plus the 10 LM trial poses of the first iteration.
+    # K2 redesigned: the LM step kernel at the first iteration's sums and corr
+    # (K1's own buffers) against its plain version, and its errors-only mode
+    # (gicp_error_multi) against the plain version and K2's first form.
+    bufs = linearize_buffers(tables)
+    sums, corr = gicp_linearize_sums(tables, T, MAX_DIST_SQ, out=bufs)
+    check(torch.equal(corr, out[3]) and torch.equal(sums[36:42], out[1]),
+          "K1 into kept buffers differs")
     lambdas = 1e-3 * 10.0 ** torch.arange(10, dtype=torch.float32, device=dev)
     deltas = solve6x6(H.float(), -b.float(), lambdas)
-    Ts = torch.cat([T[None], T @ se3_exp(deltas)])
+    Ts = torch.cat([T[None], T @ se3_exp(deltas)]).contiguous()
     e = gicp_error_multi(corr, src.points, Ts, src.num_points)
     ep = gicp_error_multi_plain(corr, src.points, Ts, src.num_points)
+    e1 = _gicp_error_multi_v1(corr, src.points, Ts, src.num_points)
     check(bool(torch.isfinite(e).all()), "K2 errors not finite")
     rel = ((e - ep).abs() / ep.abs().clamp(min=1e-30)).max().item()
-    err = (e - ep).abs().max().item()
-    print(f"K2 gicp_error_multi: {Ts.shape[0]} poses, max |Δe| {err:.3e}, "
-          f"rel {rel:.2e} (tol 1e-5)")
-    check(rel <= 1e-5, f"K2 errors differ by rel {rel}")
-    ops = 40.0 * n * Ts.shape[0]
-    nbytes = n * (64 + 16) + Ts.shape[0] * 48
-    # The kernel alone (the wrapper's torch ops launch kernels of their own)
-    # is the record; the wrapper in a one-call window stands beside it.
-    k2 = lambda: gicp_error_multi(corr, src.points, Ts, src.num_points)  # noqa: E731
-    records["gicp_error_multi"] = dict(
-        max_abs_err=err, ms=one_kernel_per_call(k2, "gicp_error_multi_kernel", alone=False),
-        plain_ms=time_ms(
-            lambda: gicp_error_multi_plain(corr, src.points, Ts, src.num_points)),
-        library_ms=None, pairs=n * Ts.shape[0], bound=bound(ops, nbytes))
-    print(f"K2 at {n} rows × {Ts.shape[0]} poses: kernel alone (profiler, one a call) "
-          f"{records['gicp_error_multi']['ms']:.4f} ms, its wrapper {time_ms(k2):.4f} ms "
-          f"by one-call events on {card}")
+    rel1 = ((e - e1).abs() / e1.abs().clamp(min=1e-30)).max().item()
+    print(f"K2 errors-only mode (gicp_error_multi): {Ts.shape[0]} poses, max |Δe| against "
+          f"the plain version {(e - ep).abs().max().item():.3e}, rel {rel:.2e}; against "
+          f"K2's first form rel {rel1:.2e} (tol 1e-5)")
+    check(rel <= 1e-5 and rel1 <= 1e-5, f"K2 errors differ by rel {rel} / {rel1}")
+    check(launches_per_call(gicp_error_multi, lambda: gicp_error_multi(
+        corr, src.points, Ts, src.num_points)) == 1, "K2 launched other than once")
+    step_err = step_checks(sums, corr, src, T, dev)
+
+    # Times: the step kernel alone and by its wrapper, in turns with the body
+    # it replaced (K2's first form plus the plain step's torch ops); the
+    # errors-only mode beside K2's first form.
+    num = src.num_points
+    st_new = lm_state(T, device=dev)
+    st_old = lm_state(T, device=dev)
+    st_plain = lm_state(T, device=dev)
+    step_new = lambda: gicp_lm_step(st_new, sums, corr, src.points, num)  # noqa: E731
+    step_old = lambda: gicp_lm_step_plain(  # noqa: E731
+        st_old, sums, corr, src.points, num,
+        errors=lambda P: _gicp_error_multi_v1(corr, src.points, P, num))
+    k2_new = lambda: gicp_error_multi(corr, src.points, Ts, num)  # noqa: E731
+    k2_old = lambda: _gicp_error_multi_v1(corr, src.points, Ts, num)  # noqa: E731
+    check(launches_per_call(gicp_lm_step, step_new) == 1, "the step launched other than once")
+    k2 = time_turns({"step": step_new, "first form + torch body": step_old,
+                     "errors only": k2_new, "K2 first form": k2_old})
+    k2["step alone"] = one_kernel_per_call(step_new, r"gicp_step_kernel<float, 1")
+    k2["errors only alone"] = one_kernel_per_call(k2_new, r"gicp_step_kernel<float, 0")
+    k2["first form alone"] = one_kernel_per_call(k2_old, "gicp_error_multi_kernel",
+                                                 alone=False)
+    k1_ = Ts.shape[0]
+    # every valid row's corr and source rows read once, the sums read, the
+    # record (1,264 bytes at K = 10) read and written; 40 operations a row and
+    # pose, ~700 a trial's solve and pose
+    nbytes = 80.0 * n + 8.0 * 44 + 2 * 1264.0
+    records["gicp_lm_step"] = dict(
+        max_abs_err=step_err, ms=k2["step alone"],
+        plain_ms=time_ms(lambda: gicp_lm_step_plain(st_plain, sums, corr, src.points, num)),
+        library_ms=None, pairs=n * k1_, bound=bound(40.0 * n * k1_ + 700.0 * 10, nbytes))
+    print(f"K2 step kernel at {n} rows × {k1_} poses: alone (profiler, {REPS} calls, one "
+          f"kernel a call, no other device work) {k2['step alone']:.4f} ms, by its wrapper "
+          f"{k2['step']:.4f} ms in turns against {k2['first form + torch body']:.4f} ms for "
+          f"K2's first form plus the torch body it replaced; errors-only mode alone "
+          f"{k2['errors only alone']:.4f} ms, wrapper {k2['errors only']:.4f} ms, against "
+          f"the first form's {k2['first form alone']:.4f} / {k2['K2 first form']:.4f} ms; "
+          f"bound {records['gicp_lm_step']['bound'][0]:.4f} ms by "
+          f"{records['gicp_lm_step']['bound'][1]} on {card}")
     return records
+
+
+STEP_CASES = {
+    "lm": {},
+    "float64 solve": {"solve_dtype": "float64"},
+    "huber": {"robust": "huber", "c": 0.5},
+    "dof mask": {"dof": [0.0, 0.0, 0.0, 1e9, 1e9, 1e9]},
+    "gn": {"optimizer": "gn"},
+}
+
+
+def step_checks(sums, corr, src, T, dev) -> float:
+    """The step kernel against ``gicp_lm_step_plain`` (on CPU copies) in each
+    of STEP_CASES: trial δ and poses within 1e-6, errors within 1e-5
+    relative; the accepted trial, the accept, λ, converged and stop equal
+    wherever every trial's error is more than 1e-5 relative from e0 (how
+    many trials lie inside that band is printed). Returns the largest
+    |Δ errors|."""
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for label, case in STEP_CASES.items():
+        args = (case.get("robust"), case.get("c", 1.0), case.get("solve_dtype", "same"))
+        states = []
+        for d in (dev, cpu):
+            st = lm_state(T.cpu(), case.get("optimizer", "lm"), 10, dof_diag=case.get("dof"),
+                          device=d)
+            gicp_lm_step(st, sums.to(d), corr.to(d), src.points.to(d),
+                         src.num_points.to(d), *args)
+            states.append(st)
+        kern, plain = states
+        k1 = 1 if plain.optimizer == "gn" else plain.num_trials + 1
+        ek, ep = kern.errs[:k1].cpu(), plain.errs[:k1]
+        rel = ((ek - ep).abs() / ep.abs()).max().item()
+        d_trial = (kern.trials.cpu() - plain.trials).abs()
+        d_delta, d_pose = d_trial[:, :6].max().item(), d_trial[:, 6:].max().item()
+        inside = int(((ep[1:] - ep[0]).abs() <= 1e-5 * ep[0].abs()).sum())
+        same = {name: torch.equal(getattr(kern, name).cpu(), getattr(plain, name))
+                for name in ("j", "accepted", "lam", "converged", "stop")}
+        d_T = (kern.T.cpu() - plain.T).abs().max().item()
+        print(f"step kernel, {label}: errors rel {rel:.2e}, trial δ {d_delta:.2e}, trial "
+              f"poses {d_pose:.2e}, new pose {d_T:.2e}; trial {int(kern.j)} accepted "
+              f"{bool(kern.accepted)} stop {bool(kern.stop)} (plain: {int(plain.j)} "
+              f"{bool(plain.accepted)} {bool(plain.stop)}); {inside} of {k1 - 1} trials "
+              "within 1e-5 of e0")
+        check(rel <= 1e-5, f"step errors differ by rel {rel} ({label})")
+        check(d_delta <= 1e-6 and d_pose <= 1e-6, f"step trials differ ({label})")
+        check(bool(torch.isfinite(kern.T).all()), f"non-finite step pose ({label})")
+        if inside == 0:
+            check(all(same.values()), f"step accept differs: {same} ({label})")
+            check(d_T <= 1e-6, f"step pose differs by {d_T} ({label})")
+        check(torch.equal(kern.H.cpu(), plain.H) and torch.equal(kern.b.cpu(), plain.b),
+              f"step H or b differ ({label})")
+        worst = max(worst, (ek - ep).abs().max().item())
+    return worst
 
 
 def phase_e2e(scans, T_gt, rng, dev, card, records):
     print("== phase 5: end to end", flush=True)
     for _, _, _, fn in KERNELS.values():
         fn.launches = 0
+    gicp_error_multi.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     target, tree = preprocess_points(scans[0], LEAF, num_neighbors=K_NEIGHBORS,
@@ -703,8 +848,9 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
     check(all(v > 0 for v in launches.values()), "a kernel was not launched")
     check(launches["knn_moments"] == 2, "preprocessing did not run K3 once a cloud")
     check(launches["gicp_linearize"] == r["iterations"] + 1
-          and launches["gicp_error_multi"] == r["iterations"] + 1,
-          "the align did not run K1 and K2 once a linearization")
+          and launches["gicp_lm_step"] == r["iterations"] + 1,
+          "the align did not run K1 and the step kernel once a linearization")
+    check(gicp_error_multi.launches == 0, "the align launched K2's errors-only mode")
 
     # Preprocessing per frame pair and registrations/s, each in turns with
     # the same path through K3's and K1's first forms.
@@ -722,15 +868,41 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
           f"of 5 in turns): {pre['new']:.3f} ms, through K3's first form "
           f"{pre['first forms']:.3f} ms on {card}")
 
+    # K1's wrapper on the host (enqueue time, no synchronize): as before this
+    # slice (the tables' checks and chunk plan made and new outputs allocated
+    # every call) and as the align now calls it (both once per tables, the
+    # outputs kept).
+    tables = gicp_prepare(target.points, target.num_points, source.points,
+                          source.num_points, "gicp", target.covs, source.covs,
+                          target=tree.pruned_target())
+    bufs = linearize_buffers(tables)
+    T0 = torch.as_tensor(init, dtype=torch.float32, device=dev)
+
+    def k1_before():
+        tables.checked = False
+        return gicp_linearize_tables(tables, T0, MAX_DIST_SQ)
+
+    host = host_enqueue_turns({
+        "before": k1_before,
+        "now": lambda: gicp_linearize_sums(tables, T0, MAX_DIST_SQ, out=bufs)})
+    print(f"K1's wrapper, host time a call (median of {REPS} in turns, no synchronize): "
+          f"{host['before']:.4f} ms with its checks, plan and outputs made every call, "
+          f"{host['now']:.4f} ms with them kept; kernel alone "
+          f"{records['gicp_linearize']['ms']:.4f} ms on {card}")
+
+    # Registrations/s in turns: the new path and the same path through the
+    # first forms (K3's, K1's, and K2's with the torch body of the LM
+    # iteration).
     n_regs = 10
-    per_reg = {"new": [], "first forms": []}
-    iters = {"new": [], "first forms": []}
+    paths = {"new": lambda f: f, "first forms": within}
+    per_reg = {label: [] for label in paths}
+    iters = {label: [] for label in paths}
     for r in range(n_regs):
         g = noisy_guess(T_gt, rng)
-        both = [("new", lambda: align(target, source, tree, init_T_target_source=g)),
-                ("first forms", within(lambda: align(target, source, tree,
-                                                     init_T_target_source=g)))]
-        for label, fn in both[::1 if r % 2 == 0 else -1]:  # either goes first in turn
+        order = list(paths.items())
+        order = order[r % len(order):] + order[:r % len(order)]  # each first in turn
+        for label, wrap in order:
+            fn = wrap(lambda: align(target, source, tree, init_T_target_source=g))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
@@ -741,14 +913,14 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
             check(rot < 2.5 and trans < 0.2, "a timed registration left the bounds")
     reg_per_s = n_regs / sum(per_reg["new"])
     print("registrations/s (preprocessing excluded, the same noisy guesses in turns, "
-          "either path first in alternate rounds): "
+          "each path first in turn): "
           + ", ".join(f"{label} {n_regs / sum(v):.3f} (iterations {iters[label]})"
                       for label, v in per_reg.items()) + f" on {card}")
-    # Each align runs K1 and K2 once per executed iteration.
+    # Each align runs K1 and the step kernel once per executed iteration.
     calls = sum(i + 1 for i in iters["new"])
     dt = sum(per_reg["new"])
-    k_ms = calls * (records["gicp_linearize"]["ms"] + records["gicp_error_multi"]["ms"])
-    print(f"K1+K2 time inside those aligns: {k_ms:.3f} ms of {dt * 1e3:.3f} ms "
+    k_ms = calls * (records["gicp_linearize"]["ms"] + records["gicp_lm_step"]["ms"])
+    print(f"K1 + step kernel time inside those aligns: {k_ms:.3f} ms of {dt * 1e3:.3f} ms "
           f"wall ({100 * k_ms / (dt * 1e3):.1f}%), {dt * 1e3 / calls:.3f} ms "
           "wall per optimizer iteration")
 
@@ -759,26 +931,52 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
     inits = [noisy_guess(T_gt, rng) for _ in range(3)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         align(target, source, tree, init_T_target_source=inits[0])  # warms the profiler
+    # The set-up of an align (tables, K1's buffers, the state record), profiled
+    # alone, so that the launches of the loop can be told apart.
+    kept = tree.pruned_target()
+
+    def setup():
+        t = gicp_prepare(target.points, target.num_points, source.points,
+                         source.num_points, "gicp", target.covs, source.covs, target=kept)
+        return linearize_buffers(t), lm_state(inits[0], device=dev)
+
+    setup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in inits:
+            setup()
+        torch.cuda.synchronize()
+    set_up = api_counts(prof)
     for label, wrap in (("new", lambda f: f), ("first forms", within)):
-        run = wrap(lambda: [align(target, source, tree, init_T_target_source=g)
-                            for g in inits])
+        done = []
+        run = wrap(lambda: done.extend(
+            int(align(target, source, tree, init_T_target_source=g).iterations) + 1
+            for g in inits))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        launches_seen = sum(e.count for e in prof.key_averages()
-                            if e.key == "cudaLaunchKernel")
+        seen = api_counts(prof)
+        its = sum(done)
         events = device_events(prof)
         busy_us = sum(e.self_device_time_total for e in events)
         check(busy_us > 0, "the profiler saw no device time")
-        print(f"profiled 3 aligns, {label}: device busy {busy_us / 1e3:.3f} ms of "
-              f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% busy); "
-              f"{launches_seen} kernel launches; top device time:")
+        loop = {k: seen[k] - set_up[k] for k in seen}
+        print(f"profiled 3 aligns, {label}: {its} LM iterations; device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}% busy); {seen['launches']} kernel launches, "
+              f"{seen['copies']} copies, {seen['memsets']} memsets in all; less the "
+              f"set-up of 3 aligns ({set_up}): {loop['launches'] / its:.2f} launches, "
+              f"{loop['copies'] / its:.2f} copies and {loop['memsets'] / its:.2f} memsets "
+              f"per LM iteration; top device time:")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
                   f"{e.key[:90]}")
+        if label == "new":
+            per_it = (loop["launches"] + loop["copies"] + loop["memsets"]) / its
+            check(per_it <= 4.0, f"{per_it:.2f} device operations per LM iteration (> 4)")
     # One frame pair's preprocessing, profiled each way.
     for label, fn in (("new", preprocess_pair), ("first forms", within(preprocess_pair))):
         fn()
@@ -1543,12 +1741,12 @@ def phase_search(scans, T_gt, rng, dev, card):
     check(rot < 2.5 and trans < 0.2, "unfused registration outside the bounds")
     check(counts["nearest_neighbor"] == 1 + r["iterations"] + 1,
           f"K9 launches {counts['nearest_neighbor']} != 1 + iterations + 1")
-    check(counts["gicp_linearize"] == 0 and counts["gicp_error_multi"] == 0,
+    check(counts["gicp_linearize"] == 0 and counts["gicp_lm_step"] == 0,
           "the unfused route launched a fused kernel")
     fused = align_impl(target, source, tree, init)
     check(_agrees((r["T_target_source"], r["iterations"]), fused),
           "unfused and fused align disagree")
-    for fn in (gicp_linearize_tables, gicp_error_multi):
+    for fn in (gicp_linearize_tables, gicp_lm_step):
         fn.launches = 0  # the fused comparison is not part of this path
     n_regs = 5
     per_reg = {}
@@ -1564,7 +1762,7 @@ def phase_search(scans, T_gt, rng, dev, card):
         torch.cuda.synchronize()
         per_reg[mode] = (time.perf_counter() - t0) * 1e3 / n_regs
         if mode == "never":
-            for fn in (gicp_linearize_tables, gicp_error_multi):
+            for fn in (gicp_linearize_tables, gicp_lm_step):
                 check(fn.launches == 0, "the unfused route launched a fused kernel")
     print(f"time per registration: unfused {per_reg['never']:.2f} ms, fused "
           f"{per_reg['auto']:.2f} ms ({n_regs} aligns each) on {card}")
@@ -2126,8 +2324,8 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     check(rot < 2.5 and trans < 0.2, "registration against the map outside the bounds")
     check(counts["gicp_linearize_swept"] == r["iterations"] + 1,
           f"K6 launches {counts['gicp_linearize_swept']} != iterations + 1")
-    check(counts["gicp_error_multi"] == r["iterations"] + 1,
-          f"K2 launches {counts['gicp_error_multi']} != iterations + 1")
+    check(counts["gicp_lm_step"] == r["iterations"] + 1,
+          f"step kernel launches {counts['gicp_lm_step']} != iterations + 1")
     check(counts["gicp_linearize"] == 0, "the map align launched K1")
     m1q, _, _ = knn_moments(scan_t.points, scan_t.num_points, k, layout="q",
                             target=tree.pruned_target())
@@ -2137,8 +2335,8 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     check(bool(torch.isfinite(Hs).all()) and int(inl_s) > n // 2,
           "the score-form linearization is off")
     launches = {name: KERNELS[name][3].launches for name in MAP_KERNELS}
-    print(f"launches on the map-scale path: {launches}, gicp_error_multi "
-          f"{counts['gicp_error_multi']}, gicp_linearize {counts['gicp_linearize']}")
+    print(f"launches on the map-scale path: {launches}, gicp_lm_step "
+          f"{counts['gicp_lm_step']}, gicp_linearize {counts['gicp_linearize']}")
     check(all(v > 0 for v in launches.values()), "a map-scale kernel was not launched")
 
     # ms per registration against the map: swept (the default: the map

@@ -70,6 +70,11 @@ SIGNATURES = {
                                             _P],
         "sgt_box_geometry": [_P],
     },
+    "gicp_step": {
+        "sgt_gicp_step": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P, _P, _P],
+        "sgt_gicp_step_errors": [_P, _P, _P, _I, _P, _I, _F, _I, _P, _P, _P, _P],
+        "sgt_step_geometry": [_P],
+    },
     "cov_fused": {
         "sgt_knn_moments": [_P, _P, _P, _I, _P, _I, _I, _P, _P],
         "sgt_knn_moments_v1": [_P, _P, _I, _I, _P, _P],

@@ -24,7 +24,9 @@
 // shuffles into a [blocks, 44] buffer that the caller sums in float64, so
 // results are deterministic (no float atomics).
 //
-// K2 replaces `_trials_kernel` (gicp_error_multi_pallas): Σ ½ rᵀWr·mask,
+// K2's first form (the LM step kernel of gicp_step.cu replaced it on every
+// path; kept as the yardstick `_gicp_error_multi_v1` and for the lane
+// entry): `_trials_kernel` (gicp_error_multi_pallas), Σ ½ rᵀWr·mask,
 // re-weighted by w(√e) at each pose, for up to 100 poses over the frozen
 // corr rows. It reads each correspondence row once (bytes-bound: 80 bytes
 // per point) and loops over the poses held in shared memory.

@@ -18,21 +18,25 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
   * fused ("auto", for a PointCloud target, a KdTree or no searcher and
     float32 clouds): the tables are prepared once before the loop
     (``gicp_prepare``), every linearization goes through
-    ``gicp_linearize_tables`` — kernel K1 on the card, or for targets above
+    ``gicp_linearize_sums`` — kernel K1 on the card, or for targets above
     1,572,864 rows the swept kernel K6, both walking the Morton-sorted,
     boxed target (``fused_route`` forces either; a ``KdTree`` built over
     the target keeps that sort and those boxes from the covariance stage
     and from one align to the next, without it they are made anew) — and
-    every error evaluation
-    through ``gicp_error_multi`` (K2); on CPU tensors those run their
-    plain versions;
+    the rest of the iteration (the λ-trial solves, se3_exp, the trial
+    errors and the accept) is one launch of the step kernel
+    (``ops/lm_step.gicp_lm_step``, K2 redesigned); on CPU tensors those run
+    their plain versions;
   * unfused ("never", or float64 clouds): ``search_correspondences`` —
     transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on the card),
     gather of the winners' payload, ``make_weights``, rejector mask — feeds
-    ``factors.linearize`` and ``factors.error_multi``, plain torch ops as
-    they are XLA ops in the JAX package.
-The loop state stays on the device; the host reads one stop flag per outer
-iteration (with ``verbose``, the printed values ride in the same read).
+    ``factors.linearize`` and ``factors.error_multi`` through the plain
+    step, torch ops as they are XLA ops in the JAX package.
+The loop state lives on the device in one record (``ops/lm_step.LmState``),
+whose pose K1 reads in place; each iteration is K1 (or the unfused
+search), the step, and one host read of the stop flag (with ``verbose``,
+the printed values ride in the same read). The result's tensors are views
+of that record.
 Parameters sit in the JAX package's positions; ``fused_route`` follows them
 as a keyword only.
 """
@@ -46,17 +50,21 @@ from typing import Optional
 import torch
 
 from small_gicp_tpu_torch.point_cloud import PointCloud
-from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     ROBUST_KERNELS,
     ROUTES,
     auto_route,
-    gicp_error_multi,
-    gicp_linearize_tables,
+    gicp_linearize_sums,
     gicp_prepare,
+    linearize_buffers,
 )
 from small_gicp_tpu_torch.ops.knn import KdTree
-from small_gicp_tpu_torch.utils.lie import se3_exp
+from small_gicp_tpu_torch.ops.lm_step import (
+    gicp_lm_step,
+    gicp_lm_step_plain,
+    lm_state,
+    step_norms,
+)
 from small_gicp_tpu_torch.models import factors
 from small_gicp_tpu_torch.models.factors import GICP, ICP, PLANE_ICP, Correspondences
 
@@ -75,11 +83,6 @@ class RegistrationResult:
     H: torch.Tensor  # [6,6]
     b: torch.Tensor  # [6]
     error: torch.Tensor  # 0-d float64
-
-
-def _converged(delta, rot_eps, trans_eps):
-    return ((torch.linalg.vector_norm(delta[:3]) <= rot_eps)
-            & (torch.linalg.vector_norm(delta[3:]) <= trans_eps))
 
 
 def search_correspondences(factor_type: str, target: PointCloud, target_tree,
@@ -123,7 +126,9 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
     "never" keeps the unfused search + linearize route, which float64
     clouds always take. ``psum_axis`` (the point-sharded mode) is not
     ported. ``fused_route``: "listed" or "swept" forces the fused search's
-    route; None chooses by the target's size.
+    route; None chooses by the target's size. ``max_inner_iterations``:
+    any K ≥ 0, at most 99 where the step kernel runs (the fused route on
+    the card).
     """
     if psum_axis is not None:
         raise NotImplementedError(
@@ -149,13 +154,13 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                          f"{fused_route!r}")
 
     dt, dev = source.dtype, source.device
-    solve_dt = dt if solve_dtype == "same" else torch.float64
-    T = torch.as_tensor(init_T if init_T is not None else torch.eye(4), dtype=dt,
-                        device=dev)
-    dof = None
+    T0 = init_T if init_T is not None else torch.eye(4)
+    dof_diag = None
     if dof_mask is not None:
-        dof = dof_lambda * torch.diag(torch.abs(
-            torch.as_tensor(dof_mask, dtype=solve_dt, device=dev) - 1.0))
+        dof_diag = [dof_lambda * abs(float(m) - 1.0)
+                    for m in torch.as_tensor(dof_mask, dtype=torch.float64).tolist()]
+    state = lm_state(T0, optimizer, max_inner_iterations, init_lambda, lambda_factor,
+                     gn_lambda, rotation_eps, translation_eps, dof_diag, dt, dev)
 
     if use_fused == "auto" and dt == torch.float32:
         route = fused_route or auto_route(target.points)
@@ -172,97 +177,54 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
             target_normals=target.normals if registration_type == PLANE_ICP else None,
             route=route, target=kept,
         )
+        out = linearize_buffers(tables)
 
-        def linearize(T):
-            """(H, b, inliers, frozen correspondences) at T."""
-            H, b, inliers, corr = gicp_linearize_tables(
-                tables, T, max_dist_sq, robust_kernel, robust_c)
-            return H, b, inliers.to(torch.int32), corr
-
-        def errors(corr, Ts):
-            return gicp_error_multi(corr, source.points, Ts, source.num_points,
-                                    robust_kernel, robust_c)
+        def iterate():
+            """K1 (or K6) at the record's pose, then the step kernel."""
+            sums, corr = gicp_linearize_sums(tables, state.T, max_dist_sq,
+                                             robust_kernel, robust_c, out)
+            gicp_lm_step(state, sums, corr, source.points, source.num_points,
+                         robust_kernel, robust_c, solve_dtype)
     else:
         source_covs = source.covs if registration_type == GICP else None
 
-        def linearize(T):
+        def iterate():
+            """The unfused search and factors, then the plain step."""
             corr = search_correspondences(
                 registration_type, target, target_tree, source.points,
-                source.num_points, source_covs, T, max_dist_sq)
-            H, b, _ = factors.linearize(corr, T, source.points, robust_kernel,
+                source.num_points, source_covs, state.T, max_dist_sq)
+            H, b, _ = factors.linearize(corr, state.T, source.points, robust_kernel,
                                         robust_c)
-            return H, b, corr.mask.sum().to(torch.int32), corr
+            sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
+                              corr.mask.sum().reshape(1).to(H.dtype)])
+            gicp_lm_step_plain(
+                state, sums, None, None, None, solve_dtype=solve_dtype,
+                errors=lambda Ts: factors.error_multi(corr, Ts, source.points,
+                                                      robust_kernel, robust_c))
 
-        def errors(corr, Ts):
-            return factors.error_multi(corr, Ts, source.points, robust_kernel,
-                                       robust_c)
-
-    def linearize_for_solve(T):
-        H, b, inliers, corr = linearize(T)
-        H = H.to(solve_dt)
-        if dof is not None:
-            H = H + dof
-        return H, b.to(solve_dt), inliers, corr
-
-    lam = torch.tensor(init_lambda, dtype=dt, device=dev)
-    H = torch.zeros((6, 6), dtype=dt, device=dev)
-    b = torch.zeros(6, dtype=dt, device=dev)
-    last_e = torch.zeros((), dtype=torch.float64, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    num_inliers = torch.zeros((), dtype=torch.int32, device=dev)
-    iterations = 0
-    K = max_inner_iterations
-    powers = torch.arange(K, dtype=dt, device=dev)
-    gn_damping = torch.tensor(gn_lambda, dtype=solve_dt, device=dev)
-
+    names = (("e", "gn_lambda") if optimizer == "gn" else ("e", "new_e", "lambda")) \
+        + ("dr", "dt")
     for i in range(max_iterations):
-        iterations = i
-        Hs, bs, num_inliers, corr = linearize_for_solve(T)
-        if optimizer == "gn":
-            e = errors(corr, T[None])[0]
-            delta = solve6x6(Hs, -bs, gn_damping).to(dt)
-            converged = _converged(delta, rotation_eps, translation_eps)
-            T = T @ se3_exp(delta)
-            stop = converged
-            shown = (e, gn_damping)
-        else:
-            lambdas = lam * lambda_factor ** powers
-            deltas = solve6x6(Hs, -bs, lambdas.to(solve_dt)).to(dt)  # [K,6]
-            Ts = T @ se3_exp(deltas)
-            errs_all = errors(corr, torch.cat([T[None], Ts]))
-            e0, errs = errs_all[0], errs_all[1:]
-            ok = errs <= e0
-            accepted = ok.any()
-            j = torch.argmax(ok.to(torch.int32))  # first accepted trial
-            T = torch.where(accepted, Ts[j], T)
-            e = torch.where(accepted, errs[j], e0)
-            delta = torch.where(accepted, deltas[j], torch.zeros_like(deltas[0]))
-            lam = torch.where(accepted, lambdas[j] / lambda_factor,
-                              lam * lambda_factor ** K)
-            converged = accepted & _converged(delta, rotation_eps, translation_eps)
-            stop = converged | ~accepted
-            shown = (e0, e, lam)
-        H, b, last_e = Hs.to(dt), bs.to(dt), e
+        iterate()
         if verbose:  # the iteration's one host read carries the line's values
+            shown = ((state.e, state.params[1].to(dt)) if optimizer == "gn"
+                     else (state.errs[0], state.e, state.lam))
             vals = torch.stack([v.to(torch.float64) for v in (
-                stop, *shown, torch.linalg.vector_norm(delta[:3]),
-                torch.linalg.vector_norm(delta[3:]))]).tolist()
-            names = (("e", "gn_lambda") if optimizer == "gn"
-                     else ("e", "new_e", "lambda")) + ("dr", "dt")
+                state.stop, *shown, *step_norms(state))]).tolist()
             print(f"iter={i} " + " ".join(f"{n}={v}" for n, v in zip(names, vals[1:])))
             if vals[0]:
                 break
-        elif bool(stop):  # the one host read of the iteration
+        elif bool(state.stop):  # the one host read of the iteration
             break
 
     return RegistrationResult(
-        T_target_source=T,
-        converged=converged,
-        iterations=torch.tensor(iterations, dtype=torch.int32, device=dev),
-        num_inliers=num_inliers,
-        H=H,
-        b=b,
-        error=last_e,
+        T_target_source=state.T,
+        converged=state.converged,
+        iterations=state.iterations,
+        num_inliers=state.inliers,
+        H=state.H,
+        b=state.b,
+        error=state.e,
     )
 
 

@@ -55,11 +55,13 @@ def _voxelgrid_sampling_impl(points: torch.Tensor, num_points: torch.Tensor,
 
 
 def voxelgrid_sampling(cloud, leaf_size: float, max_points: Optional[int] = None,
-                       device=None) -> PointCloud:
+                       num_threads: int = 1, *, device=None) -> PointCloud:
     """Exact-mean voxelgrid downsampling of a PointCloud or an [N,3]/[N,4] array.
 
-    ``device`` applies to array input only; a PointCloud stays where it is.
-    Normals and covariances are dropped, as in the reference.
+    Parameters sit in the JAX package's positions; ``num_threads`` is
+    parity-only, as it is there. ``device`` applies to array input only; a
+    PointCloud stays where it is. Normals and covariances are dropped, as
+    in the reference.
     """
     if not isinstance(cloud, PointCloud):
         cloud = PointCloud.from_points(cloud, device=device)

@@ -26,7 +26,11 @@ Counterpart of ``small_gicp_tpu/ops/gicp_fused_pallas.py``:
     ``mxu_dist=True`` ranks the targets by the score ‖t‖² − 2 t·q
     (``gicp_linearize_score``, K1's walk with a score offer) instead;
   * ``gicp_error_multi`` → [K1] float64: Σ ½ rᵀWr·mask at each of up to
-    100 poses over frozen corr rows, re-weighted by w(√e) at each pose.
+    100 poses over frozen corr rows, re-weighted by w(√e) at each pose (on
+    the card the errors-only mode of the LM step kernel, ``ops/lm_step.py``,
+    which redesigned K2; its first form ``_gicp_error_multi_v1`` stays);
+  * ``gicp_linearize_sums`` → (sums [44] float64, corr): one linearization
+    in the form the LM step reads, K1's outputs kept in ``linearize_buffers``.
 
 The fleet variants serve B lanes over U prepared pairs
 (``parallel/fleet.py``): ``gicp_fleet_prepare`` stacks the tables of U
@@ -118,6 +122,22 @@ class GicpTables:
     # ‖t‖² of the sorted target rows, padded to whole tiles: the score
     # form's table, gathered at its first launch (score_norms).
     tnorm: Optional[torch.Tensor] = None
+    # K1's chunk plan (swept_plan), and whether the tables passed K1's
+    # checks: both set once, by gicp_prepare on the card.
+    chunks: Optional[int] = None
+    checked: bool = False
+
+
+@dataclass
+class LinearizeBuffers:
+    """K1's outputs, kept by an align across its iterations
+    (``linearize_buffers``): corr [N,16] float32, the block partials
+    [blocks, 44] float32 and the float64 sums [44] (H 36 | b 6 | e |
+    inliers) that the LM step reads in place."""
+
+    corr: torch.Tensor
+    partials: torch.Tensor
+    sums: torch.Tensor
 
 
 def auto_route(target_points: torch.Tensor) -> str:
@@ -174,7 +194,34 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
                         qnum=source_num.to(torch.int32), factor=factor, route=route)
     if route == "swept" or (target_points.dim() == 2 and dt == torch.float32):
         _add_sort(tables, target_points, source_points, target)
+        if qtab.device.type == "cuda" and dt == torch.float32:
+            _check_listed(tables)
     return tables
+
+
+def _check_listed(tables: GicpTables) -> None:
+    """K1's checks of one pair's tables and its chunk plan, once per tables."""
+    f32 = torch.float32
+    _build.require(tables.ttab, "ttab", f32, (None, 16))
+    _build.require(tables.qtab, "qtab", f32, (None, 16))
+    m, n = tables.ttab.shape[0], tables.qtab.shape[0]
+    _build.require(tables.tsorted, "tsorted", f32, (m, 4))
+    _build.require(tables.tbox, "tbox", f32, ((m + TILE_ROWS - 1) // TILE_ROWS, 8))
+    _build.require(tables.sperm, "sperm", torch.int32, (n,))
+    _build.require(tables.tnum, "tnum", torch.int32, ())
+    _build.require(tables.qnum, "qnum", torch.int32, ())
+    tables.chunks = swept_plan(tables) if n > 0 else 1
+    tables.checked = True
+
+
+def linearize_buffers(tables: GicpTables) -> LinearizeBuffers:
+    """Output buffers of K1 (either form) for these tables of one pair."""
+    n, dev = tables.qtab.shape[0], tables.qtab.device
+    blocks = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
+    return LinearizeBuffers(
+        corr=torch.empty((n, 16), dtype=torch.float32, device=dev),
+        partials=torch.empty((max(blocks, 1), 44), dtype=torch.float32, device=dev),
+        sums=torch.zeros(44, dtype=torch.float64, device=dev))
 
 
 def _add_sort(tables: GicpTables, target_points: torch.Tensor,
@@ -511,9 +558,10 @@ def gicp_linearize_score_walk_plain(tables: GicpTables, T: torch.Tensor,
 
 
 def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tensor,
-                         max_dist_sq: float, robust: Optional[str], robust_c: float):
+                         max_dist_sq: float, robust: Optional[str], robust_c: float,
+                         out: Optional[LinearizeBuffers] = None):
     """Launch the entry ``entry`` of K1's first-form kernel and count it on
-    ``wrapper`` (None: not counted)."""
+    ``wrapper`` (None: not counted); ``out``: corr and the sums go there."""
     f32 = torch.float32
     _build.require(tables.ttab, "ttab", f32, (None, 16))
     _build.require(tables.qtab, "qtab", f32, (None, 16))
@@ -522,7 +570,7 @@ def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tenso
     n = tables.qtab.shape[0]
     dev = tables.qtab.device
     pose = _pose12(T.to(dev), f32)
-    corr = torch.empty((n, 16), dtype=f32, device=dev)
+    corr = torch.empty((n, 16), dtype=f32, device=dev) if out is None else out.corr
     if n == 0:
         return (*_finish(torch.zeros(44, dtype=torch.float64, device=dev)), corr)
     lib = _build.library("gicp_fused")
@@ -538,17 +586,21 @@ def _gicp_linearize_cuda(wrapper, entry: str, tables: GicpTables, T: torch.Tenso
     _build.check(rc, entry)
     if wrapper is not None:
         wrapper.launches += 1
-    return (*_finish(partials.to(torch.float64).sum(0)), corr)
+    sums = partials.to(torch.float64).sum(0)
+    if out is not None:
+        sums = out.sums.copy_(sums)
+    return (*_finish(sums), corr)
 
 
 def _gicp_linearize_v1(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
-                       robust: Optional[str] = None, robust_c: float = 1.0):
+                       robust: Optional[str] = None, robust_c: float = 1.0,
+                       out: Optional[LinearizeBuffers] = None):
     """K1's first form (a thread a source row in row order, a scan of every
     valid target row; rows without an accepted correspondence hold their
     nearest row): the yardstick of the kernel below, on no path and counted
     nowhere."""
     return _gicp_linearize_cuda(None, "sgt_gicp_linearize", tables, T, max_dist_sq,
-                                robust, robust_c)
+                                robust, robust_c, out)
 
 
 def _gicp_linearize_score_v1(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
@@ -875,37 +927,39 @@ gicp_linearize_swept.launches = 0
 def _gicp_linearize_listed_cuda(tables: GicpTables, T: torch.Tensor,
                                 max_dist_sq: float, robust: Optional[str],
                                 robust_c: float, chunks: Optional[int] = None,
-                                score: bool = False):
-    """Kernel K1 at ``chunks`` chunks per source block (None:
-    ``swept_plan``), counted on ``gicp_linearize_tables``; ``score``: its
-    score form, counted on ``gicp_linearize_score``."""
+                                score: bool = False,
+                                out: Optional[LinearizeBuffers] = None):
+    """Kernel K1 at ``chunks`` chunks per source block (None: the tables'
+    plan), counted on ``gicp_linearize_tables``; ``score``: its score form,
+    counted on ``gicp_linearize_score``. ``out``: the output buffers
+    (``linearize_buffers``), else new ones. The tables' checks and plan are
+    made once per tables (``gicp_prepare`` makes them on the card)."""
     f32 = torch.float32
-    _build.require(tables.ttab, "ttab", f32, (None, 16))
-    _build.require(tables.qtab, "qtab", f32, (None, 16))
-    m, n = tables.ttab.shape[0], tables.qtab.shape[0]
-    _build.require(tables.tsorted, "tsorted", f32, (m, 4))
-    _build.require(tables.tbox, "tbox", f32, ((m + TILE_ROWS - 1) // TILE_ROWS, 8))
-    _build.require(tables.sperm, "sperm", torch.int32, (n,))
-    _build.require(tables.tnum, "tnum", torch.int32, ())
-    _build.require(tables.qnum, "qnum", torch.int32, ())
+    if not tables.checked:
+        _check_listed(tables)
+    n = tables.qtab.shape[0]
     dev = tables.qtab.device
-    pose = T.to(device=dev, dtype=f32).contiguous()
+    pose = T
+    if not (T.is_cuda and T.dtype == f32 and T.is_contiguous()):
+        pose = T.to(device=dev, dtype=f32).contiguous()
     _build.require(pose, "T", f32, (4, 4))
-    corr = torch.empty((n, 16), dtype=f32, device=dev)
+    if out is None:
+        out = linearize_buffers(tables)
+    corr = out.corr
     if n == 0:
-        return (*_finish(torch.zeros(44, dtype=torch.float64, device=dev)), corr)
+        return (*_finish(out.sums.zero_()), corr)
     lib = morton_boxes.library("gicp_listed")
     blocks = (n + SWEPT_BLOCK_ROWS - 1) // SWEPT_BLOCK_ROWS
-    partials = torch.empty((blocks, 44), dtype=f32, device=dev)
-    sums = torch.empty(44, dtype=torch.float64, device=dev)
+    partials, sums = out.partials, out.sums
     ws = _swept_workspace(dev, n, blocks + 1)
     args = [tables.ttab.data_ptr(), tables.tsorted.data_ptr()]
     if score:
         args.append(score_norms(tables).data_ptr())
-    args += [tables.tbox.data_ptr(), tables.tnum.data_ptr(), m, tables.qtab.data_ptr(),
-             tables.sperm.data_ptr(), tables.qnum.data_ptr(), n, pose.data_ptr(),
-             float(max_dist_sq), float(robust_c), FACTORS.index(tables.factor),
-             _robust_code(robust), int(chunks or swept_plan(tables)), corr.data_ptr(),
+    args += [tables.tbox.data_ptr(), tables.tnum.data_ptr(), tables.ttab.shape[0],
+             tables.qtab.data_ptr(), tables.sperm.data_ptr(), tables.qnum.data_ptr(), n,
+             pose.data_ptr(), float(max_dist_sq), float(robust_c),
+             FACTORS.index(tables.factor), _robust_code(robust),
+             int(chunks or tables.chunks), corr.data_ptr(),
              partials.data_ptr(), ws.keys.data_ptr(), ws.tickets.data_ptr(),
              sums.data_ptr(), _stream()]
     entry = "sgt_gicp_linearize_listed_score" if score else "sgt_gicp_linearize_listed"
@@ -941,6 +995,26 @@ def gicp_linearize_tables(tables: GicpTables, T: torch.Tensor, max_dist_sq: floa
 
 
 gicp_linearize_tables.launches = 0
+
+
+def gicp_linearize_sums(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
+                        robust: Optional[str] = None, robust_c: float = 1.0,
+                        out: Optional[LinearizeBuffers] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gicp_linearize_tables`` on the tables' route as (sums [44] float64:
+    H 36 | b 6 | e | inliers, corr [N,16]), the input of the LM step. On the
+    card's listed route K1 writes them into ``out`` (``linearize_buffers``;
+    new ones if None) and nothing else runs; elsewhere they are packed from
+    the route's outputs (e is then 0: the step does not read it)."""
+    if tables.route == "listed" and tables.qtab.device.type == "cuda":
+        out = out if out is not None else linearize_buffers(tables)
+        corr = _gicp_linearize_listed_cuda(tables, T, max_dist_sq, robust, robust_c,
+                                           out=out)[3]
+        return out.sums, corr
+    H, b, inliers, corr = gicp_linearize_tables(tables, T, max_dist_sq, robust,
+                                                robust_c)
+    return torch.cat([H.reshape(36), b, H.new_zeros(1),
+                      inliers.reshape(1).to(H.dtype)]), corr
 
 
 # ---------------------------------------------------------------- K7 ----
@@ -1149,7 +1223,13 @@ def gicp_error_multi_plain(corr: torch.Tensor, src: torch.Tensor, Ts: torch.Tens
                                     live[None], robust, robust_c)[0]
 
 
-def _gicp_error_multi_cuda(corr, src, Ts, num_points, robust, robust_c):
+def _gicp_error_multi_v1(corr: torch.Tensor, src: torch.Tensor, Ts: torch.Tensor,
+                         num_points: torch.Tensor, robust: Optional[str] = None,
+                         robust_c: float = 1.0) -> torch.Tensor:
+    """K2's first form (``gicp_error_multi_kernel`` of ``csrc/gicp_fused.cu``:
+    poses converted by torch, [blocks, K1] partials summed by torch): the
+    yardstick of the step kernel's errors-only mode, on no path and counted
+    nowhere."""
     f32 = torch.float32
     _build.require(corr, "corr", f32, (None, 16))
     n = corr.shape[0]
@@ -1169,20 +1249,24 @@ def _gicp_error_multi_cuda(corr, src, Ts, num_points, robust, robust_c):
             poses.data_ptr(), k1, float(robust_c), _robust_code(robust),
             partials.data_ptr(), _stream(),
         )
-    _build.check(rc, "gicp_error_multi")
-    gicp_error_multi.launches += 1
+    _build.check(rc, "gicp_error_multi (first form)")
     return partials.to(torch.float64).sum(0)
 
 
 def gicp_error_multi(corr: torch.Tensor, src: torch.Tensor, Ts: torch.Tensor,
                      num_points: torch.Tensor, robust: Optional[str] = None,
                      robust_c: float = 1.0) -> torch.Tensor:
-    """[K1] float64 total errors at the poses Ts [K1,4,4] (K1 ≤ 100)."""
+    """[K1] float64 total errors at the poses Ts [K1,4,4] (K1 ≤ 100): on the
+    card one launch of the LM step kernel in its errors-only mode
+    (``ops/lm_step.py``), on the CPU the plain version."""
     if not 1 <= Ts.shape[0] <= MAX_POSES:
         raise ValueError(f"1 to {MAX_POSES} poses per call, got {Ts.shape[0]}")
+    _robust_code(robust)
     if corr.device.type == "cpu":
         return gicp_error_multi_plain(corr, src, Ts, num_points, robust, robust_c)
-    return _gicp_error_multi_cuda(corr, src, Ts, num_points, robust, robust_c)
+    from small_gicp_tpu_torch.ops.lm_step import _gicp_error_multi_step
+
+    return _gicp_error_multi_step(corr, src, Ts, num_points, robust, robust_c)
 
 
 gicp_error_multi.launches = 0

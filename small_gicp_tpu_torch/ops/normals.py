@@ -99,25 +99,25 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
     return normals, covs
 
 
-def estimate_normals_covariances(cloud: PointCloud, tree=None,
-                                 num_neighbors: int = 20) -> PointCloud:
+def estimate_normals_covariances(cloud: PointCloud, tree=None, num_neighbors: int = 20,
+                                 num_threads: int = 1) -> PointCloud:
     """Normals and plane-regularised covariances. The search is exact over
     the cloud itself; a ``KdTree`` built over this cloud lends it its kept
-    Morton sort."""
+    Morton sort. ``num_threads`` is parity-only, as in the JAX package."""
     normals, covs = _estimate_impl(cloud.points, cloud.num_points,
                                    num_neighbors, True, True, tree=tree)
     return cloud.replace(normals=normals, covs=covs)
 
 
-def estimate_normals(cloud: PointCloud, tree=None,
-                     num_neighbors: int = 20) -> PointCloud:
+def estimate_normals(cloud: PointCloud, tree=None, num_neighbors: int = 20,
+                     num_threads: int = 1) -> PointCloud:
     normals, _ = _estimate_impl(cloud.points, cloud.num_points, num_neighbors,
                                 True, False, tree=tree)
     return cloud.replace(normals=normals)
 
 
-def estimate_covariances(cloud: PointCloud, tree=None,
-                         num_neighbors: int = 20) -> PointCloud:
+def estimate_covariances(cloud: PointCloud, tree=None, num_neighbors: int = 20,
+                         num_threads: int = 1) -> PointCloud:
     _, covs = _estimate_impl(cloud.points, cloud.num_points, num_neighbors,
                              False, True, tree=tree)
     return cloud.replace(covs=covs)

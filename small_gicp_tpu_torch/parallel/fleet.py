@@ -47,11 +47,12 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
 from small_gicp_tpu_torch.utils.lie import se3_exp
 
 
-def fleet_prepare(targets: PointCloud, sources: PointCloud,
+def fleet_prepare(targets: PointCloud, sources: PointCloud, block_q: int = 512,
                   registration_type: str = "gicp") -> GicpTables:
     """Prepare the kernel tables of U stacked pairs once: K1's tables and
     each pair's Morton-sorted target rows, their boxes and the source's
-    Morton order.
+    Morton order. ``block_q`` (the TPU kernels' query block) sits in the
+    JAX package's position and is ignored: the CUDA kernels fix their own.
 
     targets/sources are one pair (2-D points) or [U]-stacked clouds
     (``stack_clouds``). registration_type selects the factor: "gicp"
@@ -74,7 +75,8 @@ def align_fleet(targets: Optional[PointCloud], sources: Optional[PointCloud],
                 max_correspondence_distance: float = 1.0,
                 rotation_eps: float = 0.1 * math.pi / 180.0,
                 translation_eps: float = 1e-3, init_lambda: float = 1e-3,
-                lambda_factor: float = 10.0, prepared: Optional[GicpTables] = None,
+                lambda_factor: float = 10.0, block_q: int = 512,
+                prepared: Optional[GicpTables] = None, interpret: Optional[bool] = None,
                 robust_kernel: Optional[str] = None, robust_c: float = 1.0,
                 registration_type: str = "gicp") -> RegistrationResult:
     """Register P problems through B persistent lanes.
@@ -88,13 +90,15 @@ def align_fleet(targets: Optional[PointCloud], sources: Optional[PointCloud],
       num_lanes: resident lanes B (the round's parallel width).
       prepared: the tables of ``fleet_prepare(targets, sources, ...)``, to
         reuse across calls; they also fix the factor.
+      block_q, interpret: the JAX package's Pallas options, accepted in its
+        positions and ignored.
 
     Returns a RegistrationResult with a leading [P] axis; each row solves
     what ``align_impl(target, source, None, init_T)`` solves for that
     problem.
     """
     tables = prepared if prepared is not None else fleet_prepare(
-        targets, sources, registration_type)
+        targets, sources, registration_type=registration_type)
     dev = tables.qtab.device
     f32 = torch.float32
     init_Ts = torch.as_tensor(init_Ts).to(device=dev, dtype=f32)

@@ -12,7 +12,9 @@ with padding rows, K9 and K10 with one chunk and with many and against
 their first forms, K4 and K6 against their first forms (K4 over more than
 one cull pass, K6 at one chunk, at the planned count and above the live
 tiles, and at a pose with no live tile), plus one small registration (fused on both routes and
-unfused) and one small fleet on the card against the CPU path and at one
+unfused); the LM step kernel (K2 redesigned) against its plain version in
+LM, GN, float64-solve, Huber and DoF modes and its errors-only mode against
+K2's first form, with one launch of K1 and one of the step per iteration and one small fleet on the card against the CPU path and at one
 lane against 32; and the scan pair's walks — K3 with its team of threads a
 query against its plain version, its plain account and its first form (the
 brute-force scan it replaced) on every row, K1 in chunks against its plain
@@ -83,6 +85,9 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     swept_plan,
 )
 from small_gicp_tpu_torch.models.registration import align_impl
+from small_gicp_tpu_torch.ops import lm_step
+from small_gicp_tpu_torch.ops.gicp_fused_cuda import _gicp_error_multi_v1
+from small_gicp_tpu_torch.ops.lm_step import gicp_lm_step, lm_state
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops import knn_cuda
 from small_gicp_tpu_torch.ops.knn_cuda import (
@@ -234,13 +239,13 @@ def test_small_registration_card_matches_cpu(dev):
     T_gt = np.linalg.inv(poses[0]) @ poses[1]
     init = T_gt @ se3_exp(torch.tensor([0.01, -0.02, 0.02, 0.1, -0.15, 0.05],
                                        dtype=torch.float64)).numpy()
-    before = (gicp_linearize_tables.launches, gicp_error_multi.launches,
+    before = (gicp_linearize_tables.launches, gicp_lm_step.launches,
               knn_moments_rows.launches)
     a = result_to_numpy(align(scans[0], scans[1], init_T_target_source=init,
                               device=dev))
     c = result_to_numpy(align(scans[0], scans[1], init_T_target_source=init,
                               device="cpu"))
-    after = (gicp_linearize_tables.launches, gicp_error_multi.launches,
+    after = (gicp_linearize_tables.launches, gicp_lm_step.launches,
              knn_moments_rows.launches)
     assert all(y > x for x, y in zip(before, after))
     dT = np.linalg.inv(c["T_target_source"].astype(np.float64)) @ a["T_target_source"]
@@ -1089,3 +1094,115 @@ def test_listed_kernel_edges(dev, pair):
         out = _listed_checks(t, T, 1.0, None, 1.0)
         assert int(out[2]) == 0 and not out[3][:, :13].any()
 
+
+
+# ----------------------------------------------------------- the LM step ----
+
+STEP_MODES = {
+    "lm": {},
+    "gn": {"optimizer": "gn"},
+    "float64": {"solve_dtype": "float64"},
+    "huber": {"robust": "huber", "c": 0.5},
+    "dof": {"dof": [0.0, 0.0, 0.0, 1e9, 1e9, 1e9]},
+}
+
+
+def _step_pair(dev, pair, mode, flip=False, lam=1e-3, K=10):
+    """The step kernel and its plain version (on CPU copies) from one
+    linearization of the small pair (``flip``: with −b, every LM trial
+    uphill): (kernel's state, plain state)."""
+    tgt, src, T = pair
+    tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                          "gicp", tgt.covs, src.covs)
+    H, b, inl, corr = gicp_linearize_tables(tables, T, 1.0, mode.get("robust"),
+                                            mode.get("c", 1.0))
+    sums = torch.cat([H.reshape(36), -b if flip else b, H.new_zeros(1), inl.reshape(1)])
+    states = []
+    for d in (dev, torch.device("cpu")):
+        st = lm_state(T.cpu(), mode.get("optimizer", "lm"), K, lam, 10.0, 1e-6,
+                      dof_diag=mode.get("dof"), device=d)
+        gicp_lm_step(st, sums.to(d), corr.to(d), src.points.to(d), src.num_points.to(d),
+                     mode.get("robust"), mode.get("c", 1.0), mode.get("solve_dtype", "same"))
+        states.append(st)
+    torch.cuda.synchronize()
+    return states
+
+
+def _assert_steps_agree(kern, plain):
+    k1 = 1 if plain.optimizer == "gn" else plain.num_trials + 1
+    ek, ep = kern.errs[:k1].cpu(), plain.errs[:k1]
+    torch.testing.assert_close(ek, ep, rtol=1e-5, atol=0)
+    torch.testing.assert_close(kern.trials.cpu(), plain.trials, rtol=0, atol=1e-6)
+    clear = k1 == 1 or bool(((ep[1:] - ep[0]).abs() > 1e-5 * ep[0].abs()).all())
+    if clear:
+        for name in ("j", "accepted", "converged", "stop", "lam", "iterations",
+                     "count", "inliers"):
+            assert torch.equal(getattr(kern, name).cpu(), getattr(plain, name)), name
+        torch.testing.assert_close(kern.T.cpu(), plain.T, rtol=0, atol=1e-6)
+        torch.testing.assert_close(kern.delta.cpu(), plain.delta, rtol=0, atol=1e-6)
+        torch.testing.assert_close(kern.e.cpu(), plain.e, rtol=1e-5, atol=0)
+    assert torch.equal(kern.H.cpu(), plain.H) and torch.equal(kern.b.cpu(), plain.b)
+    return clear
+
+
+@pytest.mark.parametrize("mode", list(STEP_MODES))
+def test_step_kernel_matches_plain(dev, pair, mode):
+    before = gicp_lm_step.launches
+    kern, plain = _step_pair(dev, pair, STEP_MODES[mode])
+    assert gicp_lm_step.launches == before + 1
+    _assert_steps_agree(kern, plain)
+    # An all-reject step: λ·f^K, the pose kept, stop.
+    kern, plain = _step_pair(dev, pair, STEP_MODES[mode], flip=True)
+    if mode != "gn":
+        assert not bool(kern.accepted) and bool(kern.stop)
+        assert torch.equal(kern.T.cpu(), plain.T)
+    _assert_steps_agree(kern, plain)
+    ws = lm_step._buffers[(dev.index if dev.index is not None else 0,
+                           torch.cuda.current_stream(dev).cuda_stream)]
+    assert not ws.ticket.any()
+
+
+def test_step_kernel_trial_limits(dev, pair):
+    # K = 0: the current pose's error alone, the step rejected, λ kept, stop.
+    kern, plain = _step_pair(dev, pair, {}, K=0)
+    _assert_steps_agree(kern, plain)
+    assert not bool(kern.accepted) and bool(kern.stop)
+    assert torch.equal(kern.lam.cpu(), torch.tensor(1e-3, dtype=torch.float32))
+    # K = 99 is the kernel's most; K = 100 raises on the card.
+    _assert_steps_agree(*_step_pair(dev, pair, {}, K=99))
+    with pytest.raises(ValueError, match="at most 99 trials"):
+        _step_pair(dev, pair, {}, K=100)
+
+
+def test_step_errors_only_mode_matches_first_form(dev, pair):
+    tgt, src, T = pair
+    tables = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points,
+                          "gicp", tgt.covs, src.covs)
+    corr = gicp_linearize_tables(tables, T, 1.0)[3]
+    for k1 in (1, 11, 100):
+        tw = torch.randn(k1, 6, generator=torch.Generator().manual_seed(k1),
+                         dtype=torch.float64) * 0.02
+        Ts = (T.double().cpu() @ se3_exp(tw)).float().to(dev)
+        for robust, c in ROBUST:
+            before = gicp_error_multi.launches
+            got = gicp_error_multi(corr, src.points, Ts, src.num_points, robust, c)
+            assert gicp_error_multi.launches == before + 1
+            old = _gicp_error_multi_v1(corr, src.points, Ts, src.num_points, robust, c)
+            torch.testing.assert_close(got, old, rtol=1e-5, atol=0)
+
+
+def test_align_launches_k1_and_the_step_once_an_iteration(dev):
+    scans, poses = generate_sequence(n_frames=2, rings=16, azimuth_steps=256)
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    init = T_gt @ se3_exp(torch.tensor([0.01, -0.02, 0.02, 0.1, -0.15, 0.05],
+                                       dtype=torch.float64)).numpy()
+    tgt, tree = preprocess_points(scans[0], 0.25, num_neighbors=10, device=dev)
+    src, _ = preprocess_points(scans[1], 0.25, num_neighbors=10, device=dev)
+    for optimizer in ("lm", "gn"):
+        k1, step, k2 = (gicp_linearize_tables.launches, gicp_lm_step.launches,
+                        gicp_error_multi.launches)
+        res = align_impl(tgt, src, tree, init, optimizer=optimizer)
+        n = int(res.iterations) + 1
+        assert gicp_linearize_tables.launches - k1 == n
+        assert gicp_lm_step.launches - step == n
+        assert gicp_error_multi.launches == k2

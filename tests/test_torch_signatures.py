@@ -1,9 +1,12 @@
 """The port's one-call API takes its parameters in the JAX package's
 positions and spellings: ``preprocess_points``, ``align``,
-``RegistrationSetting``, ``Registration`` and ``align_impl`` list the same
-parameters with the same defaults, in the same order, apart from the
-port's own (``optimizer``, ``device``, ``fused_route``), which follow as
-keywords only. Both packages are called positionally and by keyword on a
+``RegistrationSetting``, ``Registration``, ``align_impl``,
+``voxelgrid_sampling``, ``estimate_normals``, ``estimate_covariances``,
+``estimate_normals_covariances``, ``fleet_prepare`` and ``align_fleet``
+list the same parameters with the same defaults, in the same order, apart
+from the port's own (``optimizer``, ``device``, ``fused_route``), which
+follow as keywords only; the JAX package's ``num_threads``, ``block_q`` and
+``interpret`` are accepted and ignored. Both packages are called positionally and by keyword on a
 16-ring × 256-step synthetic scan pair; ``verbose=True`` prints one line
 per iteration in each, with the same fields.
 """
@@ -20,9 +23,15 @@ import torch
 import small_gicp_tpu as sgt
 from small_gicp_tpu.models import helper as j_helper
 from small_gicp_tpu.models import registration as j_registration
+from small_gicp_tpu.ops import downsampling as j_downsampling
+from small_gicp_tpu.ops import normals as j_normals
+from small_gicp_tpu.parallel import fleet as j_fleet
 import small_gicp_tpu_torch as pt
 from small_gicp_tpu_torch.models import helper as t_helper
 from small_gicp_tpu_torch.models import registration as t_registration
+from small_gicp_tpu_torch.ops import downsampling as t_downsampling
+from small_gicp_tpu_torch.ops import normals as t_normals
+from small_gicp_tpu_torch.parallel import fleet as t_fleet
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
 
@@ -34,11 +43,23 @@ def _params(fn):
     return list(inspect.signature(fn).parameters.values())
 
 
-@pytest.mark.parametrize("name", ["preprocess_points", "align", "Registration",
-                                  "align_impl"])
+MODULES = {
+    "preprocess_points": (j_helper, t_helper),
+    "align": (j_helper, t_helper),
+    "Registration": (j_registration, t_registration),
+    "align_impl": (j_registration, t_registration),
+    "voxelgrid_sampling": (j_downsampling, t_downsampling),
+    "estimate_normals": (j_normals, t_normals),
+    "estimate_covariances": (j_normals, t_normals),
+    "estimate_normals_covariances": (j_normals, t_normals),
+    "fleet_prepare": (j_fleet, t_fleet),
+    "align_fleet": (j_fleet, t_fleet),
+}
+
+
+@pytest.mark.parametrize("name", list(MODULES))
 def test_parameters_mirror_the_jax_package(name):
-    j_mod = j_registration if name in ("Registration", "align_impl") else j_helper
-    t_mod = t_registration if name in ("Registration", "align_impl") else t_helper
+    j_mod, t_mod = MODULES[name]
     j_fn, t_fn = getattr(j_mod, name), getattr(t_mod, name)
     j_params = _params(j_fn.__init__ if name == "Registration" else j_fn)
     t_params = _params(t_fn.__init__ if name == "Registration" else t_fn)
@@ -181,3 +202,41 @@ def test_align_impl_positionally_in_both(scan_pair, preprocessed):
     assert abs(int(jr.iterations) - int(tr.iterations)) <= 1
     with pytest.raises(NotImplementedError, match="A10"):
         t_registration.align_impl(tt, ts, ttree, init, psum_axis="points")
+
+
+def test_ops_positionally_in_both(scan_pair):
+    """voxelgrid_sampling(pts, 0.25, None, 1) and estimate_covariances(c,
+    tree, 10, 4): num_threads, not the device or a TypeError."""
+    scans, _, _ = scan_pair
+    # float64, as tests/test_torch_preprocess.py compares the covariances:
+    # in float32 the two searches may order near-tied kth neighbours apart.
+    frame = scans[0].astype(np.float64)
+    jd = j_downsampling.voxelgrid_sampling(frame, 0.25, None, 1)
+    td = t_downsampling.voxelgrid_sampling(frame, 0.25, None, 1, device="cpu")
+    n = int(jd.num_points)
+    assert int(td.num_points) == n > 1000
+    np.testing.assert_allclose(td.points.numpy(), np.asarray(jd.points), atol=1e-9)
+    jc = j_normals.estimate_covariances(jd, None, 10, 4)
+    tc = t_normals.estimate_covariances(td, pt.KdTree.build(td), 10, 4)
+    np.testing.assert_allclose(tc.covs.numpy(), np.asarray(jc.covs), atol=1e-6)
+    for name in ("estimate_normals", "estimate_normals_covariances"):
+        out = getattr(t_normals, name)(td, None, 10, 4)
+        assert out.normals is not None and out.num_points is td.num_points
+
+
+def test_fleet_positionally(preprocessed):
+    """fleet_prepare(t, s, 512) and align_fleet's 13th-15th positions
+    (block_q, prepared, interpret) as in the JAX package."""
+    _, (tt, _, ts) = preprocessed
+    by_position = t_fleet.fleet_prepare(tt, ts, 512)
+    by_keyword = t_fleet.fleet_prepare(tt, ts, registration_type="gicp")
+    assert by_position.factor == "gicp"
+    assert torch.equal(by_position.ttab, by_keyword.ttab)
+    init = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    init[1, :3, 3] = [0.05, -0.05, 0.02]
+    args = (init, None, 2, 20, 10, 1.0, ROT_EPS, 1e-3, 1e-3, 10.0, 512, by_position,
+            None)
+    a = t_fleet.align_fleet(None, None, *args)
+    b = t_fleet.align_fleet(None, None, init, prepared=by_keyword, num_lanes=2)
+    assert torch.equal(a.T_target_source, b.T_target_source)
+    assert torch.equal(a.iterations, b.iterations)

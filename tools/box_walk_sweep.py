@@ -170,7 +170,8 @@ MIRRORED = {"kCullPass": ("ops/morton_boxes.py", "CULL_PASS"),
             "kWarpQueries": ("ops/knn_cuda.py", "WARP_QUERIES"),
             "kWarpMaxWarps": ("ops/knn_cuda.py", "WARP_MAX_WARPS"),
             "kWarpListBytes": ("ops/knn_cuda.py", "WARP_LIST_BYTES"),
-            "kWarpSampleStep": ("ops/knn_cuda.py", "WARP_SAMPLE_STEP")}
+            "kWarpSampleStep": ("ops/knn_cuda.py", "WARP_SAMPLE_STEP"),
+            "kStepBlockRows": ("ops/lm_step.py", "STEP_BLOCK_ROWS")}
 
 
 def make_variant(spec: str, work: Path = WORK) -> Path:
