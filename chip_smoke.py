@@ -66,7 +66,8 @@ Phases (any failure exits non-zero):
                 then the neighbour-search path with
                 the counts at 0: KdTree searches, knn_T, knn_pruned, the
                 unfused align_impl (within the bounds, in agreement with the
-                fused one, K9 once per linearization and no K1/K2) and the
+                fused one, K9 and the step kernel once per linearization and
+                no K1) and the
                 kdtree_benchmark CLI in process, which then runs again
                 through the first forms and once more through the new ones;
   8. map      — 17 frames: two submaps of 8 raw frames each in the world
@@ -98,7 +99,27 @@ Phases (any failure exits non-zero):
                 0.2 m, a layout "q" call over the scan's kept sort (K5) and a
                 score-form linearization; the covariances and the align with
                 the map's sort kept timed in turns with the same path through
-                the first forms.
+                the first forms;
+  9. voxels   — the 17 frames preprocessed (0.25 m, k = 10). VGICP on the
+                scan pair against create_gaussian_voxelmap(target, 1.0) from
+                noisy starts, within 2.5° / 0.2 m, the step kernel once an LM
+                iteration (counter and profiler) and the plain step never;
+                registrations/s in turns with phase 5's GICP align; launches,
+                copies and host syncs per LM iteration and the busy share.
+                Then a Gaussian map (131,072 slots) and
+                IncrementalVoxelMapCov(1.0, 131072, voxel_capacity=32768)
+                (cell cap 10, LRU 100/10) take frames 0-15 at their poses:
+                ms per insert (CUDA events), launches per insert and host
+                syncs per insert (0: torch's sync debug mode raises on any,
+                and the profiler counts none); knn_search of frame 16 at k =
+                1 and 10 and the Gaussian nearest_neighbor_search, timed, no
+                host sync; VGICP of frame 16 against the Gaussian map and GICP
+                against ivm_as_cloud through the fused route (K1 and the
+                step), each within 2.5° / 0.2 m, timed and profiled; frame 16
+                inserted last. Every insert and search is held against the
+                same port functions on CPU tensors: keys, slots, occupancy,
+                stamps, counts and rows equal, payload rows and d² within 1e-6
+                relative.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -120,7 +141,17 @@ import torch
 from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.apps import kdtree_benchmark
 from small_gicp_tpu_torch.interop import result_to_numpy
-from small_gicp_tpu_torch.models.helper import align, preprocess_points
+from small_gicp_tpu_torch.models import registration, voxelmap
+from small_gicp_tpu_torch.models.helper import (
+    align,
+    create_gaussian_voxelmap,
+    preprocess_points,
+)
+from small_gicp_tpu_torch.models.voxelmap import (
+    GaussianVoxelMap,
+    IncrementalVoxelMapCov,
+    ivm_as_cloud,
+)
 from small_gicp_tpu_torch.ops import cov_fused_cuda, gicp_fused_cuda
 from small_gicp_tpu_torch.ops.cov_fused_cuda import (
     _knn_moments_rows_q_v1,
@@ -193,6 +224,7 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
 )
 from small_gicp_tpu_torch.ops import knn_window
 from small_gicp_tpu_torch.ops.morton_boxes import TILE_ROWS, pruned_prepare_target
+from small_gicp_tpu_torch.ops.voxel_keys import INVALID_KEY
 from small_gicp_tpu_torch.ops.normals import (
     estimate_covariances,
     estimate_normals_covariances,
@@ -465,7 +497,10 @@ def api_counts(prof) -> dict:
     calls = {e.key: e.count for e in prof.key_averages()}
     return {"launches": calls.get("cudaLaunchKernel", 0),
             "copies": sum(v for k, v in calls.items() if k.startswith("cudaMemcpy")),
-            "memsets": sum(v for k, v in calls.items() if k.startswith("cudaMemset"))}
+            "memsets": sum(v for k, v in calls.items() if k.startswith("cudaMemset")),
+            "syncs": sum(v for k, v in calls.items()
+                         if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                  "cudaEventSynchronize"))}
 
 
 def host_enqueue_turns(fns: dict, reps: int = REPS) -> dict:
@@ -1741,8 +1776,9 @@ def phase_search(scans, T_gt, rng, dev, card):
     check(rot < 2.5 and trans < 0.2, "unfused registration outside the bounds")
     check(counts["nearest_neighbor"] == 1 + r["iterations"] + 1,
           f"K9 launches {counts['nearest_neighbor']} != 1 + iterations + 1")
-    check(counts["gicp_linearize"] == 0 and counts["gicp_lm_step"] == 0,
-          "the unfused route launched a fused kernel")
+    check(counts["gicp_linearize"] == 0
+          and counts["gicp_lm_step"] == r["iterations"] + 1,
+          "the unfused route launched K1, or not the step kernel once an iteration")
     fused = align_impl(target, source, tree, init)
     check(_agrees((r["T_target_source"], r["iterations"]), fused),
           "unfused and fused align disagree")
@@ -1754,16 +1790,19 @@ def phase_search(scans, T_gt, rng, dev, card):
         inits = [noisy_guess(T_gt, rng) for _ in range(n_regs)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        its = 0
         for g in inits:
             out = align_impl(target, source, tree, g, use_fused=mode)
             rot, trans = pose_error(out.T_target_source.cpu().numpy(), T_gt)
+            its += int(out.iterations) + 1
             check(rot < 2.5 and trans < 0.2,
                   f"a timed {mode} registration left the bounds")
         torch.cuda.synchronize()
         per_reg[mode] = (time.perf_counter() - t0) * 1e3 / n_regs
         if mode == "never":
-            for fn in (gicp_linearize_tables, gicp_lm_step):
-                check(fn.launches == 0, "the unfused route launched a fused kernel")
+            check(gicp_linearize_tables.launches == 0 and gicp_lm_step.launches == its,
+                  "the unfused route launched K1, or not the step kernel once an "
+                  "iteration")
     print(f"time per registration: unfused {per_reg['never']:.2f} ms, fused "
           f"{per_reg['auto']:.2f} ms ({n_regs} aligns each) on {card}")
 
@@ -2423,6 +2462,304 @@ def phase_map(scans, poses, rng, dev, card, sample=8192, lib_chunk=2048):
     return records, launches
 
 
+# ------------------------------------------------------------- phase 9 ----
+
+VOXEL_LEAF = 1.0
+GVM_SLOTS = 131072
+IVM_SLOTS = 131072
+IVM_VOXELS = 32768
+
+
+@contextlib.contextmanager
+def counting_plain_step():
+    """Count the calls of the plain LM step (its CPU form, and the float64
+    unfused route's) inside the block: a list that grows by one a call."""
+    calls = []
+    real = lm_step.gicp_lm_step_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    lm_step.gicp_lm_step_plain = registration.gicp_lm_step_plain = counted
+    try:
+        yield calls
+    finally:
+        lm_step.gicp_lm_step_plain = registration.gicp_lm_step_plain = real
+
+
+def no_host_sync(fn):
+    """``fn()`` under torch's sync debug mode "error": a call that makes the
+    host wait for the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _profile_once(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return out, prof, wall
+
+
+def profiled(fn):
+    """(result, api_counts, device busy ms, wall ms, device events) of one
+    call of ``fn`` under torch.profiler, after a warm-up window; the API
+    counts less those of an empty call in the same harness (its closing
+    synchronize)."""
+    _profile_once(fn)
+    empty = api_counts(_profile_once(lambda: None)[1])
+    out, prof, wall = _profile_once(fn)
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    api = {k: v - empty[k] for k, v in api_counts(prof).items()}
+    return out, api, busy, wall, events
+
+
+def _row_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a − b| of a row over the row's largest |b|, over all rows."""
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.reshape(a.shape[0], -1).double(), b.reshape(b.shape[0], -1).double()
+    return float(((a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1e-30)).max())
+
+
+def same_map(card_map, cpu_map, what: str) -> float:
+    """The card's map against the plain account of the same inserts on CPU
+    tensors: keys, slots, occupancy, stamps, counts and the directory's live
+    entries equal; payload rows of live slots within 1e-6 of their row's
+    largest entry. Returns that relative error."""
+    c = {f: getattr(card_map, f).cpu() for f in ("vox_keys", "dir_keys", "dir_vals",
+                                                  "num_voxels", "lru_counter")}
+    for f, v in c.items():
+        nv = int(c["num_voxels"])
+        if f in ("dir_keys", "dir_vals"):
+            check(torch.equal(v[:nv], getattr(cpu_map, f)[:nv]), f"{what}: {f} differ")
+        else:
+            check(torch.equal(v, getattr(cpu_map, f)), f"{what}: {f} differ")
+    live = c["vox_keys"] != INVALID_KEY
+    if isinstance(card_map, GaussianVoxelMap):
+        check(torch.equal(card_map.lru.cpu()[live], cpu_map.lru[live]), f"{what}: stamps")
+        pay_c, pay_p = card_map.payload.cpu()[live], cpu_map.payload[live]
+        check(torch.equal(pay_c[:, 13], pay_p[:, 13]), f"{what}: counts differ")
+    else:
+        for f in ("occ", "num_points_stored"):
+            check(torch.equal(getattr(card_map, f).cpu(), getattr(cpu_map, f)),
+                  f"{what}: {f} differ")
+        check(torch.equal(card_map.stamps.cpu()[live], cpu_map.stamps[live]),
+              f"{what}: stamps")
+        rows = card_map.valid_points_mask().cpu()
+        pay_c, pay_p = card_map.payload.cpu()[rows], cpu_map.payload[rows]
+    rel = _row_rel(pay_c, pay_p)
+    check(rel <= 1e-6, f"{what}: payload rows {rel:.2e} apart (> 1e-6)")
+    return rel
+
+
+def same_search(card, plain, what: str) -> float:
+    """Indices and found flags equal, d² within 1e-6 relative."""
+    d, i, f = (x.cpu() for x in card)
+    dp, ip, fp = plain
+    check(torch.equal(i, ip) and torch.equal(f, fp), f"{what}: rows differ")
+    rel = float(((d.double() - dp.double()).abs() / dp.double().abs().clamp(min=1e-30))
+                [fp].max()) if bool(fp.any()) else 0.0
+    check(rel <= 1e-6, f"{what}: d² {rel:.2e} apart (> 1e-6)")
+    return rel
+
+
+def phase_voxel(scans, poses, rng, dev, card):
+    """Phase 9: VGICP on the scan pair, both voxel maps over the 17 frames at
+    their poses, searches and the aligns of frame 16 against them, each map
+    operation held against the plain account on CPU tensors."""
+    print("== phase 9: voxel maps", flush=True)
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    frames = [preprocess_points(sc, LEAF, num_neighbors=K_NEIGHBORS, device=dev)[0]
+              for sc in scans]
+    (target, tree), source = preprocess_points(scans[0], LEAF, num_neighbors=K_NEIGHBORS,
+                                               device=dev), frames[1]
+    torch.cuda.synchronize()
+    print(f"preprocessed {len(frames)} frames in {time.perf_counter() - t0:.2f} s "
+          f"({[int(f.num_points) for f in frames]} points), K3 "
+          f"{knn_moments_rows.launches} launches")
+    check(knn_moments_rows.launches == len(scans) + 1,
+          "preprocessing did not run K3 once a cloud")
+
+    # VGICP on the scan pair, LM, from noisy starts.
+    with counting_plain_step() as plain_calls:
+        gvm = create_gaussian_voxelmap(target, VOXEL_LEAF)
+        res = align(gvm, source, init_T_target_source=noisy_guess(T_gt, rng))
+        rot, trans = pose_error(res.T_target_source.cpu().numpy(), T_gt)
+        its = int(res.iterations) + 1
+        print(f"VGICP on the scan pair ({int(gvm.num_voxels)} voxels of "
+              f"{gvm.capacity} slots): {its - 1} iterations, converged "
+              f"{bool(res.converged)}, pose error {rot:.4f} deg, {trans:.4f} m "
+              "(bounds 2.5 deg, 0.2 m)")
+        check(rot < 2.5 and trans < 0.2, "VGICP outside the reference bounds")
+        check(gicp_lm_step.launches == its and gicp_linearize_tables.launches == 0,
+              f"VGICP launched the step {gicp_lm_step.launches} times in {its} "
+              "iterations (or K1)")
+        # Registrations/s in turns with phase 5's GICP align, the same guesses.
+        n_regs = 5
+        paths = {"GICP (phase 5's path)":
+                 lambda g: align(target, source, tree, init_T_target_source=g),
+                 "VGICP": lambda g: align(gvm, source, init_T_target_source=g)}
+        per = {k: [] for k in paths}
+        iters = {k: [] for k in paths}
+        for fn in paths.values():  # one untimed call each
+            fn(noisy_guess(T_gt, rng))
+        for r in range(n_regs):
+            g = noisy_guess(T_gt, rng)
+            order = list(paths.items())
+            for label, fn in order[r % 2:] + order[:r % 2]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(g)
+                torch.cuda.synchronize()
+                per[label].append(time.perf_counter() - t0)
+                iters[label].append(int(out.iterations))
+                rot, trans = pose_error(out.T_target_source.cpu().numpy(), T_gt)
+                check(rot < 2.5 and trans < 0.2, f"a timed {label} align left the bounds")
+        print("registrations/s in turns (the same noisy guesses, each path first in "
+              "turn): " + ", ".join(f"{k} {n_regs / sum(v):.3f} (iterations {iters[k]})"
+                                    for k, v in per.items()) + f" on {card}")
+        # Launches, copies and host syncs a LM iteration, the step kernel by
+        # the profiler's count, the busy share: three VGICP aligns.
+        inits = [noisy_guess(T_gt, rng) for _ in range(3)]
+        for attempt in range(3):
+            done, api, busy, wall, events = profiled(
+                lambda: [int(align(gvm, source, init_T_target_source=g).iterations) + 1
+                         for g in inits])
+            its = sum(done)
+            steps = sum(e.count for e in events
+                        if re.search(r"gicp_step_kernel<float, 1", e.key))
+            if steps == its:
+                break
+            print(f"the profiler saw {steps} step kernels in {its} iterations; again")
+        check(steps == its, f"{steps} step kernels in {its} VGICP iterations")
+        print(f"profiled 3 VGICP aligns: {its} LM iterations, {steps} step kernels; "
+              f"device busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"({100 * busy / wall:.1f}% busy); per LM iteration "
+              f"{api['launches'] / its:.2f} kernel launches, {api['copies'] / its:.2f} "
+              f"copies, {api['memsets'] / its:.2f} memsets, {api['syncs'] / its:.2f} "
+              f"host syncs (set-up and the result's read included) on {card}; "
+              "top device time:")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]}")
+    check(not plain_calls, f"the plain LM step ran {len(plain_calls)} times on the card")
+
+    # Both maps over the sequence, each insert held against the plain account.
+    Ts = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in poses]
+    cpu_frames = [PointCloud(points=f.points.cpu(), num_points=f.num_points.cpu(),
+                             covs=f.covs.cpu()) for f in frames]
+    maps = {"gaussian": (GaussianVoxelMap.empty(VOXEL_LEAF, GVM_SLOTS, device=dev),
+                         GaussianVoxelMap.empty(VOXEL_LEAF, GVM_SLOTS, device="cpu")),
+            "incremental": (IncrementalVoxelMapCov(VOXEL_LEAF, IVM_SLOTS,
+                                                   voxel_capacity=IVM_VOXELS, device=dev),
+                            IncrementalVoxelMapCov(VOXEL_LEAF, IVM_SLOTS,
+                                                   voxel_capacity=IVM_VOXELS, device="cpu"))}
+    ins_ms = {k: [] for k in maps}
+    rel = {k: 0.0 for k in maps}
+
+    def insert_all(frames_idx):
+        for i in frames_idx:
+            for name, (m, mc) in maps.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                m = no_host_sync(lambda: m.insert(frames[i], Ts[i]))
+                end.record()
+                end.synchronize()
+                ins_ms[name].append(start.elapsed_time(end))
+                mc = mc.insert(cpu_frames[i], poses[i].astype(np.float32))
+                rel[name] = max(rel[name], same_map(m, mc, f"{name} map, insert {i}"))
+                maps[name] = (m, mc)
+
+    last = len(frames) - 1
+    insert_all(range(last))
+    # Launches and host syncs of one insert: frame 15 again onto the map
+    # before it (the maps are values), profiled.
+    for name, (m, _) in maps.items():
+        _, api, busy, wall, _ = profiled(lambda: m.insert(frames[last - 1], Ts[last - 1]))
+        print(f"{name} map insert, profiled: {api['launches']} kernel launches, "
+              f"{api['copies']} copies, {api['memsets']} memsets, {api['syncs']} host "
+              f"syncs; device busy {busy:.3f} ms of {wall:.3f} ms wall on {card}")
+        check(api["syncs"] == 0, f"a {name} map insert made {api['syncs']} host syncs")
+
+    # Searches with frame 16's points in the map frame.
+    f16, n16 = frames[last], int(frames[last].num_points)
+    q = voxelmap._transform(Ts[last], f16.points[:n16])[:, :3].contiguous()
+    gmap, gmap_c = maps["gaussian"]
+    imap, imap_c = maps["incremental"]
+    searches = {
+        "incremental knn_search k=1": (lambda: imap.knn_search(q, 1),
+                                       lambda: imap_c.knn_search(q.cpu(), 1)),
+        "incremental knn_search k=10": (lambda: imap.knn_search(q, 10),
+                                        lambda: imap_c.knn_search(q.cpu(), 10)),
+        "gaussian nearest_neighbor_search": (lambda: gmap.nearest_neighbor_search(q),
+                                             lambda: gmap_c.nearest_neighbor_search(
+                                                 q.cpu())),
+    }
+    for label, (fn, plain) in searches.items():
+        r = same_search(no_host_sync(fn), plain(), label)
+        _, api, _, _, _ = profiled(fn)
+        check(api["syncs"] == 0, f"{label} made {api['syncs']} host syncs")
+        print(f"{label}: {time_ms(fn):.4f} ms for {n16} queries, {api['launches']} "
+              f"kernel launches, 0 host syncs, d² within {r:.1e} of the plain account "
+              f"on {card}")
+
+    # VGICP of frame 16 against the Gaussian map, and GICP against the
+    # incremental map's cloud view through the fused route (K1 and the step).
+    init16 = noisy_guess(poses[last], rng)
+    icloud = ivm_as_cloud(imap)
+    for label, fn in (
+            ("VGICP of frame 16 against the Gaussian map",
+             lambda: align(gmap, f16, init_T_target_source=init16)),
+            ("GICP of frame 16 against ivm_as_cloud, fused route",
+             lambda: align(icloud, f16, None, init_T_target_source=init16))):
+        for fn_ in (gicp_linearize_tables, gicp_lm_step):
+            fn_.launches = 0
+        out = fn()
+        its = int(out.iterations) + 1
+        rot, trans = pose_error(out.T_target_source.cpu().numpy(), poses[last])
+        fused = "fused" in label
+        k1, step = gicp_linearize_tables.launches, gicp_lm_step.launches
+        check(step == its and k1 == (its if fused else 0),
+              f"{label}: K1 {k1}, step {step} launches in {its} iterations")
+        check(rot < 2.5 and trans < 0.2, f"{label} outside the reference bounds")
+        ms = host_turns({label: fn}, reps=5)[label]
+        _, api, busy, wall, _ = profiled(fn)
+        print(f"{label}: {its - 1} iterations (K1 {k1}, step {step} launches), "
+              f"pose error {rot:.4f} deg, {trans:.4f} m "
+              f"(bounds 2.5 deg, 0.2 m); {ms:.3f} ms (host clock around a synchronize, "
+              f"median of 5); profiled: device busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"({100 * busy / wall:.1f}% busy), {api['launches'] / its:.1f} kernel "
+              f"launches and {api['syncs'] / its:.2f} host syncs per iteration "
+              f"({int(icloud.num_points)} live rows of {icloud.capacity}) on {card}")
+
+    insert_all([last])
+    for name, (m, _) in maps.items():
+        v = ins_ms[name]
+        extra = (f", {int(m.num_points_stored)} points stored"
+                 if name == "incremental" else "")
+        print(f"{name} map: {len(v)} inserts, {np.median(v):.3f} ms median, "
+              f"{np.mean(v):.3f} ms mean a insert (CUDA events around one insert, the "
+              f"plain account's insert between); {int(m.num_voxels)} voxels{extra}; "
+              f"payload rows within {rel[name]:.1e} of the plain account on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2476,6 +2813,7 @@ def main() -> None:
     map_records, map_launches = phase_map(scans, poses, rng, dev, card)
     records.update(map_records)
     launches.update(map_launches)
+    phase_voxel(scans, poses, rng, dev, card)
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

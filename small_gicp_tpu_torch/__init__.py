@@ -9,6 +9,10 @@ persistent lanes with the lane-aware K7 (linearize) and K8 (trial
 errors). ``KdTree`` searches through the standalone 1-NN (K9) and kNN
 (K10) kernels; ``ops.knn_cuda.knn_T`` (K11) and ``knn_pruned`` (K12) are
 the warp-per-query and the Morton-pruned forms of the same search.
+``GaussianVoxelMap`` (VGICP's target: ``align(..., registration_type=
+"vgicp")``) and ``IncrementalVoxelMap`` (scan-to-model) are slot-table
+voxel maps in torch ops; registration against either runs the LM step
+kernel once an iteration.
 ``read_ply`` and ``read_kitti_bin`` load scans. Entry points run on the card unless given ``device="cpu"``,
 where every kernel runs its plain PyTorch version.
 """
@@ -17,6 +21,7 @@ from small_gicp_tpu_torch.point_cloud import (
     PAD_SENTINEL,
     PointCloud,
     stack_clouds,
+    transform_covs,
     transform_points,
 )
 from small_gicp_tpu_torch.utils.lie import se3_exp, so3_exp, skew
@@ -32,9 +37,17 @@ from small_gicp_tpu_torch.models.registration import (
     RegistrationResult,
     align_points,
 )
+from small_gicp_tpu_torch.models.voxelmap import (
+    GaussianVoxelMap,
+    IncrementalVoxelMap,
+    IncrementalVoxelMapCov,
+    IncrementalVoxelMapNormal,
+    IncrementalVoxelMapNormalCov,
+)
 from small_gicp_tpu_torch.models.helper import (
     RegistrationSetting,
     align,
+    create_gaussian_voxelmap,
     preprocess_points,
 )
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
@@ -42,11 +55,14 @@ from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
 from small_gicp_tpu_torch.utils.io import read_kitti_bin, read_ply
 
 __all__ = [
-    "PAD_SENTINEL", "PointCloud", "stack_clouds", "transform_points", "se3_exp",
+    "PAD_SENTINEL", "PointCloud", "stack_clouds", "transform_covs",
+    "transform_points", "se3_exp",
     "so3_exp", "skew",
     "voxelgrid_sampling", "KdTree", "knn_search", "nearest_neighbor_search",
     "estimate_covariances", "estimate_normals", "estimate_normals_covariances",
     "Registration", "RegistrationResult", "align_points", "RegistrationSetting",
-    "align", "preprocess_points", "align_fleet", "fleet_prepare",
+    "align", "preprocess_points", "create_gaussian_voxelmap", "GaussianVoxelMap",
+    "IncrementalVoxelMap", "IncrementalVoxelMapNormal", "IncrementalVoxelMapCov",
+    "IncrementalVoxelMapNormalCov", "align_fleet", "fleet_prepare",
     "cloud_from_numpy", "result_to_numpy", "read_kitti_bin", "read_ply",
 ]

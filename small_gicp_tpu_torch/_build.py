@@ -86,8 +86,9 @@ SIGNATURES = {
         "sgt_box_geometry": [_P],
     },
     "knn": {
-        "sgt_nn1": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
-        "sgt_knn": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "sgt_nn1": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+        "sgt_knn": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                    _P],
         "sgt_nn1_v1": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P],
         "sgt_knn_v1": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
         "sgt_knn_warp": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],

@@ -367,19 +367,21 @@ __device__ __forceinline__ bool last_chunk(unsigned* tickets) {
 }
 
 // K9's result for query q: the winner (v, row) of the ranks; the score
-// form's d² recomputed from the uncentred query (u) and row.
+// form's d² recomputed from the uncentred query (u) and row. A found row is
+// written as rowmap[row] where the caller gives a map.
 template <bool SCORE>
 __device__ __forceinline__ void put_nn1(const float4* __restrict__ t4, float ux,
                                         float uy, float uz, float v, int row,
                                         float* __restrict__ out_d,
-                                        int* __restrict__ out_i, int q) {
+                                        int* __restrict__ out_i,
+                                        const int* __restrict__ rowmap, int q) {
   if (SCORE && v < kBig) {
     const float4 p = t4[row];
     float dx, dy, dz;
     v = sgt::sq_dist(ux, uy, uz, p.x, p.y, p.z, dx, dy, dz);
   }
   out_d[q] = v;
-  out_i[q] = row;
+  out_i[q] = rowmap != nullptr && v < kBig ? __ldg(rowmap + row) : row;
 }
 
 // keys [nq] and tickets [query blocks]: 0 between launches.
@@ -389,7 +391,8 @@ nn1_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
                  const float* __restrict__ qry, int qstride, int nq,
                  const float* __restrict__ centre,
                  unsigned long long* __restrict__ keys, unsigned* __restrict__ tickets,
-                 float* __restrict__ out_d, int* __restrict__ out_i) {
+                 float* __restrict__ out_d, int* __restrict__ out_i,
+                 const int* __restrict__ rowmap) {
   constexpr int R = kNn1Rows;
   __shared__ __align__(16) float4 tile[2][kSplitTile];
   const int q0 = blockIdx.x * R * kSplitThreads + threadIdx.x;  // + r·kSplitThreads
@@ -468,7 +471,7 @@ nn1_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
     for (int r = 0; r < R; ++r)
       if (q0 + r * kSplitThreads < nq)
         put_nn1<SCORE>(t4, ux[r], uy[r], uz[r], best[r], best_i[r], out_d, out_i,
-                       q0 + r * kSplitThreads);
+                       rowmap, q0 + r * kSplitThreads);
     return;
   }
 #pragma unroll
@@ -492,7 +495,7 @@ nn1_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
     const bool found = key != ~0ull;  // some chunk posted a winner
     put_nn1<SCORE>(t4, ux[r], uy[r], uz[r],
                    found ? sgt::from_orderable((unsigned)(key >> 32)) : kBig,
-                   found ? (int)(key & 0xffffffffu) : 0, out_d, out_i, q);
+                   found ? (int)(key & 0xffffffffu) : 0, out_d, out_i, rowmap, q);
   }
   if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
 }
@@ -563,7 +566,8 @@ knn_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
                  const float* __restrict__ qry, int qstride, int nq, int k, int least,
                  float* __restrict__ ws_d, int* __restrict__ ws_i,
                  unsigned* __restrict__ bounds, unsigned* __restrict__ tickets,
-                 float* __restrict__ out_d, int* __restrict__ out_i) {
+                 float* __restrict__ out_d, int* __restrict__ out_i,
+                 const int* __restrict__ rowmap) {
   constexpr int R = kKnnRows;
   __shared__ __align__(16) float4 tile[2][kSplitTile];
   const int q0 = blockIdx.x * R * kSplitThreads + threadIdx.x;  // + r·kSplitThreads
@@ -680,6 +684,11 @@ knn_split_kernel(const float* __restrict__ tgt, const int* __restrict__ tnum, in
   for (int r = 0; r < R; ++r) {
     const int q = q0 + r * kSplitThreads;
     if (q >= nq) continue;
+    if (rowmap != nullptr) {  // filled slots through the caller's map, loads in flight together
+#pragma unroll
+      for (int s = 0; s < KMAX; ++s)
+        if (s < k && bd[r][s] < kBig) bi[r][s] = __ldg(rowmap + bi[r][s]);
+    }
 #pragma unroll
     for (int s = 0; s < KMAX; ++s) {
       if (s >= k) break;
@@ -1129,11 +1138,12 @@ extern "C" {
 
 // K9. centre: 3 device floats; variant 0 = difference form, 1 = score form.
 // The valid target rows are cut into nsplit chunks (split_chunk); keys [nq]
-// and tickets [query blocks] are 0 between launches and left so.
+// and tickets [query blocks] are 0 between launches and left so. rowmap
+// [mcap] int32 or null: a found row is written as rowmap[row].
 int sgt_nn1(const float* tgt, const int* tnum, int mcap, const float* qry,
             int qstride, int nq, const float* centre, int variant, int nsplit,
             unsigned long long* keys, unsigned* tickets, float* out_d, int* out_i,
-            void* stream) {
+            const int* rowmap, void* stream) {
   if (bad_search(mcap, qstride, nq) || nsplit < 1 || nsplit > 65535 || variant < 0 ||
       variant > 1)
     return (int)cudaErrorInvalidValue;
@@ -1142,20 +1152,21 @@ int sgt_nn1(const float* tgt, const int* tnum, int mcap, const float* qry,
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 0)
     nn1_split_kernel<false><<<grid, kSplitThreads, 0, s>>>(
-        tgt, tnum, mcap, qry, qstride, nq, centre, keys, tickets, out_d, out_i);
+        tgt, tnum, mcap, qry, qstride, nq, centre, keys, tickets, out_d, out_i, rowmap);
   else
     nn1_split_kernel<true><<<grid, kSplitThreads, 0, s>>>(
-        tgt, tnum, mcap, qry, qstride, nq, centre, keys, tickets, out_d, out_i);
+        tgt, tnum, mcap, qry, qstride, nq, centre, keys, tickets, out_d, out_i, rowmap);
   return (int)cudaGetLastError();
 }
 
 // K10. Chunks as for K9, of at least `least` rows (a positive multiple of
 // kSplitTile); ws_d / ws_i hold nsplit · k · nq entries when nsplit > 1;
-// bounds [nq] and tickets are 0 between launches and left so.
+// bounds [nq] and tickets are 0 between launches and left so; rowmap as
+// for K9.
 int sgt_knn(const float* tgt, const int* tnum, int mcap, const float* qry,
             int qstride, int nq, int k, int nsplit, int least, float* ws_d, int* ws_i,
             unsigned* bounds, unsigned* tickets, float* out_d, int* out_i,
-            void* stream) {
+            const int* rowmap, void* stream) {
   if (bad_search(mcap, qstride, nq) || nsplit < 1 || nsplit > 65535 || k < 1 ||
       k > 64 || least < kSplitTile || least % kSplitTile != 0)
     return (int)cudaErrorInvalidValue;
@@ -1165,15 +1176,15 @@ int sgt_knn(const float* tgt, const int* tnum, int mcap, const float* qry,
   if (k <= 16)
     knn_split_kernel<16><<<grid, kSplitThreads, 0, s>>>(
         tgt, tnum, mcap, qry, qstride, nq, k, least, ws_d, ws_i, bounds, tickets, out_d,
-        out_i);
+        out_i, rowmap);
   else if (k <= 32)
     knn_split_kernel<32><<<grid, kSplitThreads, 0, s>>>(
         tgt, tnum, mcap, qry, qstride, nq, k, least, ws_d, ws_i, bounds, tickets, out_d,
-        out_i);
+        out_i, rowmap);
   else
     knn_split_kernel<64><<<grid, kSplitThreads, 0, s>>>(
         tgt, tnum, mcap, qry, qstride, nq, k, least, ws_d, ws_i, bounds, tickets, out_d,
-        out_i);
+        out_i, rowmap);
   return (int)cudaGetLastError();
 }
 

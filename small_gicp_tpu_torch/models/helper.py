@@ -6,6 +6,7 @@ with its parameters in the same positions; the port's own (``optimizer``,
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -16,22 +17,17 @@ from small_gicp_tpu_torch.point_cloud import PointCloud
 from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.knn import KdTree
 from small_gicp_tpu_torch.ops.normals import estimate_normals_covariances
-from small_gicp_tpu_torch.models.registration import (
-    _NOT_PORTED,
-    Registration,
-    RegistrationResult,
-)
+from small_gicp_tpu_torch.models.registration import Registration, RegistrationResult
+from small_gicp_tpu_torch.models.voxelmap import GaussianVoxelMap
 
 _M_PI = 3.141592653589793
-# Targets this slice registers against; voxel maps come with ROADMAP A6.
-_CLOUD_TYPES = (PointCloud, np.ndarray, torch.Tensor, list, tuple)
 
 
 @dataclass
 class RegistrationSetting:
     """Mirror of the reference RegistrationSetting, defaults identical."""
 
-    type: str = "gicp"  # "icp" | "plane_icp" | "gicp"
+    type: str = "gicp"  # "icp" | "plane_icp" | "gicp" | "vgicp"
     voxel_resolution: float = 1.0
     downsampling_resolution: float = 0.25
     max_correspondence_distance: float = 1.0
@@ -63,6 +59,13 @@ def preprocess_points(points, downsampling_resolution: float = 0.25,
     return down, tree
 
 
+def create_gaussian_voxelmap(cloud: PointCloud,
+                             voxel_resolution: float = 1.0) -> GaussianVoxelMap:
+    """A Gaussian voxel map of a cloud with covariances, on the cloud's
+    device (reference: registration_helper.cpp:50-54)."""
+    return GaussianVoxelMap.build(cloud, voxel_resolution)
+
+
 def align(target, source, target_tree: Optional[KdTree] = None,
           init_T_target_source=None, registration_type: str = "gicp",
           voxel_resolution: float = 1.0, downsampling_resolution: float = 0.25,
@@ -74,28 +77,51 @@ def align(target, source, target_tree: Optional[KdTree] = None,
           translation_epsilon: Optional[float] = None, *, optimizer: str = "lm",
           device=None, fused_route: Optional[str] = None) -> RegistrationResult:
     """One-shot align of raw [N,3] arrays (preprocessed here, with k=10
-    neighbours) or of preprocessed PointClouds. A preprocessed target may be
-    a map of millions of rows: above 1,572,864 the fused search sweeps its
-    Morton-sorted tiles (``fused_route`` forces "listed" or "swept").
+    neighbours), of preprocessed PointClouds, or of a PointCloud source
+    against a ``GaussianVoxelMap`` target (VGICP). A preprocessed target may
+    be a map of millions of rows: above 1,572,864 the fused search sweeps
+    its Morton-sorted tiles (``fused_route`` forces "listed" or "swept").
 
-    ``rotation_epsilon`` / ``translation_epsilon`` are the reference
-    bindings' spellings and take precedence over ``rotation_eps`` /
-    ``translation_eps`` when given. ``voxel_resolution`` serves VGICP, which
-    is not ported (ROADMAP A6); ``num_threads`` is accepted and ignored, as
-    the JAX package does. ``device`` places raw arrays (default: the card);
-    preprocessed clouds stay where they are.
+    ``registration_type="vgicp"`` builds a Gaussian voxel map of the target
+    at ``voxel_resolution`` and registers against it. On a voxel-map target
+    the rejector stays at the reference's default 1.0 m, as in the reference
+    and the JAX package; a ``max_correspondence_distance`` other than 1.0 is
+    dropped with a warning. ``rotation_epsilon`` / ``translation_epsilon``
+    are the reference bindings' spellings and take precedence over
+    ``rotation_eps`` / ``translation_eps`` when given. ``num_threads`` is
+    accepted and ignored, as the JAX package does. ``device`` places raw
+    arrays (default: the card); preprocessed clouds stay where they are.
     """
-    del voxel_resolution, num_threads
+    del num_threads
     if rotation_epsilon is not None:
         rotation_eps = rotation_epsilon
     if translation_epsilon is not None:
         translation_eps = translation_epsilon
     registration_type = registration_type.lower()
-    if registration_type == "vgicp" or not isinstance(target, _CLOUD_TYPES):
-        raise NotImplementedError(_NOT_PORTED)
-    if registration_type not in ("icp", "plane_icp", "gicp"):
+    if registration_type not in ("icp", "plane_icp", "gicp", "vgicp"):
         raise ValueError(f"unknown registration type {registration_type!r}")
 
+    if isinstance(target, GaussianVoxelMap):
+        # The voxel map is both the target model and its searcher.
+        if max_correspondence_distance != 1.0:
+            warnings.warn(
+                "align(): max_correspondence_distance is ignored on the "
+                "VGICP/voxelmap path (the reference keeps the rejector at "
+                "its default 1.0 m — registration_helper.cpp:125-137); use "
+                "Registration(registration_type='vgicp', "
+                "max_correspondence_distance=...) for a custom rejector.",
+                stacklevel=2)
+        reg = Registration(registration_type="vgicp", optimizer=optimizer,
+                           max_iterations=max_iterations, rotation_eps=rotation_eps,
+                           translation_eps=translation_eps,
+                           max_correspondence_distance=1.0, verbose=verbose)
+        if not isinstance(source, PointCloud):
+            source = PointCloud.from_points(source, device=device or target.device)
+        return reg.align(target, source, None, init_T_target_source)
+
+    if not isinstance(target, (PointCloud, np.ndarray, torch.Tensor, list, tuple)):
+        raise TypeError(f"align() takes a PointCloud, a GaussianVoxelMap or an "
+                        f"[N,3]/[N,4] array as the target, not {type(target).__name__}")
     preprocessed = (isinstance(target, PointCloud) and isinstance(source, PointCloud)
                     and _is_preprocessed(target, source, registration_type))
     if not preprocessed:
@@ -105,6 +131,16 @@ def align(target, source, target_tree: Optional[KdTree] = None,
         source, _ = preprocess_points(
             source, downsampling_resolution, num_neighbors=10,
             max_points=max_points, device=device)
+
+    if registration_type == "vgicp":
+        return align(create_gaussian_voxelmap(target, voxel_resolution), source,
+                     init_T_target_source=init_T_target_source,
+                     registration_type="vgicp", max_iterations=max_iterations,
+                     rotation_eps=rotation_eps, translation_eps=translation_eps,
+                     verbose=verbose,
+                     # forwarded only so that the voxel-map branch warns
+                     max_correspondence_distance=max_correspondence_distance,
+                     optimizer=optimizer)
 
     reg = Registration(
         registration_type=registration_type,
@@ -124,4 +160,5 @@ def _is_preprocessed(target: PointCloud, source: PointCloud, rtype: str) -> bool
         return True
     if rtype == "plane_icp":
         return target.normals is not None
+    # gicp / vgicp need covariances.
     return target.covs is not None and source.covs is not None

@@ -27,11 +27,21 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
     errors and the accept) is one launch of the step kernel
     (``ops/lm_step.gicp_lm_step``, K2 redesigned); on CPU tensors those run
     their plain versions;
-  * unfused ("never", or float64 clouds): ``search_correspondences`` —
-    transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on the card),
-    gather of the winners' payload, ``make_weights``, rejector mask — feeds
-    ``factors.linearize`` and ``factors.error_multi`` through the plain
-    step, torch ops as they are XLA ops in the JAX package.
+  * unfused ("never", float64 clouds, and every voxel-map target — VGICP
+    is the GICP factor against a ``GaussianVoxelMap``): the correspondence
+    search — transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on
+    the card) or the map's own voxel search, one gather of the winners'
+    payload, ``make_weights``, rejector mask — feeds ``factors.linearize``,
+    torch ops as they are XLA ops in the JAX package. For float32 clouds
+    the correspondences are then packed into the corr rows the step kernel
+    reads (``pack_corr_rows``) and the iteration ends in the same step as
+    the fused route's (on the card, its kernel: no float32 route runs the
+    plain step there); float64 clouds pack float64 rows for the plain step,
+    since the kernel's corr rows are float32.
+A target's searched rows are its first ``num_points`` live rows (w > 0.5,
+``point_cloud.live_rows``), wherever they stand: a voxel map's cloud view
+(``ivm_as_cloud``, ``voxelmap_as_cloud``) keeps them at slot positions, and
+both routes search exactly those rows.
 The loop state lives on the device in one record (``ops/lm_step.LmState``),
 whose pose K1 reads in place; each iteration is K1 (or the unfused
 search), the step, and one host read of the stop flag (with ``verbose``,
@@ -45,7 +55,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,9 +77,9 @@ from small_gicp_tpu_torch.ops.lm_step import (
 )
 from small_gicp_tpu_torch.models import factors
 from small_gicp_tpu_torch.models.factors import GICP, ICP, PLANE_ICP, Correspondences
+from small_gicp_tpu_torch.models.voxelmap import GaussianVoxelMap, IncrementalVoxelMap
 
-_NOT_PORTED = ("voxel-map targets (GaussianVoxelMap, IncrementalVoxelMap) and "
-               "VGICP wait for ROADMAP item A6")
+VGICP = "vgicp"
 
 
 @dataclass
@@ -85,25 +95,56 @@ class RegistrationResult:
     error: torch.Tensor  # 0-d float64
 
 
-def search_correspondences(factor_type: str, target: PointCloud, target_tree,
+def search_correspondences(factor_type: str, target, target_tree,
                            source_points: torch.Tensor, source_num: torch.Tensor,
                            source_covs: Optional[torch.Tensor], T: torch.Tensor,
-                           max_dist_sq: float) -> Correspondences:
-    """Nearest target row of every transformed source point, with the
-    factor's weight matrices and the rejector mask (the point-cloud branch
-    of the JAX package's ``_search_correspondences``)."""
+                           max_dist_sq: float) -> Tuple[Correspondences, torch.Tensor]:
+    """Nearest target row (or voxel) of every transformed source point, with
+    the factor's weight matrices and the rejector mask, and the winners' d²
+    [N]: the JAX package's ``_search_correspondences`` for a PointCloud
+    (searched by ``target_tree``, or a ``KdTree`` built here), a
+    ``GaussianVoxelMap`` or an ``IncrementalVoxelMap`` target."""
     transed = source_points @ T.T  # [N,4]
     n = source_points.shape[0]
-    tree = target_tree if target_tree is not None else KdTree.build(target)
-    sq_dists, idx = tree.nearest_neighbor_search(transed[:, :3])
-    idx = idx.long()
-    mu = target.points[idx, :3]
-    t_normals = target.normals[idx] if target.normals is not None else None
-    t_covs = target.covs[idx] if target.covs is not None else None
+    found = None
+    if isinstance(target, GaussianVoxelMap):
+        # The slot table's payload is one [mean | cov | count] row: one gather.
+        sq_dists, idx, found = target.nearest_neighbor_search(transed[:, :3])
+        rows = target.payload[idx.long()]
+        mu, t_normals, t_covs = rows[:, :3], None, rows[:, 4:13].reshape(-1, 3, 3)
+    elif isinstance(target, IncrementalVoxelMap):
+        # One gather of the [point | normal? | cov?] rows.
+        sq_dists, idx, found = target.nearest_neighbor_search(transed[:, :3])
+        rows = target.payload[idx.long()]
+        mu, off, t_normals, t_covs = rows[:, :3], 4, None, None
+        if target.has_normals:
+            t_normals, off = rows[:, off:off + 4], off + 4
+        if target.has_covs:
+            t_covs = rows[:, off:off + 9].reshape(-1, 3, 3)
+    else:
+        tree = target_tree if target_tree is not None else KdTree.build(target)
+        sq_dists, idx = tree.nearest_neighbor_search(transed[:, :3])
+        idx = idx.long()
+        mu = target.points[idx, :3]
+        t_normals = target.normals[idx] if target.normals is not None else None
+        t_covs = target.covs[idx] if target.covs is not None else None
     mask = (sq_dists <= max_dist_sq) & (
         torch.arange(n, device=source_points.device) < source_num)
+    if found is not None:
+        mask = mask & found
     W = factors.make_weights(factor_type, T, n, source_covs, t_normals, t_covs)
-    return Correspondences(target_mu=mu, W=W, mask=mask, target_idx=idx)
+    return Correspondences(target_mu=mu, W=W, mask=mask, target_idx=idx.long()), sq_dists
+
+
+def pack_corr_rows(corr: Correspondences, sq_dists: torch.Tensor) -> torch.Tensor:
+    """[N,16] corr rows in source order and the correspondences' dtype, the
+    layout K1 writes and the step kernel reads: [μ 3 | W 9 | mask | d² | 0 0].
+    A row with mask 0 keeps its nearest candidate (nothing reads it)."""
+    n = corr.mask.shape[0]
+    dt = corr.target_mu.dtype
+    return torch.cat([corr.target_mu, corr.W.reshape(n, 9).to(dt),
+                      corr.mask.to(dt)[:, None], sq_dists.to(dt)[:, None],
+                      corr.target_mu.new_zeros((n, 2))], dim=1)
 
 
 def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
@@ -118,23 +159,27 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                use_fused: str = "auto", psum_axis: Optional[str] = None,
                solve_dtype: str = "same", *,
                fused_route: Optional[str] = None) -> RegistrationResult:
-    """Register ``source`` to ``target``; both clouds on the same device.
+    """Register ``source`` to ``target`` (a PointCloud, a ``GaussianVoxelMap``
+    — VGICP with the GICP factor — or an ``IncrementalVoxelMap``), all on
+    one device.
 
     ``verbose`` prints the JAX package's line once per iteration: LM
     ``iter e new_e lambda dr dt``, GN ``iter e gn_lambda dr dt``.
-    ``use_fused``: "auto" takes the fused kernels for float32 clouds;
-    "never" keeps the unfused search + linearize route, which float64
-    clouds always take. ``psum_axis`` (the point-sharded mode) is not
-    ported. ``fused_route``: "listed" or "swept" forces the fused search's
-    route; None chooses by the target's size. ``max_inner_iterations``:
-    any K ≥ 0, at most 99 where the step kernel runs (the fused route on
-    the card).
+    ``use_fused``: "auto" takes the fused kernels for float32 clouds against
+    a PointCloud; "never" keeps the unfused search + linearize route, which
+    float64 clouds and voxel maps always take. ``psum_axis`` (the
+    point-sharded mode) is not ported. ``fused_route``: "listed" or "swept"
+    forces the fused search's route; None chooses by the target's size.
+    ``max_inner_iterations``: any K ≥ 0, at most 99 where the step kernel
+    runs (float32 clouds on the card).
     """
     if psum_axis is not None:
         raise NotImplementedError(
             "psum_axis (the point-sharded registration) waits for ROADMAP item A10")
-    if not isinstance(target, PointCloud):
-        raise NotImplementedError(_NOT_PORTED)
+    if not isinstance(target, (PointCloud, GaussianVoxelMap, IncrementalVoxelMap)):
+        raise NotImplementedError(
+            f"targets of type {type(target).__name__} (the mesh-sharded voxel map) "
+            "wait for ROADMAP item A10")
     if target_tree is not None and not isinstance(target_tree, KdTree):
         raise NotImplementedError(
             "only the exact KdTree searcher is ported; projective search "
@@ -162,7 +207,8 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
     state = lm_state(T0, optimizer, max_inner_iterations, init_lambda, lambda_factor,
                      gn_lambda, rotation_eps, translation_eps, dof_diag, dt, dev)
 
-    if use_fused == "auto" and dt == torch.float32:
+    cloud = isinstance(target, PointCloud)
+    if use_fused == "auto" and dt == torch.float32 and cloud:
         route = fused_route or auto_route(target.points)
         # A tree over this very target keeps its sort and boxes across aligns
         # (and from the covariance stage of preprocess_points).
@@ -187,20 +233,26 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                          robust_kernel, robust_c, solve_dtype)
     else:
         source_covs = source.covs if registration_type == GICP else None
+        tree = target_tree
+        if cloud and tree is None:
+            tree = KdTree.build(target)
+
+        # The step kernel reads float32 rows: float64 clouds take its plain
+        # version, over rows packed the same way in float64.
+        step = gicp_lm_step if dt == torch.float32 else gicp_lm_step_plain
 
         def iterate():
-            """The unfused search and factors, then the plain step."""
-            corr = search_correspondences(
-                registration_type, target, target_tree, source.points,
-                source.num_points, source_covs, state.T, max_dist_sq)
+            """The unfused search and factors, then the step on the packed
+            corr rows."""
+            corr, d2 = search_correspondences(
+                registration_type, target, tree, source.points, source.num_points,
+                source_covs, state.T, max_dist_sq)
             H, b, _ = factors.linearize(corr, state.T, source.points, robust_kernel,
                                         robust_c)
             sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
-                              corr.mask.sum().reshape(1).to(H.dtype)])
-            gicp_lm_step_plain(
-                state, sums, None, None, None, solve_dtype=solve_dtype,
-                errors=lambda Ts: factors.error_multi(corr, Ts, source.points,
-                                                      robust_kernel, robust_c))
+                              corr.mask.sum().reshape(1).to(H.dtype)]).to(torch.float64)
+            step(state, sums, pack_corr_rows(corr, d2), source.points, source.num_points,
+                 robust_kernel, robust_c, solve_dtype)
 
     names = (("e", "gn_lambda") if optimizer == "gn" else ("e", "new_e", "lambda")) \
         + ("dr", "dt")
@@ -240,9 +292,7 @@ class Registration:
                  translation_eps: float = 1e-3, dof_rotation_mask=None,
                  dof_translation_mask=None, verbose: bool = False,
                  solve_dtype: str = "same", *, fused_route: Optional[str] = None):
-        if registration_type == "vgicp":
-            raise NotImplementedError(_NOT_PORTED)
-        if registration_type not in (ICP, PLANE_ICP, GICP):
+        if registration_type not in (ICP, PLANE_ICP, GICP, VGICP):
             raise ValueError(f"unknown registration type {registration_type!r}")
         if solve_dtype not in ("same", "float64"):
             raise ValueError(
@@ -265,11 +315,14 @@ class Registration:
             tm = [1.0] * 3 if dof_translation_mask is None else list(dof_translation_mask)
             self.dof_mask = rm + tm
 
-    def align(self, target: PointCloud, source: PointCloud, target_tree=None,
+    def align(self, target, source: PointCloud, target_tree=None,
               init_T=None) -> RegistrationResult:
+        """Register ``source`` to ``target``: a PointCloud or a voxel map
+        ("vgicp" is the GICP factor against a ``GaussianVoxelMap``)."""
         return align_impl(
             target, source, target_tree, init_T,
-            registration_type=self.registration_type,
+            registration_type=GICP if self.registration_type == VGICP
+            else self.registration_type,
             optimizer=self.optimizer,
             robust_kernel=self.robust_kernel,
             robust_c=self.robust_c,
@@ -285,7 +338,7 @@ class Registration:
         )
 
 
-def align_points(target: PointCloud, source: PointCloud, target_tree=None,
+def align_points(target, source: PointCloud, target_tree=None,
                  init_T=None, **kwargs) -> RegistrationResult:
     """Functional one-shot align over preprocessed clouds."""
     return Registration(**kwargs).align(target, source, target_tree, init_T)

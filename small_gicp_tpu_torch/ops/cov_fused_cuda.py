@@ -7,7 +7,10 @@ Counterpart of ``small_gicp_tpu/ops/cov_fused_pallas.py``
 nearest valid rows p of every valid row q (self included; a neighbour
 counts if its d² < 1e16). Rows at or beyond ``num_points`` are zero. Ties
 go to the lower row index in every layout, so the three layouts choose the
-same neighbours.
+same neighbours. The cloud is front-packed, as ``preprocess_points`` makes
+it: the walks take its first ``num_points`` live rows from the sort
+(``point_cloud.live_rows``), the plain versions its first ``num_points``
+rows, and the two are the same rows only there.
 
 Three layouts, named as the JAX package names them:
 

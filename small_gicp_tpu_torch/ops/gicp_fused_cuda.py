@@ -161,9 +161,11 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
     the listed route float32 only) add the sorted target rows, their boxes
     and the source's order. ``target`` is ``pruned_prepare_target(
     target_points, target_num)`` when the caller has it already (``KdTree``
-    keeps it): then only the source is ordered here. Leading dimensions of
-    the clouds carry over to the tables (listed route only, without the
-    sort: ``gicp_fleet_prepare`` adds each pair's)."""
+    keeps it): then only the source is ordered here. The sort takes the
+    target's first ``target_num`` live rows wherever they stand
+    (``point_cloud.live_rows``). Leading dimensions of the clouds carry
+    over to the tables (listed route only, without the sort:
+    ``gicp_fleet_prepare`` adds each pair's)."""
     if factor not in FACTORS:
         raise ValueError(f"unknown fused factor {factor!r}")
     if route is None:
@@ -391,12 +393,14 @@ def _finalize_plain_lanes(ttab, qtab, pose, q, active, best, best_d, max_dist_sq
 
 
 def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
-                           robust_c, factor, score=False, zero_unmatched=False):
+                           robust_c, factor, score=False, zero_unmatched=False,
+                           trows=None):
     """K1's arithmetic over B lanes: ttab [B,M,16], tnum [B], qtab [B,N,16],
     qnum [B], pose [B,12] → (sums [B,44] float64, corr [B,N,16]). ``score``:
     rank the targets by ‖t‖² − 2 t·q (‖t‖² from ttab column 13) and take
     the winner's difference-form d² afterwards. ``zero_unmatched``: see
-    ``_finalize_plain_lanes``."""
+    ``_finalize_plain_lanes``. ``trows`` [B,M] bool: the target rows
+    searched (default: the first tnum)."""
     dt, dev = qtab.dtype, qtab.device
     bsz, n, m = qtab.shape[0], qtab.shape[1], ttab.shape[1]
     q = _transform_lanes(qtab, pose)
@@ -405,7 +409,9 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
     best_d = torch.full((bsz, n), _BIG, dtype=dt, device=dev)
     best = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
     if m > 0:
-        tcol = (torch.arange(m, device=dev) < tnum[:, None])[:, None, :]
+        if trows is None:
+            trows = torch.arange(m, device=dev) < tnum[:, None]
+        tcol = trows[:, None, :]
         step = max(1, QUERY_BLOCK // max(bsz, 1))
         txyz = ttab[..., :3]
         for s in range(0, n, step):
@@ -430,6 +436,19 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
                                  max_dist_sq, robust, robust_c, factor, zero_unmatched)
 
 
+def _target_rows(tables: GicpTables) -> torch.Tensor:
+    """[M] bool: the target rows that the tables of one pair search — those
+    of the sorted rows below tnum where the tables carry a float32 sort (the
+    live rows wherever they stand, ``point_cloud.live_rows``), else the
+    first tnum."""
+    m, dev = tables.ttab.shape[0], tables.ttab.device
+    first = torch.arange(m, device=dev) < tables.tnum
+    if tables.tsorted is None or tables.tsorted.dtype != torch.float32:
+        return first
+    orig = tables.tsorted[:, 3].contiguous().view(torch.int32).long()
+    return torch.zeros(m, dtype=torch.bool, device=dev).index_put_((orig,), first)
+
+
 def _plain_one_pair(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
                     robust: Optional[str], robust_c: float, **kind):
     """``_linearize_plain_lanes`` for the tables of one pair at one pose."""
@@ -437,7 +456,7 @@ def _plain_one_pair(tables: GicpTables, T: torch.Tensor, max_dist_sq: float,
     sums, corr = _linearize_plain_lanes(
         tables.ttab[None], tables.tnum.reshape(1), tables.qtab[None],
         tables.qnum.reshape(1), _pose12(T, tables.qtab.dtype)[None], max_dist_sq,
-        robust, robust_c, tables.factor, **kind)
+        robust, robust_c, tables.factor, trows=_target_rows(tables)[None], **kind)
     return (*_finish(sums[0]), corr[0])
 
 

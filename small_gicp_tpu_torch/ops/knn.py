@@ -19,7 +19,7 @@ from typing import Any, Tuple
 
 import torch
 
-from small_gicp_tpu_torch.point_cloud import PointCloud
+from small_gicp_tpu_torch.point_cloud import PointCloud, live_rows
 
 # Query rows per distance block: a [2048, M] block stays a few hundred MB
 # at scan sizes.
@@ -84,15 +84,20 @@ class KdTree:
 
     The rows are taken as fixed once the tree is built: what the card's
     searches derive from the target alone (K9's centre, the sorted rows
-    and boxes that K12, K3, K4, K1 and K6 walk) is computed at the first
-    search that needs it and kept, so that the covariance stage and every
-    align against the cloud share one sort.
+    and boxes that K12, K3, K4, K1 and K6 walk, the live rows packed first
+    for K9 and K10) is computed at the first search that needs it and kept,
+    so that the covariance stage and every align against the cloud share
+    one sort. The searched rows are the first ``num_points`` live ones
+    (``live_rows``: w > 0.5), wherever they stand, as the JAX package
+    searches every row and its padding rows lose every race; indices are
+    rows of ``points``.
     """
 
     points: torch.Tensor  # [M,4], padded with the sentinel
     num_points: torch.Tensor  # 0-d int32
     _centre: Any = field(default=None, init=False, repr=False, compare=False)
     _pruned: Any = field(default=None, init=False, repr=False, compare=False)
+    _packed: Any = field(default=None, init=False, repr=False, compare=False)
 
     @staticmethod
     def build(cloud, num_threads: int = 1, device=None) -> "KdTree":
@@ -132,6 +137,18 @@ class KdTree:
             self._pruned = pruned_prepare_target(self.points, self.num_points)
         return self._pruned
 
+    def packed(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(rows [M,4] with the live rows first in row order, their count
+        0-d int32, order [M] int32: packed position → row), the row set K9
+        and K10 scan and the map through which they write their rows;
+        computed once. A front-packed cloud packs to itself."""
+        if self._packed is None:
+            live = live_rows(self.points, self.num_points)
+            order = torch.argsort((~live).to(torch.uint8), stable=True)
+            self._packed = (self.points[order], live.sum().to(torch.int32),
+                            order.to(torch.int32))
+        return self._packed
+
     def knn_search(self, query_xyz, k: int, block: int = QUERY_BLOCK,
                    method: str = "exact"):
         """[Q,3] (or one [3]) → (sq_dists [Q,k], idx [Q,k] int32), ascending.
@@ -150,7 +167,8 @@ class KdTree:
         if self._on_card() and 1 < k <= 64:
             from small_gicp_tpu_torch.ops.knn_cuda import knn
 
-            d, i = knn(self.points, self.num_points, q[:, :3], k)
+            rows, num, order = self.packed()
+            d, i = knn(rows, num, q[:, :3], k, rowmap=order)
         else:
             d, i = brute_force_knn(self.points[:, :3], q[:, :3], k, block)
         return (d[0], i[0]) if single else (d, i)
@@ -163,8 +181,9 @@ class KdTree:
         if self._on_card():
             from small_gicp_tpu_torch.ops.knn_cuda import nearest_neighbor
 
-            d, i = nearest_neighbor(self.points, self.num_points, q[:, :3],
-                                    centre=self.centre())
+            rows, num, order = self.packed()
+            d, i = nearest_neighbor(rows, num, q[:, :3], centre=self.centre(),
+                                    rowmap=order)
         else:
             d, i = brute_force_knn(self.points[:, :3], q[:, :3], 1, block)
             d, i = d[:, 0], i[:, 0]

@@ -34,6 +34,14 @@ is left (k > num_points) hold d² = 3e38 and index 0; the JAX kernels
 return sentinel rows with d² > 1e16 there. Both mean "no neighbour" to
 every caller; comparisons hold to slots with d² < 1e16.
 
+The valid target rows are the first ``num_points`` live rows
+(``point_cloud.live_rows``). K9-K11 read the first ``num_points`` rows,
+which are those of a front-packed cloud; K12 sorts the live rows wherever
+they stand, with or without a kept ``target=``. A cloud whose live rows
+stand elsewhere (a voxel map's cloud view) reaches K9 and K10 through
+``KdTree``, which packs them first and passes the packed rows' order as
+``rowmap``: the kernels write each found row through it.
+
 Bound on the card: Q·M pairs at 9 float32 operations against 16·(Q+M)
 bytes in and 8·k·Q out — operations, at every shape a scan produces. K12
 is bounded by fewer pairs: the rows of the tiles that lie within a query
@@ -389,6 +397,22 @@ def nearest_neighbor_split_plain(target_points: torch.Tensor, num_points: torch.
     return d, rows.to(torch.int32)
 
 
+def _map_rows(d: torch.Tensor, i: torch.Tensor, rowmap: Optional[torch.Tensor]) -> Pair:
+    """The kernels' row map in torch ops: each found row (d² < 3e38) becomes
+    ``rowmap[row]``; a slot without a row keeps index 0."""
+    if rowmap is None:
+        return d, i
+    return d, torch.where(d < _BIG, rowmap[i.long()], 0).to(torch.int32)
+
+
+def _rowmap_ptr(rowmap: Optional[torch.Tensor], mcap: int):
+    """The device address of a checked ``rowmap`` [mcap] int32, or None."""
+    if rowmap is None:
+        return None
+    _build.require(rowmap, "rowmap", torch.int32, (mcap,))
+    return rowmap.data_ptr()
+
+
 def _nn1_inputs(target_points, num_points, query, variant, centre):
     """Checked K9 inputs: (queries rows 3 or 4 floats apart, contiguous
     centre, outputs)."""
@@ -405,19 +429,24 @@ def _nn1_inputs(target_points, num_points, query, variant, centre):
 
 def nearest_neighbor(target_points: torch.Tensor, num_points: torch.Tensor,
                      query: torch.Tensor, variant: str = "vpu",
-                     centre: Optional[torch.Tensor] = None) -> Pair:
+                     centre: Optional[torch.Tensor] = None,
+                     rowmap: Optional[torch.Tensor] = None) -> Pair:
     """Exact 1-NN of each query among the valid target rows:
     (d² [Q], idx [Q] int32). Kernel K9 on CUDA, plain version on the CPU.
 
     ``centre`` is ``target_centre(target_points)`` when the caller has it
     already (``KdTree`` keeps it); it is computed here otherwise. With it
-    the call is the kernel's launch and nothing else."""
+    the call is the kernel's launch and nothing else. ``rowmap`` [M] int32
+    maps each found row to the caller's row (``KdTree.packed()``); the
+    kernel writes the mapped row."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r} (use 'vpu' or 'mxu')")
     if target_points.device.type == "cpu":
-        return nearest_neighbor_plain(target_points, num_points, query, variant, centre)
+        return _map_rows(*nearest_neighbor_plain(target_points, num_points, query, variant,
+                                                 centre), rowmap)
     q, centre, (d, i) = _nn1_inputs(target_points, num_points, query, variant, centre)
     nq, mcap = q.shape[0], target_points.shape[0]
+    rowmap_ptr = _rowmap_ptr(rowmap, mcap)
     if nq == 0:
         return d, i
     lib = _library()
@@ -427,7 +456,8 @@ def nearest_neighbor(target_points: torch.Tensor, num_points: torch.Tensor,
         rc = lib.sgt_nn1(target_points.data_ptr(), num_points.data_ptr(), mcap,
                          q.data_ptr(), q.stride(0), nq, centre.data_ptr(),
                          VARIANTS.index(variant), nsplit, buf.keys.data_ptr(),
-                         buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(), _stream())
+                         buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(), rowmap_ptr,
+                         _stream())
     _build.check(rc, "nearest_neighbor")
     nearest_neighbor.launches += 1
     return d, i
@@ -438,9 +468,11 @@ nearest_neighbor.launches = 0
 
 def _nearest_neighbor_v1(target_points: torch.Tensor, num_points: torch.Tensor,
                          query: torch.Tensor, variant: str = "vpu",
-                         centre: Optional[torch.Tensor] = None) -> Pair:
-    """K9's first form (one thread per query over every row), for timing
-    K9 against on the card. Not counted and not on any path."""
+                         centre: Optional[torch.Tensor] = None,
+                         rowmap: Optional[torch.Tensor] = None) -> Pair:
+    """K9's first form (one thread per query over every row; ``rowmap`` by
+    torch ops), for timing K9 against on the card. Not counted and not on
+    any path."""
     q, centre, (d, i) = _nn1_inputs(target_points, num_points, query, variant, centre)
     if q.shape[0] == 0:
         return d, i
@@ -450,7 +482,7 @@ def _nearest_neighbor_v1(target_points: torch.Tensor, num_points: torch.Tensor,
             q.data_ptr(), q.stride(0), q.shape[0], centre.data_ptr(),
             VARIANTS.index(variant), d.data_ptr(), i.data_ptr(), _stream())
     _build.check(rc, "nearest_neighbor (v1)")
-    return d, i
+    return _map_rows(d, i, rowmap)
 
 
 # ------------------------------------------------------------ K10, K11 ----
@@ -504,27 +536,38 @@ def knn_split_plain(target_points: torch.Tensor, num_points: torch.Tensor,
         return _empty(query, (0, k))
     m = min(int(num_points), target_points.shape[0])
     chunk = split_chunk(m, nsplit, tile, least)
-    t = target_points[:, :3]
-    chunks = []
-    for s in range(nsplit):
-        lo = s * chunk
-        ids = torch.arange(lo, max(lo, min(m, lo + chunk)), device=t.device)
-        d2 = _masked_sq_dists(query[:, :3], t[ids], ids >= 0)
-        bound = (_sampled_bound(d2, k) if ids.shape[0] > tile
-                 else d2.new_full((nq,), _BIG))
-        chunks.append((ids, d2, bound))
-    tightest = torch.stack([b for _, _, b in chunks]).amin(dim=0)
-    lists_d, lists_i = [], []
-    for ids, d2, bound in chunks:
-        reach = tightest if shared else bound
-        d, i = first_k(torch.where(d2 <= reach[:, None], d2, _BIG), ids, k)
-        lists_d.append(d)
-        lists_i.append(i)
+    # Every chunk at once: d² [Q, nsplit, chunk], 3e38 past the valid rows.
+    d2 = query.new_full((nq, nsplit * chunk), _BIG)
+    d2[:, :m] = _masked_sq_dists(query[:, :3], target_points[:m, :3],
+                                 torch.ones(m, dtype=torch.bool, device=query.device))
+    d2 = d2.view(nq, nsplit, chunk)
+    # Each chunk's bound: its own sample where it holds more than ``tile``
+    # rows (the chunks before m // chunk are full, at most one is partial).
+    bound = d2.new_full((nq, nsplit), _BIG)
+    full, rest = divmod(m, chunk)
+    if chunk > tile and full > 0:
+        sample = d2[:, :full, ::max(SAMPLE_STEP, _cdiv(chunk, CHUNK_SAMPLE))]
+        if sample.shape[2] >= k:
+            bound[:, :full] = torch.sort(sample, dim=2).values[:, :, k - 1]
+    if rest > tile:
+        bound[:, full] = _sampled_bound(d2[:, full, :rest], k)
+    reach = bound.amin(dim=1, keepdim=True) if shared else bound
+    # Each chunk's first k rows in (d², row) order; a chunk's columns past
+    # its own are 3e38 with row 0, as ``first_k`` pads a short list.
+    kk = min(k, chunk)
+    d_c, pos = torch.sort(torch.where(d2 <= reach[:, :, None], d2, _BIG), dim=2,
+                          stable=True)
+    d_c = d_c[:, :, :kk].reshape(nq, nsplit * kk)
+    rows = pos[:, :, :kk] + chunk * torch.arange(nsplit, device=query.device)[:, None]
+    i_c = torch.where(d_c < _BIG, rows.reshape(nq, nsplit * kk), 0).to(torch.int32)
+    if nsplit * kk < k:
+        d_c = torch.cat([d_c, d_c.new_full((nq, k - nsplit * kk), _BIG)], dim=1)
+        i_c = torch.cat([i_c, i_c.new_zeros((nq, k - nsplit * kk))], dim=1)
     # Chunks ascend by row: a stable sort of the lists in chunk order is the
-    # (d², row) order.
-    d_all, i_all = torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1)
-    d_sorted, pos = torch.sort(d_all, dim=1, stable=True)
-    return d_sorted[:, :k], i_all.gather(1, pos[:, :k])
+    # (d², row) order. Every entry at 3e38 carries row 0, so the lists'
+    # padding past a chunk's kk entries changes nothing.
+    d_sorted, order = torch.sort(d_c, dim=1, stable=True)
+    return d_sorted[:, :k], i_c.gather(1, order[:, :k])
 
 
 _NO_ROW = 2 ** 40  # the row of a padding entry: after every real row
@@ -656,15 +699,17 @@ def _knn_launch(wrapper, entry: str, target_points, num_points, query, k) -> Pai
 
 
 def knn(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,
-        k: int) -> Pair:
+        k: int, rowmap: Optional[torch.Tensor] = None) -> Pair:
     """Exact kNN, k ≤ 64: (d² [Q,k] ascending, idx [Q,k] int32). Kernel K10
-    on CUDA, plain version on the CPU."""
+    on CUDA, plain version on the CPU. ``rowmap`` as for
+    ``nearest_neighbor``."""
     _check_k(k, "knn")
     if target_points.device.type == "cpu":
-        return knn_plain(target_points, num_points, query, k)
+        return _map_rows(*knn_plain(target_points, num_points, query, k), rowmap)
     _require_search(target_points, num_points, query)
     q = _query_rows(query)
     nq, mcap = q.shape[0], target_points.shape[0]
+    rowmap_ptr = _rowmap_ptr(rowmap, mcap)
     d, i = _empty(q, (nq, k))
     if nq == 0:
         return d, i
@@ -678,7 +723,8 @@ def knn(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tens
                          q.data_ptr(), q.stride(0), nq, k, nsplit,
                          knn_least_rows(nq, k, sms),
                          buf.ws_d.data_ptr(), buf.ws_i.data_ptr(), buf.bounds.data_ptr(),
-                         buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(), _stream())
+                         buf.tickets.data_ptr(), d.data_ptr(), i.data_ptr(), rowmap_ptr,
+                         _stream())
     _build.check(rc, "knn")
     knn.launches += 1
     return d, i
@@ -688,12 +734,13 @@ knn.launches = 0
 
 
 def _knn_v1(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,
-            k: int) -> Pair:
+            k: int, rowmap: Optional[torch.Tensor] = None) -> Pair:
     """K10's first form (one thread per query over every row, a bound over
-    2,048 sampled rows), for timing K10 against on the card. Not counted
-    and not on any path."""
+    2,048 sampled rows; ``rowmap`` by torch ops), for timing K10 against on
+    the card. Not counted and not on any path."""
     _check_k(k, "knn")
-    return _knn_launch(None, "sgt_knn_v1", target_points, num_points, query, k)
+    return _map_rows(*_knn_launch(None, "sgt_knn_v1", target_points, num_points, query,
+                                  k), rowmap)
 
 
 def knn_T(target_points: torch.Tensor, num_points: torch.Tensor, query: torch.Tensor,

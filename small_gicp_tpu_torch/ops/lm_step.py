@@ -222,7 +222,7 @@ def gicp_lm_step_plain(state: LmState, sums: torch.Tensor, corr, src: torch.Tens
     """Plain PyTorch version of the step kernel; updates ``state`` in place.
     ``errors(poses [K1,4,4]) → [K1] float64`` evaluates the poses (default:
     K2's arithmetic over the frozen corr rows, ``gicp_error_multi_plain``;
-    the unfused route passes the factors' own)."""
+    ``chip_smoke.py`` passes K2's first form, the step kernel's yardstick)."""
     dt = state.T.dtype
     sdt = dt if solve_dtype == "same" else torch.float64
     p, trials = state.params, state.num_trials

@@ -26,6 +26,7 @@ import torch
 from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.ops.knn import first_k, sq_dists
 from small_gicp_tpu_torch.ops.knn_window import morton_codes32
+from small_gicp_tpu_torch.point_cloud import live_rows
 
 _BIG = 3.0e38
 TILE_ROWS = 256
@@ -78,15 +79,19 @@ class PrunedTarget:
 
 def pruned_prepare_target(target_points: torch.Tensor, num_points: torch.Tensor
                           ) -> PrunedTarget:
-    """Sort the cloud's first ``num_points`` rows by Morton code and box
-    every 256 sorted rows. No host read of ``num_points``. Stacked clouds
+    """Sort the cloud's valid rows by Morton code and box every 256 sorted
+    rows. The valid rows are its first ``num_points`` live rows
+    (``point_cloud.live_rows``), wherever they stand: a front-packed cloud's
+    first ``num_points`` rows, a voxel map's cloud view's live slots. Each
+    sorted row carries its original row. No host read. Stacked clouds
     [U,M,4] with counts [U] are sorted and boxed each on its own, by one
     sort for all (``morton_order``)."""
     dev, dt = target_points.device, target_points.dtype
     t = target_points[..., :3]
     lead, m = t.shape[:-2], t.shape[-2]
     num = torch.as_tensor(num_points, device=dev)[..., None]
-    tkey, tperm, origin = morton_order(t, torch.arange(m, device=dev) < num)
+    valid = live_rows(target_points, num_points)
+    tkey, tperm, origin = morton_order(t, valid)
     tsorted = torch.empty(lead + (m, 4), dtype=dt, device=dev)
     tsorted[..., :3] = torch.gather(t, -2, tperm[..., None].expand(lead + (m, 3)))
     if dt == torch.float32:

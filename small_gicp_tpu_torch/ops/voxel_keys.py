@@ -60,12 +60,45 @@ def sort_segments(keys: torch.Tensor):
     Returns (order, keys_sorted, valid [N] bool, seg_id [N] int64 — invalid
     rows go to N-1 —, num_segments 0-d int64).
     """
-    n = keys.shape[0]
     keys_s, order = torch.sort(keys, stable=True)
-    valid = keys_s != INVALID_KEY
-    prev = torch.cat([keys_s.new_full((1,), INVALID_KEY), keys_s[:-1]])
-    seg_first = (keys_s != prev) & valid
+    valid, _, seg, num = segment_ids(keys_s)
+    return order, keys_s, valid, seg, num
+
+
+def unpack_key(keys: torch.Tensor) -> torch.Tensor:
+    """[N] int64 keys → [N,3] int32 voxel coords (inverse of pack_coords)."""
+    mask = COORD_RANGE - 1
+    x = (keys & mask) - COORD_OFFSET
+    y = ((keys >> COORD_BITS) & mask) - COORD_OFFSET
+    z = ((keys >> (2 * COORD_BITS)) & mask) - COORD_OFFSET
+    return torch.stack([x, y, z], dim=-1).to(torch.int32)
+
+
+def neighbor_offsets(num_offsets: int, device=None) -> torch.Tensor:
+    """Voxel neighbourhood offsets, [K,3] int32: the reference's 1/7/27-voxel
+    search patterns in the JAX package's order, which a nearest-neighbour
+    search's first-minimum tie-break follows."""
+    if num_offsets == 1:
+        offs = [(0, 0, 0)]
+    elif num_offsets == 7:
+        offs = [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
+                (0, 0, 1), (0, 0, -1)]
+    elif num_offsets == 27:
+        offs = [(x, y, z) for z in (-1, 0, 1) for y in (-1, 0, 1) for x in (-1, 0, 1)]
+    else:
+        raise ValueError("num_offsets must be 1, 7, or 27")
+    return torch.tensor(offs, dtype=torch.int32, device=device)
+
+
+def segment_ids(keys_sorted: torch.Tensor):
+    """Runs of equal valid keys in a sorted key array: (valid [N] bool,
+    seg_first [N] bool, seg_id [N] int64 — invalid rows go to N-1 —,
+    num_segments 0-d int64)."""
+    n = keys_sorted.shape[0]
+    valid = keys_sorted != INVALID_KEY
+    prev = torch.cat([keys_sorted.new_full((1,), INVALID_KEY), keys_sorted[:-1]])
+    seg_first = (keys_sorted != prev) & valid
     seg = torch.cumsum(seg_first.to(torch.int64), 0) - 1
     num = torch.sum(seg_first)
     seg = torch.where(valid, seg, torch.full_like(seg, n - 1))
-    return order, keys_s, valid, seg, num
+    return valid, seg_first, seg, num

@@ -6,7 +6,9 @@ serves every stage:
   points  [N, 4] homogeneous (x, y, z, 1); padded rows = (SENTINEL,)*3 + (0,)
   normals [N, 4] (nx, ny, nz, 0)
   covs    [N, 3, 3]
-  num_points: 0-d int32 tensor on the cloud's device; valid rows come first.
+  num_points: 0-d int32 tensor on the cloud's device; valid rows come first,
+              except in a voxel map's cloud view, whose live rows (``live_rows``)
+              stay at their slots and number ``num_points``.
 
 ``num_points`` stays a device tensor so that no stage has to wait for the
 device to learn how many rows are valid; the kernels read it in place.
@@ -151,3 +153,22 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     sentinel stays far away.
     """
     return points @ T.T
+
+
+def transform_covs(T: torch.Tensor, covs: torch.Tensor) -> torch.Tensor:
+    """R C Rᵀ for [N,3,3] covariances (reference: gicp_factor.hpp:59)."""
+    R = T[:3, :3].to(covs.dtype)
+    return R @ covs @ R.T
+
+
+def live_rows(points: torch.Tensor, num_points) -> torch.Tensor:
+    """[..., N] bool: the rows a search takes part in, the first
+    ``num_points`` live rows (counts [...] for stacked clouds). Liveness is
+    w > 0.5, as the JAX package's ``compact_cloud`` defines it; rows at the
+    padding sentinel are left out too, since they lose every race there. A
+    front-packed cloud's are its first ``num_points`` rows; a voxel map's
+    cloud view (``ivm_as_cloud``) keeps them at slot positions, with
+    ``num_points`` their count. No host read."""
+    live = (points[..., 3] > 0.5) & (points[..., 0] < 0.5 * PAD_SENTINEL)
+    num = torch.as_tensor(num_points, device=points.device)[..., None]
+    return live & (torch.cumsum(live, dim=-1) <= num)

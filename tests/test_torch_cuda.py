@@ -21,8 +21,10 @@ brute-force scan it replaced) on every row, K1 in chunks against its plain
 version, its
 split plain account and its first form for each factor × robust kernel,
 at a pose with no live tile, a radius of inf, an empty target and no
-source rows, and in the source's row order. The tests need an NVIDIA card
-and skip without one.
+source rows, and in the source's row order; a target whose live rows stand
+between sentinel rows (KdTree and both align routes, fault C3), and both
+voxel maps, their searches and VGICP against the CPU. The tests need an
+NVIDIA card and skip without one.
 This file imports neither JAX nor the JAX package, so on the card it runs
 without the repository's conftest:
 
@@ -639,12 +641,16 @@ def test_unfused_registration_card_matches_cpu(dev):
     for where in (dev, "cpu"):
         tgt, tree = preprocess_points(scans[0], 0.25, device=where)
         src, _ = preprocess_points(scans[1], 0.25, device=where)
-        before = (nearest_neighbor.launches, gicp_linearize_tables.launches)
+        before = (nearest_neighbor.launches, gicp_linearize_tables.launches,
+                  gicp_lm_step.launches)
         out[where] = result_to_numpy(align_impl(tgt, src, tree, init,
                                                 use_fused="never"))
         if where == dev:
-            assert nearest_neighbor.launches == before[0] + out[dev]["iterations"] + 1
+            n = out[dev]["iterations"] + 1
+            assert nearest_neighbor.launches == before[0] + n
             assert gicp_linearize_tables.launches == before[1]
+            # The float32 unfused route ends each iteration in the step kernel.
+            assert gicp_lm_step.launches == before[2] + n
     a, c = out[dev], out["cpu"]
     dT = np.linalg.inv(c["T_target_source"].astype(np.float64)) @ a["T_target_source"]
     assert np.linalg.norm(dT[:3, 3]) <= 2e-3
@@ -1206,3 +1212,115 @@ def test_align_launches_k1_and_the_step_once_an_iteration(dev):
         assert gicp_linearize_tables.launches - k1 == n
         assert gicp_lm_step.launches - step == n
         assert gicp_error_multi.launches == k2
+
+
+def _agree_T(a, c, iters_a, iters_c):
+    dT = np.linalg.inv(np.asarray(c, np.float64)) @ np.asarray(a, np.float64)
+    assert np.linalg.norm(dT[:3, 3]) <= 2e-3
+    assert np.linalg.norm(dT[[2, 0, 1], [1, 2, 0]]) <= 2 * 0.1 * math.pi / 180.0
+    assert abs(int(iters_a) - int(iters_c)) <= 1
+
+
+def test_live_rows_off_the_front_on_the_card(dev):
+    """Fault C3 on the card: a target whose live rows (w > 0.5) stand between
+    sentinel rows, num_points the live count. K9 and K10 through the
+    KdTree's packed rows give the CPU brute force's rows, and align_impl on
+    both routes the CPU's result."""
+    scans, poses = generate_sequence(n_frames=2, rings=16, azimuth_steps=256)
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    init = T_gt @ se3_exp(torch.tensor([0.01, -0.02, 0.02, 0.1, -0.15, 0.05],
+                                       dtype=torch.float64)).numpy()
+    tgt, _ = preprocess_points(scans[0], 0.25, device="cpu")
+    src, _ = preprocess_points(scans[1], 0.25, device="cpu")
+    rng = np.random.default_rng(5)
+    n = int(tgt.num_points)
+    at = torch.as_tensor(np.sort(rng.choice(2 * tgt.capacity, n, replace=False)))
+    pts = torch.full((2 * tgt.capacity, 4), 1e9)
+    pts[:, 3] = 0.0
+    covs = torch.zeros((2 * tgt.capacity, 3, 3))
+    pts[at], covs[at] = tgt.points[:n], tgt.covs[:n]
+    scattered = tgt.replace(points=pts, covs=covs, normals=None)
+    on_card = scattered.replace(points=pts.to(dev), covs=covs.to(dev),
+                                num_points=tgt.num_points.to(dev))
+    tree, cpu_tree = KdTree.build(on_card), KdTree.build(scattered)
+    q = src.points[:int(src.num_points), :3]
+    d, i = tree.nearest_neighbor_search(q.to(dev))
+    dc, ic = cpu_tree.nearest_neighbor_search(q)
+    assert torch.equal(i.cpu(), ic) and bool(torch.isin(ic, at).all())
+    torch.testing.assert_close(d.cpu(), dc, rtol=1e-5, atol=1e-6)
+    d, i = tree.knn_search(q.to(dev), 10)
+    dc, ic = cpu_tree.knn_search(q, 10)
+    assert torch.equal(i.cpu(), ic) and torch.equal(d.cpu(), dc)
+    # The kernels write rows through the tree's map as their plain versions do.
+    rows, num, order = tree.packed()
+    qd = q.to(dev)
+    for fn, args in ((nearest_neighbor, ("vpu", tree.centre())), (knn, (10,))):
+        d, i = fn(rows, num, qd, *args, rowmap=order)
+        dp, ip = fn(rows.cpu(), num.cpu(), q, *(a.cpu() if torch.is_tensor(a) else a
+                                                for a in args), rowmap=order.cpu())
+        assert torch.equal(i.cpu(), ip) and torch.equal(d.cpu(), dp), fn.__name__
+    src_card = src.replace(points=src.points.to(dev), covs=src.covs.to(dev),
+                           normals=src.normals.to(dev), num_points=src.num_points.to(dev))
+    for mode in ("auto", "never"):
+        a = result_to_numpy(align_impl(on_card, src_card, None, init, use_fused=mode))
+        c = result_to_numpy(align_impl(scattered, src, None, init, use_fused=mode))
+        _agree_T(a["T_target_source"], c["T_target_source"], a["iterations"],
+                 c["iterations"])
+
+
+def test_voxel_maps_on_the_card_match_cpu(dev):
+    """Both maps over three frames at their poses, their searches and VGICP,
+    on the card against the same functions on CPU tensors; VGICP runs the
+    step kernel once an iteration."""
+    from small_gicp_tpu_torch.models.helper import create_gaussian_voxelmap
+    from small_gicp_tpu_torch.models.voxelmap import (
+        GaussianVoxelMap,
+        IncrementalVoxelMapCov,
+    )
+
+    scans, poses = generate_sequence(n_frames=3, rings=16, azimuth_steps=256)
+    frames = [preprocess_points(sc, 0.25, device="cpu")[0] for sc in scans]
+    maps = {"g": (GaussianVoxelMap.empty(1.0, 4096, device=dev),
+                  GaussianVoxelMap.empty(1.0, 4096, device="cpu")),
+            "i": (IncrementalVoxelMapCov(1.0, 4096, voxel_capacity=1024, device=dev),
+                  IncrementalVoxelMapCov(1.0, 4096, voxel_capacity=1024, device="cpu"))}
+    for f, T in zip(frames, poses):
+        fc = f.replace(points=f.points.to(dev), covs=f.covs.to(dev),
+                       normals=f.normals.to(dev), num_points=f.num_points.to(dev))
+        T32 = torch.as_tensor(T, dtype=torch.float32)
+        for key, (m, mc) in maps.items():
+            maps[key] = (m.insert(fc, T32.to(dev)), mc.insert(f, T32))
+    for key, (m, mc) in maps.items():
+        assert torch.equal(m.vox_keys.cpu(), mc.vox_keys)
+        nv = int(mc.num_voxels)
+        assert int(m.num_voxels) == nv
+        assert torch.equal(m.dir_keys.cpu()[:nv], mc.dir_keys[:nv])
+        assert torch.equal(m.dir_vals.cpu()[:nv], mc.dir_vals[:nv])
+        live = mc.vox_keys != torch.iinfo(torch.int64).max
+        if key == "i":
+            assert torch.equal(m.occ.cpu(), mc.occ)
+            live = mc.valid_points_mask()
+        torch.testing.assert_close(m.payload.cpu()[live], mc.payload[live], rtol=1e-6,
+                                   atol=1e-6)
+    q = frames[1].points[:int(frames[1].num_points), :3]
+    gm, gmc = maps["g"]
+    im, imc = maps["i"]
+    for got, want in ((gm.nearest_neighbor_search(q.to(dev)), gmc.nearest_neighbor_search(q)),
+                      (im.knn_search(q.to(dev), 10), imc.knn_search(q, 10))):
+        assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=0)
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    init = T_gt @ se3_exp(torch.tensor([0.01, -0.02, 0.02, 0.1, -0.15, 0.05],
+                                       dtype=torch.float64)).numpy()
+    out = {}
+    for where in (dev, "cpu"):
+        t, _ = preprocess_points(scans[0], 0.25, device=where)
+        s, _ = preprocess_points(scans[1], 0.25, device=where)
+        step, k1 = gicp_lm_step.launches, gicp_linearize_tables.launches
+        out[where] = result_to_numpy(align(create_gaussian_voxelmap(t, 1.0), s,
+                                           init_T_target_source=init))
+        if where == dev:
+            assert gicp_lm_step.launches - step == out[dev]["iterations"] + 1
+            assert gicp_linearize_tables.launches == k1
+    _agree_T(out[dev]["T_target_source"], out["cpu"]["T_target_source"],
+             out[dev]["iterations"], out["cpu"]["iterations"])

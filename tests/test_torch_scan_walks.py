@@ -286,12 +286,12 @@ def test_one_sort_per_cloud(scans, monkeypatch):
 
 def test_one_pair_tables_carry_the_sort(pair):
     tables = _tables(pair, "gicp")
-    kept = pruned_prepare_target(tables.ttab[:, :4], tables.tnum)
+    tgt = cloud_from_numpy(pair["tp"], pair["tn"], covs=pair["tc"], device="cpu")
+    src = cloud_from_numpy(pair["sp"], pair["sn"], covs=pair["sc"], device="cpu")
+    kept = pruned_prepare_target(tgt.points, tables.tnum)
     assert torch.equal(tables.tsorted, kept.tsorted) and torch.equal(tables.tbox,
                                                                      kept.tbox)
     assert tables.sperm.dtype == torch.int32
-    tgt = cloud_from_numpy(pair["tp"], pair["tn"], covs=pair["tc"], device="cpu")
-    src = cloud_from_numpy(pair["sp"], pair["sn"], covs=pair["sc"], device="cpu")
     given = gicp_prepare(tgt.points, tgt.num_points, src.points, src.num_points, "gicp",
                          tgt.covs, src.covs, target=kept)
     assert given.tsorted is kept.tsorted and torch.equal(given.sperm, tables.sperm)

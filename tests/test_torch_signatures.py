@@ -6,7 +6,12 @@ positions and spellings: ``preprocess_points``, ``align``,
 list the same parameters with the same defaults, in the same order, apart
 from the port's own (``optimizer``, ``device``, ``fused_route``), which
 follow as keywords only; the JAX package's ``num_threads``, ``block_q`` and
-``interpret`` are accepted and ignored. Both packages are called positionally and by keyword on a
+``interpret`` are accepted and ignored. The voxel maps' public names
+(``GaussianVoxelMap.empty/build/insert``, ``IncrementalVoxelMap.empty/
+insert/knn_search``, the three ``IncrementalVoxelMap*`` constructors,
+``create_gaussian_voxelmap`` and ``transform_covs``) do the same, with the
+dtype defaults in each package's own type (``jnp.float32`` ↔
+``torch.float32``) and ``device`` keyword-only after them. Both packages are called positionally and by keyword on a
 16-ring × 256-step synthetic scan pair; ``verbose=True`` prints one line
 per iteration in each, with the same fields.
 """
@@ -16,6 +21,7 @@ import inspect
 import math
 import re
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,12 +31,16 @@ from small_gicp_tpu.models import helper as j_helper
 from small_gicp_tpu.models import registration as j_registration
 from small_gicp_tpu.ops import downsampling as j_downsampling
 from small_gicp_tpu.ops import normals as j_normals
+from small_gicp_tpu.models import voxelmap as j_voxelmap
+from small_gicp_tpu import point_cloud as j_point_cloud
 from small_gicp_tpu.parallel import fleet as j_fleet
 import small_gicp_tpu_torch as pt
 from small_gicp_tpu_torch.models import helper as t_helper
 from small_gicp_tpu_torch.models import registration as t_registration
 from small_gicp_tpu_torch.ops import downsampling as t_downsampling
 from small_gicp_tpu_torch.ops import normals as t_normals
+from small_gicp_tpu_torch.models import voxelmap as t_voxelmap
+from small_gicp_tpu_torch import point_cloud as t_point_cloud
 from small_gicp_tpu_torch.parallel import fleet as t_fleet
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
@@ -75,6 +85,41 @@ def test_parameters_mirror_the_jax_package(name):
         assert tp.kind is jp.kind, (name, jp.name)
         if isinstance(jp.default, float):
             assert tp.default == pytest.approx(jp.default, rel=1e-12), (name, jp.name)
+        else:
+            assert tp.default == jp.default, (name, jp.name)
+
+
+VOXEL_NAMES = {
+    "GaussianVoxelMap.empty": j_voxelmap, "GaussianVoxelMap.build": j_voxelmap,
+    "GaussianVoxelMap.insert": j_voxelmap, "IncrementalVoxelMap.empty": j_voxelmap,
+    "IncrementalVoxelMap.insert": j_voxelmap, "IncrementalVoxelMap.knn_search": j_voxelmap,
+    "IncrementalVoxelMapNormal": j_voxelmap, "IncrementalVoxelMapCov": j_voxelmap,
+    "IncrementalVoxelMapNormalCov": j_voxelmap, "create_gaussian_voxelmap": j_helper,
+    "transform_covs": j_point_cloud,
+}
+_T_MODULE = {j_voxelmap: t_voxelmap, j_helper: t_helper, j_point_cloud: t_point_cloud}
+
+
+def _resolve(mod, dotted):
+    obj = mod
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+@pytest.mark.parametrize("name", list(VOXEL_NAMES))
+def test_voxel_map_parameters_mirror_the_jax_package(name):
+    j_mod = VOXEL_NAMES[name]
+    j_params = _params(_resolve(j_mod, name))
+    t_params = _params(_resolve(_T_MODULE[j_mod], name))
+    own = t_params[len(j_params):]
+    assert [p.name for p in own] in ([], ["device"]), name
+    assert all(p.kind is p.KEYWORD_ONLY for p in own), name
+    assert [p.name for p in t_params[:len(j_params)]] == [p.name for p in j_params], name
+    for jp, tp in zip(j_params, t_params):
+        assert tp.kind is jp.kind, (name, jp.name)
+        if jp.name == "dtype":
+            assert jp.default == jnp.float32 and tp.default == torch.float32, name
         else:
             assert tp.default == jp.default, (name, jp.name)
 
