@@ -28,7 +28,11 @@ Phases (any failure exits non-zero):
                 2.5° / 0.2 m of ground truth, with K3 launched once a cloud
                 and K1 and the step kernel once a linearization (the launch
                 counters); K1's wrapper host time with and without its
-                per-call checks; preprocessing per frame pair and
+                per-call checks; the voxelgrid's means with the float64
+                prefix sum along the last dim of the [4,N] transpose within
+                one float32 ulp of its first form's (dim 0 of [N,4]);
+                preprocessing per frame pair (also in turns with that first
+                form, and profiled with it) and
                 registrations/s over noisy initial guesses, each in turns
                 with the same path through K3's, K1's and K2's first forms
                 and the LM iteration's torch body (first_forms_scan); device
@@ -119,7 +123,30 @@ Phases (any failure exits non-zero):
                 inserted last. Every insert and search is held against the
                 same port functions on CPU tensors: keys, slots, occupancy,
                 stamps, counts and rows equal, payload rows and d² within 1e-6
-                relative.
+                relative;
+ 10. odometry — the 17 frames at OdometryParams() (131,072 raw and 32,768
+                downsampled rows, a map of 131,072 rows, k = 20, 0.25 m,
+                1.0 m voxels and rejector; the voxel-search model engines
+                with num_offsets=7): JitOdometry("gicp_model_fused",
+                chunk_frames=8) from preload / feed_preloaded (7 padded
+                frames in the last chunk) with the counts at 0 — K3 once a
+                frame, K1 and the step kernel once an LM iteration, no
+                other kernel —, chunk wall times, one chunk and frame 16
+                profiled (launches, copies, memsets, host syncs: as many as
+                LM iterations, the stop-flag reads; busy share),
+                preprocessing's share of a frame; every other chunked engine
+                (K1 on the fused route and the step kernel once an LM
+                iteration, K3 once a frame but for icp_scan; frame 16's host
+                syncs by torch's sync debug mode) and every
+                streaming engine (create_odometry(...).estimate, report());
+                each GICP, VGICP and point-to-plane trajectory within 2.5° /
+                0.2 m a frame and an APE under 0.2 m, point-to-point ICP
+                printed unbounded, small_gicp_projective raising
+                NotImplementedError; gicp_model_fused and small_gicp_model on
+                the card against the plain CPU path on a 4-frame 16 × 256
+                sequence (poses within 1e-3, equal voxel counts); the
+                odometry_benchmark CLI in its own process on the 17 frames
+                written as KITTI .bin scans (exit 0, 17 trajectory lines).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -141,12 +168,14 @@ import torch
 from small_gicp_tpu_torch import _build
 from small_gicp_tpu_torch.apps import kdtree_benchmark
 from small_gicp_tpu_torch.interop import result_to_numpy
-from small_gicp_tpu_torch.models import registration, voxelmap
+from small_gicp_tpu_torch.models import odometry_scan, registration, voxelmap
 from small_gicp_tpu_torch.models.helper import (
     align,
     create_gaussian_voxelmap,
     preprocess_points,
 )
+from small_gicp_tpu_torch.models.odometry import ENGINES, OdometryParams, create_odometry
+from small_gicp_tpu_torch.models.odometry_scan import JitOdometry
 from small_gicp_tpu_torch.models.voxelmap import (
     GaussianVoxelMap,
     IncrementalVoxelMapCov,
@@ -166,6 +195,7 @@ from small_gicp_tpu_torch.ops.cov_fused_cuda import (
     knn_topk_idx,
     knn_topk_idx_plain,
 )
+from small_gicp_tpu_torch.ops import downsampling
 from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
@@ -231,7 +261,9 @@ from small_gicp_tpu_torch.ops.normals import (
 )
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
+from small_gicp_tpu_torch.utils.io import write_kitti_bin
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
+from small_gicp_tpu_torch.utils.metrics import ape_translation
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
@@ -518,6 +550,18 @@ def host_enqueue_turns(fns: dict, reps: int = REPS) -> dict:
             times[name].append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return {name: float(np.median(v)) for name, v in times.items()}
+
+
+@contextlib.contextmanager
+def prefix_sum_v1():
+    """Take the voxelgrid's run sums through their first form (the float64
+    prefix sum along dim 0 of the sorted [N,4] rows) inside the block."""
+    saved = downsampling._run_sums
+    downsampling._run_sums = downsampling._run_sums_v1
+    try:
+        yield
+    finally:
+        downsampling._run_sums = saved
 
 
 def within(fn):
@@ -897,11 +941,34 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
     (t_old, _), (s_old, _) = within(preprocess_pair)()
     check(torch.equal(t_new.covs, t_old.covs) and torch.equal(s_new.covs, s_old.covs),
           "the covariances through K3's first form differ")
-    pre = host_turns({"new": preprocess_pair, "first forms": within(preprocess_pair)},
-                     reps=5)
+    # The voxelgrid's run sums (B-k): the prefix sum along the last dim of
+    # the [4,N] transpose against its first form along dim 0 of [N,4].
+    def old_prefix_sum(fn):
+        def run():
+            with prefix_sum_v1():
+                return fn()
+        return run
+
+    ulps = []
+    for sc in scans[:2]:
+        cloud = PointCloud.from_points(sc, device=dev)
+        new = voxelgrid_sampling(cloud, LEAF)
+        old = old_prefix_sum(lambda: voxelgrid_sampling(cloud, LEAF))()
+        nv = int(new.num_points)
+        check(nv == int(old.num_points), "the voxel counts of the two prefix sums differ")
+        a, b = new.points[:nv, :3], old.points[:nv, :3]
+        ulp = torch.nextafter(b.abs(), torch.full_like(b, math.inf)) - b.abs()
+        ulps.append(float(((a - b).abs() / ulp).max()))
+        check(ulps[-1] <= 1.0, f"voxel means {ulps[-1]:.1f} float32 ulps from the first "
+              "form's prefix sum")
+    pre = host_turns({"new": preprocess_pair, "first forms": within(preprocess_pair),
+                      "prefix sum's first form": old_prefix_sum(preprocess_pair)}, reps=5)
+    old_ms = pre["prefix sum's first form"]
     print(f"preprocess_points of a frame pair (host clock around a synchronize, median "
           f"of 5 in turns): {pre['new']:.3f} ms, through K3's first form "
-          f"{pre['first forms']:.3f} ms on {card}")
+          f"{pre['first forms']:.3f} ms, through the voxelgrid prefix sum's first form "
+          f"{old_ms:.3f} ms; voxel means within {max(ulps):.1f} float32 ulp of that "
+          f"form's on {card}")
 
     # K1's wrapper on the host (enqueue time, no synchronize): as before this
     # slice (the tables' checks and chunk plan made and new outputs allocated
@@ -1013,7 +1080,8 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
             per_it = (loop["launches"] + loop["copies"] + loop["memsets"]) / its
             check(per_it <= 4.0, f"{per_it:.2f} device operations per LM iteration (> 4)")
     # One frame pair's preprocessing, profiled each way.
-    for label, fn in (("new", preprocess_pair), ("first forms", within(preprocess_pair))):
+    for label, fn in (("new", preprocess_pair), ("first forms", within(preprocess_pair)),
+                      ("prefix sum's first form", old_prefix_sum(preprocess_pair))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1025,10 +1093,11 @@ def phase_e2e(scans, T_gt, rng, dev, card, records):
         busy_us = sum(e.self_device_time_total for e in events)
         k3_us = sum(e.self_device_time_total for e in events
                     if "knn_moments_kernel" in e.key)
+        scan_us = sum(e.self_device_time_total for e in events if "scan" in e.key)
         print(f"profiled preprocessing of a frame pair, {label}: device busy "
               f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-              f"({100 * busy_us / wall_us:.1f}% busy), K3 {k3_us / 1e3:.3f} ms of it; "
-              "top device time:")
+              f"({100 * busy_us / wall_us:.1f}% busy), K3 {k3_us / 1e3:.3f} ms of it, "
+              f"scan kernels (the prefix sums) {scan_us / 1e3:.3f} ms; top device time:")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
                   f"{e.key[:90]}")
@@ -2760,11 +2829,261 @@ def phase_voxel(scans, poses, rng, dev, card):
               f"payload rows within {rel[name]:.1e} of the plain account on {card}")
 
 
+# ------------------------------------------------------------ phase 10 ----
+
+ODOM_ENGINES = ("gicp_model_fused", "gicp_model", "vgicp_model", "vgicp_model_fused",
+                "plane_icp_model", "plane_icp_model_fused", "gicp_scan", "plane_icp_scan",
+                "icp_scan")
+# The voxel-search model engines take the 7-voxel pattern: at 1.2 m a frame
+# the one-voxel basin is narrower than the motion.
+OFFSETS7_ENGINES = ("gicp_model", "vgicp_model", "plane_icp_model", "small_gicp_model",
+                    "small_vgicp_model", "small_plane_icp_model")
+# Point-to-point ICP misses 0.2 m at this motion in both packages: printed,
+# not bounded.
+POINT_ICP_ENGINES = ("icp_scan", "small_icp")
+ODOM_CHUNK = 8
+
+
+def odometry_params(engine: str, **kw) -> OdometryParams:
+    return OdometryParams(num_offsets=7 if engine in OFFSETS7_ENGINES else 1, **kw)
+
+
+@contextlib.contextmanager
+def recorded_aligns():
+    """The result of every ``align_impl`` the chunked odometry makes inside
+    the block, in order (read them after it: a read waits for the card)."""
+    results = []
+    real = odometry_scan.align_impl
+
+    def rec(*args, **kwargs):
+        results.append(real(*args, **kwargs))
+        return results[-1]
+
+    odometry_scan.align_impl = rec
+    try:
+        yield results
+    finally:
+        odometry_scan.align_impl = real
+
+
+def counted_syncs(fn):
+    """(``fn()``, the host syncs it made): torch's sync debug mode warns once
+    for each operation that waits for the card."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def trajectory_errors(est: np.ndarray, poses: np.ndarray):
+    """(largest rotation error of a consecutive relative pose in degrees, the
+    same in metres, APE mean in metres) of [F,4,4] poses against world
+    poses taken relative to the first frame."""
+    gt = np.linalg.inv(poses[0])[None] @ poses
+    est = est.astype(np.float64)
+    rel_est = np.linalg.inv(est[:-1]) @ est[1:]
+    rel_gt = np.linalg.inv(gt[:-1]) @ gt[1:]
+    rot, trans = pose_errors(rel_est, rel_gt)
+    return float(rot.max()), float(trans.max()), ape_translation(est, gt)[0]
+
+
+def judged(engine: str, est: np.ndarray, poses: np.ndarray) -> str:
+    """The errors of a trajectory, checked against the bounds (2.5° / 0.2 m a
+    frame, APE 0.2 m) unless the engine is point-to-point ICP."""
+    rot, trans, ape = trajectory_errors(est, poses)
+    free = engine in POINT_ICP_ENGINES
+    check(np.isfinite(est).all(), f"{engine}: non-finite poses")
+    if not free:
+        check(rot < 2.5 and trans < 0.2 and ape < 0.2,
+              f"{engine}: relative pose error {rot:.4f} deg / {trans:.4f} m or APE "
+              f"{ape:.4f} m beyond 2.5 deg / 0.2 m / 0.2 m")
+    return (f"worst relative pose {rot:.4f} deg / {trans:.4f} m, APE {ape:.4f} m"
+            + (" (point-to-point ICP: no bound)" if free else " (bounds 2.5 deg / 0.2 m / "
+               "0.2 m)"))
+
+
+def phase_odometry(scans, poses, rng, dev, card):
+    """Phase 10: the chunked engines over the 17 frames (gicp_model_fused
+    first, from preload / feed_preloaded), every streaming engine, the card
+    against the plain CPU path on a small sequence, and the CLI."""
+    print("== phase 10: odometry", flush=True)
+    t_phase = time.perf_counter()
+    n = len(scans)
+    probe = JitOdometry(OdometryParams(), "gicp_model_fused", chunk_frames=ODOM_CHUNK,
+                        device=dev)
+    fd, cd = probe.preload(scans)
+    f_pad = fd.shape[0]
+
+    def run_jit(engine):
+        """The 17 frames in three feeds of a chunk each; (poses, the
+        engine, its carries after chunks 0 and 1, iterations a frame)."""
+        odo = JitOdometry(odometry_params(engine), engine, chunk_frames=ODOM_CHUNK,
+                          device=dev)
+        carries = []
+        with recorded_aligns() as results:
+            for start in range(0, f_pad, ODOM_CHUNK):
+                carries.append(odo.carry)
+                odo.feed_preloaded(fd[start:start + ODOM_CHUNK], cd[start:start + ODOM_CHUNK],
+                                   n_real=min(ODOM_CHUNK, n - start))
+        return (np.stack(odo.poses), odo, carries,
+                [int(r.iterations) + 1 for r in results])
+
+    # gicp_model_fused with the counts at 0: K3 once a frame (padded frames
+    # too: their launch finds no row), K1 and the step once an iteration.
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+    est, odo, carries, its = run_jit("gicp_model_fused")
+    launches = {name: fn.launches for name, (_, _, _, fn) in KERNELS.items()}
+    print(f"gicp_model_fused over {n} frames ({f_pad - n} padded) in chunks of {ODOM_CHUNK}: "
+          f"{judged('gicp_model_fused', est, poses)}; LM iterations a frame {its}; "
+          f"launches {launches}")
+    check(len(its) == f_pad, f"{len(its)} aligns for {f_pad} frames")
+    check(launches["knn_moments"] == f_pad, f"K3 launched {launches['knn_moments']} times "
+          f"for {f_pad} frames")
+    check(launches["gicp_linearize"] == sum(its) and launches["gicp_lm_step"] == sum(its),
+          f"K1 {launches['gicp_linearize']} and step {launches['gicp_lm_step']} launches "
+          f"in {sum(its)} LM iterations")
+    check(all(v == 0 for k, v in launches.items() if k not in MAIN_KERNELS),
+          "a kernel off the odometry path was launched")
+    ct = odo.chunk_times_ms
+    print(f"chunk wall times {[round(t, 3) for t in ct]} ms (device synchronize at each "
+          f"chunk's end): steady state {np.mean(ct[1:]) / ODOM_CHUNK:.3f} ms a frame over "
+          f"the chunks after the first (the JAX CLI's figure, padded frames included), "
+          f"{ct[1] / ODOM_CHUNK:.3f} ms a frame in chunk 1 (frames 8-15) on {card}")
+
+    # One chunk profiled (frames 8-15 from the carry after chunk 0), and one
+    # frame (16, from the carry after chunk 1).
+    def chunk1():
+        odo.carry = carries[1]
+        return odo._run_chunk(fd[ODOM_CHUNK:2 * ODOM_CHUNK], cd[ODOM_CHUNK:2 * ODOM_CHUNK])
+
+    _, api, busy, wall, events = profiled(chunk1)
+    print(f"profiled chunk 1 of gicp_model_fused: device busy {busy:.3f} ms of {wall:.3f} "
+          f"ms wall ({100 * busy / wall:.1f}% busy); per frame {api['launches'] / 8:.1f} "
+          f"kernel launches, {api['copies'] / 8:.2f} copies, {api['memsets'] / 8:.2f} "
+          f"memsets, {api['syncs'] / 8:.2f} host syncs on {card}; top device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+    def frame16(o, carry):
+        def run():
+            o.carry = carry
+            return o._run_chunk(fd[2 * ODOM_CHUNK:2 * ODOM_CHUNK + 1],
+                                cd[2 * ODOM_CHUNK:2 * ODOM_CHUNK + 1])
+        return run
+
+    p = odo.params
+    with recorded_aligns() as results:
+        _, api, busy, wall, _ = profiled(frame16(odo, carries[2]))
+    its16 = int(results[-1].iterations) + 1
+    print(f"profiled frame 16 of gicp_model_fused: {api['launches']} kernel launches, "
+          f"{api['copies']} copies, {api['memsets']} memsets, {api['syncs']} host syncs "
+          f"in {its16} LM iterations; device busy {busy:.3f} ms of {wall:.3f} ms wall on "
+          f"{card}")
+    check(api["syncs"] == its16, f"frame 16 made {api['syncs']} host syncs in {its16} LM "
+          "iterations (only the stop-flag reads may wait)")
+
+    def prep():
+        return odometry_scan._frame_cloud(fd[16], cd[16], p.downsampling_resolution,
+                                          p.max_downsampled, p.num_neighbors, "gicp")
+
+    ms = host_turns({"frame": frame16(odo, carries[2]), "preprocessing": prep}, reps=5)
+    print(f"frame 16: {ms['frame']:.3f} ms a step, of which preprocessing (voxelgrid + "
+          f"K3 covariances) {ms['preprocessing']:.3f} ms = "
+          f"{100 * ms['preprocessing'] / ms['frame']:.1f}% (host clock around a "
+          f"synchronize, median of 5 in turns) on {card}")
+
+    # Every other chunked engine: bounds, launches, and frame 16's host syncs.
+    # K1 runs on the fused route (the "_fused" and scan-to-scan engines), the
+    # step kernel on every route, K3 wherever covariances or normals are made.
+    for engine in ODOM_ENGINES[1:]:
+        for _, _, _, fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        est, o, carries_e, its = run_jit(engine)
+        took = time.perf_counter() - t0
+        k1, step = gicp_linearize_tables.launches, gicp_lm_step.launches
+        k3 = knn_moments_rows.launches
+        fused = engine.endswith("_fused") or engine.endswith("_scan")
+        check(step == sum(its) and k1 == (sum(its) if fused else 0)
+              and k3 == (0 if engine == "icp_scan" else f_pad),
+              f"{engine}: K1 {k1}, step {step}, K3 {k3} launches for {f_pad} frames of "
+              f"{sum(its)} LM iterations")
+        with recorded_aligns() as results:
+            _, syncs = counted_syncs(frame16(o, carries_e[2]))
+        i16 = int(results[-1].iterations) + 1
+        print(f"{engine}: {judged(engine, est, poses)}; {took * 1e3 / n:.3f} ms a frame "
+              f"with the first chunk's (chunks {[round(t, 1) for t in o.chunk_times_ms]} "
+              f"ms); launches K3 {k3}, K1 {k1}, step {step} in {sum(its)} LM iterations; "
+              f"frame 16 {syncs} host syncs in {i16} LM iterations on {card}")
+        check(syncs == i16, f"{engine}: frame 16 made {syncs} host syncs in {i16} LM "
+              "iterations")
+
+    # The streaming engines, as create_odometry builds them.
+    for engine in sorted(ENGINES):
+        if engine == "small_gicp_projective":
+            try:
+                create_odometry(engine, odometry_params(engine), device=dev)
+            except NotImplementedError as e:
+                print(f"{engine}: NotImplementedError ({e})")
+                continue
+            check(False, "small_gicp_projective did not raise NotImplementedError")
+        o = create_odometry(engine, odometry_params(engine), device=dev)
+        est = o.estimate(scans)
+        print(f"{engine}: {judged(engine, est, poses)}; {o.report()} on {card}")
+
+    # The card against the plain CPU path on a small sequence.
+    small, small_poses = generate_sequence(n_frames=4, rings=16, azimuth_steps=256)
+    sp = OdometryParams(max_scan_points=4096, max_downsampled=4096, map_capacity=16384)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        j = JitOdometry(sp, "gicp_model_fused", chunk_frames=4, device=where)
+        s = create_odometry("small_gicp_model", sp, device=where)
+        out[where.type] = (j.feed(small), int(j.carry[2].num_voxels), s.estimate(small),
+                           int(s.voxelmap.num_voxels))
+    a, c = out[dev.type], out["cpu"]
+    d_jit, d_s = np.abs(a[0] - c[0]).max(), np.abs(a[2] - c[2]).max()
+    print(f"small sequence, card against the CPU path: gicp_model_fused poses within "
+          f"{d_jit:.2e} ({a[1]} / {c[1]} voxels), small_gicp_model within {d_s:.2e} "
+          f"({a[3]} / {c[3]} voxels)")
+    check(d_jit <= 1e-3 and d_s <= 1e-3 and a[1] == c[1] and a[3] == c[3],
+          "the card and the CPU path disagree on the small sequence")
+
+    # The CLI in its own process, on the 17 frames written as KITTI scans.
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, sc in enumerate(scans):
+            write_kitti_bin(f"{tmp}/{i:06d}.bin", sc)
+        traj = f"{tmp}/traj.txt"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "small_gicp_tpu_torch.apps."
+                              "odometry_benchmark", tmp, traj, "--engine",
+                              "gicp_model_fused"], capture_output=True, text=True)
+        took = time.perf_counter() - t0
+        lines = open(traj).read().splitlines() if run.returncode == 0 else []
+    print("CLI: " + " | ".join(run.stdout.strip().splitlines()[-3:])
+          + f" ({took:.1f} s in its own process, exit {run.returncode})")
+    check(run.returncode == 0 and len(lines) == n,
+          f"the CLI exited {run.returncode} with {len(lines)} trajectory lines: "
+          f"{run.stderr[-2000:]}")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     print("== phase 1: device", flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2814,6 +3133,10 @@ def main() -> None:
     records.update(map_records)
     launches.update(map_launches)
     phase_voxel(scans, poses, rng, dev, card)
+    t_nine = time.perf_counter() - t_start
+    phase_odometry(scans, poses, rng, dev, card)
+    print(f"phases 1-9 took {t_nine:.1f} s, phase 10 "
+          f"{time.perf_counter() - t_start - t_nine:.1f} s")
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

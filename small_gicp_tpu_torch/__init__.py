@@ -12,7 +12,9 @@ the warp-per-query and the Morton-pruned forms of the same search.
 ``GaussianVoxelMap`` (VGICP's target: ``align(..., registration_type=
 "vgicp")``) and ``IncrementalVoxelMap`` (scan-to-model) are slot-table
 voxel maps in torch ops; registration against either runs the LM step
-kernel once an iteration.
+kernel once an iteration. ``models.odometry`` (streaming engines,
+``create_odometry``) and ``models.odometry_scan`` (``JitOdometry``) run LiDAR
+odometry on those maps and the kernels above.
 ``read_ply`` and ``read_kitti_bin`` load scans. Entry points run on the card unless given ``device="cpu"``,
 where every kernel runs its plain PyTorch version.
 """

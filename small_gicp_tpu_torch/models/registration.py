@@ -47,8 +47,8 @@ whose pose K1 reads in place; each iteration is K1 (or the unfused
 search), the step, and one host read of the stop flag (with ``verbose``,
 the printed values ride in the same read). The result's tensors are views
 of that record.
-Parameters sit in the JAX package's positions; ``fused_route`` follows them
-as a keyword only.
+Parameters sit in the JAX package's positions; ``fused_route`` and
+``source_rows`` follow them as keywords only.
 """
 
 from __future__ import annotations
@@ -158,7 +158,8 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                dof_mask=None, dof_lambda: float = 1e9, verbose: bool = False,
                use_fused: str = "auto", psum_axis: Optional[str] = None,
                solve_dtype: str = "same", *,
-               fused_route: Optional[str] = None) -> RegistrationResult:
+               fused_route: Optional[str] = None,
+               source_rows: Optional[int] = None) -> RegistrationResult:
     """Register ``source`` to ``target`` (a PointCloud, a ``GaussianVoxelMap``
     — VGICP with the GICP factor — or an ``IncrementalVoxelMap``), all on
     one device.
@@ -171,7 +172,9 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
     point-sharded mode) is not ported. ``fused_route``: "listed" or "swept"
     forces the fused search's route; None chooses by the target's size.
     ``max_inner_iterations``: any K ≥ 0, at most 99 where the step kernel
-    runs (float32 clouds on the card).
+    runs (float32 clouds on the card). ``source_rows``: a host bound on the
+    source's valid rows for the fused route's chunk plan (``gicp_prepare``);
+    None reads the count from the card once.
     """
     if psum_axis is not None:
         raise NotImplementedError(
@@ -221,7 +224,7 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
             target_covs=target.covs if registration_type == GICP else None,
             source_covs=source.covs if registration_type == GICP else None,
             target_normals=target.normals if registration_type == PLANE_ICP else None,
-            route=route, target=kept,
+            route=route, target=kept, source_rows=source_rows,
         )
         out = linearize_buffers(tables)
 

@@ -51,6 +51,7 @@ import torch
 from small_gicp_tpu_torch.point_cloud import (
     PAD_SENTINEL,
     PointCloud,
+    pad_row,
     resolve_device,
     transform_covs,
 )
@@ -376,8 +377,7 @@ def voxelmap_as_cloud(vm: GaussianVoxelMap) -> PointCloud:
     passes the voxel map as the target cloud too). Free slots hold the
     padding sentinel; the live rows stay at their slots and number
     ``num_voxels``."""
-    pad = torch.tensor([PAD_SENTINEL, PAD_SENTINEL, PAD_SENTINEL, 0.0],
-                       dtype=vm.payload.dtype, device=vm.device)
+    pad = pad_row(vm.payload.dtype, vm.device)
     pts = torch.where(vm.valid_mask()[:, None], vm.means, pad)
     return PointCloud(points=pts, num_points=vm.num_voxels, covs=vm.covs)
 
@@ -386,8 +386,7 @@ def ivm_as_cloud(vm: "IncrementalVoxelMap") -> PointCloud:
     """An incremental map's stored points (and normals, covariances) as a
     point cloud: rows at their slot positions, dead rows at the padding
     sentinel, ``num_points`` the live count."""
-    pad = torch.tensor([PAD_SENTINEL, PAD_SENTINEL, PAD_SENTINEL, 0.0],
-                       dtype=vm.payload.dtype, device=vm.device)
+    pad = pad_row(vm.payload.dtype, vm.device)
     pts = torch.where(vm.valid_points_mask()[:, None], vm.points_flat(), pad)
     return PointCloud(points=pts, num_points=vm.num_points_stored,
                       normals=vm.normals_flat(), covs=vm.covs_flat())

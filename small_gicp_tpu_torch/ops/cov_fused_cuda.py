@@ -130,25 +130,28 @@ def knn_moments_rows_plain(points: torch.Tensor, num_points: torch.Tensor,
     for clouds whose N² distances are out of reach."""
     n = points.shape[0]
     dev, dt = points.device, points.dtype
-    xyz = points[:, :3]
-    cols = torch.arange(n, device=dev)
-    rows = cols if rows is None else rows
-    out = torch.zeros((len(rows), 16), dtype=dt, device=dev)
+    out = torch.zeros((n if rows is None else len(rows), 16), dtype=dt, device=dev)
+    # Only the valid rows (the first num_points) are candidates, and only
+    # they get moments: a padding column would sort after them all and only
+    # fill slots that count for nothing.
+    m = min(int(num_points), n)
+    if m == 0:
+        return out
+    rows = torch.arange(m, device=dev) if rows is None else rows
+    xyz = points[:m, :3]
     for s in range(0, len(rows), QUERY_BLOCK):
         ids = rows[s:s + QUERY_BLOCK]
-        q = xyz[ids]
-        dx = xyz[None, :, 0] - q[:, None, 0]  # p − q, [B, N]
+        q = points[ids, :3]
+        dx = xyz[None, :, 0] - q[:, None, 0]  # p − q, [B, m]
         dy = xyz[None, :, 1] - q[:, None, 1]
         dz = xyz[None, :, 2] - q[:, None, 2]
         d2 = dx * dx + dy * dy + dz * dz
-        d2 = torch.where(cols[None, :] < num_points, d2, _BIG)
-        if n < k:
-            d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - n), _BIG)], dim=1)
+        if m < k:
+            d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - m), _BIG)], dim=1)
         d_sorted, idx = torch.sort(d2, dim=1, stable=True)
-        d_k, idx = d_sorted[:, :k], torch.clamp(idx[:, :k], max=n - 1)
+        d_k, idx = d_sorted[:, :k], torch.clamp(idx[:, :k], max=m - 1)
         moments = _moment_rows(*(torch.gather(a, 1, idx) for a in (dx, dy, dz)), d_k)
-        out[s:s + QUERY_BLOCK, :11] = torch.where((ids < num_points)[:, None],
-                                                  moments, 0.0)
+        out[s:s + len(ids), :11] = torch.where((ids < m)[:, None], moments, 0.0)
     return out
 
 
@@ -444,5 +447,7 @@ def knn_moments(points: torch.Tensor, num_points: torch.Tensor, k: int,
                                                             target=target))
     rows = knn_moments_rows(points, num_points, k, layout, target=target)
     m1 = rows[:, 0:3]
-    m2 = rows[:, [3, 4, 5, 4, 6, 7, 5, 7, 8]].reshape(-1, 3, 3)
+    # Column views stacked (an index list would be copied to the card).
+    m2 = torch.stack([rows[:, c] for c in (3, 4, 5, 4, 6, 7, 5, 7, 8)],
+                     dim=1).reshape(-1, 3, 3)
     return m1, m2, rows[:, 9]

@@ -116,8 +116,8 @@ class GicpTables:
     tsorted: Optional[torch.Tensor] = None  # [M,4] Morton-sorted x y z | row
     tbox: Optional[torch.Tensor] = None  # [ceil(M/256), 8] lo 3, 0, hi 3, 0
     sperm: Optional[torch.Tensor] = None  # [N] int32, sorted position → source row
-    # Host copy of qnum, read by the first launch of K1 or K6 for its chunk
-    # plan: once per tables.
+    # Host copy of qnum (or a bound on it), read by the first launch of K1 or
+    # K6 for its chunk plan: once per tables, unless gicp_prepare was given it.
     qnum_host: Optional[int] = None
     # ‖t‖² of the sorted target rows, padded to whole tiles: the score
     # form's table, gathered at its first launch (score_norms).
@@ -154,7 +154,8 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
                  source_covs: Optional[torch.Tensor] = None,
                  target_normals: Optional[torch.Tensor] = None,
                  route: Optional[str] = None,
-                 target: Optional[PrunedTarget] = None) -> GicpTables:
+                 target: Optional[PrunedTarget] = None,
+                 source_rows: Optional[int] = None) -> GicpTables:
     """Build the tables of one registration, once before the optimizer's
     loop. ``route``: ``"listed"``, ``"swept"`` or None for ``auto_route``.
     The tables keep the clouds' row order; those of one pair (either route;
@@ -165,7 +166,9 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
     target's first ``target_num`` live rows wherever they stand
     (``point_cloud.live_rows``). Leading dimensions of the clouds carry
     over to the tables (listed route only, without the sort:
-    ``gicp_fleet_prepare`` adds each pair's)."""
+    ``gicp_fleet_prepare`` adds each pair's). ``source_rows``: a host
+    bound on the source's valid rows, which the chunk plans of K1 and K6 then
+    take instead of reading the count from the card (``qnum_host``)."""
     if factor not in FACTORS:
         raise ValueError(f"unknown fused factor {factor!r}")
     if route is None:
@@ -193,7 +196,8 @@ def gicp_prepare(target_points: torch.Tensor, target_num: torch.Tensor,
     if factor == "gicp":
         qtab[..., 4:13] = source_covs.flatten(-2)
     tables = GicpTables(ttab=ttab, tnum=target_num.to(torch.int32), qtab=qtab,
-                        qnum=source_num.to(torch.int32), factor=factor, route=route)
+                        qnum=source_num.to(torch.int32), factor=factor, route=route,
+                        qnum_host=source_rows)
     if route == "swept" or (target_points.dim() == 2 and dt == torch.float32):
         _add_sort(tables, target_points, source_points, target)
         if qtab.device.type == "cuda" and dt == torch.float32:
@@ -411,23 +415,31 @@ def _linearize_plain_lanes(ttab, tnum, qtab, qnum, pose, max_dist_sq, robust,
     if m > 0:
         if trows is None:
             trows = torch.arange(m, device=dev) < tnum[:, None]
-        tcol = trows[:, None, :]
+        # Only the columns some lane searches, in row order (the first
+        # minimum stays the first), and only the rows below the largest
+        # count: a row without a searched column or past its lane's count
+        # has no winner either way.
+        cols = trows.any(0).nonzero()[:, 0]
+        n_rows = min(n, int(qnum.max())) if bsz > 0 else 0
+        tcol = trows[:, None, cols]
         step = max(1, QUERY_BLOCK // max(bsz, 1))
-        txyz = ttab[..., :3]
-        for s in range(0, n, step):
+        tsel = ttab[:, cols]
+        txyz = tsel[..., :3]
+        for s in range(0, n_rows if cols.numel() else 0, step):
             qs = q[:, s:s + step]
             if score:
                 dot = (qs[..., None, 0] * txyz[:, None, :, 0]
                        + qs[..., None, 1] * txyz[:, None, :, 1]
                        + qs[..., None, 2] * txyz[:, None, :, 2])
-                d2 = ttab[:, None, :, 13] - 2.0 * dot
+                d2 = tsel[:, None, :, 13] - 2.0 * dot
                 d2 = torch.where(tcol & (d2 < _BIG), d2, _BIG)
             else:
                 d2 = torch.where(tcol, sq_dists(qs, txyz), _BIG)
             # first minimum on ties
-            best_d[:, s:s + step], best[:, s:s + step] = torch.min(d2, dim=-1)
+            best_d[:, s:s + step], sel = torch.min(d2, dim=-1)
+            best[:, s:s + step] = cols[sel]
         if score:
-            mu = torch.gather(txyz, 1, best[..., None].expand(-1, -1, 3))
+            mu = torch.gather(ttab[..., :3], 1, best[..., None].expand(-1, -1, 3))
             diff = q - mu
             exact = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
                      + diff[..., 2] * diff[..., 2])

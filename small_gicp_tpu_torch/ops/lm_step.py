@@ -161,13 +161,19 @@ def lm_state(init_T, optimizer: str = "lm", max_inner_iterations: int = 10,
     host = torch.zeros((size + 8 * len(params)) // 8, dtype=torch.float64)
     raw = host.view(torch.uint8)
     v = _views(raw, dtype, trials)
-    v["T"].copy_(torch.as_tensor(init_T, dtype=dtype).reshape(4, 4).cpu())
+    # A pose already on the card is copied there, after the record: reading
+    # it back to the host would wait for the card.
+    on_card = isinstance(init_T, torch.Tensor) and init_T.device.type != "cpu"
+    if not on_card:
+        v["T"].copy_(torch.as_tensor(init_T, dtype=dtype).reshape(4, 4))
     v["lam"].fill_(init_lambda)
     v["params"].copy_(torch.tensor(params, dtype=torch.float64))
     if torch.device(device if device is not None else "cpu").type == "cuda":
         raw = host.pin_memory().to(device, non_blocking=True).view(torch.uint8)
-    return LmState(raw=raw, optimizer=optimizer, num_trials=trials,
-                   **_views(raw, dtype, trials))
+    views = _views(raw, dtype, trials)
+    if on_card:
+        views["T"].copy_(init_T.reshape(4, 4))
+    return LmState(raw=raw, optimizer=optimizer, num_trials=trials, **views)
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:

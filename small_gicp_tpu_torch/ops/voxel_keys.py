@@ -48,9 +48,12 @@ def voxel_keys(points_xyz: torch.Tensor, leaf_size) -> torch.Tensor:
     exactly as the reference does; dividing by leaf instead moves points
     that sit on a voxel boundary.
     """
-    dt = points_xyz.dtype
-    leaf = torch.as_tensor(leaf_size, dtype=dt, device=points_xyz.device)
-    inv_leaf = torch.ones((), dtype=dt, device=points_xyz.device) / leaf
+    dt, dev = points_xyz.dtype, points_xyz.device
+    # A tensor leaf moves to the points; a number is filled in on the device
+    # (a copy of a host value would wait for the card).
+    leaf = (leaf_size.to(device=dev, dtype=dt) if isinstance(leaf_size, torch.Tensor)
+            else torch.full((), leaf_size, dtype=dt, device=dev))
+    inv_leaf = torch.ones((), dtype=dt, device=dev) / leaf
     return pack_coords(voxel_coords(points_xyz, inv_leaf))
 
 

@@ -28,6 +28,12 @@ import torch
 PAD_SENTINEL = 1.0e9
 
 
+def pad_row(dtype, device) -> torch.Tensor:
+    """[4] the padding row (sentinel x y z, w = 0), made on ``device`` by a
+    kernel: a copy of a host constant would wait for the card."""
+    return torch.where(torch.arange(4, device=device) < 3, PAD_SENTINEL, 0.0).to(dtype)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. Asking for CUDA where there is none raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -172,3 +178,40 @@ def live_rows(points: torch.Tensor, num_points) -> torch.Tensor:
     live = (points[..., 3] > 0.5) & (points[..., 0] < 0.5 * PAD_SENTINEL)
     num = torch.as_tensor(num_points, device=points.device)[..., None]
     return live & (torch.cumsum(live, dim=-1) <= num)
+
+
+def compact_cloud(cloud: PointCloud, rows: int) -> PointCloud:
+    """The cloud's live rows (w > 0.5) packed in order into a cloud of
+    ``rows`` rows, normals and covariances carried; live rows beyond the
+    first ``rows`` are dropped, and ``num_points`` is min(live, rows). A
+    voxel map's cloud view (``ivm_as_cloud``, ``voxelmap_as_cloud``) keeps
+    its live rows at slot positions: this shrinks it before a fused
+    prepare. Liveness is the JAX package's rule, not ``live_rows``; the two
+    agree on the maps' views, whose dead rows have w = 0. One scatter into
+    a spare row past the end, no host read."""
+    p = cloud.points
+    cap = p.shape[0]
+    live = p[:, 3] > 0.5
+    li = live.to(torch.int64)
+    rank = torch.cumsum(li, 0) - li
+    dst = torch.where(live & (rank < rows), rank, rows)
+
+    cols = [p]
+    if cloud.normals is not None:
+        cols.append(cloud.normals)
+    if cloud.covs is not None:
+        cols.append(cloud.covs.reshape(cap, 9))
+    fused = torch.cat(cols, dim=1)
+    out = fused.new_zeros((rows + 1, fused.shape[1]))
+    out[:, 0:3] = PAD_SENTINEL
+    out.index_put_((dst,), fused)
+    out = out[:rows]
+    off = 4
+    normals = covs = None
+    if cloud.normals is not None:
+        normals, off = out[:, off:off + 4], off + 4
+    if cloud.covs is not None:
+        covs = out[:, off:off + 9].reshape(rows, 3, 3)
+    return PointCloud(points=out[:, 0:4],
+                      num_points=torch.clamp(li.sum(), max=rows).to(torch.int32),
+                      normals=normals, covs=covs)

@@ -1,11 +1,14 @@
-"""Point-cloud file readers (host side, numpy).
+"""Point-cloud and pose file IO (host side, numpy).
 
-Counterpart of the readers in ``small_gicp_tpu/utils/io.py`` that the
-CLIs need: the KITTI float4 ``.bin`` loader and an xyz-only PLY reader
-(ascii and binary, arbitrary scalar vertex properties).
+Counterpart of the parts of ``small_gicp_tpu/utils/io.py`` that the CLIs
+need: the KITTI float4 ``.bin`` reader and writer, the sorted scan list of
+a directory, an xyz-only PLY reader (ascii and binary, arbitrary scalar
+vertex properties) and the 4x4 pose-matrix reader.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -22,6 +25,31 @@ def read_kitti_bin(path: str) -> np.ndarray:
     """A KITTI velodyne scan (float32 x, y, z, intensity rows) → [N,3] xyz."""
     raw = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
     return raw[:, :3].copy()
+
+
+def write_kitti_bin(path: str, points_xyz: np.ndarray) -> None:
+    """[N,3] xyz → a KITTI velodyne scan (float32 x, y, z, intensity 0), the
+    inverse of ``read_kitti_bin``."""
+    pts = np.asarray(points_xyz, np.float32)
+    raw = np.zeros((pts.shape[0], 4), np.float32)
+    raw[:, :3] = pts[:, :3]
+    raw.tofile(path)
+
+
+def list_kitti_scans(directory: str):
+    """Sorted paths of the ``*.bin`` scans in ``directory``."""
+    names = sorted(n for n in os.listdir(directory) if n.endswith(".bin"))
+    return [os.path.join(directory, n) for n in names]
+
+
+def read_pose_matrix(path: str) -> np.ndarray:
+    """A whitespace 4x4 (or 3x4) pose matrix file → [4,4] float64."""
+    m = np.loadtxt(path)
+    if m.shape == (3, 4):
+        m = np.vstack([m, [0.0, 0.0, 0.0, 1.0]])
+    if m.shape != (4, 4):
+        raise ValueError(f"expected 4x4 pose, got {m.shape}")
+    return m
 
 
 def read_ply(path: str) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""SE(3)/SO(3) exponential maps and the skew operator, in torch.
+"""SE(3)/SO(3) exponential maps, the skew operator and pose hygiene, in torch.
 
 Counterpart of ``small_gicp_tpu/utils/lie.py``. Twist order is
 [rx ry rz tx ty tz] (rotation first) and pose updates right-multiply,
@@ -135,3 +135,17 @@ def rigid_inverse(T: torch.Tensor) -> torch.Tensor:
     Ti[:3, :3] = R.T
     Ti[:3, 3] = -(R.T @ t)
     return Ti
+
+
+def orthonormalize(T: torch.Tensor) -> torch.Tensor:
+    """T with its rotation block re-projected onto SO(3) by one Newton sweep,
+    R ← R(1.5I − 0.5RᵀR), batched over leading dims; the translation is
+    untouched. Float32 pose products drift off the manifold over hundreds
+    of compositions; one sweep restores orthogonality to float32 roundoff
+    for inputs within ~1e-3 of SO(3)."""
+    R = T[..., :3, :3]
+    RtR = R.transpose(-1, -2) @ R
+    eye3 = torch.eye(3, dtype=T.dtype, device=T.device)
+    out = T.clone()
+    out[..., :3, :3] = R @ (1.5 * eye3 - 0.5 * RtR)
+    return out

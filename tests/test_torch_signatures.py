@@ -4,8 +4,8 @@ positions and spellings: ``preprocess_points``, ``align``,
 ``voxelgrid_sampling``, ``estimate_normals``, ``estimate_covariances``,
 ``estimate_normals_covariances``, ``fleet_prepare`` and ``align_fleet``
 list the same parameters with the same defaults, in the same order, apart
-from the port's own (``optimizer``, ``device``, ``fused_route``), which
-follow as keywords only; the JAX package's ``num_threads``, ``block_q`` and
+from the port's own (``optimizer``, ``device``, ``fused_route``,
+``source_rows``), which follow as keywords only; the JAX package's ``num_threads``, ``block_q`` and
 ``interpret`` are accepted and ignored. The voxel maps' public names
 (``GaussianVoxelMap.empty/build/insert``, ``IncrementalVoxelMap.empty/
 insert/knn_search``, the three ``IncrementalVoxelMap*`` constructors,
@@ -45,7 +45,7 @@ from small_gicp_tpu_torch.parallel import fleet as t_fleet
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
 
-PORT_ONLY = {"optimizer", "device", "fused_route"}
+PORT_ONLY = {"optimizer", "device", "fused_route", "source_rows"}
 ROT_EPS = 0.1 * math.pi / 180.0
 
 
