@@ -141,12 +141,39 @@ Phases (any failure exits non-zero):
                 streaming engine (create_odometry(...).estimate, report());
                 each GICP, VGICP and point-to-plane trajectory within 2.5° /
                 0.2 m a frame and an APE under 0.2 m, point-to-point ICP
-                printed unbounded, small_gicp_projective raising
-                NotImplementedError; gicp_model_fused and small_gicp_model on
+                printed unbounded (small_gicp_projective: phase 11);
+                gicp_model_fused and small_gicp_model on
                 the card against the plain CPU path on a 4-frame 16 × 256
                 sequence (poses within 1e-3, equal voxel counts); the
                 odometry_benchmark CLI in its own process on the 17 frames
-                written as KITTI .bin scans (exit 0, 17 trajectory lines).
+                written as KITTI .bin scans (exit 0, 17 trajectory lines);
+ 11. the rest of odometry — at OdometryParams() on the 17 frames:
+                knn_windowed (k = 20, 0.25 m cell) on frame 0 downsampled,
+                set recall ≥ 0.97 against K10's exact lists, timed in turns
+                with K3; KdTree.knn_search(method="window") of frame 1's raw
+                points moved into frame 0 (k = 10), recall ≥ 0.97 against
+                K10, timed in turns with the exact search;
+                voxelgrid_sampling_with_covs of frame 0 on the card against
+                the CPU (voxel counts equal, means within 1e-5 m,
+                covariances within 1e-3 where the raw covariance's two
+                smallest eigenvalues are more than 1e-3 m² apart), timed in turns with
+                voxelgrid + K3 covariances; ProjectiveSearch over frame 0, NN
+                of frame 1 moved: found share and agreement with K9 held to
+                the JAX searcher's figures on the CPU
+                (tools/projective_figures.py) less 0.03, card and CPU index
+                images equal; JitOdometry("gicp_model_fused" / "gicp_model")
+                in the "voxel" and "knn_window" modes in turns with "knn"
+                (phase 10's bounds, the pose difference against "knn", ms a
+                frame, launches — K1 and the step once an LM iteration, K3
+                only in "knn" —, and gicp_model_fused's profiled chunk:
+                launches a frame and busy share);
+                small_gicp_projective streaming (K3 once a frame, the step,
+                no K1 or K9; errors printed) and through the CLI in its own
+                process (17 lines); the card against the CPU path on the
+                small sequence (within 1e-3); BatchOdometry of four worlds
+                (32 × 900 rays, 3/3/3/2 frames) for gicp_model and gicp_scan,
+                each lane against JitOdometry alone (rtol 1e-5 / atol 1e-6),
+                the padded tail, frames/s across lanes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -175,7 +202,7 @@ from small_gicp_tpu_torch.models.helper import (
     preprocess_points,
 )
 from small_gicp_tpu_torch.models.odometry import ENGINES, OdometryParams, create_odometry
-from small_gicp_tpu_torch.models.odometry_scan import JitOdometry
+from small_gicp_tpu_torch.models.odometry_scan import BatchOdometry, JitOdometry
 from small_gicp_tpu_torch.models.voxelmap import (
     GaussianVoxelMap,
     IncrementalVoxelMapCov,
@@ -258,6 +285,11 @@ from small_gicp_tpu_torch.ops.voxel_keys import INVALID_KEY
 from small_gicp_tpu_torch.ops.normals import (
     estimate_covariances,
     estimate_normals_covariances,
+)
+from small_gicp_tpu_torch.ops.projective_search import ProjectiveSearch
+from small_gicp_tpu_torch.ops.voxel_covs import (
+    neighborhood_covariances,
+    voxelgrid_sampling_with_covs,
 )
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
@@ -2909,6 +2941,21 @@ def judged(engine: str, est: np.ndarray, poses: np.ndarray) -> str:
                "0.2 m)"))
 
 
+def run_chunked(engine, fd, cd, n, dev, covariance_mode="knn"):
+    """The preloaded frames (``fd``, ``cd``; ``n`` real) through
+    ``JitOdometry(engine)`` in feeds of a chunk each: (poses, the engine, its
+    carries before each chunk, LM iterations a frame)."""
+    odo = JitOdometry(odometry_params(engine), engine, chunk_frames=ODOM_CHUNK,
+                      covariance_mode=covariance_mode, device=dev)
+    carries = []
+    with recorded_aligns() as results:
+        for start in range(0, fd.shape[0], ODOM_CHUNK):
+            carries.append(odo.carry)
+            odo.feed_preloaded(fd[start:start + ODOM_CHUNK], cd[start:start + ODOM_CHUNK],
+                               n_real=min(ODOM_CHUNK, n - start))
+    return np.stack(odo.poses), odo, carries, [int(r.iterations) + 1 for r in results]
+
+
 def phase_odometry(scans, poses, rng, dev, card):
     """Phase 10: the chunked engines over the 17 frames (gicp_model_fused
     first, from preload / feed_preloaded), every streaming engine, the card
@@ -2921,25 +2968,11 @@ def phase_odometry(scans, poses, rng, dev, card):
     fd, cd = probe.preload(scans)
     f_pad = fd.shape[0]
 
-    def run_jit(engine):
-        """The 17 frames in three feeds of a chunk each; (poses, the
-        engine, its carries after chunks 0 and 1, iterations a frame)."""
-        odo = JitOdometry(odometry_params(engine), engine, chunk_frames=ODOM_CHUNK,
-                          device=dev)
-        carries = []
-        with recorded_aligns() as results:
-            for start in range(0, f_pad, ODOM_CHUNK):
-                carries.append(odo.carry)
-                odo.feed_preloaded(fd[start:start + ODOM_CHUNK], cd[start:start + ODOM_CHUNK],
-                                   n_real=min(ODOM_CHUNK, n - start))
-        return (np.stack(odo.poses), odo, carries,
-                [int(r.iterations) + 1 for r in results])
-
     # gicp_model_fused with the counts at 0: K3 once a frame (padded frames
     # too: their launch finds no row), K1 and the step once an iteration.
     for _, _, _, fn in KERNELS.values():
         fn.launches = 0
-    est, odo, carries, its = run_jit("gicp_model_fused")
+    est, odo, carries, its = run_chunked("gicp_model_fused", fd, cd, n, dev)
     launches = {name: fn.launches for name, (_, _, _, fn) in KERNELS.items()}
     print(f"gicp_model_fused over {n} frames ({f_pad - n} padded) in chunks of {ODOM_CHUNK}: "
           f"{judged('gicp_model_fused', est, poses)}; LM iterations a frame {its}; "
@@ -3007,7 +3040,7 @@ def phase_odometry(scans, poses, rng, dev, card):
         for _, _, _, fn in KERNELS.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        est, o, carries_e, its = run_jit(engine)
+        est, o, carries_e, its = run_chunked(engine, fd, cd, n, dev)
         took = time.perf_counter() - t0
         k1, step = gicp_linearize_tables.launches, gicp_lm_step.launches
         k3 = knn_moments_rows.launches
@@ -3029,12 +3062,7 @@ def phase_odometry(scans, poses, rng, dev, card):
     # The streaming engines, as create_odometry builds them.
     for engine in sorted(ENGINES):
         if engine == "small_gicp_projective":
-            try:
-                create_odometry(engine, odometry_params(engine), device=dev)
-            except NotImplementedError as e:
-                print(f"{engine}: NotImplementedError ({e})")
-                continue
-            check(False, "small_gicp_projective did not raise NotImplementedError")
+            continue  # phase 11
         o = create_odometry(engine, odometry_params(engine), device=dev)
         est = o.estimate(scans)
         print(f"{engine}: {judged(engine, est, poses)}; {o.report()} on {card}")
@@ -3076,6 +3104,273 @@ def phase_odometry(scans, poses, rng, dev, card):
           f"the CLI exited {run.returncode} with {len(lines)} trajectory lines: "
           f"{run.stderr[-2000:]}")
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# ------------------------------------------------------------ phase 11 ----
+
+# The window searches' Morton cell: the downsampling resolution, as
+# odometry's "knn_window" mode takes it. At raw-scan density a 1 m cell
+# (the API default) holds more points than the ±64-row band.
+WINDOW_CELL = 0.25
+# tools/projective_figures.py (the JAX package's ProjectiveSearch on the
+# CPU, 8,192 sampled rows of frame 1 moved into frame 0, default image):
+# found 1.0000, agreement with the exact NN 0.1360. The card is held to
+# these less PROJECTIVE_MARGIN over every row (the sample's spread is
+# ≈0.004; the default image's 64 rows over 120° are coarse for a 28° sensor,
+# hence the low agreement).
+PROJECTIVE_JAX = (1.0, 0.1360)
+PROJECTIVE_MARGIN = 0.03
+NEW_MODES = ("voxel", "knn_window")
+BATCH_ENGINES = ("gicp_model", "gicp_scan")
+
+
+def zero_counts():
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, (_, _, _, fn) in KERNELS.items()}
+
+
+def set_recall(d: torch.Tensor, i: torch.Tensor, i_ref: torch.Tensor) -> float:
+    """Share of the exact lists' entries (i_ref [Q,k]) that the lists (d, i)
+    hold in a found slot."""
+    q = i_ref.shape[0]
+    m = int(max(int(i.max()), int(i_ref.max()))) + 1
+    rows = torch.arange(q, device=i.device)[:, None] * m
+    tags = (i.long() + rows)[torch.isfinite(d) & (d < 1e16)]
+    return float(torch.isin((i_ref.long() + rows).flatten(), tags).float().mean())
+
+
+def phase_rest(scans, poses, rng, dev, card):
+    """Phase 11: the windowed searches, the voxel covariances and the
+    projective search at full width, the "voxel" and "knn_window" modes,
+    the projective engine and BatchOdometry."""
+    print("== phase 11: windowed kNN, voxel covariances, projective search, batches",
+          flush=True)
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    p = OdometryParams()
+    k = p.num_neighbors
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    raw0 = PointCloud.from_points(scans[0], device=dev)
+    raw0_cpu = PointCloud.from_points(scans[0], device=cpu)
+    moved = torch.from_numpy((scans[1] @ T_gt[:3, :3].T + T_gt[:3, 3]).astype(np.float32)
+                             ).to(dev)
+    down = voxelgrid_sampling(raw0, p.downsampling_resolution, p.max_downsampled)
+    nd = int(down.num_points)
+
+    # The windowed searches against the exact ones (K10).
+    d_w, i_w = knn_window.knn_windowed(down.points, down.num_points, k, cell=WINDOW_CELL)
+    _, i_e = KdTree.build(down).knn_search(down.points[:nd, :3], k)
+    rec_self = set_recall(d_w[:nd], i_w[:nd], i_e)
+    ms = time_turns({
+        "window": lambda: knn_window.knn_windowed(down.points, down.num_points, k,
+                                                  cell=WINDOW_CELL),
+        "K3": lambda: knn_moments(down.points, down.num_points, k)}, reps=10)
+    print(f"knn_windowed, {nd} downsampled rows, k = {k}, cell {WINDOW_CELL} m: set recall "
+          f"{rec_self:.4f} against K10's exact lists; {ms['window']:.3f} ms against K3's "
+          f"moments {ms['K3']:.3f} ms (events, in turns) on {card}")
+    check(rec_self >= 0.97, f"knn_windowed recall {rec_self:.4f} < 0.97")
+    tree0 = KdTree.build(raw0)
+    d_e, i_e = tree0.knn_search(moved, K_NEIGHBORS)
+    recall = {}
+    for cell in (WINDOW_CELL, 1.0):
+        d_q, i_q = tree0.knn_search(moved, K_NEIGHBORS, method="window", window_cell=cell)
+        recall[cell] = set_recall(d_q, i_q, i_e)
+    ms = time_turns({
+        "window": lambda: tree0.knn_search(moved, K_NEIGHBORS, method="window",
+                                           window_cell=WINDOW_CELL),
+        "exact": lambda: tree0.knn_search(moved, K_NEIGHBORS)}, reps=5)
+    print(f"KdTree.knn_search(method='window'), frame 1's {len(scans[1])} raw points moved "
+          f"into frame 0 ({len(scans[0])} rows), k = {K_NEIGHBORS}: set recall "
+          f"{recall[WINDOW_CELL]:.4f} at cell {WINDOW_CELL} m ({recall[1.0]:.4f} at the "
+          f"default 1 m) against K10's; {ms['window']:.3f} ms against the exact search "
+          f"{ms['exact']:.3f} ms (events, in turns) on {card}")
+    check(recall[WINDOW_CELL] >= 0.97, f"window method recall {recall[WINDOW_CELL]:.4f}")
+
+    # Voxel-moment covariances, the card against the CPU.
+    leaf, cap = p.downsampling_resolution, p.max_downsampled
+    vc = voxelgrid_sampling_with_covs(raw0, leaf, cap)
+    vc_cpu = voxelgrid_sampling_with_covs(raw0_cpu, leaf, cap)
+    nv = int(vc.num_points)
+    d_mean = float((vc.points[:nv].cpu() - vc_cpu.points[:nv]).abs().max())
+    _, _, cov, enough = neighborhood_covariances(raw0_cpu.points, raw0_cpu.num_points, leaf,
+                                                 cap)
+    ev = torch.linalg.eigvalsh(cov[:nv])
+    ok = enough[:nv] & (ev[:, 1] - ev[:, 0] > 1e-3)
+    diff = (vc.covs[:nv].cpu() - vc_cpu.covs[:nv]).abs()
+    d_cov, d_all = float(diff[ok].max()), float(diff.max())
+    ms = time_turns({
+        "voxel": lambda: voxelgrid_sampling_with_covs(raw0, leaf, cap),
+        "knn": lambda: estimate_covariances(voxelgrid_sampling(raw0, leaf, cap),
+                                            num_neighbors=k)}, reps=10)
+    print(f"voxelgrid_sampling_with_covs of frame 0 ({len(scans[0])} points, {leaf} m): "
+          f"{nv} voxels ({int(vc_cpu.num_points)} on the CPU), means within {d_mean:.2e} m, "
+          f"covariances within {d_cov:.2e} on the {100 * float(ok.float().mean()):.1f}% of "
+          f"rows whose two smallest eigenvalues are more than 1e-3 m^2 apart ({d_all:.2e} "
+          f"over all rows); "
+          f"{ms['voxel']:.3f} ms against voxelgrid + K3 covariances {ms['knn']:.3f} ms "
+          f"(events, in turns) on {card}")
+    check(nv == int(vc_cpu.num_points) and d_mean <= 1e-5 and d_cov <= 1e-3,
+          "voxel covariances: the card and the CPU disagree")
+
+    # The projective search against K9.
+    ps = ProjectiveSearch.build(raw0)
+    d_p, i_p, f_p = ps.nearest_neighbor_search(moved)
+    d_k, i_k = tree0.nearest_neighbor_search(moved)
+    found = float(f_p.float().mean())
+    agree = float((f_p & ((i_p == i_k) | (d_p <= d_k * (1 + 1e-5) + 1e-9))).float().mean())
+    same_image = torch.equal(ps.index_image.cpu(),
+                             ProjectiveSearch.build(raw0_cpu).index_image)
+    ms = time_turns({"build": lambda: ProjectiveSearch.build(raw0),
+                     "nn": lambda: ps.nearest_neighbor_search(moved),
+                     "K9": lambda: tree0.nearest_neighbor_search(moved)}, reps=10)
+    print(f"ProjectiveSearch over frame 0 (1024 x 64, 120 deg), NN of frame 1's "
+          f"{len(scans[1])} moved points: found {found:.4f}, agreement with K9's exact NN "
+          f"{agree:.4f} (the JAX searcher on the CPU: {PROJECTIVE_JAX[0]:.4f} / "
+          f"{PROJECTIVE_JAX[1]:.4f}, margin {PROJECTIVE_MARGIN}); card and CPU images "
+          f"{'equal' if same_image else 'DIFFER'}; build {ms['build']:.3f} ms, NN "
+          f"{ms['nn']:.3f} ms, K9 {ms['K9']:.3f} ms (events, in turns) on {card}")
+    check(same_image and found >= PROJECTIVE_JAX[0] - PROJECTIVE_MARGIN
+          and agree >= PROJECTIVE_JAX[1] - PROJECTIVE_MARGIN, "projective search")
+
+    print(f"searches and covariances took {time.perf_counter() - t_phase:.1f} s")
+    # The new covariance modes, in turns with "knn", over the 17 frames.
+    t_sec = time.perf_counter()
+    n = len(scans)
+    fd, cd = JitOdometry(p, "gicp_model_fused", chunk_frames=ODOM_CHUNK,
+                         device=dev).preload(scans)
+    f_pad = fd.shape[0]
+    for engine in ("gicp_model_fused", "gicp_model"):
+        est_by, steady = {}, {m: [] for m in ("knn",) + NEW_MODES}
+        for _ in range(2):
+            for mode in ("knn",) + NEW_MODES:
+                zero_counts()
+                est, odo, carries, its = run_chunked(engine, fd, cd, n, dev, mode)
+                c = read_counts()
+                steady[mode].append(float(np.mean(odo.chunk_times_ms[1:])) / ODOM_CHUNK)
+                fused = engine.endswith("_fused")
+                check(c["gicp_lm_step"] == sum(its)
+                      and c["gicp_linearize"] == (sum(its) if fused else 0)
+                      and c["knn_moments"] == (f_pad if mode == "knn" else 0)
+                      and sum(c.values()) == c["gicp_lm_step"] + c["gicp_linearize"]
+                      + c["knn_moments"],
+                      f"{engine} / {mode}: launches {c} in {sum(its)} LM iterations")
+                if mode in est_by:
+                    continue
+                est_by[mode] = est
+                if not fused:
+                    print(f"{engine} / {mode}: {judged(engine, est, poses)}; max |pose - knn "
+                          f"pose| {np.abs(est - est_by['knn']).max():.2e}; launches K3 "
+                          f"{c['knn_moments']}, K1 {c['gicp_linearize']}, step "
+                          f"{c['gicp_lm_step']} in {sum(its)} LM iterations on {card}")
+                    continue
+
+                def chunk1(odo=odo, carries=carries):
+                    odo.carry = carries[1]
+                    return odo._run_chunk(fd[ODOM_CHUNK:2 * ODOM_CHUNK],
+                                          cd[ODOM_CHUNK:2 * ODOM_CHUNK])
+
+                _, api, busy, wall, _ = profiled(chunk1)
+                print(f"{engine} / {mode}: {judged(engine, est, poses)}; max |pose - knn "
+                      f"pose| {np.abs(est - est_by['knn']).max():.2e}; launches K3 "
+                      f"{c['knn_moments']}, K1 {c['gicp_linearize']}, step "
+                      f"{c['gicp_lm_step']} in {sum(its)} LM iterations; profiled chunk 1: "
+                      f"{api['launches'] / ODOM_CHUNK:.1f} launches a frame, busy "
+                      f"{100 * busy / wall:.1f}% ({busy:.3f} of {wall:.3f} ms) on {card}")
+        print(f"{engine}: ms a frame over the chunks after the first, two rounds in turns: "
+              + ", ".join(f"{m} {v[0]:.3f} / {v[1]:.3f}" for m, v in steady.items())
+              + f" on {card}")
+
+    print(f"the modes took {time.perf_counter() - t_sec:.1f} s")
+    # The projective engine, streaming, and through the CLI in its own process.
+    zero_counts()
+    o = create_odometry("small_gicp_projective", p, device=dev)
+    t0 = time.perf_counter()
+    est = o.estimate(scans)
+    took = time.perf_counter() - t0
+    c = read_counts()
+    rot, trans, ape = trajectory_errors(est, poses)
+    print(f"small_gicp_projective over {n} frames: worst relative pose {rot:.4f} deg / "
+          f"{trans:.4f} m, APE {ape:.4f} m (approximate correspondences: printed, not "
+          f"bounded); {took * 1e3 / n:.3f} ms a frame, {o.report()}; launches K3 "
+          f"{c['knn_moments']}, K1 {c['gicp_linearize']}, step {c['gicp_lm_step']}, "
+          f"K9 {c['nearest_neighbor']} on {card}")
+    check(np.isfinite(est).all() and c["knn_moments"] == n and c["gicp_lm_step"] >= n - 1
+          and c["gicp_linearize"] == 0 and c["nearest_neighbor"] == 0,
+          f"small_gicp_projective: launches {c}")
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, sc in enumerate(scans):
+            write_kitti_bin(f"{tmp}/{i:06d}.bin", sc)
+        traj = f"{tmp}/traj.txt"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "small_gicp_tpu_torch.apps."
+                              "odometry_benchmark", tmp, traj, "--engine",
+                              "small_gicp_projective"], capture_output=True, text=True)
+        took = time.perf_counter() - t0
+        lines = open(traj).read().splitlines() if run.returncode == 0 else []
+    print("CLI --engine small_gicp_projective: "
+          + " | ".join(run.stdout.strip().splitlines()[-2:])
+          + f" ({took:.1f} s in its own process, exit {run.returncode})")
+    check(run.returncode == 0 and len(lines) == n,
+          f"the CLI exited {run.returncode} with {len(lines)} trajectory lines: "
+          f"{run.stderr[-2000:]}")
+
+    # The card against the plain CPU path on phase 10's small sequence.
+    t_sec = time.perf_counter()
+    small, _ = generate_sequence(n_frames=4, rings=16, azimuth_steps=256)
+    sp = OdometryParams(max_scan_points=4096, max_downsampled=4096, map_capacity=16384)
+    out = {}
+    for where in (dev, cpu):
+        out[where.type] = [JitOdometry(sp, "gicp_model_fused", chunk_frames=4,
+                                       covariance_mode=m, device=where).feed(small)
+                           for m in NEW_MODES]
+        out[where.type].append(create_odometry("small_gicp_projective", sp,
+                                               device=where).estimate(small))
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(out[dev.type], out["cpu"])]
+    print(f"small sequence, card against the CPU path: gicp_model_fused voxel "
+          f"{diffs[0]:.2e}, knn_window {diffs[1]:.2e}; small_gicp_projective {diffs[2]:.2e} "
+          f"({time.perf_counter() - t_sec:.1f} s)")
+    check(max(diffs) <= 1e-3, "the card and the CPU path disagree on the small sequence")
+
+    # BatchOdometry: four lanes of four worlds (seeds 1-4), the last shorter.
+    t_sec = time.perf_counter()
+    lanes = [generate_sequence(n_frames=3 if s < 4 else 2, seed=s, rings=32,
+                               azimuth_steps=900)[0] for s in range(1, 5)]
+    n_real = sum(len(seq) for seq in lanes)
+    print(f"lanes generated in {time.perf_counter() - t_sec:.1f} s")
+    for engine in BATCH_ENGINES:
+        zero_counts()
+        t0 = time.perf_counter()
+        got = BatchOdometry(len(lanes), p, engine, device=dev).feed(lanes)
+        first = time.perf_counter() - t0
+        c = read_counts()
+        t0 = time.perf_counter()
+        BatchOdometry(len(lanes), p, engine, device=dev).feed(lanes)
+        again = time.perf_counter() - t0
+        exact, close = True, True
+        for lane, seq in enumerate(lanes):
+            solo = JitOdometry(p, engine, chunk_frames=got.shape[1], device=dev).feed(seq)
+            exact &= bool(np.array_equal(got[lane, :len(seq)], solo))
+            close &= bool(np.allclose(got[lane, :len(seq)], solo, rtol=1e-5, atol=1e-6))
+        tail = bool(np.array_equal(got[-1, 2:], got[-1, 1:2]))
+        print(f"BatchOdometry({len(lanes)}, {engine}) over {[len(q) for q in lanes]} frames "
+              f"of 32 x 900 rays: lanes equal JitOdometry alone "
+              f"{'bit for bit' if exact else 'within rtol 1e-5 / atol 1e-6' if close else 'NOT'}"
+              f"; padded tail repeats the last pose: {tail}; {n_real / again:.2f} frames/s "
+              f"across lanes ({n_real / first:.2f} in the first call); launches K3 "
+              f"{c['knn_moments']}, K1 {c['gicp_linearize']}, step {c['gicp_lm_step']} "
+              f"on {card}")
+        check(close and tail and c["knn_moments"] == got.shape[0] * got.shape[1]
+              and c["gicp_lm_step"] > 0 and (c["gicp_linearize"] > 0) == engine.endswith("_scan"),
+              f"BatchOdometry {engine}: lanes {close}, tail {tail}, launches {c}")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -3135,8 +3430,10 @@ def main() -> None:
     phase_voxel(scans, poses, rng, dev, card)
     t_nine = time.perf_counter() - t_start
     phase_odometry(scans, poses, rng, dev, card)
-    print(f"phases 1-9 took {t_nine:.1f} s, phase 10 "
-          f"{time.perf_counter() - t_start - t_nine:.1f} s")
+    t_ten = time.perf_counter() - t_start
+    phase_rest(scans, poses, rng, dev, card)
+    print(f"phases 1-9 took {t_nine:.1f} s, phase 10 {t_ten - t_nine:.1f} s, phase 11 "
+          f"{time.perf_counter() - t_start - t_ten:.1f} s")
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

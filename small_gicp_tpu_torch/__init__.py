@@ -13,8 +13,14 @@ the warp-per-query and the Morton-pruned forms of the same search.
 "vgicp")``) and ``IncrementalVoxelMap`` (scan-to-model) are slot-table
 voxel maps in torch ops; registration against either runs the LM step
 kernel once an iteration. ``models.odometry`` (streaming engines,
-``create_odometry``) and ``models.odometry_scan`` (``JitOdometry``) run LiDAR
-odometry on those maps and the kernels above.
+``create_odometry``, the projective engine among them) and
+``models.odometry_scan`` (``JitOdometry``, ``BatchOdometry``) run LiDAR
+odometry on those maps and the kernels above. ``ProjectiveSearch`` (an
+equirectangular index image) plugs into ``Registration.align`` as the
+target's searcher; ``ops.knn_window`` (``KdTree.knn_search(method=
+"window")``, normals' ``neighbor_mode="window"``) and
+``ops.voxel_covs.voxelgrid_sampling_with_covs`` are the approximate
+windowed kNN and the voxel-moment covariances, torch ops on either device.
 ``read_ply`` and ``read_kitti_bin`` load scans. Entry points run on the card unless given ``device="cpu"``,
 where every kernel runs its plain PyTorch version.
 """
@@ -46,6 +52,7 @@ from small_gicp_tpu_torch.models.voxelmap import (
     IncrementalVoxelMapNormal,
     IncrementalVoxelMapNormalCov,
 )
+from small_gicp_tpu_torch.ops.projective_search import ProjectiveSearch
 from small_gicp_tpu_torch.models.helper import (
     RegistrationSetting,
     align,
@@ -65,6 +72,6 @@ __all__ = [
     "Registration", "RegistrationResult", "align_points", "RegistrationSetting",
     "align", "preprocess_points", "create_gaussian_voxelmap", "GaussianVoxelMap",
     "IncrementalVoxelMap", "IncrementalVoxelMapNormal", "IncrementalVoxelMapCov",
-    "IncrementalVoxelMapNormalCov", "align_fleet", "fleet_prepare",
+    "IncrementalVoxelMapNormalCov", "ProjectiveSearch", "align_fleet", "fleet_prepare",
     "cloud_from_numpy", "result_to_numpy", "read_kitti_bin", "read_ply",
 ]

@@ -17,7 +17,9 @@ Engines (reference counterparts):
                               (GaussianVoxelMap target)
   * VGICPScanToScanOdometry — odometry_benchmark_small_vgicp_{omp,tbb}.cpp
   * FlowScanToScanOdometry  — odometry_benchmark_small_gicp_tbb_flow.cpp
-The projective engine waits for its search (ROADMAP item A9).
+  * ProjectiveScanToScanOdometry — scan-to-scan GICP searched through the
+                              equirectangular ProjectiveSearch
+                              (ann/projective_search.hpp:42-184)
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from small_gicp_tpu_torch.point_cloud import PointCloud, resolve_device
 from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
 from small_gicp_tpu_torch.ops.normals import estimate_covariances, estimate_normals
+from small_gicp_tpu_torch.ops.projective_search import ProjectiveSearch
 from small_gicp_tpu_torch.models.registration import Registration
 from small_gicp_tpu_torch.models.voxelmap import GaussianVoxelMap, IncrementalVoxelMap
 from small_gicp_tpu_torch.utils.benchmark import Summarizer
@@ -364,13 +367,24 @@ class FlowScanToScanOdometry(ScanToScanOdometry):
 
 
 class ProjectiveScanToScanOdometry(ScanToScanOdometry):
-    """Scan-to-scan GICP through the equirectangular projective search: its
-    search (``ops/projective_search.py`` of the JAX package) is not ported."""
+    """Scan-to-scan GICP whose correspondences come from the equirectangular
+    ``ProjectiveSearch`` instead of the exact search (the engine form of
+    plugging it into the Registration template, 03_registration_template.cpp:
+    152-179). The index image is rebuilt from the previous cloud every frame
+    (one scatter); the align takes the unfused route, its LM iterations the
+    step kernel."""
 
-    def __init__(self, params: Optional[OdometryParams] = None, *, device=None):
-        raise NotImplementedError(
-            "small_gicp_projective needs ProjectiveSearch, which waits for "
-            "ROADMAP item A9")
+    def estimate_frame(self, points_xyz) -> torch.Tensor:
+        cur = self._preprocess(self._prep_frame(points_xyz))
+        if self._prev is None:
+            self._prev = cur
+            return self.T_world
+        tree = ProjectiveSearch.build(self._prev)
+        result = self.reg.align(self._prev, cur, tree, None)
+        # Re-project: the running float32 rotation product drifts off SO(3).
+        self.T_world = orthonormalize(self.T_world @ result.T_target_source)
+        self._prev = cur
+        return self.T_world
 
 
 def _scan_to_scan_factory(rtype):

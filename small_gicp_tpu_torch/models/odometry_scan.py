@@ -17,9 +17,14 @@ are exact no-ops: the pose and the model carry through unchanged.
 Engines: ``gicp_model``, ``vgicp_model``, ``plane_icp_model`` (voxel-key
 correspondences) and their ``_fused`` forms (exact nearest stored point
 through K1), and the scan-to-scan ``gicp_scan``, ``plane_icp_scan`` and
-``icp_scan``. The batched ``odometry_scan_batch`` / ``BatchOdometry`` and
-the "voxel" / "knn_window" covariance modes are not ported (ROADMAP items
-A7, A9).
+``icp_scan``. Covariance modes of the model engines: "knn" and
+"knn_fused" (exact kNN moments, K3), "knn_window" (the approximate
+Morton-banded self-search, ``ops/knn_window.py``) and "voxel" (27-voxel
+moments from the voxelgrid's own sort, ``ops/voxel_covs.py``), both torch
+ops. ``odometry_scan_batch`` / ``BatchOdometry`` run B independent
+sequences: where the JAX package vmaps the lanes into one program, the
+port runs each lane's loop in turn, with B carries in a list, so a batch
+costs B lanes' launches and host syncs.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from small_gicp_tpu_torch.point_cloud import (
 )
 from small_gicp_tpu_torch.ops.downsampling import _voxelgrid_sampling_impl
 from small_gicp_tpu_torch.ops.normals import _estimate_impl
+from small_gicp_tpu_torch.ops.voxel_covs import voxelgrid_sampling_with_covs_impl
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.models.voxelmap import (
     GaussianVoxelMap,
@@ -60,24 +66,28 @@ def _frame_cloud(frame_points: torch.Tensor, frame_count: torch.Tensor,
                  num_neighbors: int, rtype: str, covariance_mode: str = "knn"
                  ) -> PointCloud:
     """The frame downsampled, with normals (point-to-plane), covariances
-    (GICP) or neither (ICP)."""
+    (GICP) or neither (ICP). "voxel" takes the covariances from the voxel
+    moments (point-to-plane normals stay exact, as in the JAX package);
+    "knn_window" searches the windowed lists with the downsampling
+    resolution as the Morton cell."""
     if covariance_mode not in COVARIANCE_MODES:
         raise ValueError(f"unknown covariance_mode {covariance_mode!r}; "
                          "have 'knn', 'knn_fused', 'knn_window', 'voxel'")
-    if covariance_mode in ("voxel", "knn_window"):
-        raise NotImplementedError(
-            f"covariance_mode={covariance_mode!r} (ops/voxel_covs.py, "
-            "ops/knn_window.py of the JAX package) waits for ROADMAP item A9")
-    mode = "fused" if covariance_mode == "knn_fused" else "exact"
+    if covariance_mode == "voxel" and rtype == "gicp":
+        pts, n, covs, _ = voxelgrid_sampling_with_covs_impl(
+            frame_points, frame_count, downsampling_resolution, max_downsampled)
+        return PointCloud(points=pts, num_points=n, covs=covs)
+    mode = {"knn_window": "window", "knn_fused": "fused"}.get(covariance_mode, "exact")
     pts, n = _voxelgrid_sampling_impl(frame_points, frame_count,
                                       downsampling_resolution, max_downsampled)
     if rtype == "plane_icp":
         normals, _ = _estimate_impl(pts, n, num_neighbors, True, False,
-                                    neighbor_mode=mode)
+                                    neighbor_mode=mode, window_cell=downsampling_resolution)
         return PointCloud(points=pts, num_points=n, normals=normals)
     if rtype == "icp":
         return PointCloud(points=pts, num_points=n)
-    _, covs = _estimate_impl(pts, n, num_neighbors, False, True, neighbor_mode=mode)
+    _, covs = _estimate_impl(pts, n, num_neighbors, False, True, neighbor_mode=mode,
+                             window_cell=downsampling_resolution)
     return PointCloud(points=pts, num_points=n, covs=covs)
 
 
@@ -94,7 +104,8 @@ def odometry_scan_step(carry, frame_points: torch.Tensor, frame_count: torch.Ten
     0-d int32. Returns (carry, T_new).
 
     ``covariance_mode``: "knn" or "knn_fused" (both exact kNN moments
-    through K3; "voxel" and "knn_window" raise NotImplementedError).
+    through K3), "knn_window" (approximate windowed kNN lists) or "voxel"
+    (27-voxel moments, made with the downsampling).
     ``model_nn``: "voxel" searches the map's own voxel neighbourhood;
     "bruteforce" registers against the map's cloud view
     (``ivm_as_cloud`` / ``voxelmap_as_cloud``) through K1, compacted first
@@ -417,3 +428,87 @@ class JitOdometry:
                  else np.zeros((0, 4, 4), self.params.dtype))
         self.poses.extend(poses)
         return poses
+
+
+def odometry_scan_batch(carries, frames: torch.Tensor, counts: torch.Tensor,
+                        downsampling_resolution: float = 0.25,
+                        max_correspondence_distance: float = 1.0,
+                        max_downsampled: int = 8192, num_neighbors: int = 20,
+                        covariance_mode: str = "knn", predict_motion: bool = False,
+                        registration_type: Optional[str] = None, model_nn: str = "voxel",
+                        model_rtype: str = "gicp"):
+    """B independent odometry loops: carries a list of B carries
+    (``make_initial_carry``), frames [B,F,N,4], counts [B,F]. Each lane runs
+    ``odometry_scan`` (``registration_type`` None: the model engines) or
+    ``odometry_scan_s2s`` (the factor's name) over its frames, one lane after
+    the other; lanes never interact. Returns (carries, poses [B,F,4,4])."""
+    out, poses = [], []
+    for carry, f, n in zip(carries, frames, counts):
+        if registration_type is None:
+            carry, p = odometry_scan(
+                carry, f, n, downsampling_resolution=downsampling_resolution,
+                max_correspondence_distance=max_correspondence_distance,
+                max_downsampled=max_downsampled, num_neighbors=num_neighbors,
+                covariance_mode=covariance_mode, predict_motion=predict_motion,
+                model_nn=model_nn, model_rtype=model_rtype)
+        else:
+            carry, p = odometry_scan_s2s(
+                carry, f, n, downsampling_resolution=downsampling_resolution,
+                max_correspondence_distance=max_correspondence_distance,
+                max_downsampled=max_downsampled, num_neighbors=num_neighbors,
+                registration_type=registration_type, predict_motion=predict_motion)
+        out.append(carry)
+        poses.append(p)
+    return out, torch.stack(poses)
+
+
+class BatchOdometry:
+    """B sequences tracked at once, each lane with its own model map (or
+    previous frame), on one device (default: the card).
+
+    A lane's poses equal ``JitOdometry`` over the same frames with the same
+    engine and covariance mode: each lane runs the same step. The
+    JAX package's ``max_frame_motion``, ``model_prepared_rows`` and
+    ``solve_dtype`` do not reach its batch either; they stay at their
+    defaults here. ``mesh`` (the lane axis sharded over devices) belongs to
+    ROADMAP item A10.
+    """
+
+    def __init__(self, num_lanes: int, params: Optional[OdometryParams] = None,
+                 engine: str = "gicp_model", covariance_mode: str = "knn",
+                 mesh=None, axis_name: str = "data", *, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "BatchOdometry(mesh=...) shards the lanes over devices: ROADMAP item A10")
+        del axis_name
+        self.params = params or OdometryParams()
+        self.engine = engine
+        self.covariance_mode = covariance_mode
+        self.num_lanes = num_lanes
+        self.device = resolve_device(device)
+        self.carries = []
+        for _ in range(num_lanes):
+            carry, self.registration_type = make_initial_carry(self.params, engine,
+                                                               device=self.device)
+            self.carries.append(carry)
+
+    def feed(self, sequences) -> np.ndarray:
+        """``sequences``: B lists of [N,3] scans, of any lengths; a shorter
+        lane is padded with empty frames, which are exact no-ops, so its
+        padded tail repeats its last pose. Returns [B, F_max, 4, 4]."""
+        p = self.params
+        if len(sequences) != self.num_lanes:
+            raise ValueError(f"expected {self.num_lanes} sequences, got {len(sequences)}")
+        f_max = max(len(s) for s in sequences)
+        lanes = [stack_frames(seq, f_max, p.max_scan_points, p.dtype) for seq in sequences]
+        frames = torch.from_numpy(np.stack([f for f, _ in lanes])).to(self.device)
+        counts = torch.from_numpy(np.stack([c for _, c in lanes])).to(self.device)
+        self.carries, poses = odometry_scan_batch(
+            self.carries, frames, counts,
+            downsampling_resolution=p.downsampling_resolution,
+            max_correspondence_distance=p.max_correspondence_distance,
+            max_downsampled=p.max_downsampled, num_neighbors=p.num_neighbors,
+            covariance_mode=self.covariance_mode, predict_motion=p.predict_motion,
+            registration_type=self.registration_type,
+            model_nn=_model_nn_for(self.engine), model_rtype=_model_rtype_for(self.engine))
+        return poses.cpu().numpy()

@@ -27,11 +27,13 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
     errors and the accept) is one launch of the step kernel
     (``ops/lm_step.gicp_lm_step``, K2 redesigned); on CPU tensors those run
     their plain versions;
-  * unfused ("never", float64 clouds, and every voxel-map target — VGICP
-    is the GICP factor against a ``GaussianVoxelMap``): the correspondence
-    search — transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on
-    the card) or the map's own voxel search, one gather of the winners'
-    payload, ``make_weights``, rejector mask — feeds ``factors.linearize``,
+  * unfused ("never", float64 clouds, a ``ProjectiveSearch`` searcher, and
+    every voxel-map target — VGICP is the GICP factor against a
+    ``GaussianVoxelMap``): the correspondence search — transform,
+    ``KdTree.nearest_neighbor_search`` (kernel K9 on the card), the
+    projective window search (a miss: mask 0, d² 1e18) or the map's own
+    voxel search, one gather of the winners' payload, ``make_weights``,
+    rejector mask — feeds ``factors.linearize``,
     torch ops as they are XLA ops in the JAX package. For float32 clouds
     the correspondences are then packed into the corr rows the step kernel
     reads (``pack_corr_rows``) and the iteration ends in the same step as
@@ -69,6 +71,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     linearize_buffers,
 )
 from small_gicp_tpu_torch.ops.knn import KdTree
+from small_gicp_tpu_torch.ops.projective_search import ProjectiveSearch
 from small_gicp_tpu_torch.ops.lm_step import (
     gicp_lm_step,
     gicp_lm_step_plain,
@@ -102,7 +105,8 @@ def search_correspondences(factor_type: str, target, target_tree,
     """Nearest target row (or voxel) of every transformed source point, with
     the factor's weight matrices and the rejector mask, and the winners' d²
     [N]: the JAX package's ``_search_correspondences`` for a PointCloud
-    (searched by ``target_tree``, or a ``KdTree`` built here), a
+    (searched by ``target_tree`` — a ``KdTree`` or a ``ProjectiveSearch``,
+    whose misses mask out —, or a ``KdTree`` built here), a
     ``GaussianVoxelMap`` or an ``IncrementalVoxelMap`` target."""
     transed = source_points @ T.T  # [N,4]
     n = source_points.shape[0]
@@ -122,8 +126,11 @@ def search_correspondences(factor_type: str, target, target_tree,
         if target.has_covs:
             t_covs = rows[:, off:off + 9].reshape(-1, 3, 3)
     else:
-        tree = target_tree if target_tree is not None else KdTree.build(target)
-        sq_dists, idx = tree.nearest_neighbor_search(transed[:, :3])
+        if isinstance(target_tree, ProjectiveSearch):
+            sq_dists, idx, found = target_tree.nearest_neighbor_search(transed[:, :3])
+        else:
+            tree = target_tree if target_tree is not None else KdTree.build(target)
+            sq_dists, idx = tree.nearest_neighbor_search(transed[:, :3])
         idx = idx.long()
         mu = target.points[idx, :3]
         t_normals = target.normals[idx] if target.normals is not None else None
@@ -167,8 +174,9 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
     ``verbose`` prints the JAX package's line once per iteration: LM
     ``iter e new_e lambda dr dt``, GN ``iter e gn_lambda dr dt``.
     ``use_fused``: "auto" takes the fused kernels for float32 clouds against
-    a PointCloud; "never" keeps the unfused search + linearize route, which
-    float64 clouds and voxel maps always take. ``psum_axis`` (the
+    a PointCloud searched by a ``KdTree`` (or none); "never" keeps the
+    unfused search + linearize route, which float64 clouds, a
+    ``ProjectiveSearch`` and voxel maps always take. ``psum_axis`` (the
     point-sharded mode) is not ported. ``fused_route``: "listed" or "swept"
     forces the fused search's route; None chooses by the target's size.
     ``max_inner_iterations``: any K ≥ 0, at most 99 where the step kernel
@@ -183,10 +191,9 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         raise NotImplementedError(
             f"targets of type {type(target).__name__} (the mesh-sharded voxel map) "
             "wait for ROADMAP item A10")
-    if target_tree is not None and not isinstance(target_tree, KdTree):
-        raise NotImplementedError(
-            "only the exact KdTree searcher is ported; projective search "
-            "waits for ROADMAP item A9")
+    if target_tree is not None and not isinstance(target_tree, (KdTree, ProjectiveSearch)):
+        raise TypeError(f"target_tree must be None, a KdTree or a ProjectiveSearch, got "
+                        f"{type(target_tree).__name__}")
     if registration_type not in (ICP, PLANE_ICP, GICP):
         raise ValueError(f"unknown registration type {registration_type!r}")
     if optimizer not in ("gn", "lm"):
@@ -211,7 +218,8 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                      gn_lambda, rotation_eps, translation_eps, dof_diag, dt, dev)
 
     cloud = isinstance(target, PointCloud)
-    if use_fused == "auto" and dt == torch.float32 and cloud:
+    if (use_fused == "auto" and dt == torch.float32 and cloud
+            and not isinstance(target_tree, ProjectiveSearch)):
         route = fused_route or auto_route(target.points)
         # A tree over this very target keeps its sort and boxes across aligns
         # (and from the covariance stage of preprocess_points).

@@ -24,12 +24,13 @@ from small_gicp_tpu_torch.ops.voxel_keys import INVALID_KEY, sort_segments, voxe
 
 
 def _run_sums(rows_s: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
-    """[N,4] float64 sums of the runs of ``rows_s`` [N,4] float64 that end at
+    """[N,C] float64 sums of the runs of ``rows_s`` [N,C] float64 that end at
     rows ``ends`` [N] (run j: rows ends[j-1]+1 … ends[j]), as differences of
-    one prefix sum along the last dim of the [4,N] transpose."""
+    one prefix sum along the last dim of the [C,N] transpose."""
     csum = torch.cumsum(rows_s.T.contiguous(), dim=1)
     c_end = csum[:, ends]
-    return (c_end - torch.cat([c_end.new_zeros((4, 1)), c_end[:, :-1]], dim=1)).T.contiguous()
+    return (c_end - torch.cat([c_end.new_zeros((c_end.shape[0], 1)), c_end[:, :-1]],
+                              dim=1)).T.contiguous()
 
 
 def _run_sums_v1(rows_s: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:

@@ -150,18 +150,24 @@ class KdTree:
         return self._packed
 
     def knn_search(self, query_xyz, k: int, block: int = QUERY_BLOCK,
-                   method: str = "exact"):
+                   method: str = "exact", window_cell: float = 1.0):
         """[Q,3] (or one [3]) → (sq_dists [Q,k], idx [Q,k] int32), ascending.
 
-        ``method`` is "exact"; the approximate "window" search of the JAX
-        package is not ported yet. ``block`` tunes the query tiling of the
-        torch brute force only; the kernel path ignores it.
+        ``method``: "exact", or "window", the approximate Morton-banded
+        search (``knn_window.knn_windowed_query``, cell ``window_cell``;
+        ≥ 97 % set recall at the defaults on LiDAR-like clouds, missed slots
+        d² = inf) over the tree's live rows packed first. ``block`` tunes the
+        query tiling of the torch brute force only; the kernel path ignores
+        it.
         """
         q, single = self._queries(query_xyz)
         if method == "window":
-            raise NotImplementedError(
-                "method='window' (ops/knn_window.knn_windowed_query) waits for "
-                "ROADMAP item A9")
+            from small_gicp_tpu_torch.ops.knn_window import knn_windowed_query
+
+            rows, num, order = self.packed()
+            d, i = knn_windowed_query(rows, num, q[:, :3], k, cell=window_cell)
+            i = order[i.long()]
+            return (d[0], i[0]) if single else (d, i)
         if method != "exact":
             raise ValueError(f"unknown method {method!r}; have 'exact', 'window'")
         if self._on_card() and 1 < k <= 64:

@@ -9,7 +9,9 @@ come from one of two routes, chosen as the JAX package chooses them:
   * anything else (float64, k > 64, larger clouds): ``KdTree.knn_search``
     and query-centred moment sums over the gathered neighbours.
 ``neighbor_mode="fused"`` insists on the first route and raises where it
-does not apply. A ``KdTree`` over the cloud's own points hands the kernels
+does not apply; ``neighbor_mode="window"`` takes the neighbour lists of the
+approximate Morton-banded self-search (``knn_window.knn_windowed``, cell
+``window_cell``) and sums their moments as the second route does. A ``KdTree`` over the cloud's own points hands the kernels
 its kept Morton sort and boxes (``KdTree.pruned_target()``), so that
 ``preprocess_points`` and the align that follows sort each cloud once.
 Then:
@@ -36,8 +38,15 @@ _MIN_NEIGHBORS = 5
 
 def _searched_moments(points: torch.Tensor, num_points: torch.Tensor, k: int):
     """(Σd [N,3], Σddᵀ [N,3,3], counts [N]) through ``KdTree.knn_search``."""
+    sq_dists, idx = KdTree(points=points, num_points=num_points).knn_search(
+        points[:, :3], k)
+    return _list_moments(points, sq_dists, idx)
+
+
+def _list_moments(points: torch.Tensor, sq_dists: torch.Tensor, idx: torch.Tensor):
+    """(Σd [N,3], Σddᵀ [N,3,3], counts [N]) over the neighbour lists (d² [N,k],
+    idx [N,k]); a slot at d² ≥ 1e16 (or inf) holds no neighbour."""
     xyz = points[:, :3]
-    sq_dists, idx = KdTree(points=points, num_points=num_points).knn_search(xyz, k)
     neighbor_valid = sq_dists < _VALID_NEIGHBOR_SQ_DIST  # [N,k]
     counts = neighbor_valid.to(points.dtype).sum(dim=-1)
     # Centred on the query: the covariance is translation-invariant, and
@@ -56,7 +65,7 @@ def _kept_sort(points: torch.Tensor, tree):
 
 def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
                    num_neighbors: int, need_normals: bool, need_covs: bool,
-                   neighbor_mode: str = "exact", tree=None):
+                   neighbor_mode: str = "exact", window_cell: float = 0.25, tree=None):
     n = points.shape[0]
     dt, dev = points.dtype, points.device
     xyz = points[:, :3]
@@ -70,9 +79,10 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
         m1, m2, counts = knn_moments(points, num_points, num_neighbors,
                                      target=_kept_sort(points, tree))
     elif neighbor_mode == "window":
-        raise NotImplementedError(
-            "neighbor_mode='window' (ops/knn_window.knn_windowed) waits for "
-            "ROADMAP item A9")
+        from small_gicp_tpu_torch.ops.knn_window import knn_windowed
+
+        m1, m2, counts = _list_moments(points, *knn_windowed(
+            points, num_points, num_neighbors, cell=window_cell))
     elif neighbor_mode == "exact":
         m1, m2, counts = _searched_moments(points, num_points, num_neighbors)
     else:

@@ -3,9 +3,9 @@
 
 The frames and parameters are those of ``tests/test_odometry.py`` (5 frames
 of 2,500 points, 0.15 m a frame, 4,096-row capacities, a map of 8,192
-rows, k = 10, 0.3 m / 1.0 m). Every engine but the projective one (its
-search waits for ROADMAP item A9) runs in both packages: trajectories
-within ``atol=1e-3`` a pose entry, and the model engines' final maps with
+rows, k = 10, 0.3 m / 1.0 m); the projective engine takes
+``tests/test_projective_search.py:107``'s frames. Every engine runs in both
+packages: trajectories within ``atol=1e-3`` a pose entry, and the model engines' final maps with
 the same voxel keys. The utilities compare exactly (``stack_frames``,
 ``write_trajectory``'s bytes, ``Summarizer``'s string, ``compact_cloud``)
 or within 1e-9 (APE, RPE) and 1e-6 (``orthonormalize``).
@@ -93,6 +93,7 @@ def _make_frames(n_frames=5, step=0.15, n=2500, seed=3):
     return frames, np.stack(gt)
 
 
+# The projective engine runs on its own frames (test_projective_engine_matches_jax).
 STREAMING = sorted(e for e in ENGINES if e != "small_gicp_projective")
 
 
@@ -116,10 +117,23 @@ def test_streaming_engine_matches_jax(engine):
     assert t.report().endswith(" [msec/scan]") and t.reg_times.count == 5
 
 
-def test_projective_engine_waits_for_a9():
-    assert "small_gicp_projective" in ENGINES
-    with pytest.raises(NotImplementedError, match="A9"):
-        create_odometry("small_gicp_projective", PARAMS, device="cpu")
+def test_projective_engine_matches_jax():
+    """``small_gicp_projective`` on ``tests/test_projective_search.py:107``'s
+    frames and parameters: the trajectory within 1e-3 of the JAX engine's,
+    tracking the 0.3 m steps."""
+    rng = np.random.default_rng(0)
+    base = rng.uniform(-20, 20, size=(4000, 3)).astype(np.float32)
+    base[:, 2] = np.clip(base[:, 2], -3.0, 3.0)
+    scans = [base - np.array([0.3 * i, 0.0, 0.0], np.float32)
+             + rng.normal(scale=0.005, size=base.shape).astype(np.float32) for i in range(4)]
+    shape = dict(max_scan_points=4096, max_downsampled=4096, map_capacity=4096,
+                 downsampling_resolution=0.3)
+    j_poses = j_create("small_gicp_projective", JParams(**shape)).estimate(scans)
+    t = create_odometry("small_gicp_projective", OdometryParams(**shape), device="cpu")
+    t_poses = t.estimate(scans)
+    assert "small_gicp_projective" in ENGINES and t.reg_times.count == 4
+    np.testing.assert_allclose(t_poses, j_poses, atol=1e-3)
+    assert abs(t_poses[-1][0, 3] - 0.9) < 0.1
     with pytest.raises(ValueError, match="unknown engine"):
         create_odometry("small_gicp_fast", PARAMS, device="cpu")
 

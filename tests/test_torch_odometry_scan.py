@@ -11,24 +11,33 @@ its two paths: f32 reduction order can flip a knife-edge LM accept), and
 the final maps hold the same voxel keys. Padded frames are exact no-ops and
 the first frame against an empty map keeps the guess bit for bit; chunked
 feeding and ``feed_preloaded`` equal one ``feed`` within rtol 1e-5 / atol
-1e-6, as in JAX.
+1e-6, as in JAX. The "voxel" and "knn_window" covariance modes and
+``BatchOdometry`` (each lane equal to ``JitOdometry`` alone within rtol
+1e-5 / atol 1e-6, and to the JAX batch within 1e-3) are held the same way.
 """
 
 import dataclasses
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from small_gicp_tpu.models.odometry import OdometryParams as JParams
 from small_gicp_tpu.models.odometry_scan import (
+    BatchOdometry as JBatch,
     JitOdometry as JJit,
     stack_frames as j_stack_frames,
 )
+from small_gicp_tpu.ops.normals import _estimate_impl as j_estimate
 from small_gicp_tpu_torch.models import odometry_scan as osc
 from small_gicp_tpu_torch.models.odometry import OdometryParams
-from small_gicp_tpu_torch.models.odometry_scan import JitOdometry, make_initial_carry
+from small_gicp_tpu_torch.models.odometry_scan import (
+    BatchOdometry,
+    JitOdometry,
+    make_initial_carry,
+)
 from small_gicp_tpu_torch.models.registration import align_impl
 from small_gicp_tpu_torch.models.voxelmap import (
     GaussianVoxelMap,
@@ -223,21 +232,79 @@ def test_model_prepared_rows_sufficient_budget_equals_none():
     assert np.abs(t1 - t0).max() < 1e-3
 
 
-def test_covariance_modes():
-    """"knn_fused" equals "knn" (both reach the moments kernel's account);
-    "voxel" and "knn_window" wait for ROADMAP item A9."""
+@pytest.mark.parametrize("mode", ["voxel", "knn_window"])
+def test_covariance_modes(mode):
+    """"voxel" (27-voxel moments) and "knn_window" (windowed kNN lists)
+    against the JAX package's ``JitOdometry`` in the same mode (its calls of
+    ``tests/test_odometry_scan.py:116``): poses within 1e-3, the same map
+    keys, and the trajectory of "knn" within 2e-3 as JAX bounds it."""
+    frames = _frames(5)
+    j = JJit(J_PARAMS, covariance_mode=mode)
+    j_poses = j.feed(frames)
+    t = JitOdometry(PARAMS, covariance_mode=mode, device="cpu")
+    t_poses = t.feed(frames)
+    np.testing.assert_allclose(t_poses, j_poses, atol=1e-3)
+    _same_model(j.carry[2], t.carry[2])
+    exact = JitOdometry(PARAMS, covariance_mode="knn", device="cpu").feed(frames)
+    assert abs(t_poses[-1, 0, 3] - 0.6) < 0.05
+    assert np.max(np.abs(t_poses - exact)) < 2e-3
+    if mode == "knn_window":
+        # Point-to-plane normals through the window mode, against the JAX
+        # estimator on the same downsampled rows (within 1e-4 where both
+        # packages find a normal).
+        pts = torch.from_numpy(j_stack_frames(frames[:1], 1, 4096, "float32")[0][0])
+        cloud = osc._frame_cloud(pts, torch.tensor(len(frames[0]), dtype=torch.int32), 0.3,
+                                 4096, 10, "plane_icp", mode)
+        want, _ = j_estimate(jnp.asarray(cloud.points.numpy()), jnp.int32(cloud.num_points),
+                             10, True, False, neighbor_mode="window", window_cell=0.3)
+        got, want = cloud.normals.numpy(), np.asarray(want)
+        both = (np.abs(got).sum(1) > 0) & (np.abs(want).sum(1) > 0)
+        assert both.sum() > 500 and np.mean(np.abs(got - want).max(1)[both] <= 1e-4) > 0.99
+
+
+def test_knn_fused_equals_knn():
+    """"knn_fused" equals "knn": both reach the moments kernel's account."""
     frames = _frames(3)
     a = JitOdometry(PARAMS, chunk_frames=3, covariance_mode="knn", device="cpu").feed(frames)
     b = JitOdometry(PARAMS, chunk_frames=3, covariance_mode="knn_fused",
                     device="cpu").feed(frames)
     np.testing.assert_array_equal(a, b)
-    for mode in ("voxel", "knn_window"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            JitOdometry(PARAMS, chunk_frames=1, covariance_mode=mode,
-                        device="cpu").feed(frames[:1])
     with pytest.raises(ValueError):
         JitOdometry(PARAMS, chunk_frames=1, covariance_mode="exact",
                     device="cpu").feed(frames[:1])
+
+
+def test_batch_odometry_matches_lanes_and_jax():
+    """``BatchOdometry`` of ``tests/test_odometry_scan.py:128``'s three lanes
+    (one shorter): each lane equal to ``JitOdometry`` alone within rtol 1e-5
+    / atol 1e-6, the padded tail repeating the lane's last pose, and the
+    JAX package's batch within 1e-3."""
+    seqs = [_frames(4, step=0.15, seed=3), _frames(4, step=0.10, seed=7),
+            _frames(2, step=0.20, seed=11)]
+    batch = BatchOdometry(3, PARAMS, device="cpu")
+    poses = batch.feed(seqs)
+    assert poses.shape == (3, 4, 4, 4) and poses.dtype == np.float32
+    for lane, seq in enumerate(seqs):
+        solo = JitOdometry(PARAMS, chunk_frames=4, device="cpu").feed(seq)
+        np.testing.assert_allclose(poses[lane, :len(seq)], solo, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(poses[2, 2:], np.repeat(poses[2, 1:2], 2, axis=0))
+    np.testing.assert_allclose(poses, JBatch(3, J_PARAMS).feed(seqs), atol=1e-3)
+    with pytest.raises(NotImplementedError, match="A10"):
+        BatchOdometry(2, PARAMS, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="expected 3 sequences"):
+        batch.feed(seqs[:2])
+
+
+def test_batch_odometry_scan_to_scan():
+    """``tests/test_odometry_scan.py:151``: two equal gicp_scan lanes equal
+    each other, ``JitOdometry`` alone and the JAX package's batch."""
+    seq = _frames(3)
+    poses = BatchOdometry(2, PARAMS, engine="gicp_scan", device="cpu").feed([seq, seq])
+    np.testing.assert_array_equal(poses[0], poses[1])
+    solo = JitOdometry(PARAMS, engine="gicp_scan", chunk_frames=3, device="cpu").feed(seq)
+    np.testing.assert_allclose(poses[0], solo, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(poses, JBatch(2, J_PARAMS, engine="gicp_scan").feed([seq, seq]),
+                               atol=1e-3)
 
 
 def test_stack_frames_equals_jax():

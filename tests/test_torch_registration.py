@@ -116,13 +116,14 @@ def test_dof_mask_freezes_translation(scan_pair, preprocessed):
 
 def test_unported_targets_raise(preprocessed):
     _, (tt, ttree, ts) = preprocessed
-    # Voxel maps and VGICP are ported (tests/test_torch_vgicp.py); the
-    # mesh-sharded voxel-map target waits for A10, projective search for A9.
+    # Voxel maps and VGICP are ported (tests/test_torch_vgicp.py), projective
+    # search too (tests/test_torch_projective.py); the mesh-sharded voxel-map
+    # target waits for A10, and a searcher of another type is refused.
     with pytest.raises(NotImplementedError, match="A10"):
         align_impl({"voxel": "map"}, ts, None, None)
     with pytest.raises(TypeError, match="target"):
         pt.align({"voxel": "map"}, ts)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="KdTree or a ProjectiveSearch"):
         Registration().align(tt, ts, target_tree=object())
     with pytest.raises(ValueError, match="solve_dtype"):
         Registration(solve_dtype="float16")

@@ -70,8 +70,12 @@ def test_kdtree_single_query_aliases_and_methods(clouds):
         tree.knn_search(q, 5, method="approximate")
     with pytest.raises(ValueError, match="unknown method"):
         jtree.knn_search(jnp.asarray(q), 5, method="approximate")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tree.knn_search(q, 5, method="window")
+    # The window method in both packages (float64: the same rows).
+    jdw, jiw = jtree.knn_search(jnp.asarray(q), 5, method="window", window_cell=0.5)
+    dw, iw = tree.knn_search(q, 5, method="window", window_cell=0.5)
+    assert iw.dtype == torch.int32
+    np.testing.assert_array_equal(iw.numpy(), np.asarray(jiw))
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=0, atol=1e-12)
 
 
 def test_kdtree_float32_matches_the_plain_kernels(clouds):
@@ -125,8 +129,15 @@ def test_neighbor_mode_rules():
     cloud = cloud_from_numpy(
         np.asarray(JCloud.from_points(scans[0][:800], capacity=800).points), 800,
         device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        _estimate_impl(cloud.points, cloud.num_points, 10, True, True, "window")
+    # "window": the windowed lists' normals and covariances, against JAX's.
+    from small_gicp_tpu.ops.normals import _estimate_impl as j_estimate
+
+    jn, jc = j_estimate(jnp.asarray(cloud.points.numpy()), jnp.int32(800), 10, True, True,
+                        neighbor_mode="window", window_cell=0.5)
+    wn, wc = _estimate_impl(cloud.points, cloud.num_points, 10, True, True, "window", 0.5)
+    assert wn.dtype == torch.float32 and wc.shape == (800, 3, 3)
+    np.testing.assert_allclose(wc.numpy(), np.asarray(jc), atol=1e-4)
+    np.testing.assert_allclose(wn.numpy(), np.asarray(jn), atol=1e-4)
     with pytest.raises(ValueError, match="unknown neighbor_mode"):
         _estimate_impl(cloud.points, cloud.num_points, 10, True, True, "nearest")
     # float32, k ≤ 64: "exact" is the fused route.

@@ -2,8 +2,10 @@
 positions and spellings: ``preprocess_points``, ``align``,
 ``RegistrationSetting``, ``Registration``, ``align_impl``,
 ``voxelgrid_sampling``, ``estimate_normals``, ``estimate_covariances``,
-``estimate_normals_covariances``, ``fleet_prepare`` and ``align_fleet``
-list the same parameters with the same defaults, in the same order, apart
+``estimate_normals_covariances``, ``fleet_prepare``, ``align_fleet``,
+``KdTree.knn_search``, ``ProjectiveSearch.build``,
+``voxelgrid_sampling_with_covs``, ``odometry_scan_batch`` and
+``BatchOdometry.__init__`` list the same parameters with the same defaults, in the same order, apart
 from the port's own (``optimizer``, ``device``, ``fused_route``,
 ``source_rows``), which follow as keywords only; the JAX package's ``num_threads``, ``block_q`` and
 ``interpret`` are accepted and ignored. The voxel maps' public names
@@ -34,6 +36,10 @@ from small_gicp_tpu.ops import normals as j_normals
 from small_gicp_tpu.models import voxelmap as j_voxelmap
 from small_gicp_tpu import point_cloud as j_point_cloud
 from small_gicp_tpu.parallel import fleet as j_fleet
+from small_gicp_tpu.models import odometry_scan as j_odometry_scan
+from small_gicp_tpu.ops import knn as j_knn
+from small_gicp_tpu.ops import projective_search as j_projective
+from small_gicp_tpu.ops import voxel_covs as j_voxel_covs
 import small_gicp_tpu_torch as pt
 from small_gicp_tpu_torch.models import helper as t_helper
 from small_gicp_tpu_torch.models import registration as t_registration
@@ -42,6 +48,10 @@ from small_gicp_tpu_torch.ops import normals as t_normals
 from small_gicp_tpu_torch.models import voxelmap as t_voxelmap
 from small_gicp_tpu_torch import point_cloud as t_point_cloud
 from small_gicp_tpu_torch.parallel import fleet as t_fleet
+from small_gicp_tpu_torch.models import odometry_scan as t_odometry_scan
+from small_gicp_tpu_torch.ops import knn as t_knn
+from small_gicp_tpu_torch.ops import projective_search as t_projective
+from small_gicp_tpu_torch.ops import voxel_covs as t_voxel_covs
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
 
@@ -71,8 +81,30 @@ MODULES = {
 def test_parameters_mirror_the_jax_package(name):
     j_mod, t_mod = MODULES[name]
     j_fn, t_fn = getattr(j_mod, name), getattr(t_mod, name)
-    j_params = _params(j_fn.__init__ if name == "Registration" else j_fn)
-    t_params = _params(t_fn.__init__ if name == "Registration" else t_fn)
+    _mirrors(name, _params(j_fn.__init__ if name == "Registration" else j_fn),
+             _params(t_fn.__init__ if name == "Registration" else t_fn))
+
+
+# The windowed search, the voxel covariances, the projective searcher and the
+# batched odometry: (JAX module, port module) of each dotted name.
+A9_NAMES = {
+    "KdTree.knn_search": (j_knn, t_knn),
+    "ProjectiveSearch.build": (j_projective, t_projective),
+    "voxelgrid_sampling_with_covs": (j_voxel_covs, t_voxel_covs),
+    "odometry_scan_batch": (j_odometry_scan, t_odometry_scan),
+    "BatchOdometry.__init__": (j_odometry_scan, t_odometry_scan),
+}
+
+
+@pytest.mark.parametrize("name", list(A9_NAMES))
+def test_a9_parameters_mirror_the_jax_package(name):
+    j_mod, t_mod = A9_NAMES[name]
+    _mirrors(name, _params(_resolve(j_mod, name)), _params(_resolve(t_mod, name)))
+
+
+def _mirrors(name, j_params, t_params):
+    """The port's parameters are the JAX package's, in its positions, kinds
+    and defaults, then the port's own as keywords only."""
     j_names = [p.name for p in j_params]
     # The port's own parameters trail the JAX package's, keyword-only.
     own = [p for p in t_params if p.name not in j_names]
