@@ -173,7 +173,25 @@ Phases (any failure exits non-zero):
                 small sequence (within 1e-3); BatchOdometry of four worlds
                 (32 × 900 rays, 3/3/3/2 frames) for gicp_model and gicp_scan,
                 each lane against JitOdometry alone (rtol 1e-5 / atol 1e-6),
-                the padded tail, frames/s across lanes.
+                the padded tail, frames/s across lanes;
+ 12. scale-out — frames 0-8 at one capacity; every mode of parallel/ at
+                world size 1 over NCCL in this process, against its
+                unsharded call on the same inputs and timed in turns with
+                it: align_batch of 4 pairs equal to the per-pair aligns bit
+                for bit (K1 and the step once an LM iteration);
+                align_point_sharded within 1e-5 of the unsharded unfused
+                align with equal inliers (K9 and the step kernel's
+                errors-only mode once an iteration, K1 and the step never;
+                host syncs counted); both voxel maps over frames 0-7 sharded,
+                frame 8's search equal bit for bit (slots too), VGICP against
+                the sharded Gaussian map within 2 × translation_eps (the step
+                once an iteration); align_fleet_sharded of 64 problems equal
+                to align_fleet row for row (K7, K8); BatchOdometry(2,
+                "gicp_scan", mesh=) equal to the unsharded batch (K1, K3,
+                the step); then the same checks on two gloo ranks sharing
+                the card, each a process of this script (--scale-rank), at
+                smaller sizes (fleet rows within phase 6's lane-count
+                invariance, slots equal but on ties).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -185,8 +203,11 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -255,7 +276,7 @@ from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     swept_live_tiles,
     swept_plan,
 )
-from small_gicp_tpu_torch.models.registration import align_impl
+from small_gicp_tpu_torch.models.registration import Registration, align_impl
 from small_gicp_tpu_torch.ops import lm_step
 from small_gicp_tpu_torch.ops.lm_step import gicp_lm_step, gicp_lm_step_plain, lm_state
 from small_gicp_tpu_torch.ops import knn_cuda
@@ -291,7 +312,20 @@ from small_gicp_tpu_torch.ops.voxel_covs import (
     neighborhood_covariances,
     voxelgrid_sampling_with_covs,
 )
-from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
+from small_gicp_tpu_torch.parallel import multihost
+from small_gicp_tpu_torch.parallel.fleet import (
+    align_fleet,
+    align_fleet_sharded,
+    fleet_prepare,
+)
+from small_gicp_tpu_torch.parallel.map_sharding import (
+    shard_gaussian_voxelmap,
+    shard_incremental_voxelmap,
+    sharded_gvm_nn,
+    sharded_ivm_nn,
+    sharded_model_align,
+)
+from small_gicp_tpu_torch.parallel.sharding import align_batch, align_point_sharded
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
 from small_gicp_tpu_torch.utils.io import write_kitti_bin
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
@@ -3373,10 +3407,258 @@ def phase_rest(scans, poses, rng, dev, card):
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 12 ----
+
+SCALE_PAIRS = 4
+SCALE_PROBLEMS = 64
+SCALE_MAP_FRAMES = 8
+SCALE_ODOM_FRAMES = 3
+SCALE_ENGINE = "gicp_scan"
+SCALE_RANKS = 2  # gloo ranks sharing the card
+# Launch counters read in phase 12: K1, the step kernel (and its errors-only
+# mode, counted on gicp_error_multi), K7, K8 and K9.
+SCALE_COUNTS = ("gicp_linearize", "gicp_lm_step", "gicp_linearize_fleet",
+                "gicp_error_multi_fleet", "nearest_neighbor")
+
+
+def scale_counts() -> dict:
+    c = read_counts()
+    out = {KERNELS[k][0]: c[k] for k in SCALE_COUNTS}
+    out["K2 errors-only"] = gicp_error_multi.launches
+    return out
+
+
+def scale_zero():
+    zero_counts()
+    gicp_error_multi.launches = 0
+
+
+def scale_modes(scans, poses, rng, dev, mesh, card, world, reps, pairs=SCALE_PAIRS,
+                problems=SCALE_PROBLEMS, map_frames=SCALE_MAP_FRAMES,
+                odom_frames=SCALE_ODOM_FRAMES) -> dict:
+    """Every scale-out mode over ``mesh`` (``world`` ranks) against its
+    unsharded call on the same inputs, on the card: checks, launch counts in
+    the sharded run, and ms of each in turns (``reps`` rounds of CUDA events
+    around one call). Returns {mode: {"ms", "unsharded_ms", "launches"}}."""
+    rank = multihost.mesh_group(mesh)[1]
+    say = print if rank == 0 else (lambda *a, **k: None)
+    out = {}
+    n_est = max(int(voxelgrid_sampling(PointCloud.from_points(sc, device=dev),
+                                       LEAF).num_points) for sc in scans)
+    cap = (n_est + 256 + 511) // 512 * 512
+    clouds = [preprocess_points(sc, LEAF, num_neighbors=K_NEIGHBORS, max_points=cap,
+                                device=dev)[0] for sc in scans]
+    gts = [np.linalg.inv(poses[i]) @ poses[i + 1] for i in range(len(scans) - 1)]
+
+    def record(mode, fns, launches):
+        ms = time_turns(fns, reps=reps)
+        out[mode] = {"ms": ms["sharded"], "unsharded_ms": ms["unsharded"],
+                     "launches": launches}
+        say(f"  {mode}: {ms['sharded']:.3f} ms sharded over {world} rank(s), "
+            f"{ms['unsharded']:.3f} ms unsharded (events, in turns, median of {reps}); "
+            f"launches in the sharded run (this rank) {launches} on {card}", flush=True)
+
+    # Batch: B pairs, each rank its block, one gather.
+    inits = torch.as_tensor(np.stack([noisy_guess(gts[i], rng) for i in range(pairs)]),
+                            dtype=torch.float32)
+    targets, sources = stack_clouds(clouds[:pairs]), stack_clouds(clouds[1:pairs + 1])
+    scale_zero()
+    got = align_batch(targets, sources, inits, mesh=mesh)
+    launches = scale_counts()
+    refs = [align_impl(clouds[i], clouds[i + 1], None, inits[i]) for i in range(pairs)]
+    mine = range(pairs)[multihost.block(pairs, rank, world)]
+    its = sum(int(refs[i].iterations) + 1 for i in mine)
+    check(torch.equal(got.T_target_source, torch.stack([r.T_target_source for r in refs]))
+          and torch.equal(got.iterations, torch.stack([r.iterations for r in refs])),
+          "align_batch differs from the per-pair aligns")
+    check(launches["K1"] == its and launches["K2"] == its,
+          f"align_batch: launches {launches} in {its} LM iterations on this rank")
+    say(f"  align_batch of {pairs} pairs ({cap} rows each): equal to the per-pair aligns "
+        f"bit for bit, iterations {got.iterations.tolist()}")
+    record("batch", {"sharded": lambda: align_batch(targets, sources, inits, mesh=mesh),
+                     "unsharded": lambda: [align_impl(clouds[i], clouds[i + 1], None,
+                                                      inits[i]) for i in range(pairs)]},
+           launches)
+
+    # Point-sharded: one registration, the source rows split.
+    init = torch.as_tensor(inits[0])
+    scale_zero()
+    got, syncs = counted_syncs(lambda: align_point_sharded(clouds[0], clouds[1], init, mesh))
+    launches = scale_counts()
+    ref, ref_syncs = counted_syncs(lambda: align_impl(clouds[0], clouds[1], None, init,
+                                                      use_fused="never"))
+    its = int(got.iterations) + 1
+    d_T = float((got.T_target_source - ref.T_target_source).abs().max())
+    check(d_T <= 1e-5 and int(got.num_inliers) == int(ref.num_inliers),
+          f"align_point_sharded: |dT| {d_T:.2e}, inliers {int(got.num_inliers)} against "
+          f"{int(ref.num_inliers)}")
+    check(launches["K9"] == its and launches["K2 errors-only"] == its
+          and launches["K1"] == 0 and launches["K2"] == 0,
+          f"align_point_sharded: launches {launches} in {its} LM iterations")
+    say(f"  align_point_sharded of {int(clouds[1].num_points)} source rows: |dT| {d_T:.2e} "
+        f"against the unsharded unfused align, inliers {int(got.num_inliers)} equal, "
+        f"{its} iterations; {syncs} host syncs ({syncs / its:.2f} an iteration), the "
+        f"unsharded unfused align {ref_syncs} in {int(ref.iterations) + 1}")
+    record("point", {"sharded": lambda: align_point_sharded(clouds[0], clouds[1], init,
+                                                            mesh),
+                     "unsharded": lambda: align_impl(clouds[0], clouds[1], None, init,
+                                                     use_fused="never")}, launches)
+
+    # Map-block: both voxel maps over the first frames at their poses.
+    Ts = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in poses]
+    gvm = GaussianVoxelMap.empty(VOXEL_LEAF, GVM_SLOTS, device=dev)
+    ivm = IncrementalVoxelMapCov(VOXEL_LEAF, IVM_SLOTS, voxel_capacity=IVM_VOXELS,
+                                 device=dev)
+    for i in range(map_frames):
+        gvm, ivm = gvm.insert(clouds[i], Ts[i]), ivm.insert(clouds[i], Ts[i])
+    f_q, n_q = clouds[map_frames], int(clouds[map_frames].num_points)
+    q = voxelmap._transform(Ts[map_frames], f_q.points[:n_q])[:, :3].contiguous()
+    g_local, i_local = shard_gaussian_voxelmap(gvm, mesh), shard_incremental_voxelmap(ivm, mesh)
+    ties = {}
+    for name, vm, local, nn in (("gaussian", gvm, g_local, sharded_gvm_nn),
+                                ("incremental", ivm, i_local, sharded_ivm_nn)):
+        d, i, f = nn(local, q, mesh)
+        dr, ir, fr = vm.nearest_neighbor_search(q)
+        ties[name] = int((i != ir)[f].sum())
+        check(torch.equal(d, dr) and torch.equal(f, fr) and (world > 1 or ties[name] == 0),
+              f"sharded {name} search differs from the unsharded one ({ties[name]} slots)")
+    init_m = noisy_guess(poses[map_frames], rng)
+    scale_zero()
+    got = sharded_model_align(gvm, f_q, init_m, mesh)
+    launches = scale_counts()
+    ref = Registration(registration_type="vgicp").align(gvm, f_q, None, init_m)
+    its = int(got.iterations) + 1
+    d_T = float((got.T_target_source - ref.T_target_source).abs().max())
+    check(d_T <= 2 * TRANS_EPS and int(got.num_inliers) == int(ref.num_inliers)
+          and launches["K2"] == its and launches["K1"] == 0,
+          f"sharded_model_align: |dT| {d_T:.2e}, inliers {int(got.num_inliers)} / "
+          f"{int(ref.num_inliers)}, launches {launches} in {its} iterations")
+    say(f"  map blocks of {gvm.capacity} Gaussian / {ivm.voxel_capacity} incremental slots "
+        f"over {map_frames} frames ({int(gvm.num_voxels)} / {int(ivm.num_voxels)} voxels), "
+        f"{n_q} queries: d² and found equal bit for bit, slots differing on ties "
+        f"{ties}; VGICP against the sharded map |dT| {d_T:.2e}, {its} iterations")
+    record("map search", {"sharded": lambda: sharded_gvm_nn(g_local, q, mesh),
+                          "unsharded": lambda: gvm.nearest_neighbor_search(q)}, {})
+    record("map align", {"sharded": lambda: sharded_model_align(gvm, f_q, init_m, mesh),
+                         "unsharded": lambda: Registration(registration_type="vgicp").align(
+                             gvm, f_q, None, init_m)}, launches)
+
+    # Fleet: the queue split, one fleet a rank over the replicated tables.
+    tables = fleet_prepare(stack_clouds(clouds[:2]), stack_clouds(clouds[1:3]))
+    pair_ids = torch.arange(problems, dtype=torch.int32, device=dev) % 2
+    f_inits = torch.as_tensor(np.stack([noisy_guess(gts[p % 2], rng)
+                                        for p in range(problems)]), dtype=torch.float32,
+                              device=dev)
+    scale_zero()
+    got = align_fleet_sharded(None, None, f_inits, mesh, pair_ids=pair_ids,
+                              num_lanes_per_device=FLEET_LANES, prepared=tables)
+    launches = scale_counts()
+    ref = align_fleet(None, None, f_inits, pair_ids=pair_ids, num_lanes=FLEET_LANES,
+                      prepared=tables)
+    # A problem's iterates do not depend on which lanes run beside it, so the
+    # rows are align_fleet's bit for bit at every world size.
+    exact = all(torch.equal(getattr(got, k), getattr(ref, k))
+                for k in ("T_target_source", "converged", "iterations", "num_inliers"))
+    d_T = float((got.T_target_source - ref.T_target_source).abs().max())
+    check(exact, f"align_fleet_sharded rows differ from align_fleet's (|dT| {d_T:.2e})")
+    check(launches["K7"] > 0 and launches["K7"] == launches["K8"],
+          f"align_fleet_sharded launches {launches}")
+    say(f"  align_fleet_sharded, {problems} problems on 2 pairs, {FLEET_LANES} lanes a rank: "
+        f"rows equal bit for bit to align_fleet's")
+    record("fleet", {"sharded": lambda: align_fleet_sharded(
+        None, None, f_inits, mesh, pair_ids=pair_ids, num_lanes_per_device=FLEET_LANES,
+        prepared=tables), "unsharded": lambda: align_fleet(
+        None, None, f_inits, pair_ids=pair_ids, num_lanes=FLEET_LANES, prepared=tables)},
+        launches)
+
+    # BatchOdometry: two lanes of consecutive frames, a lane block a rank.
+    p = OdometryParams()
+    lanes = [scans[k * odom_frames:(k + 1) * odom_frames] for k in range(2)]
+    scale_zero()
+    got = BatchOdometry(2, p, SCALE_ENGINE, mesh=mesh, device=dev).feed(lanes)
+    launches = scale_counts()
+    launches["K3"] = knn_moments_rows.launches
+    ref = BatchOdometry(2, p, SCALE_ENGINE, device=dev).feed(lanes)
+    check(np.array_equal(got, ref), f"BatchOdometry(mesh=) lanes differ from the unsharded "
+          f"batch by {np.abs(got - ref).max():.2e}")
+    check(launches["K1"] > 0 and launches["K2"] == launches["K1"]
+          and launches["K3"] == odom_frames * 2 // world,
+          f"BatchOdometry(mesh=): launches {launches} over {odom_frames * 2 // world} frames")
+    say(f"  BatchOdometry(2, {SCALE_ENGINE}, mesh=) over 2 x {odom_frames} frames: lanes "
+        f"equal the unsharded batch bit for bit")
+    record("odometry", {"sharded": lambda: BatchOdometry(2, p, SCALE_ENGINE, mesh=mesh,
+                                                         device=dev).feed(lanes),
+                        "unsharded": lambda: BatchOdometry(2, p, SCALE_ENGINE,
+                                                           device=dev).feed(lanes)},
+           launches)
+    return out
+
+
+def scale_rank(rank: int, world: int, tmp: str) -> None:
+    """One of ``world`` ranks sharing the card over gloo (``chip_smoke.py
+    --scale-rank``): phase 12's modes on the frames the parent saved."""
+    dev = torch.device("cuda", 0)
+    multihost.initialize(f"file://{tmp}/store", world, rank, [0], device=dev,
+                         backend="gloo")
+    try:
+        d = np.load(f"{tmp}/frames.npz")
+        scans = [d[f"scan{i}"] for i in range(int(d["n"]))]
+        mesh = multihost.global_mesh("data", device=dev)
+        modes = scale_modes(scans, d["poses"], np.random.default_rng(7), dev, mesh,
+                            f"cuda:0 shared by {world} ranks", world, reps=3, pairs=2,
+                            problems=16, map_frames=4, odom_frames=2)
+        if rank == 0:
+            print("SCALE_RANKS " + json.dumps(modes), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_scale(scans, poses, rng, dev, card):
+    """Phase 12: every scale-out mode at world size 1 over NCCL in this
+    process against its unsharded call; then the same checks on two gloo
+    ranks sharing the card."""
+    print("== phase 12: scale-out", flush=True)
+    t_phase = time.perf_counter()
+    n = SCALE_MAP_FRAMES + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{tmp}/store", 1, 0, device=dev)
+        try:
+            backend = torch.distributed.get_backend()
+            mesh = multihost.global_mesh("data", device=dev)
+            print(f"world size 1 over {backend}:", flush=True)
+            modes = scale_modes(scans[:n], poses[:n], rng, dev, mesh, card, 1, reps=5)
+        finally:
+            torch.distributed.destroy_process_group()
+        print(f"world size 1 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        np.savez(f"{tmp}/frames.npz", n=5, poses=poses[:5],
+                 **{f"scan{i}": scans[i] for i in range(5)})
+        runs = multihost.run_ranks(
+            lambda r: [sys.executable, os.path.abspath(__file__), "--scale-rank", str(r),
+                       "--scale-dir", tmp], SCALE_RANKS, timeout=240)
+    for r, (rc, log) in enumerate(runs):
+        print(f"two gloo ranks sharing {card}, rank {r}: exit {rc}")
+        lines = log.strip().splitlines()
+        shown = lines[-30:] if rc else [ln for ln in lines if ln.startswith("  ")]
+        print("\n".join(shown))
+        check(rc == 0, f"two ranks sharing the card: rank {r} exited {rc}")
+    two = json.loads(next(line for line in runs[0][1].splitlines()
+                          if line.startswith("SCALE_RANKS "))[len("SCALE_RANKS "):])
+    print(f"two gloo ranks sharing the card took {time.perf_counter() - t0:.1f} s; "
+          "phase 12 in JSON: " + json.dumps({"world1": modes, "world2_gloo": two}))
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scale-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--scale-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.scale_rank is not None:
+        scale_rank(args.scale_rank, SCALE_RANKS, args.scale_dir)
+        return
 
     t_start = time.perf_counter()
     print("== phase 1: device", flush=True)
@@ -3432,8 +3714,10 @@ def main() -> None:
     phase_odometry(scans, poses, rng, dev, card)
     t_ten = time.perf_counter() - t_start
     phase_rest(scans, poses, rng, dev, card)
+    t_eleven = time.perf_counter() - t_start
+    phase_scale(scans, poses, rng, dev, card)
     print(f"phases 1-9 took {t_nine:.1f} s, phase 10 {t_ten - t_nine:.1f} s, phase 11 "
-          f"{time.perf_counter() - t_start - t_ten:.1f} s")
+          f"{t_eleven - t_ten:.1f} s, phase 12 {time.perf_counter() - t_start - t_eleven:.1f} s")
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

@@ -21,6 +21,9 @@ target's searcher; ``ops.knn_window`` (``KdTree.knn_search(method=
 "window")``, normals' ``neighbor_mode="window"``) and
 ``ops.voxel_covs.voxelgrid_sampling_with_covs`` are the approximate
 windowed kNN and the voxel-moment covariances, torch ops on either device.
+``parallel`` scales out on ``torch.distributed``: ``sharding.align_batch``
+and ``align_point_sharded``, ``map_sharding`` (a voxel map's slots split
+over a mesh), ``fleet.align_fleet_sharded``, and ``BatchOdometry(mesh=)``.
 ``read_ply`` and ``read_kitti_bin`` load scans. Entry points run on the card unless given ``device="cpu"``,
 where every kernel runs its plain PyTorch version.
 """

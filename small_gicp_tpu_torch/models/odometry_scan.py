@@ -470,24 +470,35 @@ class BatchOdometry:
     engine and covariance mode: each lane runs the same step. The
     JAX package's ``max_frame_motion``, ``model_prepared_rows`` and
     ``solve_dtype`` do not reach its batch either; they stay at their
-    defaults here. ``mesh`` (the lane axis sharded over devices) belongs to
-    ROADMAP item A10.
+    defaults here. With ``mesh`` (a 1-D mesh of ``parallel/multihost.py``,
+    ``num_lanes`` a multiple of its size) each rank tracks its contiguous
+    block of lanes on its own device and ``feed`` gathers the [B] lanes'
+    poses on every rank; lanes never interact, so nothing else crosses
+    ranks. ``axis_name`` sits in the JAX package's position (the mesh is
+    1-D).
     """
 
     def __init__(self, num_lanes: int, params: Optional[OdometryParams] = None,
                  engine: str = "gicp_model", covariance_mode: str = "knn",
                  mesh=None, axis_name: str = "data", *, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchOdometry(mesh=...) shards the lanes over devices: ROADMAP item A10")
         del axis_name
         self.params = params or OdometryParams()
         self.engine = engine
         self.covariance_mode = covariance_mode
         self.num_lanes = num_lanes
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.lanes = range(num_lanes)
+        if mesh is not None:
+            from small_gicp_tpu_torch.parallel.multihost import block, mesh_group
+
+            _, rank, size = mesh_group(mesh)
+            if num_lanes % size:
+                raise ValueError(f"num_lanes={num_lanes} must be a multiple of the mesh "
+                                 f"size {size} to shard the lane axis evenly")
+            self.lanes = self.lanes[block(num_lanes, rank, size)]
         self.carries = []
-        for _ in range(num_lanes):
+        for _ in self.lanes:
             carry, self.registration_type = make_initial_carry(self.params, engine,
                                                                device=self.device)
             self.carries.append(carry)
@@ -500,7 +511,8 @@ class BatchOdometry:
         if len(sequences) != self.num_lanes:
             raise ValueError(f"expected {self.num_lanes} sequences, got {len(sequences)}")
         f_max = max(len(s) for s in sequences)
-        lanes = [stack_frames(seq, f_max, p.max_scan_points, p.dtype) for seq in sequences]
+        lanes = [stack_frames(sequences[i], f_max, p.max_scan_points, p.dtype)
+                 for i in self.lanes]
         frames = torch.from_numpy(np.stack([f for f, _ in lanes])).to(self.device)
         counts = torch.from_numpy(np.stack([c for _, c in lanes])).to(self.device)
         self.carries, poses = odometry_scan_batch(
@@ -511,4 +523,9 @@ class BatchOdometry:
             covariance_mode=self.covariance_mode, predict_motion=p.predict_motion,
             registration_type=self.registration_type,
             model_nn=_model_nn_for(self.engine), model_rtype=_model_rtype_for(self.engine))
+        if self.mesh is not None:
+            from small_gicp_tpu_torch.parallel.multihost import all_gather_rows, mesh_group
+
+            group, _, size = mesh_group(self.mesh)
+            poses = all_gather_rows(poses, group, size)
         return poses.cpu().numpy()

@@ -27,12 +27,14 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
     errors and the accept) is one launch of the step kernel
     (``ops/lm_step.gicp_lm_step``, K2 redesigned); on CPU tensors those run
     their plain versions;
-  * unfused ("never", float64 clouds, a ``ProjectiveSearch`` searcher, and
-    every voxel-map target — VGICP is the GICP factor against a
-    ``GaussianVoxelMap``): the correspondence search — transform,
-    ``KdTree.nearest_neighbor_search`` (kernel K9 on the card), the
-    projective window search (a miss: mask 0, d² 1e18) or the map's own
-    voxel search, one gather of the winners' payload, ``make_weights``,
+  * unfused ("never", float64 clouds, a ``ProjectiveSearch`` searcher,
+    ``psum_axis``, and every voxel-map target — VGICP is the GICP factor
+    against a ``GaussianVoxelMap``, and a ``ShardedVoxelMapTarget`` is a map
+    whose slots are split over a mesh): the correspondence search —
+    transform, ``KdTree.nearest_neighbor_search`` (kernel K9 on the card),
+    the projective window search (a miss: mask 0, d² 1e18), the map's own
+    voxel search or the map-block search (``parallel/map_sharding.py``), one
+    gather of the winners' payload, ``make_weights``,
     rejector mask — feeds ``factors.linearize``,
     torch ops as they are XLA ops in the JAX package. For float32 clouds
     the correspondences are then packed into the corr rows the step kernel
@@ -40,6 +42,14 @@ Two routes, chosen as the JAX package chooses them (``use_fused``):
     the fused route's (on the card, its kernel: no float32 route runs the
     plain step there); float64 clouds pack float64 rows for the plain step,
     since the kernel's corr rows are float32.
+  * point-sharded (``psum_axis``, set by ``parallel/sharding.
+    align_point_sharded``): the unfused route over this rank's source rows,
+    the 44 float64 sums all-reduced over the mesh, then the step's plain
+    functions (the λ-trial solves, ``se3_exp``, the accept) around the trial
+    errors of the local rows — the step kernel's errors-only mode on the
+    card — all-reduced in turn: the one-launch step cannot hold a collective
+    between its solves and its accept. Every decision is taken from reduced
+    values, which every rank holds bit for bit.
 A target's searched rows are its first ``num_points`` live rows (w > 0.5,
 ``point_cloud.live_rows``), wherever they stand: a voxel map's cloud view
 (``ivm_as_cloud``, ``voxelmap_as_cloud``) keeps them at slot positions, and
@@ -60,12 +70,15 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from small_gicp_tpu_torch.point_cloud import PointCloud
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     ROBUST_KERNELS,
     ROUTES,
     auto_route,
+    gicp_error_multi,
+    gicp_error_multi_plain,
     gicp_linearize_sums,
     gicp_prepare,
     linearize_buffers,
@@ -107,11 +120,22 @@ def search_correspondences(factor_type: str, target, target_tree,
     [N]: the JAX package's ``_search_correspondences`` for a PointCloud
     (searched by ``target_tree`` — a ``KdTree`` or a ``ProjectiveSearch``,
     whose misses mask out —, or a ``KdTree`` built here), a
-    ``GaussianVoxelMap`` or an ``IncrementalVoxelMap`` target."""
+    ``GaussianVoxelMap``, an ``IncrementalVoxelMap`` or a
+    ``ShardedVoxelMapTarget`` (the winners' payload arrives gathered)."""
+    # The parallel layer sits above this one: imported where it is used.
+    from small_gicp_tpu_torch.parallel.map_sharding import (
+        ShardedVoxelMapTarget,
+        sharded_nn_payload,
+    )
+
     transed = source_points @ T.T  # [N,4]
     n = source_points.shape[0]
     found = None
-    if isinstance(target, GaussianVoxelMap):
+    if isinstance(target, ShardedVoxelMapTarget):
+        sq_dists, found, mu, t_covs, t_normals = sharded_nn_payload(
+            target.vm, transed[:, :3], target.mesh)
+        idx = torch.zeros(n, dtype=torch.int64, device=source_points.device)
+    elif isinstance(target, GaussianVoxelMap):
         # The slot table's payload is one [mean | cov | count] row: one gather.
         sq_dists, idx, found = target.nearest_neighbor_search(transed[:, :3])
         rows = target.payload[idx.long()]
@@ -176,21 +200,31 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
     ``use_fused``: "auto" takes the fused kernels for float32 clouds against
     a PointCloud searched by a ``KdTree`` (or none); "never" keeps the
     unfused search + linearize route, which float64 clouds, a
-    ``ProjectiveSearch`` and voxel maps always take. ``psum_axis`` (the
-    point-sharded mode) is not ported. ``fused_route``: "listed" or "swept"
+    ``ProjectiveSearch``, ``psum_axis`` and voxel maps always take.
+    ``psum_axis``: a 1-D ``DeviceMesh`` (or its process group) over which
+    the source rows are split (``align_point_sharded`` passes this rank's
+    block): the sums and the trial errors are all-reduced over it each
+    iteration. ``fused_route``: "listed" or "swept"
     forces the fused search's route; None chooses by the target's size.
     ``max_inner_iterations``: any K ≥ 0, at most 99 where the step kernel
     runs (float32 clouds on the card). ``source_rows``: a host bound on the
     source's valid rows for the fused route's chunk plan (``gicp_prepare``);
     None reads the count from the card once.
     """
+    from small_gicp_tpu_torch.parallel.map_sharding import ShardedVoxelMapTarget
+    from small_gicp_tpu_torch.parallel.multihost import mesh_group
+
+    group = None
     if psum_axis is not None:
-        raise NotImplementedError(
-            "psum_axis (the point-sharded registration) waits for ROADMAP item A10")
-    if not isinstance(target, (PointCloud, GaussianVoxelMap, IncrementalVoxelMap)):
-        raise NotImplementedError(
-            f"targets of type {type(target).__name__} (the mesh-sharded voxel map) "
-            "wait for ROADMAP item A10")
+        try:
+            group = mesh_group(psum_axis)[0]
+        except TypeError:
+            raise TypeError(f"psum_axis must be a 1-D DeviceMesh or a process group, "
+                            f"got {type(psum_axis).__name__}") from None
+    if not isinstance(target, (PointCloud, GaussianVoxelMap, IncrementalVoxelMap,
+                               ShardedVoxelMapTarget)):
+        raise TypeError(f"target must be a PointCloud, a voxel map or a "
+                        f"ShardedVoxelMapTarget, got {type(target).__name__}")
     if target_tree is not None and not isinstance(target_tree, (KdTree, ProjectiveSearch)):
         raise TypeError(f"target_tree must be None, a KdTree or a ProjectiveSearch, got "
                         f"{type(target_tree).__name__}")
@@ -218,7 +252,7 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                      gn_lambda, rotation_eps, translation_eps, dof_diag, dt, dev)
 
     cloud = isinstance(target, PointCloud)
-    if (use_fused == "auto" and dt == torch.float32 and cloud
+    if (use_fused == "auto" and dt == torch.float32 and cloud and group is None
             and not isinstance(target_tree, ProjectiveSearch)):
         route = fused_route or auto_route(target.points)
         # A tree over this very target keeps its sort and boxes across aligns
@@ -251,6 +285,9 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         # The step kernel reads float32 rows: float64 clouds take its plain
         # version, over rows packed the same way in float64.
         step = gicp_lm_step if dt == torch.float32 else gicp_lm_step_plain
+        if group is not None:
+            step = _sharded_step(group, gicp_error_multi if dt == torch.float32
+                                 else gicp_error_multi_plain)
 
         def iterate():
             """The unfused search and factors, then the step on the packed
@@ -262,6 +299,8 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
                                         robust_c)
             sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
                               corr.mask.sum().reshape(1).to(H.dtype)]).to(torch.float64)
+            if group is not None:
+                dist.all_reduce(sums, group=group)
             step(state, sums, pack_corr_rows(corr, d2), source.points, source.num_points,
                  robust_kernel, robust_c, solve_dtype)
 
@@ -289,6 +328,23 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         b=state.b,
         error=state.e,
     )
+
+
+def _sharded_step(group, errors_of):
+    """The point-sharded step: the plain step's solves and accept around the
+    local rows' trial errors (``errors_of``: K2's errors-only mode on the
+    card), all-reduced over ``group``."""
+
+    def step(state, sums, corr, src, num_points, robust, robust_c, solve_dtype):
+        def errors(poses):
+            errs = errors_of(corr, src, poses, num_points, robust, robust_c)
+            dist.all_reduce(errs, group=group)
+            return errs
+
+        return gicp_lm_step_plain(state, sums, corr, src, num_points, robust, robust_c,
+                                  solve_dtype, errors=errors)
+
+    return step
 
 
 class Registration:

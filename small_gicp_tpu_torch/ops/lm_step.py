@@ -255,10 +255,14 @@ def gicp_lm_step_plain(state: LmState, sums: torch.Tensor, corr, src: torch.Tens
         ok = torch.cat([errs[1:] <= errs[0], errs.new_ones(1, dtype=torch.bool)])
         j = torch.argmax(ok.to(torch.int32))
         accepted = j < trials
-        T_new = torch.cat([Ts, T[None]])[j]
-        e = torch.cat([errs[1:], errs[:1]])[j]
-        delta = torch.cat([deltas, deltas.new_zeros(1, 6)])[j]
-        lam = torch.where(accepted, lambdas[j] / p[0].to(dt), lambdas[trials])
+
+        def pick(x):  # x[j] without reading j on the host
+            return x.index_select(0, j.reshape(1))[0]
+
+        T_new = pick(torch.cat([Ts, T[None]]))
+        e = pick(torch.cat([errs[1:], errs[:1]]))
+        delta = pick(torch.cat([deltas, deltas.new_zeros(1, 6)]))
+        lam = torch.where(accepted, pick(lambdas) / p[0].to(dt), lambdas[trials])
         j = torch.where(accepted, j, -1)
     else:
         accepted = torch.ones((), dtype=torch.bool, device=T.device)

@@ -22,6 +22,11 @@ and the problem stops as failed; convergence on the accepted δ. Inactive
 lanes are exact no-ops. All loop state stays on the device as [B] and [P]
 tensors; the host reads one flag per round.
 
+``align_fleet_sharded`` splits the queue over a mesh (``parallel/
+multihost.py``): each rank runs an independent fleet over its contiguous
+block of problems against the replicated tables, and one gather returns
+the [P] results.
+
 Restrictions (the fused kernels' contract): LM optimizer, float32 clouds,
 no DoF mask, at most 65,536 target rows per pair. All three factors
 (``registration_type`` "gicp", "plane_icp", "icp") and the Huber/Cauchy
@@ -38,6 +43,7 @@ import torch
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
 from small_gicp_tpu_torch.models.registration import RegistrationResult
 from small_gicp_tpu_torch.ops.eigh3 import solve6x6
+from small_gicp_tpu_torch.parallel.multihost import all_gather_fields, block, mesh_group
 from small_gicp_tpu_torch.ops.gicp_fused_cuda import (
     GicpTables,
     gicp_error_multi_fleet,
@@ -200,3 +206,47 @@ def align_fleet(targets: Optional[PointCloud], sources: Optional[PointCloud],
     return RegistrationResult(
         T_target_source=out_T[:P], converged=out_conv[:P], iterations=out_iters[:P],
         num_inliers=out_inliers[:P], H=out_H[:P], b=out_b[:P], error=out_err[:P])
+
+
+def align_fleet_sharded(targets: Optional[PointCloud], sources: Optional[PointCloud],
+                        init_Ts, mesh, pair_ids=None, axis_name: str = "data",
+                        num_lanes_per_device: int = 32,
+                        prepared: Optional[GicpTables] = None,
+                        interpret: Optional[bool] = None, **kwargs) -> RegistrationResult:
+    """Fleet registration with the problem queue split over a mesh.
+
+    The [P] problems split into contiguous blocks, one a rank (P a multiple
+    of the mesh size); each rank runs an independent ``align_fleet`` of
+    ``num_lanes_per_device`` lanes over its block against the replicated
+    tables (``prepared``, or ``fleet_prepare`` of the pairs on every rank),
+    with no collective in its rounds, and one gather returns the [P] results
+    in problem order to every rank. A problem's iterates do not depend on
+    the scheduling, so each row equals ``align_fleet``'s. ``pair_ids``
+    defaults as in ``align_fleet``; ``axis_name`` and ``interpret`` sit in the
+    JAX package's positions (the mesh is 1-D, and there is no interpreter).
+    ``kwargs`` go to ``align_fleet`` (max_iterations, eps, registration_type,
+    ...).
+    """
+    del axis_name, interpret
+    group, rank, size = mesh_group(mesh)
+    tables = prepared if prepared is not None else fleet_prepare(
+        targets, sources, block_q=kwargs.get("block_q", 512),
+        registration_type=kwargs.get("registration_type", "gicp"))
+    init_Ts = torch.as_tensor(init_Ts, dtype=torch.float32)
+    if init_Ts.dim() == 2:
+        init_Ts = init_Ts[None]
+    P, U = init_Ts.shape[0], tables.ttab.shape[0]
+    if P % size:
+        raise ValueError(f"P={P} problems must divide evenly over {size} devices")
+    if pair_ids is None:
+        if U == 1:
+            pair_ids = torch.zeros(P, dtype=torch.int32)
+        elif P == U:
+            pair_ids = torch.arange(P, dtype=torch.int32)
+        else:
+            raise ValueError(f"pair_ids required when P={P} problems != U={U} pairs")
+    pair_ids = torch.as_tensor(pair_ids, dtype=torch.int32)
+    mine = block(P, rank, size)
+    res = align_fleet(None, None, init_Ts[mine], pair_ids=pair_ids[mine],
+                      num_lanes=num_lanes_per_device, prepared=tables, **kwargs)
+    return all_gather_fields(res, group, size)

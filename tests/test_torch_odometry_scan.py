@@ -289,7 +289,7 @@ def test_batch_odometry_matches_lanes_and_jax():
         np.testing.assert_allclose(poses[lane, :len(seq)], solo, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(poses[2, 2:], np.repeat(poses[2, 1:2], 2, axis=0))
     np.testing.assert_allclose(poses, JBatch(3, J_PARAMS).feed(seqs), atol=1e-3)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="mesh must be a 1-D DeviceMesh"):
         BatchOdometry(2, PARAMS, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="expected 3 sequences"):
         batch.feed(seqs[:2])

@@ -117,9 +117,10 @@ def test_dof_mask_freezes_translation(scan_pair, preprocessed):
 def test_unported_targets_raise(preprocessed):
     _, (tt, ttree, ts) = preprocessed
     # Voxel maps and VGICP are ported (tests/test_torch_vgicp.py), projective
-    # search too (tests/test_torch_projective.py); the mesh-sharded voxel-map
-    # target waits for A10, and a searcher of another type is refused.
-    with pytest.raises(NotImplementedError, match="A10"):
+    # search too (tests/test_torch_projective.py), the mesh-sharded voxel-map
+    # target (tests/test_torch_map_sharding.py); a target or a searcher of
+    # another type is refused.
+    with pytest.raises(TypeError, match="ShardedVoxelMapTarget"):
         align_impl({"voxel": "map"}, ts, None, None)
     with pytest.raises(TypeError, match="target"):
         pt.align({"voxel": "map"}, ts)

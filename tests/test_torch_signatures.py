@@ -277,7 +277,8 @@ def test_align_impl_positionally_in_both(scan_pair, preprocessed):
     d_rot, d_trans = _pose_errors(tr.T_target_source.numpy(), jr.T_target_source)
     assert d_rot <= 2 * ROT_EPS and d_trans <= 2e-3
     assert abs(int(jr.iterations) - int(tr.iterations)) <= 1
-    with pytest.raises(NotImplementedError, match="A10"):
+    # The port's psum_axis is a mesh (tests/test_torch_sharding.py), not a name.
+    with pytest.raises(TypeError, match="psum_axis must be a 1-D DeviceMesh"):
         t_registration.align_impl(tt, ts, ttree, init, psum_axis="points")
 
 
