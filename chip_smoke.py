@@ -191,7 +191,36 @@ Phases (any failure exits non-zero):
                 the step); then the same checks on two gloo ranks sharing
                 the card, each a process of this script (--scale-rank), at
                 smaller sizes (fleet rows within phase 6's lane-count
-                invariance, slots equal but on ties).
+                invariance, slots equal but on ties);
+ 13. the rest of the API — at OdometryParams() on frames 0-7:
+                JitOdometry("gicp_model_fused", chunk_frames=4) run
+                continuously and as 4 frames, save_pytree of the carry, a
+                fresh engine's load_pytree and 4 more, and the same for the
+                streaming small_gicp_model through save_odometry_state /
+                load_odometry_state: poses, T_world and every map tensor
+                equal bit for bit, a wrong-capacity engine refused with
+                ValueError, K1, K3 and the step kernel launched;
+                dump_synthetic_kitti writes 8 frames, the native library
+                builds (native_available()), its read_kitti_bin equals
+                numpy's bit for bit, and the odometry_benchmark CLI in
+                process over them through DatasetLoader stays within 2.5° /
+                0.2 m of gt.txt frame to frame; RegistrationTPU GICP and
+                VGICP on phase 5's pair (0.25 m, k = 10) from three noisy
+                starts each within 2.5° / 0.2 m, K3 twice (once a cloud, on
+                the lazy covariances) and then never, K1 (GICP) and the step
+                kernel once an LM iteration, and after swapSourceAndTarget
+                a second align within the bounds with no K3 launch and no
+                tree build, timed by StageTimer; GICPFactor().linearize at
+                the ground-truth pose summed over points within 1e-5
+                (relative to the largest entry) of the unfused route's H
+                and b, K9 once; generate_sequence_device (4 frames, 64 ×
+                1800) on the card against the host generator's statistics
+                (returns a frame within 3 %, range histogram and ground
+                share within 0.02, poses equal) and
+                synthetic_odometry_benchmark in process over 24 frames
+                ("gicp_model_fused": K1, K3, the step) with an APE under
+                0.2 m; trace() of one align writes a Chrome trace with the
+                step kernel's events.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -213,10 +242,16 @@ import time
 import numpy as np
 import torch
 
-from small_gicp_tpu_torch import _build
-from small_gicp_tpu_torch.apps import kdtree_benchmark
-from small_gicp_tpu_torch.interop import result_to_numpy
-from small_gicp_tpu_torch.models import odometry_scan, registration, voxelmap
+from small_gicp_tpu_torch import _build, interop, native
+from small_gicp_tpu_torch.apps import (
+    dump_synthetic_kitti,
+    kdtree_benchmark,
+    odometry_benchmark,
+    synthetic_odometry_benchmark,
+)
+from small_gicp_tpu_torch.interop import RegistrationTPU, result_to_numpy
+from small_gicp_tpu_torch.models import factors, odometry_scan, registration, voxelmap
+from small_gicp_tpu_torch.models.factors import GICPFactor
 from small_gicp_tpu_torch.models.helper import (
     align,
     create_gaussian_voxelmap,
@@ -327,10 +362,17 @@ from small_gicp_tpu_torch.parallel.map_sharding import (
 )
 from small_gicp_tpu_torch.parallel.sharding import align_batch, align_point_sharded
 from small_gicp_tpu_torch.point_cloud import PointCloud, stack_clouds
-from small_gicp_tpu_torch.utils.io import write_kitti_bin
+from small_gicp_tpu_torch.utils.checkpoint import (
+    load_odometry_state,
+    load_pytree,
+    save_odometry_state,
+    save_pytree,
+)
+from small_gicp_tpu_torch.utils.io import list_kitti_scans, read_kitti_bin, write_kitti_bin
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
-from small_gicp_tpu_torch.utils.metrics import ape_translation
-from small_gicp_tpu_torch.utils.synthetic import generate_sequence
+from small_gicp_tpu_torch.utils.metrics import ape_translation, load_kitti_trajectory
+from small_gicp_tpu_torch.utils.profiling import StageTimer, trace
+from small_gicp_tpu_torch.utils.synthetic import generate_sequence, generate_sequence_device
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -3650,6 +3692,260 @@ def phase_scale(scans, poses, rng, dev, card):
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
 
+# ------------------------------------------------------------ phase 13 ----
+
+API_FRAMES = 8  # the checkpointed runs and the CLI's dataset
+SYNTH_FRAMES = 24  # synthetic_odometry_benchmark's sequence
+
+
+def same_fields(a, b, what: str) -> None:
+    """Every tensor field of two dataclasses equal bit for bit."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            check(torch.equal(x, y), f"{what}: {f.name} differs")
+
+
+def generator_stats(frames):
+    """(returns a frame, range histogram [8], ground share) of [N,3] frames
+    in the sensor frame."""
+    hist, ground = [], []
+    for p in frames:
+        r = np.linalg.norm(p, axis=1)
+        hist.append(np.histogram(r, bins=8, range=(0, 75.0))[0] / len(p))
+        ground.append(np.mean(p[:, 2] < -1.2))  # the sensor rides ≈1.8 m up
+    return float(np.mean([len(p) for p in frames])), np.mean(hist, 0), float(np.mean(ground))
+
+
+def phase_api(scans, poses, rng, dev, card):
+    """Phase 13: checkpoint and resume, the native loader and the CLI through
+    it, RegistrationTPU, the factor classes, the device generator with
+    synthetic_odometry_benchmark, and the profiling utilities."""
+    print("== phase 13: the rest of the API", flush=True)
+    t_phase = time.perf_counter()
+    times = {}
+    n = API_FRAMES
+    half = n // 2
+
+    # 1. Checkpoint and resume, at OdometryParams() on frames 0-7: the chunked
+    # gicp_model_fused carry and the streaming small_gicp_model's state.
+    t0 = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        params = OdometryParams()
+        full = JitOdometry(params, "gicp_model_fused", chunk_frames=half, device=dev)
+        fd, cd = full.preload(scans[:n])
+        p_full = full.feed_preloaded(fd, cd, n_real=n)
+        a = JitOdometry(params, "gicp_model_fused", chunk_frames=half, device=dev)
+        a.feed_preloaded(fd[:half], cd[:half], n_real=half)
+        save_pytree(f"{tmp}/carry.npz", a.carry)
+        b = JitOdometry(params, "gicp_model_fused", chunk_frames=half, device=dev)
+        b.carry = load_pytree(f"{tmp}/carry.npz", b.carry)
+        p_tail = b.feed_preloaded(fd[half:], cd[half:], n_real=n - half)
+        check(np.array_equal(p_tail, p_full[half:]),
+              "gicp_model_fused resumed from its carry differs from the continuous run")
+        check(torch.equal(b.carry[0], full.carry[0]) and torch.equal(b.carry[1],
+                                                                      full.carry[1]),
+              "gicp_model_fused: T_world / T_delta differ after the resume")
+        same_fields(b.carry[2], full.carry[2], "gicp_model_fused map after the resume")
+        small = JitOdometry(OdometryParams(map_capacity=65536), "gicp_model_fused",
+                            chunk_frames=half, device=dev)
+        try:
+            load_pytree(f"{tmp}/carry.npz", small.carry)
+            check(False, "a wrong-capacity carry loaded")
+        except ValueError as e:
+            print(f"wrong-capacity carry refused: {str(e).splitlines()[0]}")
+
+        engine = "small_gicp_model"
+        s_full = create_odometry(engine, odometry_params(engine), device=dev)
+        est_full = s_full.estimate(scans[:n])
+        s_a = create_odometry(engine, odometry_params(engine), device=dev)
+        s_a.estimate(scans[:half])
+        save_odometry_state(f"{tmp}/odo.npz", s_a)
+        s_b = create_odometry(engine, odometry_params(engine), device=dev)
+        load_odometry_state(f"{tmp}/odo.npz", s_b)
+        s_b.estimate(scans[half:n])
+        check(np.array_equal(np.stack(s_b.traj), est_full),
+              f"{engine} resumed from its checkpoint differs from the continuous run")
+        check(torch.equal(s_b.T_world, s_full.T_world), f"{engine}: T_world differs")
+        same_fields(s_b.voxelmap, s_full.voxelmap, f"{engine} map after the resume")
+        s_small = create_odometry(engine, odometry_params(engine, map_capacity=65536),
+                                  device=dev)
+        try:
+            load_odometry_state(f"{tmp}/odo.npz", s_small)
+            check(False, "a wrong-capacity engine loaded the checkpoint")
+        except ValueError as e:
+            print(f"wrong-capacity engine refused: {str(e)[:100]}")
+    counts = read_counts()
+    print(f"checkpoint/resume: gicp_model_fused over frames 0-{n - 1} ({half} + {half} "
+          f"from the carry) and {engine} ({half} + {half} from save_odometry_state) "
+          f"equal to the continuous runs bit for bit (poses, T_world, map tensors); "
+          f"{judged('gicp_model_fused', p_full, poses[:n])}; launches {counts}")
+    check(all(counts[k] > 0 for k in MAIN_KERNELS), "K1, K3 or the step kernel was not "
+          "launched by the checkpointed runs")
+    times["checkpoint"] = time.perf_counter() - t0
+
+    # 2. The native loader and the CLI through it.
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native IO library did not build")
+    print(f"native IO library built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({native.library_path().name})")
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            dump_synthetic_kitti.main([tmp, "--frames", str(n)])
+        print("dump_synthetic_kitti: " + out.getvalue().strip())
+        paths = list_kitti_scans(tmp)
+        check(len(paths) == n, f"{len(paths)} scans written")
+        for p in paths:
+            check(np.array_equal(native.read_kitti_bin(p), read_kitti_bin(p)),
+                  f"native read of {p} differs from numpy's")
+        traj = f"{tmp}/est.txt"
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = odometry_benchmark.main([tmp, traj])
+        gt = load_kitti_trajectory(f"{tmp}/gt.txt")
+        est = load_kitti_trajectory(traj)
+        print("odometry_benchmark through DatasetLoader: "
+              + " | ".join(out.getvalue().strip().splitlines()[-3:]))
+        check(rc == 0 and len(est) == n, f"the CLI exited {rc} with {len(est)} poses")
+        print(f"CLI trajectory against gt.txt: {judged('small_gicp', est, gt)}")
+    times["native"] = time.perf_counter() - t0
+
+    # 3. RegistrationTPU on phase 5's pair (downsampled at 0.25 m; the lazy
+    # covariances at k = 10) from noisy starts, GICP then VGICP.
+    t0 = time.perf_counter()
+    T_gt = np.linalg.inv(poses[0]) @ poses[1]
+    down = [voxelgrid_sampling(PointCloud.from_points(s, device=dev), LEAF)
+            for s in scans[:2]]
+    builds = []
+    real_build = interop.KdTree.build
+
+    def counted_build(*args, **kwargs):
+        builds.append(1)
+        return real_build(*args, **kwargs)
+
+    interop.KdTree.build = staticmethod(counted_build)
+    timer = StageTimer()
+    try:
+        for rtype in ("GICP", "VGICP"):
+            reg = RegistrationTPU(device=dev)
+            reg.setRegistrationType(rtype)
+            reg.setNumNeighborsForCovariance(K_NEIGHBORS)
+            reg.setInputTarget(down[0])
+            reg.setInputSource(down[1])
+            zero_counts()
+            builds.clear()
+            for rep in range(3):
+                before = read_counts()
+                with timer.stage(f"RegistrationTPU {rtype}") as box:
+                    box["T"] = T = reg.align(noisy_guess(T_gt, rng))
+                its = int(reg.getRegistrationResult().iterations) + 1
+                got = {k: v - before[k] for k, v in read_counts().items()}
+                rot, trans = pose_error(T, T_gt)
+                print(f"RegistrationTPU {rtype} start {rep}: {rot:.4f} deg, {trans:.4f} m; "
+                      f"{its} LM iterations; launches {got}")
+                check(rot < 2.5 and trans < 0.2, f"RegistrationTPU {rtype} outside the "
+                      "bounds")
+                check(got["knn_moments"] == (2 if rep == 0 else 0),
+                      f"RegistrationTPU {rtype}: K3 {got['knn_moments']} launches")
+                check(got["gicp_lm_step"] == its and got["gicp_linearize"] == (
+                    its if rtype == "GICP" else 0),
+                    f"RegistrationTPU {rtype}: K1 {got['gicp_linearize']}, step "
+                    f"{got['gicp_lm_step']} launches in {its} LM iterations")
+            made = len(builds)
+            reg.swapSourceAndTarget()
+            before = read_counts()
+            T = reg.align(np.linalg.inv(noisy_guess(T_gt, rng)))
+            its = int(reg.getRegistrationResult().iterations) + 1
+            got = {k: v - before[k] for k, v in read_counts().items()}
+            rot, trans = pose_error(T, np.linalg.inv(T_gt))
+            print(f"RegistrationTPU {rtype} after swapSourceAndTarget: {rot:.4f} deg, "
+                  f"{trans:.4f} m; {its} LM iterations; launches {got}; tree builds "
+                  f"{made} before the swap, {len(builds) - made} after")
+            check(rot < 2.5 and trans < 0.2, f"RegistrationTPU {rtype} (swapped) outside "
+                  "the bounds")
+            check(got["knn_moments"] == 0 and len(builds) == made,
+                  f"RegistrationTPU {rtype}: the swap made covariances or a tree again")
+            check(got["gicp_lm_step"] == its, f"RegistrationTPU {rtype} (swapped): step "
+                  f"{got['gicp_lm_step']} launches in {its} LM iterations")
+            H = reg.getFinalHessian()
+            check(H.shape == (6, 6) and np.isfinite(H).all(), "getFinalHessian")
+    finally:
+        interop.KdTree.build = real_build
+    print(timer.report().replace("\n", "; ") + f" (StageTimer, 3 starts each) on {card}")
+    times["RegistrationTPU"] = time.perf_counter() - t0
+
+    # 4. The factor classes at the ground-truth pose, against the unfused
+    # route's sums on the same correspondences.
+    t0 = time.perf_counter()
+    target = estimate_covariances(down[0], num_neighbors=K_NEIGHBORS)
+    source = estimate_covariances(down[1], num_neighbors=K_NEIGHBORS)
+    tree = KdTree.build(target)
+    T = torch.as_tensor(T_gt, dtype=torch.float32, device=dev)
+    zero_counts()
+    H_i, b_i, e_i, mask = GICPFactor().linearize(target, source, tree, T)
+    counts = read_counts()
+    corr, _ = registration.search_correspondences(
+        "gicp", target, tree, source.points, source.num_points, source.covs, T, 1.0)
+    H, b, _ = factors.linearize(corr, T, source.points)
+    H_sum, b_sum = H_i.double().sum(0), b_i.double().sum(0)
+    rel_H = float((H_sum - H.double()).abs().max() / H.double().abs().max())
+    rel_b = float((b_sum - b.double()).abs().max() / b.double().abs().max())
+    print(f"GICPFactor().linearize at the ground truth: {int(mask.sum())} inliers of "
+          f"{len(source)}; summed H within {rel_H:.2e} and b within {rel_b:.2e} (relative "
+          f"to the largest entry) of the unfused route's; launches {counts}")
+    check(rel_H <= 1e-5 and rel_b <= 1e-5, "the factor sums disagree with the unfused "
+          "route (1e-5 relative)")
+    check(counts["nearest_neighbor"] == 1, f"K9 launched {counts['nearest_neighbor']} "
+          "times by the factor's search")
+    times["factors"] = time.perf_counter() - t0
+
+    # 5. The device generator: statistics of 4 frames at 64 × 1800 against the
+    # host generator's, then synthetic_odometry_benchmark over 24 frames.
+    t0 = time.perf_counter()
+    frames_dev, counts_dev, gen_poses = generate_sequence_device(
+        n_frames=4, rings=64, azimuth_steps=1800, device=dev)
+    c = counts_dev.cpu().numpy()
+    f = frames_dev.cpu().numpy()
+    mine = generator_stats([f[i, :c[i], :3] for i in range(4)])
+    host = generator_stats(scans[:4])
+    print(f"generate_sequence_device (64 x 1800, 4 frames, on the card): {mine[0]:.0f} "
+          f"returns a frame, ground share {mine[2]:.4f}; host generator {host[0]:.0f}, "
+          f"{host[2]:.4f}; range histograms within {np.abs(mine[1] - host[1]).max():.4f}")
+    check(np.array_equal(gen_poses, poses[:4]), "the device generator's poses differ")
+    check(abs(mine[0] - host[0]) <= 0.03 * host[0] and abs(mine[2] - host[2]) <= 0.02
+          and np.abs(mine[1] - host[1]).max() <= 0.02,
+          "the device generator's statistics differ from the host generator's")
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        results = synthetic_odometry_benchmark.main([
+            "--frames", str(SYNTH_FRAMES), "--engines", "gicp_model_fused",
+            "--chunk-frames", "8", "--rpe-delta", "8"])
+    counts = read_counts()
+    lines = out.getvalue().strip().splitlines()
+    print("synthetic_odometry_benchmark: " + " | ".join(lines[:2]) + f"; launches {counts}")
+    ape = results["gicp_model_fused"]["ape_mean"]
+    check(ape < 0.2, f"synthetic_odometry_benchmark: APE {ape} m beyond 0.2 m")
+    check(all(counts[k] > 0 for k in MAIN_KERNELS), "synthetic_odometry_benchmark did not "
+          "launch K1, K3 and the step kernel")
+    times["generator"] = time.perf_counter() - t0
+
+    # 6. Profiling: StageTimer above; one traced align.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            reg.align()
+        path = f"{tmp}/trace.json"
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        kernels = open(path).read().count("gicp_step_kernel") if size else 0
+    print(f"trace: {size} bytes of Chrome trace, {kernels} step-kernel events")
+    check(size > 0 and kernels > 0, "trace() wrote no trace of the align's kernels")
+    times["profiling"] = time.perf_counter() - t0
+    print("phase 13 times: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; phase 13 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3716,8 +4012,11 @@ def main() -> None:
     phase_rest(scans, poses, rng, dev, card)
     t_eleven = time.perf_counter() - t_start
     phase_scale(scans, poses, rng, dev, card)
+    t_twelve = time.perf_counter() - t_start
+    phase_api(scans, poses, rng, dev, card)
     print(f"phases 1-9 took {t_nine:.1f} s, phase 10 {t_ten - t_nine:.1f} s, phase 11 "
-          f"{t_eleven - t_ten:.1f} s, phase 12 {time.perf_counter() - t_start - t_eleven:.1f} s")
+          f"{t_eleven - t_ten:.1f} s, phase 12 {t_twelve - t_eleven:.1f} s, phase 13 "
+          f"{time.perf_counter() - t_start - t_twelve:.1f} s")
 
     out = []
     for name, (tag, source, replaces, _) in KERNELS.items():

@@ -24,8 +24,14 @@ windowed kNN and the voxel-moment covariances, torch ops on either device.
 ``parallel`` scales out on ``torch.distributed``: ``sharding.align_batch``
 and ``align_point_sharded``, ``map_sharding`` (a voxel map's slots split
 over a mesh), ``fleet.align_fleet_sharded``, and ``BatchOdometry(mesh=)``.
-``read_ply`` and ``read_kitti_bin`` load scans. Entry points run on the card unless given ``device="cpu"``,
-where every kernel runs its plain PyTorch version.
+``read_ply``, ``write_ply`` and ``read_kitti_bin`` load and write scans,
+and ``native.DatasetLoader`` prefetches them on a host thread.
+``utils.checkpoint`` saves and resumes odometry state (files either package
+reads); ``RegistrationTPU`` is the stateful RegistrationPCL-style class,
+the factor classes linearize per point, and ``interop`` / ``pcl_interop``
+convert ROS PointCloud2, PCL and torch buffers. Entry points run on the card
+unless given ``device="cpu"``, where every kernel runs its plain PyTorch
+version.
 """
 
 from small_gicp_tpu_torch.point_cloud import (
@@ -36,7 +42,7 @@ from small_gicp_tpu_torch.point_cloud import (
     transform_points,
 )
 from small_gicp_tpu_torch.utils.lie import se3_exp, so3_exp, skew
-from small_gicp_tpu_torch.ops.downsampling import voxelgrid_sampling
+from small_gicp_tpu_torch.ops.downsampling import random_sampling, voxelgrid_sampling
 from small_gicp_tpu_torch.ops.knn import KdTree, knn_search, nearest_neighbor_search
 from small_gicp_tpu_torch.ops.normals import (
     estimate_covariances,
@@ -47,6 +53,12 @@ from small_gicp_tpu_torch.models.registration import (
     Registration,
     RegistrationResult,
     align_points,
+)
+from small_gicp_tpu_torch.models.factors import (
+    DistanceRejector,
+    GICPFactor,
+    ICPFactor,
+    PointToPlaneICPFactor,
 )
 from small_gicp_tpu_torch.models.voxelmap import (
     GaussianVoxelMap,
@@ -63,8 +75,26 @@ from small_gicp_tpu_torch.models.helper import (
     preprocess_points,
 )
 from small_gicp_tpu_torch.parallel.fleet import align_fleet, fleet_prepare
-from small_gicp_tpu_torch.interop import cloud_from_numpy, result_to_numpy
-from small_gicp_tpu_torch.utils.io import read_kitti_bin, read_ply
+from small_gicp_tpu_torch.interop import (
+    RegistrationTPU,
+    as_point_cloud,
+    cloud_from_numpy,
+    from_pointcloud2,
+    from_ros_msg,
+    result_to_numpy,
+    to_pointcloud2,
+    to_ros_msg,
+)
+from small_gicp_tpu_torch.pcl_interop import (
+    PCL_POINT_COVARIANCE,
+    PCL_POINT_NORMAL,
+    PCL_POINT_NORMAL_COVARIANCE,
+    PCL_POINT_XYZ,
+    from_pcl,
+    pcl_dtype,
+    to_pcl,
+)
+from small_gicp_tpu_torch.utils.io import read_kitti_bin, read_ply, write_ply
 
 __all__ = [
     "PAD_SENTINEL", "PointCloud", "stack_clouds", "transform_covs",
@@ -76,5 +106,10 @@ __all__ = [
     "align", "preprocess_points", "create_gaussian_voxelmap", "GaussianVoxelMap",
     "IncrementalVoxelMap", "IncrementalVoxelMapNormal", "IncrementalVoxelMapCov",
     "IncrementalVoxelMapNormalCov", "ProjectiveSearch", "align_fleet", "fleet_prepare",
-    "cloud_from_numpy", "result_to_numpy", "read_kitti_bin", "read_ply",
+    "cloud_from_numpy", "result_to_numpy", "read_kitti_bin", "read_ply", "write_ply",
+    "random_sampling", "ICPFactor", "PointToPlaneICPFactor", "GICPFactor",
+    "DistanceRejector", "RegistrationTPU", "as_point_cloud", "from_pointcloud2",
+    "to_pointcloud2", "from_ros_msg", "to_ros_msg", "pcl_dtype", "from_pcl", "to_pcl",
+    "PCL_POINT_XYZ", "PCL_POINT_NORMAL", "PCL_POINT_COVARIANCE",
+    "PCL_POINT_NORMAL_COVARIANCE",
 ]

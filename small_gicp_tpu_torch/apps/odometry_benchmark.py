@@ -85,22 +85,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_scans(dataset_path: str, limit=None):
-    """The scans of a directory, in name order: ``*.bin`` (KITTI), else
-    ``*.ply``, each an [N,3] float32 array."""
-    from small_gicp_tpu_torch.utils.io import list_kitti_scans, read_kitti_bin, read_ply
+def load_scans(dataset_path: str, limit=None, max_points: int = 1 << 21):
+    """The scans of a directory, in name order (``*.bin`` KITTI, else
+    ``*.ply``), as a prefetching stream of [N,3] float32 arrays: the native
+    loader parses scan i+1 on a background thread while scan i registers."""
+    from small_gicp_tpu_torch.native import DatasetLoader
+    from small_gicp_tpu_torch.utils.io import list_kitti_scans
 
     paths = list_kitti_scans(dataset_path)
-    reader = read_kitti_bin
     if not paths:
         paths = sorted(os.path.join(dataset_path, n)
                        for n in os.listdir(dataset_path) if n.endswith(".ply"))
-        reader = read_ply
     if not paths:
         raise SystemExit(f"no *.bin or *.ply scans in {dataset_path}")
     if limit is not None:
         paths = paths[:limit]
-    return [reader(path) for path in paths]
+    return DatasetLoader(paths, max_points=max_points)
 
 
 def main(argv=None) -> int:
@@ -144,6 +144,7 @@ def main(argv=None) -> int:
         from small_gicp_tpu_torch.models.odometry_scan import JitOdometry
 
         odom = JitOdometry(params, engine=args.engine, chunk_frames=16, device=dev)
+        frames = list(frames)
         frames_dev, counts_dev = odom.preload(frames)
         poses = odom.feed_preloaded(frames_dev, counts_dev, n_real=len(frames))
         steady = odom.chunk_times_ms[1:] or odom.chunk_times_ms

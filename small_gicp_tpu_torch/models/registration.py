@@ -66,6 +66,7 @@ Parameters sit in the JAX package's positions; ``fused_route`` and
 from __future__ import annotations
 
 import math
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -109,6 +110,9 @@ class RegistrationResult:
     H: torch.Tensor  # [6,6]
     b: torch.Tensor  # [6]
     error: torch.Tensor  # 0-d float64
+
+    def replace(self, **changes) -> "RegistrationResult":
+        return dataclasses.replace(self, **changes)
 
 
 def search_correspondences(factor_type: str, target, target_tree,

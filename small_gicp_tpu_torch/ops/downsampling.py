@@ -84,3 +84,25 @@ def voxelgrid_sampling(cloud, leaf_size: float, max_points: Optional[int] = None
     pts, n = _voxelgrid_sampling_impl(cloud.points, cloud.num_points,
                                       leaf_size, cap)
     return PointCloud(points=pts, num_points=n)
+
+
+def random_sampling(cloud: PointCloud, num_samples: int, key) -> PointCloud:
+    """Uniform random subsampling without replacement
+    (util/downsampling.hpp:85-110, std::sample with a user RNG).
+
+    ``key`` is a ``torch.Generator`` (or None for torch's default one) where
+    the JAX package takes a PRNG key: every row gets a uniform score, padding
+    scores +inf, and the ``num_samples`` lowest scores are kept. The same
+    generator seed gives the same rows; the stream differs from JAX's.
+    """
+    points, n = cloud.points, cloud.capacity
+    dev = key.device if key is not None else points.device
+    scores = torch.rand(n, generator=key, device=dev).to(points.device)
+    scores = torch.where(torch.arange(n, device=points.device) < cloud.num_points,
+                         scores, torch.inf)
+    idx = torch.argsort(scores, stable=True)[:num_samples]
+    out = points[idx]
+    out_n = torch.clamp(cloud.num_points, max=num_samples).to(torch.int32)
+    valid = torch.arange(out.shape[0], device=points.device) < out_n
+    out = torch.where(valid[:, None], out, pad_row(points.dtype, points.device))
+    return PointCloud(points=out, num_points=out_n)

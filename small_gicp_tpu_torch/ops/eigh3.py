@@ -1,7 +1,8 @@
-"""Closed-form 3x3 and 6x6 linear algebra, in torch.
+"""3x3 and 6x6 linear algebra, in torch.
 
-Counterpart of ``small_gicp_tpu/ops/eigh3.py``: the smallest eigenvector
-of a symmetric 3x3 (normals and plane-regularised covariances), the
+Counterpart of ``small_gicp_tpu/ops/eigh3.py``: the full eigendecomposition
+of a symmetric 3x3 by cyclic Jacobi sweeps (``eigh3x3``), its smallest
+eigenvector in closed form (normals and plane-regularised covariances), the
 adjugate 3x3 inverse with its determinant guard, and the damped 6x6
 Cholesky solve of the optimizer. All are batched over leading
 dimensions and written out in elementwise torch ops.
@@ -12,6 +13,48 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+_JACOBI_PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def _jacobi_rotation(app, aqq, apq, eps):
+    """Classic Jacobi angle: (c, s) zeroing A[p, q]."""
+    small = torch.abs(apq) <= eps
+    safe_apq = torch.where(small, torch.ones_like(apq), apq)
+    tau = (aqq - app) / (2.0 * safe_apq)
+    t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    # sign(0) = 0 would give t = 0; tau = 0 means a 45° rotation.
+    t = torch.where(tau == 0.0, torch.ones_like(t), t)
+    t = torch.where(small, torch.zeros_like(t), t)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    return c, t * c
+
+
+def eigh3x3(A: torch.Tensor, sweeps: int = 6):
+    """Eigendecomposition of symmetric [..., 3, 3] matrices by cyclic Jacobi
+    sweeps: (eigenvalues [..., 3] ascending, eigenvectors [..., 3, 3] in
+    columns, orthonormal), Eigen's ordering contract."""
+    dtype = A.dtype
+    eps = 1e-30 if dtype == torch.float64 else 1e-20
+    eye = torch.eye(3, dtype=dtype, device=A.device).expand(A.shape[:-2] + (3, 3))
+    V = eye
+    A = 0.5 * (A + A.transpose(-1, -2))
+    for _ in range(sweeps):
+        for p, q in _JACOBI_PAIRS:
+            c, s = _jacobi_rotation(A[..., p, p], A[..., q, q], A[..., p, q], eps)
+            G = eye.clone()
+            G[..., p, p] = c
+            G[..., q, q] = c
+            G[..., p, q] = s
+            G[..., q, p] = -s
+            A = G.transpose(-1, -2) @ A @ G
+            V = V @ G
+    vals = torch.stack([A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]], dim=-1)
+    order = torch.argsort(vals, dim=-1, stable=True)
+    vals = torch.take_along_dim(vals, order, dim=-1)
+    V = torch.take_along_dim(V, order[..., None, :].expand(V.shape), dim=-1)
+    return vals, V
 
 
 def smallest_eigvec3x3(A: torch.Tensor) -> torch.Tensor:

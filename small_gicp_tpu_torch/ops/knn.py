@@ -14,9 +14,11 @@ JAX API.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from small_gicp_tpu_torch.point_cloud import PointCloud, live_rows
@@ -99,8 +101,11 @@ class KdTree:
     _pruned: Any = field(default=None, init=False, repr=False, compare=False)
     _packed: Any = field(default=None, init=False, repr=False, compare=False)
 
+    def replace(self, **changes) -> "KdTree":
+        return dataclasses.replace(self, **changes)
+
     @staticmethod
-    def build(cloud, num_threads: int = 1, device=None) -> "KdTree":
+    def build(cloud, num_threads: int = 1, *, device=None) -> "KdTree":
         """From a PointCloud or a raw [N,3]/[N,4] array (placed on
         ``device``, default the card). ``num_threads`` is accepted for API
         parity: there is no tree to build."""
@@ -212,3 +217,14 @@ def knn_search(target: PointCloud, query_xyz, k: int):
 
 def nearest_neighbor_search(target: PointCloud, query_xyz):
     return KdTree.build(target).nearest_neighbor_search(query_xyz)
+
+
+def brute_force_knn_numpy(target_xyz, query_xyz, k: int):
+    """Host-side oracle of the tests: (d² [Q,k], indices [Q,k]) by brute
+    force in numpy (the reference checks its trees the same way,
+    src/test/kdtree_test.cpp:167)."""
+    d2 = (np.sum(query_xyz**2, axis=1, keepdims=True)
+          - 2.0 * query_xyz @ target_xyz.T
+          + np.sum(target_xyz**2, axis=1)[None, :])
+    idx = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d2, idx, axis=1), idx

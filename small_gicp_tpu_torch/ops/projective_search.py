@@ -23,6 +23,7 @@ either device, no host read.
 from __future__ import annotations
 
 import math
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -45,6 +46,9 @@ class ProjectiveSearch:
     window_h: int = 10
     window_v: int = 5
     vertical_fov: float = 2.0944
+
+    def replace(self, **changes) -> "ProjectiveSearch":
+        return dataclasses.replace(self, **changes)
 
     @staticmethod
     def build(cloud: PointCloud, width: int = 1024, height: int = 64,

@@ -77,7 +77,7 @@ def unpack_key(keys: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1).to(torch.int32)
 
 
-def neighbor_offsets(num_offsets: int, device=None) -> torch.Tensor:
+def neighbor_offsets(num_offsets: int, *, device=None) -> torch.Tensor:
     """Voxel neighbourhood offsets, [K,3] int32: the reference's 1/7/27-voxel
     search patterns in the JAX package's order, which a nearest-neighbour
     search's first-minimum tie-break follows."""

@@ -34,6 +34,13 @@ def pad_row(dtype, device) -> torch.Tensor:
     return torch.where(torch.arange(4, device=device) < 3, PAD_SENTINEL, 0.0).to(dtype)
 
 
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or a name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. Asking for CUDA where there is none raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -71,11 +78,75 @@ class PointCloud:
         """[N] bool — True for real points, False for padding."""
         return torch.arange(self.capacity, device=self.device) < self.num_points
 
+    def xyz(self) -> torch.Tensor:
+        """[N, 3] coordinates."""
+        return self.points[:, :3]
+
+    @property
+    def has_normals(self) -> bool:
+        return self.normals is not None
+
+    @property
+    def has_covs(self) -> bool:
+        return self.covs is not None
+
+    def __repr__(self) -> str:
+        return (f"PointCloud(num_points={int(self.num_points)}, "
+                f"capacity={self.capacity}, normals={self.normals is not None}, "
+                f"covs={self.covs is not None}, "
+                f"dtype={str(self.dtype).removeprefix('torch.')})")
+
+    def astype(self, dtype) -> "PointCloud":
+        """The cloud with its points, normals and covariances in ``dtype`` (a
+        torch dtype, or a numpy dtype or name such as ``np.float64``)."""
+        dt = as_torch_dtype(dtype)
+        return PointCloud(
+            points=self.points.to(dt), num_points=self.num_points,
+            normals=None if self.normals is None else self.normals.to(dt),
+            covs=None if self.covs is None else self.covs.to(dt))
+
+    # Host views: the first num_points rows as numpy (one host read each).
+    def points_numpy(self) -> np.ndarray:
+        """[num_points, 4] valid points."""
+        return self.points[:len(self)].cpu().numpy()
+
+    def normals_numpy(self) -> np.ndarray:
+        return self.normals[:len(self)].cpu().numpy()
+
+    def covs_numpy(self) -> np.ndarray:
+        return self.covs[:len(self)].cpu().numpy()
+
     def __len__(self) -> int:
         return int(self.num_points)
 
+    # The bindings' accessors (pointcloud.cpp: size/empty and point(i),
+    # normal(i), cov(i)); rows at or past num_points raise.
+    def size(self) -> int:
+        return int(self.num_points)
+
+    def empty(self) -> bool:
+        return int(self.num_points) == 0
+
+    def _check_index(self, i: int) -> int:
+        n, i = int(self.num_points), int(i)
+        if not 0 <= i < n:
+            raise IndexError(f"index {i} out of range [0, {n})")
+        return i
+
+    def point(self, i: int) -> np.ndarray:
+        """The i-th point as a homogeneous 4-vector."""
+        return self.points[self._check_index(i)].cpu().numpy()
+
+    def normal(self, i: int) -> np.ndarray:
+        """The i-th normal as a 4-vector."""
+        return self.normals[self._check_index(i)].cpu().numpy()
+
+    def cov(self, i: int) -> np.ndarray:
+        """The i-th covariance, 3x3."""
+        return self.covs[self._check_index(i)].cpu().numpy()
+
     @staticmethod
-    def from_points(points, capacity: Optional[int] = None, dtype=None,
+    def from_points(points, capacity: Optional[int] = None, dtype=None, *,
                     device=None) -> "PointCloud":
         """Build from an [M, 3] or [M, 4] array (numpy or torch).
 

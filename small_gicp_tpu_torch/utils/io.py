@@ -1,14 +1,15 @@
 """Point-cloud and pose file IO (host side, numpy).
 
-Counterpart of the parts of ``small_gicp_tpu/utils/io.py`` that the CLIs
-need: the KITTI float4 ``.bin`` reader and writer, the sorted scan list of
-a directory, an xyz-only PLY reader (ascii and binary, arbitrary scalar
-vertex properties) and the 4x4 pose-matrix reader.
+Counterpart of ``small_gicp_tpu/utils/io.py``: the KITTI float4 ``.bin``
+reader and writer, the sorted scan list of a directory, the PLY reader
+(ascii and binary, arbitrary scalar vertex properties; xyz and optional
+nx/ny/nz) and writer, and the 4x4 pose-matrix reader.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -52,8 +53,10 @@ def read_pose_matrix(path: str) -> np.ndarray:
     return m
 
 
-def read_ply(path: str) -> np.ndarray:
-    """The vertex positions of a PLY file → [N,3] float32 xyz."""
+def read_ply(path: str, return_normals: bool = False):
+    """The vertices of a PLY file → [N,3] float32 xyz, and with
+    ``return_normals`` the pair (xyz, [N,3] float32 normals or None)
+    (benchmark/read_points.hpp:52-77)."""
     with open(path, "rb") as f:
         if f.readline().strip() != b"ply":
             raise ValueError(f"{path} is not a PLY file")
@@ -88,10 +91,39 @@ def read_ply(path: str) -> np.ndarray:
         if fmt in _BYTE_ORDER:
             dtype = np.dtype([(n, _BYTE_ORDER[fmt] + d) for n, d in props])
             data = np.frombuffer(f.read(dtype.itemsize * n_vertex), dtype=dtype)
-            cols = [data[axis] for axis in "xyz"]
+            cols = {n: data[n] for n in names}
         elif fmt == "ascii":
             rows = np.loadtxt(f, max_rows=n_vertex, ndmin=2)
-            cols = [rows[:, names.index(axis)] for axis in "xyz"]
+            cols = {n: rows[:, j] for j, n in enumerate(names)}
         else:
             raise ValueError(f"unsupported PLY format {fmt}")
-    return np.stack(cols, axis=1).astype(np.float32)
+
+    def stack(axes):
+        return np.stack([cols[a] for a in axes], axis=1).astype(np.float32)
+
+    xyz = stack(("x", "y", "z"))
+    if not return_normals:
+        return xyz
+    return xyz, stack(("nx", "ny", "nz")) if {"nx", "ny", "nz"} <= set(names) else None
+
+
+def write_ply(path: str, points: np.ndarray, normals: Optional[np.ndarray] = None):
+    """A binary_little_endian PLY of xyz (and nx/ny/nz) float32 vertices
+    (benchmark/read_points.hpp:80-109)."""
+    points = np.asarray(points, dtype=np.float32)
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if normals is not None:
+        normals = np.asarray(normals, dtype=np.float32)
+        fields += [("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4")]
+    rec = np.zeros(points.shape[0], dtype=np.dtype(fields))
+    rec["x"], rec["y"], rec["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if normals is not None:
+        rec["nx"], rec["ny"], rec["nz"] = normals[:, 0], normals[:, 1], normals[:, 2]
+    with open(path, "wb") as f:
+        f.write(b"ply\n")
+        f.write(b"format binary_little_endian 1.0\n")
+        f.write(f"element vertex {points.shape[0]}\n".encode())
+        for name, _ in fields:
+            f.write(f"property float {name}\n".encode())
+        f.write(b"end_header\n")
+        f.write(rec.tobytes())

@@ -1,12 +1,15 @@
-"""Synthetic LiDAR scan generator (numpy only).
+"""Synthetic LiDAR scan generator.
 
-The port's own copy of the host-side generator in
-``small_gicp_tpu/utils/synthetic.py``: an analytic outdoor world (ground
-plane, pillars, boxes), a spinning multi-ring range scanner and a
-circular trajectory with exact ground-truth poses. For the same
-arguments it returns bit-identical scans. ``rings=64,
-azimuth_steps=1800`` gives a KITTI HDL-64-like frame of about 108k
-points.
+The port's own copy of ``small_gicp_tpu/utils/synthetic.py``: an analytic
+outdoor world (ground plane, pillars, boxes), a spinning multi-ring range
+scanner and a circular trajectory with exact ground-truth poses. The host
+generator (numpy) returns bit-identical scans for the same arguments.
+``rings=64, azimuth_steps=1800`` gives a KITTI HDL-64-like frame of about
+108k points. ``generate_sequence_device`` runs the same raycaster as torch
+ops on a device (default: the card), writing padded frames straight into
+device memory, with range noise, ray dropout and moving objects; its
+random stream is torch's, so its frames agree with JAX's in statistics,
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -192,3 +196,138 @@ def generate_sequence(
         if progress and (i + 1) % 100 == 0:
             print(f"  generated {i + 1}/{n_frames} frames", flush=True)
     return scans, poses
+
+
+# ======================================================================
+# On-device scan generation
+# ======================================================================
+
+
+def world_arrays(world: SyntheticWorld):
+    """SyntheticWorld → tuple of float32 arrays for the device raycaster."""
+    return (
+        world.cyl_xy.astype(np.float32),
+        world.cyl_r.astype(np.float32),
+        world.cyl_h.astype(np.float32),
+        world.box_min.astype(np.float32),
+        world.box_max.astype(np.float32),
+    )
+
+
+def _cyl_hits(origin, dirs, centers, radii, heights, max_range: float):
+    """[M] least positive hit distance of rays against vertical cylinders."""
+    oc = origin[None, :2] - centers  # [K,2]
+    d_xy = dirs[:, :2]
+    a = torch.sum(d_xy * d_xy, dim=1)[:, None]
+    b = 2.0 * (d_xy @ oc.T)
+    cterm = (torch.sum(oc * oc, dim=1) - radii**2)[None, :]
+    disc = b * b - 4 * a * cterm
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t_c = (-b - sq) / (2 * torch.clamp(a, min=1e-12))
+    z_at = origin[2] + t_c * dirs[:, 2:3]
+    valid = (disc > 0) & (t_c > 0.05) & (z_at >= 0.0) & (z_at <= heights[None, :])
+    return torch.amin(torch.where(valid, t_c, max_range), dim=1)
+
+
+def generate_sequence_device(
+    n_frames: int = 600,
+    seed: int = 0,
+    radius: float = 80.0,
+    frame_dist: float = 1.2,
+    rings: int = 32,
+    azimuth_steps: int = 512,
+    max_range: float = 75.0,
+    noise: float = 0.012,
+    pad_frames_to: int | None = None,
+    dropout: float = 0.0,
+    n_dynamic: int = 0,
+    dynamic_speed: float = 0.35,
+    *,
+    device=None,
+):
+    """Generate the sequence on ``device`` (default: the card).
+
+    Returns (frames [F,M,4] padded homogeneous float32 on the device, counts
+    [F] int32 on the device, ground-truth poses [F,4,4] numpy): the inputs of
+    ``JitOdometry.feed_preloaded``. Each frame's returns come first, in ray
+    order; rays without a return are padding rows. ``noise`` is the range
+    noise's sigma in metres, ``dropout`` each ray's no-return probability,
+    and ``n_dynamic`` cylinders drive the loop corridor at
+    ±``dynamic_speed``·U(0.6, 1.4) frame-dists a frame (half with the sensor,
+    half against it), their returns inconsistent from frame to frame as real
+    traffic's are. Noise and dropout draw from a ``torch.Generator`` seeded
+    with ``seed + 1`` on the device; the world, the poses and the objects'
+    paths are the JAX package's.
+    """
+    from small_gicp_tpu_torch.point_cloud import pad_row, resolve_device
+
+    dev = resolve_device(device)
+    world = make_world(seed=seed, radius=radius)
+    cyl_xy, cyl_r, cyl_h, box_min, box_max = (
+        torch.from_numpy(a).to(dev) for a in world_arrays(world))
+    poses = loop_trajectory(n_frames, radius=radius, frame_dist=frame_dist)
+    F = n_frames if pad_frames_to is None else pad_frames_to
+
+    rng_dyn = np.random.default_rng(seed + 7)
+    if n_dynamic > 0:
+        theta0 = rng_dyn.uniform(0, 2 * np.pi, n_dynamic)
+        rel = dynamic_speed * np.where(np.arange(n_dynamic) % 2 == 0, 1.0, -1.0) \
+            * rng_dyn.uniform(0.6, 1.4, n_dynamic)
+        lat = rng_dyn.uniform(-6.0, 6.0, n_dynamic)
+        th = theta0[None, :] + np.arange(n_frames)[:, None] * (frame_dist / radius) \
+            * rel[None, :]
+        r_dyn = radius + lat[None, :]
+        dyn_xy = np.stack([r_dyn * np.cos(th), r_dyn * np.sin(th)],
+                          axis=-1).astype(np.float32)  # [F, D, 2]
+        dyn_r = rng_dyn.uniform(0.4, 1.1, n_dynamic).astype(np.float32)
+        dyn_h = rng_dyn.uniform(1.4, 2.6, n_dynamic).astype(np.float32)
+        dyn_xy, dyn_r, dyn_h = (torch.from_numpy(a).to(dev)
+                                for a in (dyn_xy, dyn_r, dyn_h))
+
+    elev = np.deg2rad(np.linspace(-25.0, 3.0, rings))
+    az = np.linspace(0, 2 * np.pi, azimuth_steps, endpoint=False)
+    d_sens = torch.from_numpy(np.stack([
+        (np.cos(elev)[:, None] * np.cos(az)[None, :]).ravel(),
+        (np.cos(elev)[:, None] * np.sin(az)[None, :]).ravel(),
+        np.broadcast_to(np.sin(elev)[:, None], (rings, azimuth_steps)).ravel(),
+    ], axis=1).astype(np.float32)).to(dev)
+    M = d_sens.shape[0]
+    poses_dev = torch.from_numpy(poses.astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    pad = pad_row(torch.float32, dev)
+
+    frames = torch.empty((F, M, 4), dtype=torch.float32, device=dev)
+    frames[n_frames:] = pad
+    counts = torch.zeros(F, dtype=torch.int32, device=dev)
+    ones = torch.ones((M, 1), dtype=torch.float32, device=dev)
+    for i in range(n_frames):
+        T = poses_dev[i]
+        origin, dirs = T[:3, 3], d_sens @ T[:3, :3].T
+        dz = dirs[:, 2]
+        t_g = -origin[2] / torch.where(torch.abs(dz) > 1e-9, dz, 1e-9)
+        t_best = torch.where((dz < -1e-9) & (t_g > 0.05) & (t_g < max_range), t_g,
+                             max_range)
+        t_best = torch.minimum(t_best, _cyl_hits(origin, dirs, cyl_xy, cyl_r, cyl_h,
+                                                 max_range))
+        if n_dynamic > 0:
+            t_best = torch.minimum(t_best, _cyl_hits(origin, dirs, dyn_xy[i], dyn_r,
+                                                     dyn_h, max_range))
+        inv = 1.0 / torch.where(torch.abs(dirs) > 1e-9, dirs, 1e-9)
+        t0 = (box_min[None, :, :] - origin[None, None, :]) * inv[:, None, :]
+        t1 = (box_max[None, :, :] - origin[None, None, :]) * inv[:, None, :]
+        tmin = torch.amax(torch.minimum(t0, t1), dim=2)
+        tmax = torch.amin(torch.maximum(t0, t1), dim=2)
+        valid = (tmax >= tmin) & (tmin > 0.05)
+        t_best = torch.minimum(t_best, torch.amin(torch.where(valid, tmin, max_range),
+                                                  dim=1))
+        got = t_best < max_range * 0.999
+        if dropout > 0.0:
+            got &= torch.rand(M, generator=gen, device=dev) >= dropout
+        t_hit = t_best + noise * torch.randn(M, generator=gen, device=dev)
+        frame = torch.where(got[:, None], torch.cat([d_sens * t_hit[:, None], ones], 1),
+                            pad)
+        order = torch.argsort((~got).to(torch.uint8), stable=True)
+        frames[i] = frame[order]
+        counts[i] = got.sum()
+    return frames, counts, poses

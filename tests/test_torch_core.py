@@ -189,7 +189,14 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 def test_port_import_loads_no_jax_module():
     code = (
         "import sys, small_gicp_tpu_torch, small_gicp_tpu_torch.interop, "
-        "small_gicp_tpu_torch.utils.synthetic, small_gicp_tpu_torch._build\n"
+        "small_gicp_tpu_torch.utils.synthetic, small_gicp_tpu_torch._build, "
+        "small_gicp_tpu_torch.utils.checkpoint, small_gicp_tpu_torch.utils.profiling, "
+        "small_gicp_tpu_torch.native, small_gicp_tpu_torch.pcl_interop, "
+        "small_gicp_tpu_torch.apps.synthetic_odometry_benchmark, "
+        "small_gicp_tpu_torch.apps.downsampling_benchmark, "
+        "small_gicp_tpu_torch.apps.odometry_accuracy, "
+        "small_gicp_tpu_torch.apps.dump_synthetic_kitti, "
+        "small_gicp_tpu_torch.apps.plot_odometry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'small_gicp_tpu')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"

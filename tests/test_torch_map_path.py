@@ -5,7 +5,10 @@ against the difference form, the Morton order against the JAX presort, and
 against the JAX ``align_impl``.
 
 Inputs: the 700 / 900-point pair of tests/test_gicp_fused.py from a seeded
-numpy generator, and a 16-ring × 256-step synthetic scan pair.
+numpy generator, and a 16-ring × 256-step synthetic scan pair downsampled
+by the port at 0.75 m (≈1.5k rows a cloud, in tables of the raw scans'
+capacity, so that JAX's compilation cache serves its align); the JAX align
+takes the port's preprocessed clouds.
 """
 
 import math
@@ -18,7 +21,6 @@ import torch
 import small_gicp_tpu as sgt
 from small_gicp_tpu.models.registration import align_impl as j_align_impl
 from small_gicp_tpu.ops import gicp_fused_pallas as jfused
-from small_gicp_tpu.utils.lie import se3_exp as j_se3_exp
 import small_gicp_tpu_torch as pt
 from small_gicp_tpu_torch.interop import cloud_from_numpy
 from small_gicp_tpu_torch.models.registration import Registration, align_impl
@@ -35,6 +37,17 @@ from small_gicp_tpu_torch.utils.synthetic import generate_sequence
 
 ROT_EPS = 0.1 * math.pi / 180.0
 TRANS_EPS = 1e-3
+LEAF = 0.75
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain walks run many small torch ops; the suite runs several
+    worker processes on the same cores, where intra-op threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -55,8 +68,8 @@ def pair():
 
 
 def _T():
-    return np.array(j_se3_exp(jnp.asarray([0.02, -0.01, 0.03, 0.05, -0.1, 0.08],
-                                          jnp.float32)))
+    return se3_exp(torch.tensor([0.02, -0.01, 0.03, 0.05, -0.1, 0.08],
+                                dtype=torch.float32)).numpy()
 
 
 def _tables(pair, factor="gicp"):
@@ -176,8 +189,8 @@ def scan_pair():
     rng = np.random.default_rng(11)
     tw = np.r_[rng.normal(size=3) * 0.03, rng.normal(size=3) * 0.2]
     init = (T_gt @ se3_exp(torch.as_tensor(tw)).numpy()).astype(np.float32)
-    tt, ttree = pt.preprocess_points(scans[0], 0.25, num_neighbors=10, device="cpu")
-    ts, _ = pt.preprocess_points(scans[1], 0.25, num_neighbors=10, device="cpu")
+    tt, ttree = pt.preprocess_points(scans[0], LEAF, num_neighbors=10, device="cpu")
+    ts, _ = pt.preprocess_points(scans[1], LEAF, num_neighbors=10, device="cpu")
     return scans, T_gt, init, (tt, ttree, ts)
 
 
@@ -185,9 +198,11 @@ def test_align_swept_route_matches_default_and_jax(scan_pair):
     scans, T_gt, init, (tt, ttree, ts) = scan_pair
     swept = align_impl(tt, ts, ttree, init, fused_route="swept")
     listed = align_impl(tt, ts, ttree, init)
-    jt, jtree = sgt.preprocess_points(scans[0], 0.25, num_neighbors=10)
-    js, _ = sgt.preprocess_points(scans[1], 0.25, num_neighbors=10)
-    jr = j_align_impl(jt, js, jtree, jnp.asarray(init))
+    # The JAX align on the port's preprocessed clouds: the same inputs.
+    jt, js = (sgt.PointCloud(points=jnp.asarray(c.points.numpy()),
+                             num_points=jnp.asarray(int(c.num_points), jnp.int32),
+                             covs=jnp.asarray(c.covs.numpy())) for c in (tt, ts))
+    jr = j_align_impl(jt, js, sgt.KdTree.build(jt), jnp.asarray(init))
     rot, trans = _errors(swept.T_target_source.numpy(), T_gt)
     assert rot < 2.5 and trans < 0.2 and bool(swept.converged)
     _agree(swept.T_target_source.numpy(), swept.iterations,

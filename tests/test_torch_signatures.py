@@ -15,7 +15,13 @@ insert/knn_search``, the three ``IncrementalVoxelMap*`` constructors,
 dtype defaults in each package's own type (``jnp.float32`` ↔
 ``torch.float32``) and ``device`` keyword-only after them. Both packages are called positionally and by keyword on a
 16-ring × 256-step synthetic scan pair; ``verbose=True`` prints one line
-per iteration in each, with the same fields.
+per iteration in each, with the same fields. The last modules' names
+(checkpoints, the native loader, factors, ``random_sampling``, whose ``key``
+is a ``torch.Generator`` — a kept departure —, ``eigh3x3``, the accessors,
+interop, PCL, io, profiling, the device generator) and ``device``'s
+keyword-only place in ``PointCloud.from_points``, ``KdTree.build`` and
+``neighbor_offsets`` are held the same way, and each app keeps the JAX
+app's flags, adding only ``--device`` where it touches a device.
 """
 
 import dataclasses
@@ -54,6 +60,34 @@ from small_gicp_tpu_torch.ops import projective_search as t_projective
 from small_gicp_tpu_torch.ops import voxel_covs as t_voxel_covs
 from small_gicp_tpu_torch.utils.lie import rotation_error_deg, se3_exp
 from small_gicp_tpu_torch.utils.synthetic import generate_sequence
+from small_gicp_tpu import interop as j_interop, native as j_native
+from small_gicp_tpu import pcl_interop as j_pcl
+from small_gicp_tpu.apps import (
+    downsampling_benchmark as j_ds_app,
+    dump_synthetic_kitti as j_dump_app,
+    odometry_accuracy as j_acc_app,
+    odometry_benchmark as j_odo_app,
+    plot_odometry as j_plot_app,
+    synthetic_odometry_benchmark as j_syn_app,
+)
+from small_gicp_tpu.models import factors as j_factors
+from small_gicp_tpu.ops import eigh3 as j_eigh3, voxel_keys as j_voxel_keys
+from small_gicp_tpu.utils import checkpoint as j_checkpoint, io as j_io
+from small_gicp_tpu.utils import profiling as j_profiling, synthetic as j_synthetic
+from small_gicp_tpu_torch import interop as t_interop, native as t_native
+from small_gicp_tpu_torch import pcl_interop as t_pcl
+from small_gicp_tpu_torch.apps import (
+    downsampling_benchmark as t_ds_app,
+    dump_synthetic_kitti as t_dump_app,
+    odometry_accuracy as t_acc_app,
+    odometry_benchmark as t_odo_app,
+    plot_odometry as t_plot_app,
+    synthetic_odometry_benchmark as t_syn_app,
+)
+from small_gicp_tpu_torch.models import factors as t_factors
+from small_gicp_tpu_torch.ops import eigh3 as t_eigh3, voxel_keys as t_voxel_keys
+from small_gicp_tpu_torch.utils import checkpoint as t_checkpoint, io as t_io
+from small_gicp_tpu_torch.utils import profiling as t_profiling, synthetic as t_synthetic
 
 PORT_ONLY = {"optimizer", "device", "fused_route", "source_rows"}
 ROT_EPS = 0.1 * math.pi / 180.0
@@ -100,6 +134,95 @@ A9_NAMES = {
 def test_a9_parameters_mirror_the_jax_package(name):
     j_mod, t_mod = A9_NAMES[name]
     _mirrors(name, _params(_resolve(j_mod, name)), _params(_resolve(t_mod, name)))
+
+
+# The last modules, the three functions whose ``device`` became keyword-only
+# (``PointCloud.from_points``, ``KdTree.build``, ``neighbor_offsets``) and
+# the apps' ``main``: (JAX module, port module) of each dotted name.
+REST_NAMES = {
+    "PointCloud.from_points": (j_point_cloud, t_point_cloud),
+    "KdTree.build": (j_knn, t_knn),
+    "neighbor_offsets": (j_voxel_keys, t_voxel_keys),
+    "save_pytree": (j_checkpoint, t_checkpoint),
+    "load_pytree": (j_checkpoint, t_checkpoint),
+    "save_odometry_state": (j_checkpoint, t_checkpoint),
+    "load_odometry_state": (j_checkpoint, t_checkpoint),
+    "read_kitti_bin": (j_native, t_native),
+    "read_ply_xyz": (j_native, t_native),
+    "DatasetLoader.__init__": (j_native, t_native),
+    "error": (j_factors, t_factors),
+    "linearize_per_point": (j_factors, t_factors),
+    "ICPFactor.__init__": (j_factors, t_factors),
+    "GICPFactor.linearize": (j_factors, t_factors),
+    "DistanceRejector.__init__": (j_factors, t_factors),
+    "DistanceRejector.set_max_distance": (j_factors, t_factors),
+    "random_sampling": (j_downsampling, t_downsampling),
+    "eigh3x3": (j_eigh3, t_eigh3),
+    "PointCloud.astype": (j_point_cloud, t_point_cloud),
+    "PointCloud.point": (j_point_cloud, t_point_cloud),
+    "PointCloud.normal": (j_point_cloud, t_point_cloud),
+    "PointCloud.cov": (j_point_cloud, t_point_cloud),
+    "brute_force_knn_numpy": (j_knn, t_knn),
+    "RegistrationTPU.__init__": (j_interop, t_interop),
+    "RegistrationTPU.align": (j_interop, t_interop),
+    "as_point_cloud": (j_interop, t_interop),
+    "from_pointcloud2": (j_interop, t_interop),
+    "to_pointcloud2": (j_interop, t_interop),
+    "from_ros_msg": (j_interop, t_interop),
+    "to_ros_msg": (j_interop, t_interop),
+    "to_torch": (j_interop, t_interop),
+    "pcl_dtype": (j_pcl, t_pcl),
+    "from_pcl": (j_pcl, t_pcl),
+    "to_pcl": (j_pcl, t_pcl),
+    "read_ply": (j_io, t_io),
+    "write_ply": (j_io, t_io),
+    "trace": (j_profiling, t_profiling),
+    "nan_guard": (j_profiling, t_profiling),
+    "host_fingerprint": (j_profiling, t_profiling),
+    "enable_compilation_cache": (j_profiling, t_profiling),
+    "StageTimer.stage": (j_profiling, t_profiling),
+    "world_arrays": (j_synthetic, t_synthetic),
+    "generate_sequence_device": (j_synthetic, t_synthetic),
+    "synthetic_odometry_benchmark.run_engine": (j_syn_app, t_syn_app),
+}
+APPS = {"synthetic_odometry_benchmark": (j_syn_app, t_syn_app),
+        "downsampling_benchmark": (j_ds_app, t_ds_app),
+        "odometry_accuracy": (j_acc_app, t_acc_app),
+        "dump_synthetic_kitti": (j_dump_app, t_dump_app),
+        "plot_odometry": (j_plot_app, t_plot_app),
+        "odometry_benchmark": (j_odo_app, t_odo_app)}
+# Kept departures: the parameter keeps its name and position, its type is
+# the port's own.
+DEPARTURES = {"random_sampling": {"key": "a torch.Generator, where JAX takes a PRNG key"}}
+
+
+@pytest.mark.parametrize("name", list(REST_NAMES))
+def test_rest_parameters_mirror_the_jax_package(name):
+    j_mod, t_mod = REST_NAMES[name]
+    if name == "synthetic_odometry_benchmark.run_engine":
+        j_fn, t_fn = j_mod.run_engine, t_mod.run_engine
+    else:
+        j_fn, t_fn = _resolve(j_mod, name), _resolve(t_mod, name)
+    _mirrors(name, _params(j_fn), _params(t_fn))
+    for param in DEPARTURES.get(name, {}):
+        assert param in inspect.signature(t_fn).parameters, name
+
+
+@pytest.mark.parametrize("app", list(APPS))
+def test_apps_keep_the_jax_flags(app):
+    """Every app's ``main(argv=None)`` and each JAX flag, with its default;
+    the port adds ``--device`` (default: the card) where the app touches a
+    device."""
+    j_mod, t_mod = APPS[app]
+    _mirrors(app, _params(j_mod.main), _params(t_mod.main))
+    flags = {}
+    for mod, key in ((j_mod, "j"), (t_mod, "t")):
+        src = inspect.getsource(mod.main if app != "odometry_benchmark" else mod)
+        flags[key] = set(re.findall(r"add_argument\(\s*\"(-[-\w]+|\w+)\"", src))
+    assert flags["j"] <= flags["t"], (app, flags["j"] - flags["t"])
+    extra = flags["t"] - flags["j"]
+    assert extra <= {"--device"}, (app, extra)
+    assert (extra == {"--device"}) == (app not in ("odometry_accuracy", "plot_odometry"))
 
 
 def _mirrors(name, j_params, t_params):
