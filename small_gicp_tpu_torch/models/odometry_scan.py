@@ -54,6 +54,7 @@ from small_gicp_tpu_torch.models.voxelmap import (
 )
 from small_gicp_tpu_torch.models.odometry import OdometryParams, torch_dtype
 from small_gicp_tpu_torch.utils.lie import orthonormalize, rigid_inverse
+from small_gicp_tpu_torch.utils.profiling import count, host_read, span
 
 COVARIANCE_MODES = ("knn", "knn_fused", "knn_window", "voxel")
 MODEL_ENGINES = ("gicp_model", "gicp_model_fused", "vgicp_model", "vgicp_model_fused",
@@ -78,16 +79,18 @@ def _frame_cloud(frame_points: torch.Tensor, frame_count: torch.Tensor,
             frame_points, frame_count, downsampling_resolution, max_downsampled)
         return PointCloud(points=pts, num_points=n, covs=covs)
     mode = {"knn_window": "window", "knn_fused": "fused"}.get(covariance_mode, "exact")
-    pts, n = _voxelgrid_sampling_impl(frame_points, frame_count,
-                                      downsampling_resolution, max_downsampled)
+    with span("pre.voxelgrid"):
+        pts, n = _voxelgrid_sampling_impl(frame_points, frame_count,
+                                          downsampling_resolution, max_downsampled)
     if rtype == "plane_icp":
         normals, _ = _estimate_impl(pts, n, num_neighbors, True, False,
                                     neighbor_mode=mode, window_cell=downsampling_resolution)
         return PointCloud(points=pts, num_points=n, normals=normals)
     if rtype == "icp":
         return PointCloud(points=pts, num_points=n)
-    _, covs = _estimate_impl(pts, n, num_neighbors, False, True, neighbor_mode=mode,
-                             window_cell=downsampling_resolution)
+    with span("pre.covs"):
+        _, covs = _estimate_impl(pts, n, num_neighbors, False, True, neighbor_mode=mode,
+                                 window_cell=downsampling_resolution)
     return PointCloud(points=pts, num_points=n, covs=covs)
 
 
@@ -121,25 +124,27 @@ def odometry_scan_step(carry, frame_points: torch.Tensor, frame_count: torch.Ten
     T_world, T_delta, vm, is_first = carry
     if model_nn not in ("voxel", "bruteforce"):
         raise ValueError(f"model_nn must be 'voxel' or 'bruteforce', got {model_nn!r}")
-    cloud = _frame_cloud(frame_points, frame_count, downsampling_resolution,
-                         max_downsampled, num_neighbors, model_rtype, covariance_mode)
+    with span("odom.preprocess"):
+        cloud = _frame_cloud(frame_points, frame_count, downsampling_resolution,
+                             max_downsampled, num_neighbors, model_rtype, covariance_mode)
 
-    guess = T_world @ T_delta if predict_motion else T_world
-    target = vm
-    if model_nn == "bruteforce":
-        needs = "has_normals" if model_rtype == "plane_icp" else "has_covs"
-        if isinstance(vm, GaussianVoxelMap):
-            target = voxelmap_as_cloud(vm)
-        elif isinstance(vm, IncrementalVoxelMap) and getattr(vm, needs):
-            target = ivm_as_cloud(vm)
-        else:
-            raise ValueError("model_nn='bruteforce' needs a GaussianVoxelMap or an "
-                             f"IncrementalVoxelMap with {needs}")
-        if 0 < model_prepared_rows < target.capacity:
-            target = compact_cloud(target, model_prepared_rows)
-    result = align_impl(target, cloud, None, guess, registration_type=model_rtype,
-                        max_dist_sq=max_correspondence_distance ** 2,
-                        solve_dtype=solve_dtype, source_rows=cloud.capacity)
+    with span("odom.register"):
+        guess = T_world @ T_delta if predict_motion else T_world
+        target = vm
+        if model_nn == "bruteforce":
+            needs = "has_normals" if model_rtype == "plane_icp" else "has_covs"
+            if isinstance(vm, GaussianVoxelMap):
+                target = voxelmap_as_cloud(vm)
+            elif isinstance(vm, IncrementalVoxelMap) and getattr(vm, needs):
+                target = ivm_as_cloud(vm)
+            else:
+                raise ValueError("model_nn='bruteforce' needs a GaussianVoxelMap or an "
+                                 f"IncrementalVoxelMap with {needs}")
+            if 0 < model_prepared_rows < target.capacity:
+                target = compact_cloud(target, model_prepared_rows)
+        result = align_impl(target, cloud, None, guess, registration_type=model_rtype,
+                            max_dist_sq=max_correspondence_distance ** 2,
+                            solve_dtype=solve_dtype, source_rows=cloud.capacity)
     real = frame_count > 0
     aligned = result.T_target_source
     if max_frame_motion > 0.0:
@@ -154,7 +159,8 @@ def odometry_scan_step(carry, frame_points: torch.Tensor, frame_count: torch.Ten
     # drift off the manifold.
     T_new = torch.where(keep, T_world, orthonormalize(aligned))
     delta_new = torch.where(keep, T_delta, rigid_inverse(T_world) @ T_new)
-    vm = vm.insert(cloud, T_new)
+    with span("odom.insert"):
+        vm = vm.insert(cloud, T_new)
     return (T_new, delta_new, vm, is_first & ~real), T_new
 
 
@@ -202,7 +208,9 @@ def odometry_scan_step_s2s(carry, frame_points: torch.Tensor, frame_count: torch
 def _run_frames(step, carry, frames: torch.Tensor, counts: torch.Tensor, **kw):
     poses = []
     for i in range(frames.shape[0]):
-        carry, T = step(carry, frames[i], counts[i], **kw)
+        count("frames")
+        with span("odom.frame"):
+            carry, T = step(carry, frames[i], counts[i], **kw)
         poses.append(T)
     return carry, torch.stack(poses)
 
@@ -399,18 +407,22 @@ class JitOdometry:
         fc = self.chunk_frames
         f_pad = frames_dev.shape[0]
         if n_real is None:
-            nz = np.nonzero(counts_dev.cpu().numpy() > 0)[0]
+            with host_read("counts"):
+                nz = np.nonzero(counts_dev.cpu().numpy() > 0)[0]
             n_real = int(nz[-1]) + 1 if nz.size else 0
         out = []
         for start in range(0, f_pad, fc):
-            t0 = time.perf_counter()
-            poses_chunk = self._run_chunk(frames_dev[start:start + fc],
-                                          counts_dev[start:start + fc])
-            self._sync()
-            self.chunk_times_ms.append((time.perf_counter() - t0) * 1e3)
+            with span("odom.chunk"):
+                t0 = time.perf_counter()
+                poses_chunk = self._run_chunk(frames_dev[start:start + fc],
+                                              counts_dev[start:start + fc])
+                with host_read("chunk_sync"):
+                    self._sync()
+                self.chunk_times_ms.append((time.perf_counter() - t0) * 1e3)
             out.append(poses_chunk)
-        poses = (torch.cat(out).cpu().numpy()[:n_real] if out
-                 else np.zeros((0, 4, 4), self.params.dtype))
+        with host_read("poses"):
+            poses = (torch.cat(out).cpu().numpy()[:n_real] if out
+                     else np.zeros((0, 4, 4), self.params.dtype))
         self.poses.extend(poses)
         return poses
 

@@ -95,6 +95,7 @@ from small_gicp_tpu_torch.ops.lm_step import (
 from small_gicp_tpu_torch.models import factors
 from small_gicp_tpu_torch.models.factors import GICP, ICP, PLANE_ICP, Correspondences
 from small_gicp_tpu_torch.models.voxelmap import GaussianVoxelMap, IncrementalVoxelMap
+from small_gicp_tpu_torch.utils.profiling import count, host_read, span
 
 VGICP = "vgicp"
 
@@ -252,8 +253,10 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
     if dof_mask is not None:
         dof_diag = [dof_lambda * abs(float(m) - 1.0)
                     for m in torch.as_tensor(dof_mask, dtype=torch.float64).tolist()]
-    state = lm_state(T0, optimizer, max_inner_iterations, init_lambda, lambda_factor,
-                     gn_lambda, rotation_eps, translation_eps, dof_diag, dt, dev)
+    count("registrations")
+    with span("align.state"):
+        state = lm_state(T0, optimizer, max_inner_iterations, init_lambda, lambda_factor,
+                         gn_lambda, rotation_eps, translation_eps, dof_diag, dt, dev)
 
     cloud = isinstance(target, PointCloud)
     if (use_fused == "auto" and dt == torch.float32 and cloud and group is None
@@ -261,30 +264,34 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         route = fused_route or auto_route(target.points)
         # A tree over this very target keeps its sort and boxes across aligns
         # (and from the covariance stage of preprocess_points).
-        kept = (target_tree.pruned_target()
-                if isinstance(target_tree, KdTree)
-                and target_tree.points is target.points else None)
-        tables = gicp_prepare(
-            target.points, target.num_points, source.points, source.num_points,
-            factor=registration_type,
-            target_covs=target.covs if registration_type == GICP else None,
-            source_covs=source.covs if registration_type == GICP else None,
-            target_normals=target.normals if registration_type == PLANE_ICP else None,
-            route=route, target=kept, source_rows=source_rows,
-        )
-        out = linearize_buffers(tables)
+        with span("align.prepare"):
+            kept = (target_tree.pruned_target()
+                    if isinstance(target_tree, KdTree)
+                    and target_tree.points is target.points else None)
+            tables = gicp_prepare(
+                target.points, target.num_points, source.points, source.num_points,
+                factor=registration_type,
+                target_covs=target.covs if registration_type == GICP else None,
+                source_covs=source.covs if registration_type == GICP else None,
+                target_normals=target.normals if registration_type == PLANE_ICP else None,
+                route=route, target=kept, source_rows=source_rows,
+            )
+            out = linearize_buffers(tables)
 
         def iterate():
             """K1 (or K6) at the record's pose, then the step kernel."""
-            sums, corr = gicp_linearize_sums(tables, state.T, max_dist_sq,
-                                             robust_kernel, robust_c, out)
-            gicp_lm_step(state, sums, corr, source.points, source.num_points,
-                         robust_kernel, robust_c, solve_dtype)
+            with span("lm.linearize"):
+                sums, corr = gicp_linearize_sums(tables, state.T, max_dist_sq,
+                                                 robust_kernel, robust_c, out)
+            with span("lm.step"):
+                gicp_lm_step(state, sums, corr, source.points, source.num_points,
+                             robust_kernel, robust_c, solve_dtype)
     else:
         source_covs = source.covs if registration_type == GICP else None
         tree = target_tree
         if cloud and tree is None:
-            tree = KdTree.build(target)
+            with span("align.prepare"):
+                tree = KdTree.build(target)
 
         # The step kernel reads float32 rows: float64 clouds take its plain
         # version, over rows packed the same way in float64.
@@ -296,31 +303,38 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         def iterate():
             """The unfused search and factors, then the step on the packed
             corr rows."""
-            corr, d2 = search_correspondences(
-                registration_type, target, tree, source.points, source.num_points,
-                source_covs, state.T, max_dist_sq)
-            H, b, _ = factors.linearize(corr, state.T, source.points, robust_kernel,
-                                        robust_c)
-            sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
-                              corr.mask.sum().reshape(1).to(H.dtype)]).to(torch.float64)
+            with span("lm.linearize"):
+                corr, d2 = search_correspondences(
+                    registration_type, target, tree, source.points, source.num_points,
+                    source_covs, state.T, max_dist_sq)
+                H, b, _ = factors.linearize(corr, state.T, source.points, robust_kernel,
+                                            robust_c)
+                sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
+                                  corr.mask.sum().reshape(1).to(H.dtype)]).to(torch.float64)
             if group is not None:
                 dist.all_reduce(sums, group=group)
-            step(state, sums, pack_corr_rows(corr, d2), source.points, source.num_points,
-                 robust_kernel, robust_c, solve_dtype)
+            with span("lm.step"):
+                step(state, sums, pack_corr_rows(corr, d2), source.points,
+                     source.num_points, robust_kernel, robust_c, solve_dtype)
 
     names = (("e", "gn_lambda") if optimizer == "gn" else ("e", "new_e", "lambda")) \
         + ("dr", "dt")
     for i in range(max_iterations):
-        iterate()
-        if verbose:  # the iteration's one host read carries the line's values
-            shown = ((state.e, state.params[1].to(dt)) if optimizer == "gn"
-                     else (state.errs[0], state.e, state.lam))
-            vals = torch.stack([v.to(torch.float64) for v in (
-                state.stop, *shown, *step_norms(state))]).tolist()
-            print(f"iter={i} " + " ".join(f"{n}={v}" for n, v in zip(names, vals[1:])))
-            if vals[0]:
-                break
-        elif bool(state.stop):  # the one host read of the iteration
+        count("lm_iterations")
+        with span("lm.iter"):
+            iterate()
+            if verbose:  # the iteration's one host read carries the line's values
+                shown = ((state.e, state.params[1].to(dt)) if optimizer == "gn"
+                         else (state.errs[0], state.e, state.lam))
+                with host_read("stop"):
+                    vals = torch.stack([v.to(torch.float64) for v in (
+                        state.stop, *shown, *step_norms(state))]).tolist()
+                print(f"iter={i} " + " ".join(f"{n}={v}" for n, v in zip(names, vals[1:])))
+                stop = vals[0]
+            else:
+                with host_read("stop"):  # the one host read of the iteration
+                    stop = bool(state.stop)
+        if stop:
             break
 
     return RegistrationResult(

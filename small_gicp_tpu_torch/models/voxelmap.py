@@ -61,6 +61,7 @@ from small_gicp_tpu_torch.ops.voxel_keys import (
     pack_coords,
     voxel_coords,
 )
+from small_gicp_tpu_torch.utils.profiling import span
 
 _FAR = 1e18
 _IMAX = torch.iinfo(torch.int32).max
@@ -611,85 +612,91 @@ def _ivm_insert(vm: IncrementalVoxelMap, points: torch.Tensor,
     nonempty = num_points > 0
     counter = torch.where(nonempty, vm.lru_counter + 1, vm.lru_counter)
 
-    keys = _scan_keys(points, vm.leaf_size, num_points)
-    k_s, a_s = torch.sort(keys, stable=True)  # (key, arrival) order
-    cols = [points.to(dt)]
-    if vm.has_normals:
-        cols.append(normals.to(dt))
-    if vm.has_covs:
-        cols.append(covs.reshape(n, 9).to(dt))
-    rows_new = torch.cat(cols, dim=1)[a_s]  # [n, D]
-    xyz_s = rows_new[:, :3]
-    valid = k_s != INVALID_KEY
+    with span("insert.sort"):
+        keys = _scan_keys(points, vm.leaf_size, num_points)
+        k_s, a_s = torch.sort(keys, stable=True)  # (key, arrival) order
+        cols = [points.to(dt)]
+        if vm.has_normals:
+            cols.append(normals.to(dt))
+        if vm.has_covs:
+            cols.append(covs.reshape(n, 9).to(dt))
+        rows_new = torch.cat(cols, dim=1)[a_s]  # [n, D]
+        xyz_s = rows_new[:, :3]
+        valid = k_s != INVALID_KEY
 
-    hit, lo = _lookup(vm.dir_keys, k_s)
-    hit = hit & valid
-    dval = vm.dir_vals[lo].to(torch.int64)
-    slot_hit = torch.where(hit, dval >> 8, 0)
-    occ_base = torch.where(hit, dval & 0xFF, 0)
+    with span("insert.lookup"):
+        hit, lo = _lookup(vm.dir_keys, k_s)
+        hit = hit & valid
+        dval = vm.dir_vals[lo].to(torch.int64)
+        slot_hit = torch.where(hit, dval >> 8, 0)
+        occ_base = torch.where(hit, dval & 0xFF, 0)
 
-    cells = torch.arange(C, device=dev)
-    if vm.min_sq_dist_in_cell > 0.0:
-        # Exact dedup against the voxel's stored points.
-        win = torch.clamp(slot_hit[:, None] * C + cells[None, :], 0, VC - 1)
-        oxyz = vm.payload[:, :3][win]  # [n,C,3]
-        in_vox = hit[:, None] & (cells[None, :] < occ_base[:, None])
-        d2 = torch.where(in_vox, _sq_norm3(oxyz - xyz_s[:, None, :]), _FAR)
-        ok = valid & (torch.amin(d2, dim=-1) >= vm.min_sq_dist_in_cell)
-        # Within the scan: the first arrival of each fine cell of a voxel.
-        # The order of (hash, arrival): by arrival (the inverse of a_s), then
-        # stably by hash.
-        fine_leaf = torch.sqrt(torch.full((), vm.min_sq_dist_in_cell, dtype=dt, device=dev))
-        fh = torch.where(ok, _fine_hash(xyz_s, fine_leaf, k_s), INVALID_KEY)
-        by_arrival = torch.argsort(a_s)
-        by_hash = torch.sort(fh[by_arrival], stable=True)
-        pos_s = by_arrival[by_hash.indices]
-        fh_s = by_hash.values
-        first = torch.cat([torch.ones(min(n, 1), dtype=torch.bool, device=dev),
-                           fh_s[1:] != fh_s[:-1]]) & (fh_s != INVALID_KEY)
-        first_b = torch.zeros(n, dtype=torch.bool, device=dev).index_put_((pos_s,), first)
-        ok = ok & first_b
-    else:
-        ok = valid
+        cells = torch.arange(C, device=dev)
+        if vm.min_sq_dist_in_cell > 0.0:
+            # Exact dedup against the voxel's stored points.
+            win = torch.clamp(slot_hit[:, None] * C + cells[None, :], 0, VC - 1)
+            oxyz = vm.payload[:, :3][win]  # [n,C,3]
+            in_vox = hit[:, None] & (cells[None, :] < occ_base[:, None])
+            d2 = torch.where(in_vox, _sq_norm3(oxyz - xyz_s[:, None, :]), _FAR)
+            ok = valid & (torch.amin(d2, dim=-1) >= vm.min_sq_dist_in_cell)
+            # Within the scan: the first arrival of each fine cell of a voxel.
+            # The order of (hash, arrival): by arrival (the inverse of a_s), then
+            # stably by hash.
+            fine_leaf = torch.sqrt(torch.full((), vm.min_sq_dist_in_cell, dtype=dt,
+                                              device=dev))
+            fh = torch.where(ok, _fine_hash(xyz_s, fine_leaf, k_s), INVALID_KEY)
+            by_arrival = torch.argsort(a_s)
+            by_hash = torch.sort(fh[by_arrival], stable=True)
+            pos_s = by_arrival[by_hash.indices]
+            fh_s = by_hash.values
+            first = torch.cat([torch.ones(min(n, 1), dtype=torch.bool, device=dev),
+                               fh_s[1:] != fh_s[:-1]]) & (fh_s != INVALID_KEY)
+            first_b = torch.zeros(n, dtype=torch.bool, device=dev)
+            first_b = first_b.index_put_((pos_s,), first)
+            ok = ok & first_b
+        else:
+            ok = valid
 
-    # Per-voxel cap: arrival rank among the accepted rows of the run.
-    seg_first, pos, run_start, run_end = _runs(k_s, valid)
-    rs = torch.clamp(run_start, 0, max(n - 1, 0))
-    okf = ok.to(torch.int64)
-    ex = torch.cumsum(okf, 0) - okf
-    rank = ex - ex[rs]
-    keep = ok & (occ_base + rank < C)
+        # Per-voxel cap: arrival rank among the accepted rows of the run.
+        seg_first, pos, run_start, run_end = _runs(k_s, valid)
+        rs = torch.clamp(run_start, 0, max(n - 1, 0))
+        okf = ok.to(torch.int64)
+        ex = torch.cumsum(okf, 0) - okf
+        rank = ex - ex[rs]
+        keep = ok & (occ_base + rank < C)
 
-    # Stamps of every voxel the scan touches, then eviction before allocation.
-    stamps_n = stamp.expand(n)
-    stamps = _put(vm.stamps, torch.where(hit & seg_first, slot_hit, V), stamps_n)
-    kill = _clear_cycle(vm, stamps, nonempty, counter)
-    vox_keys0 = torch.where(kill, INVALID_KEY, vm.vox_keys)
-    occ0 = torch.where(kill, 0, vm.occ)
+    with span("insert.evict"):
+        # Stamps of every voxel the scan touches, then eviction before allocation.
+        stamps_n = stamp.expand(n)
+        stamps = _put(vm.stamps, torch.where(hit & seg_first, slot_hit, V), stamps_n)
+        kill = _clear_cycle(vm, stamps, nonempty, counter)
+        vox_keys0 = torch.where(kill, INVALID_KEY, vm.vox_keys)
+        occ0 = torch.where(kill, 0, vm.occ)
 
-    alloc_head = _allocate(vox_keys0, seg_first & ~hit)
-    slot_all = torch.where(hit, slot_hit, alloc_head[rs])
-    keep = keep & (slot_all < V)
+        alloc_head = _allocate(vox_keys0, seg_first & ~hit)
+        slot_all = torch.where(hit, slot_hit, alloc_head[rs])
+        keep = keep & (slot_all < V)
 
-    dst = torch.where(keep, slot_all * C + occ_base + rank, VC)
-    payload = _put(vm.payload, dst, rows_new)
+    with span("insert.scatter"):
+        dst = torch.where(keep, slot_all * C + occ_base + rank, VC)
+        payload = _put(vm.payload, dst, rows_new)
 
-    # Rows added to each run, at its head row.
-    kf = keep.to(torch.int64)
-    ck = torch.cumsum(kf, 0)
-    added = ck[torch.clamp(run_end - 1, min=0)] - (ck - kf)
+        # Rows added to each run, at its head row.
+        kf = keep.to(torch.int64)
+        ck = torch.cumsum(kf, 0)
+        added = ck[torch.clamp(run_end - 1, min=0)] - (ck - kf)
 
-    tslot = torch.where(seg_first & (slot_all < V), slot_all, V)
-    vox_keys = _put(vox_keys0, tslot, k_s)
-    occ = _put(occ0, tslot, (occ_base + added).to(torch.int32))
-    stamps = _put(stamps, tslot, stamps_n)
-    slots = torch.arange(V, dtype=torch.int32, device=dev)
-    dk, dv = _directory(vox_keys, (slots << 8) | occ)
-    return vm.replace(
-        dir_keys=dk, dir_vals=dv, vox_keys=vox_keys, occ=occ, stamps=stamps,
-        payload=payload, num_points_stored=occ.sum().to(torch.int32),
-        num_voxels=(vox_keys != INVALID_KEY).sum().to(torch.int32),
-        lru_counter=counter.to(torch.int32))
+        tslot = torch.where(seg_first & (slot_all < V), slot_all, V)
+        vox_keys = _put(vox_keys0, tslot, k_s)
+        occ = _put(occ0, tslot, (occ_base + added).to(torch.int32))
+        stamps = _put(stamps, tslot, stamps_n)
+        slots = torch.arange(V, dtype=torch.int32, device=dev)
+        dk, dv = _directory(vox_keys, (slots << 8) | occ)
+        return vm.replace(
+            dir_keys=dk, dir_vals=dv, vox_keys=vox_keys, occ=occ, stamps=stamps,
+            payload=payload, num_points_stored=occ.sum().to(torch.int32),
+            num_voxels=(vox_keys != INVALID_KEY).sum().to(torch.int32),
+            lru_counter=counter.to(torch.int32))
 
 
 def _ivm_knn(vm: IncrementalVoxelMap, query_xyz: torch.Tensor, k: int):

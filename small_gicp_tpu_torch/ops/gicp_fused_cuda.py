@@ -72,6 +72,7 @@ from small_gicp_tpu_torch.ops.morton_boxes import (
     morton_order,
     pruned_prepare_target,
 )
+from small_gicp_tpu_torch.utils.profiling import host_read
 
 _BIG = 3.0e38
 _NO_INDEX = 2 ** 31 - 1
@@ -771,7 +772,8 @@ def swept_plan(tables: GicpTables) -> int:
     ``swept_chunks`` of the valid source rows, read from the card once per
     tables (``qnum_host``)."""
     if tables.qnum_host is None:
-        tables.qnum_host = int(tables.qnum)
+        with host_read("source_rows"):
+            tables.qnum_host = int(tables.qnum)
     return swept_chunks(min(tables.qnum_host, tables.qtab.shape[0]),
                         tables.ttab.shape[0],
                         knn_cuda._sm_count(tables.qtab.device.index or 0))

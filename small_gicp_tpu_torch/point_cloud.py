@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from small_gicp_tpu_torch.utils.profiling import host_read
+
 # Coordinate of padding rows: distances to them are ~1e18, which loses
 # every nearest-neighbour race and stays inside float32 range.
 PAD_SENTINEL = 1.0e9
@@ -169,10 +171,9 @@ class PointCloud:
         buf[:, 3] = 0.0
         buf[:m, :3] = pts[:, :3].to(device=dev, dtype=dt)
         buf[:m, 3] = 1.0
-        return PointCloud(
-            points=buf,
-            num_points=torch.tensor(m, dtype=torch.int32, device=dev),
-        )
+        with host_read("num_points"):  # a pageable copy to the card waits for it
+            num = torch.tensor(m, dtype=torch.int32, device=dev)
+        return PointCloud(points=buf, num_points=num)
 
     def with_capacity(self, capacity: int) -> "PointCloud":
         """Grow or shrink the capacity (keeps the first ``capacity`` rows);
