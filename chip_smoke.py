@@ -338,6 +338,7 @@ from small_gicp_tpu_torch.ops.knn_cuda import (
 from small_gicp_tpu_torch.ops import knn_window
 from small_gicp_tpu_torch.ops.morton_boxes import TILE_ROWS, pruned_prepare_target
 from small_gicp_tpu_torch.ops.voxel_keys import INVALID_KEY
+from small_gicp_tpu_torch.ops import normals
 from small_gicp_tpu_torch.ops.normals import (
     estimate_covariances,
     estimate_normals_covariances,
@@ -612,13 +613,18 @@ def _step_first_form(state, sums, corr, src, num, robust, robust_c, solve_dtype)
 @contextlib.contextmanager
 def first_forms_scan():
     """Route K3 and K1 through their first forms (the yardsticks
-    ``_knn_moments_rows_v1`` / ``_gicp_linearize_v1``, uncounted) and the
-    LM iteration's body through the torch ops and K2's first form
+    ``_knn_moments_rows_v1`` / ``_gicp_linearize_v1``, uncounted; the
+    covariance stage's torch epilogue over K3's rows in place of K3's own)
+    and the LM iteration's body through the torch ops and K2's first form
     (``_step_first_form``) inside the block."""
     k3, k1 = cov_fused_cuda._knn_moments_rows_cuda, gicp_fused_cuda._gicp_linearize_listed_cuda
-    step = lm_step._gicp_lm_step_cuda
+    step, epilogue = lm_step._gicp_lm_step_cuda, normals.knn_normals_covs
     cov_fused_cuda._knn_moments_rows_cuda = (
         lambda points, num, k, target: _knn_moments_rows_v1(points, num, k))
+    normals.knn_normals_covs = (
+        lambda points, num, k, need_normals, need_covs, target=None: normals._torch_epilogue(
+            points, num, *knn_moments(points, num, k, target=target), need_normals,
+            need_covs))
     gicp_fused_cuda._gicp_linearize_listed_cuda = (
         lambda tables, T, d2, robust, c, out=None: _gicp_linearize_v1(
             tables, T, d2, robust, c, out=out))
@@ -629,6 +635,7 @@ def first_forms_scan():
         cov_fused_cuda._knn_moments_rows_cuda = k3
         gicp_fused_cuda._gicp_linearize_listed_cuda = k1
         lm_step._gicp_lm_step_cuda = step
+        normals.knn_normals_covs = epilogue
 
 
 def api_counts(prof) -> dict:

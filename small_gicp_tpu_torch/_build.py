@@ -77,6 +77,7 @@ SIGNATURES = {
     },
     "cov_fused": {
         "sgt_knn_moments": [_P, _P, _P, _I, _P, _I, _I, _P, _P],
+        "sgt_knn_normals_covs": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
         "sgt_knn_moments_v1": [_P, _P, _I, _I, _P, _P],
         "sgt_knn_moments_geometry": [_P],
         "sgt_knn_topk_idx": [_P, _P, _I, _P, _I, _I, _P, _P, _P],

@@ -3,7 +3,7 @@
 // replace the three Pallas kernels of small_gicp_tpu/ops/cov_fused_pallas.py
 // (knn_moments_pallas):
 //
-//   knn_moments_kernel<KMAX>       `_make_moments_kernel_T`   (layout "t")
+//   knn_moments_kernel<KMAX, EPI>  `_make_moments_kernel_T`   (layout "t")
 //   knn_topk_idx_kernel<KMAX>      `_make_topk_idx_kernel_T`  (layout "ti")
 //   knn_moments_warp_walk_kernel   `_make_moments_kernel`     (layout "q")
 //
@@ -54,7 +54,13 @@
 // d = p − q (p gathered from the cloud in original order) in slot order
 // with the first form's arithmetic; the lists are the first form's, so the
 // moment rows equal its rows bit for bit. The row goes to the query's
-// original row; padding rows get zeros. The first form (kept as the
+// original row; padding rows get zeros. In its epilogue modes (EPI, a
+// template parameter; entry sgt_knn_normals_covs) the team's first member
+// finishes the covariance stage from the moment row it holds, in place of
+// the torch epilogue of ops/normals.py (dozens of elementwise launches over
+// [N,3,3]): it writes the normal [N,4] and/or the plane-regularised
+// covariance [N,3,3] of the query's original row, equal bit for bit to the
+// torch epilogue's on the card (cov_epilogue below). The first form (kept as the
 // yardstick knn_moments_kernel_v1) gave each thread a query, 64 a block,
 // and scanned every valid row in original order through a 512-row shared
 // tile, bounded by the kth d² over the ±32 rows around it in row order.
@@ -312,15 +318,180 @@ knn_topk_idx_kernel(const float* __restrict__ tsorted, const int* __restrict__ n
   if (i < n) sgt::store_list<KMAX>(bd, bi, k, out_d, out_i, (size_t)row);
 }
 
+// ------------------------------------------------------ K3's epilogue ----
+
+// The covariance stage's finish as ops/normals.py _estimate_impl and
+// ops/eigh3.py smallest_eigvec3x3 compute it with torch's own CUDA kernels,
+// one rounding per torch op, so that the normals and covariances equal
+// theirs bit for bit. Each op is an intrinsic that nvcc neither contracts
+// nor reorders (__f*_rn); the rest follows torch's kernels, as
+// tools/cov_epilogue_check.py settles on the card: a division by a Python
+// scalar is a product with the scalar's float reciprocal; a sum over 3 or 9
+// contiguous elements takes the order of torch's reduce kernel; each
+// component of linalg.cross is fmaf(a, b, −c·d); a Python constant is
+// rounded from double to float; clamp and amax keep a NaN. acosf and cosf
+// are the toolkit's precise functions, as torch's (no fast math).
+constexpr int kEpiNormals = 1;  // EPI bits: write normals, write covs
+constexpr int kEpiCovs = 2;
+constexpr float kTiny = (float)1e-20;  // smallest_eigvec3x3's tiny
+constexpr float kThird = 1.0f / 3.0f;
+constexpr float kSixth = 1.0f / 6.0f;
+constexpr float k2Pi3 = (float)(2.0 * 3.141592653589793 / 3.0);
+constexpr float kPlane = (float)(1.0 - 1e-3);  // the plane regularisation's 1 − 1e-3
+constexpr float kMinNeighbors = 5.f;
+
+// torch.sum over 3 contiguous elements: the reduce kernel's two lanes hold
+// a0 + a2 and a1.
+__device__ __forceinline__ float torch_sum3(float a0, float a1, float a2) {
+  return __fadd_rn(__fadd_rn(a0, a2), a1);
+}
+
+// torch.sum over 9 contiguous elements: eight lanes, the first holding
+// a0 + a8, then a shuffle tree at lane offsets 4, 2, 1.
+__device__ __forceinline__ float torch_sum9(const float (&a)[9]) {
+  const float a08 = __fadd_rn(a[0], a[8]);
+  return __fadd_rn(__fadd_rn(__fadd_rn(a08, a[4]), __fadd_rn(a[2], a[6])),
+                   __fadd_rn(__fadd_rn(a[1], a[5]), __fadd_rn(a[3], a[7])));
+}
+
+// One component of torch.linalg.cross: a·b − c·d as torch's kernel has it.
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  return __fmaf_rn(a, b, -__fmul_rn(c, d));
+}
+
+__device__ __forceinline__ void cross3(const float (&u)[3], const float (&v)[3],
+                                       float (&c)[3]) {
+  c[0] = cross_term(u[1], v[2], u[2], v[1]);
+  c[1] = cross_term(u[2], v[0], u[0], v[2]);
+  c[2] = cross_term(u[0], v[1], u[1], v[0]);
+}
+
+__device__ __forceinline__ float norm2(const float (&c)[3]) {
+  return torch_sum3(__fmul_rn(c[0], c[0]), __fmul_rn(c[1], c[1]), __fmul_rn(c[2], c[2]));
+}
+
+// Column of a moment row that holds Σddᵀ[r][c] (its upper 6 from column 3).
+__host__ __device__ constexpr int upper_col(int r, int c) {
+  return r <= c ? 3 + 3 * r - r * (r - 1) / 2 + (c - r) : upper_col(c, r);
+}
+
+// v0: the unit eigenvector of the smallest eigenvalue of the covariance of
+// the moment row o ([Σd | Σddᵀ upper 6 | count]), smallest_eigvec3x3's
+// closed form: the characteristic cubic's trigonometric root, then the
+// largest cross product of the rows of A − λ₀I; e₀ where A ≈ c·I.
+
+__device__ __forceinline__ void smallest_eigvec(const float (&o)[16], float (&v0)[3]) {
+  const float safe = o[9] < 1.f ? 1.f : o[9];
+  float mean[3], cov[3][3], A[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) mean[c] = __fdiv_rn(o[c], safe);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      cov[r][c] = __fsub_rn(__fdiv_rn(o[upper_col(r, c)], safe), __fmul_rn(mean[r], mean[c]));
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) A[r][c] = __fmul_rn(__fadd_rn(cov[r][c], cov[c][r]), 0.5f);
+  float scale = fabsf(A[0][0]);
+#pragma unroll
+  for (int e = 1; e < 9; ++e) {
+    const float a = fabsf(A[e / 3][e % 3]);
+    if (a != a || a > scale) scale = a;  // a NaN stays
+  }
+  const float s = scale > kTiny ? scale : 1.f;
+  float As[3][3], sq[9];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) As[r][c] = __fdiv_rn(A[r][c], s);
+  const float q = __fmul_rn(__fadd_rn(__fadd_rn(As[0][0], As[1][1]), As[2][2]), kThird);
+  float B[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      B[r][c] = __fsub_rn(As[r][c], __fmul_rn(q, r == c ? 1.f : 0.f));
+      sq[3 * r + c] = __fmul_rn(B[r][c], B[r][c]);
+    }
+  const float p2 = __fmul_rn(torch_sum9(sq), kSixth);
+  const float p = __fsqrt_rn(p2 < 0.f ? 0.f : p2);
+  const float detB = __fadd_rn(
+      __fsub_rn(
+          __fmul_rn(B[0][0], __fsub_rn(__fmul_rn(B[1][1], B[2][2]), __fmul_rn(B[1][2], B[2][1]))),
+          __fmul_rn(B[0][1], __fsub_rn(__fmul_rn(B[1][0], B[2][2]), __fmul_rn(B[1][2], B[2][0])))),
+      __fmul_rn(B[0][2], __fsub_rn(__fmul_rn(B[1][0], B[2][1]), __fmul_rn(B[1][1], B[2][0]))));
+  const float safe_p = p > kTiny ? p : 1.f;
+  float ratio = __fdiv_rn(detB, __fmul_rn(2.f, __fmul_rn(__fmul_rn(safe_p, safe_p), safe_p)));
+  if (ratio == ratio) ratio = fminf(fmaxf(ratio, -1.f), 1.f);
+  const float phi = __fmul_rn(acosf(ratio), kThird);
+  const float lam0 = __fadd_rn(q, __fmul_rn(__fmul_rn(2.f, p), cosf(__fadd_rn(phi, k2Pi3))));
+  float C[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) C[r][c] = __fsub_rn(As[r][c], __fmul_rn(lam0, r == c ? 1.f : 0.f));
+  float c01[3], c02[3], c12[3];
+  cross3(C[0], C[1], c01);
+  cross3(C[0], C[2], c02);
+  cross3(C[1], C[2], c12);
+  const float n01 = norm2(c01), n02 = norm2(c02), n12 = norm2(c12);
+  const bool take01 = n01 >= n02 && n01 >= n12, take02 = n02 >= n12;
+  float v[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = take01 ? c01[c] : (take02 ? c02[c] : c12[c]);
+  const float nv = __fsqrt_rn(norm2(v));
+  const bool ok = nv > kTiny && p > kTiny;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v0[c] = ok ? __fdiv_rn(v[c], nv) : (c == 0 ? 1.f : 0.f);
+}
+
+// The normal (flipped so that normal·p ≤ 0; 0 for an invalid row; w = 0)
+// and the plane-regularised covariance I − (1 − 1e-3)·v₀v₀ᵀ (I for an
+// invalid row) of original row `row` at p = (px, py, pz), from its moment
+// row o. A row is valid below num with at least 5 neighbours.
+template <int EPI>
+__device__ __forceinline__ void cov_epilogue(const float (&o)[16], int row, int num,
+                                             float px, float py, float pz,
+                                             float* __restrict__ normals,
+                                             float* __restrict__ covs) {
+  float v0[3] = {0.f, 0.f, 0.f};
+  const bool valid = row < num && o[9] >= kMinNeighbors;
+  if (valid) smallest_eigvec(o, v0);
+  if constexpr ((EPI & kEpiNormals) != 0) {
+    const bool flip =
+        torch_sum3(__fmul_rn(px, v0[0]), __fmul_rn(py, v0[1]), __fmul_rn(pz, v0[2])) > 0.f;
+    float nm[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) nm[c] = valid ? (flip ? -v0[c] : v0[c]) : 0.f;
+    reinterpret_cast<float4*>(normals)[row] = make_float4(nm[0], nm[1], nm[2], 0.f);
+  }
+  if constexpr ((EPI & kEpiCovs) != 0) {
+    float* out = covs + (size_t)row * 9;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float eye = r == c ? 1.f : 0.f;
+        out[3 * r + c] =
+            valid ? __fsub_rn(eye, __fmul_rn(__fmul_rn(kPlane, v0[r]), v0[c])) : eye;
+      }
+  }
+}
+
 // ---------------------------------------------------------------- K3 ----
 
 // pts [n,4] in original order; tsorted [n,4] and tbox [ceil(n / 256), 8]
-// its Morton sort and boxes (as K4's); out [n,16] in original row order.
-template <int KMAX>
+// its Morton sort and boxes (as K4's). EPI 0: out [n,16], the moment rows,
+// in original row order; else normals [n,4] (EPI & kEpiNormals) and covs
+// [n,3,3] (EPI & kEpiCovs) from cov_epilogue, in original row order.
+template <int KMAX, int EPI>
 __global__ void __launch_bounds__(sgt::kPrunedThreads)
 knn_moments_kernel(const float* __restrict__ pts, const float* __restrict__ tsorted,
                    const int* __restrict__ num, int n, const float* __restrict__ tbox,
-                   int k, int window, float* __restrict__ out) {
+                   int k, int window, float* __restrict__ out,
+                   float* __restrict__ normals, float* __restrict__ covs) {
   constexpr int kQueries = sgt::kPrunedThreads / kTeam;
   const int i = blockIdx.x * kQueries + threadIdx.x / kTeam;  // sorted position
   const int m = min(*num, n);
@@ -374,7 +545,11 @@ knn_moments_kernel(const float* __restrict__ pts, const float* __restrict__ tsor
     }
     if (active) o[10] = d_k;
   }
-  if (i < n && threadIdx.x % kTeam == 0) store_row(out, row, o);
+  if (i >= n || threadIdx.x % kTeam != 0) return;
+  if constexpr (EPI == 0)
+    store_row(out, row, o);
+  else
+    cov_epilogue<EPI>(o, row, *num, qx, qy, qz, normals, covs);
 }
 
 // ---------------------------------------------------------------- K5 ----
@@ -576,6 +751,25 @@ knn_moments_warp_walk_kernel(const float* __restrict__ pts,
   if (i < n && member == 0) store_row(out, row, o);
 }
 
+// K3 in epilogue mode EPI, its list bound chosen by k.
+template <int EPI>
+int launch_knn_moments(const float* pts, const float* tsorted, const int* num, int n,
+                       const float* tbox, int k, int window, float* out, float* normals,
+                       float* covs, cudaStream_t s) {
+  constexpr int kQueries = sgt::kPrunedThreads / kTeam;
+  const int blocks = (n + kQueries - 1) / kQueries;
+  if (k <= 16)
+    knn_moments_kernel<16, EPI><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        pts, tsorted, num, n, tbox, k, window, out, normals, covs);
+  else if (k <= 32)
+    knn_moments_kernel<32, EPI><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        pts, tsorted, num, n, tbox, k, window, out, normals, covs);
+  else
+    knn_moments_kernel<64, EPI><<<blocks, sgt::kPrunedThreads, 0, s>>>(
+        pts, tsorted, num, n, tbox, k, window, out, normals, covs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -587,19 +781,26 @@ extern "C" {
 int sgt_knn_moments(const float* pts, const float* tsorted, const int* num, int n,
                     const float* tbox, int k, int window, float* out, void* stream) {
   if (k < 1 || k > 64 || n <= 0 || window < k) return (int)cudaErrorInvalidValue;
-  constexpr int kQueries = sgt::kPrunedThreads / kTeam;
-  const int blocks = (n + kQueries - 1) / kQueries;
+  return launch_knn_moments<0>(pts, tsorted, num, n, tbox, k, window, out, nullptr,
+                               nullptr, (cudaStream_t)stream);
+}
+
+// K3 with its epilogue: arguments as sgt_knn_moments', with normals [n,4]
+// and covs [n,3,3] in place of out; a null one is not written (not both).
+int sgt_knn_normals_covs(const float* pts, const float* tsorted, const int* num, int n,
+                         const float* tbox, int k, int window, float* normals,
+                         float* covs, void* stream) {
+  if (k < 1 || k > 64 || n <= 0 || window < k || (!normals && !covs))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16)
-    knn_moments_kernel<16><<<blocks, sgt::kPrunedThreads, 0, s>>>(
-        pts, tsorted, num, n, tbox, k, window, out);
-  else if (k <= 32)
-    knn_moments_kernel<32><<<blocks, sgt::kPrunedThreads, 0, s>>>(
-        pts, tsorted, num, n, tbox, k, window, out);
-  else
-    knn_moments_kernel<64><<<blocks, sgt::kPrunedThreads, 0, s>>>(
-        pts, tsorted, num, n, tbox, k, window, out);
-  return (int)cudaGetLastError();
+  if (!covs)
+    return launch_knn_moments<kEpiNormals>(pts, tsorted, num, n, tbox, k, window, nullptr,
+                                           normals, nullptr, s);
+  if (!normals)
+    return launch_knn_moments<kEpiCovs>(pts, tsorted, num, n, tbox, k, window, nullptr,
+                                        nullptr, covs, s);
+  return launch_knn_moments<kEpiNormals | kEpiCovs>(pts, tsorted, num, n, tbox, k, window,
+                                                    nullptr, normals, covs, s);
 }
 
 // K3's first form: pts [N,4], num, out [N,16]; no sort.

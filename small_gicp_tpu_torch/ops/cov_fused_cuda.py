@@ -30,6 +30,10 @@ Three layouts, named as the JAX package names them:
     (``knn_moments_walk_plain(team=MOMENTS_Q_TEAM)`` is the plain
     account); by request only.
 
+``knn_normals_covs`` is K3 in its epilogue modes: the same launch finishes
+each row's normal and plane-regularised covariance from its moment row, bit
+for bit as the torch epilogue of ``ops/normals.py`` does on the card.
+
 ``knn_moments_rows`` returns the [N,16] rows of ``"t"`` and ``"q"``,
 
   [Σd 3 | Σddᵀ upper 6 (xx xy xz yy yz zz) | count | d_k | 0 ×5]
@@ -208,26 +212,36 @@ def _sorted_cloud(points: torch.Tensor, num_points: torch.Tensor,
     return target
 
 
-def _moments_walk_launch(wrapper, entry: str, points: torch.Tensor,
-                         num_points: torch.Tensor, k: int,
-                         target: Optional[PrunedTarget]) -> torch.Tensor:
-    """Launch the walk ``entry`` (K3 or K5) over the cloud's sort and boxes
-    (made here without ``target``) and count it on ``wrapper``."""
-    _build.require(points, "points", torch.float32, (None, 4))
-    _build.require(num_points, "num_points", torch.int32, ())
+def _walk_launch(wrapper, entry: str, points: torch.Tensor, num_points: torch.Tensor,
+                 k: int, target: Optional[PrunedTarget], outs) -> None:
+    """Launch the walk ``entry`` (K3 in one of its modes, or K5) over the
+    cloud's sort and boxes (made here without ``target``) into the tensors
+    ``outs`` (None: a null pointer), and count it on ``wrapper``."""
     n = points.shape[0]
-    out = torch.empty((n, 16), dtype=torch.float32, device=points.device)
     if n == 0:
-        return out
+        return
     target = _sorted_cloud(points, num_points, target)
     _build.require(target.tsorted, "sorted rows", torch.float32, (n, 4))
     lib = _library()
     with torch.cuda.device(points.device):
         rc = getattr(lib, entry)(points.data_ptr(), target.tsorted.data_ptr(),
                                  num_points.data_ptr(), n, target.tbox.data_ptr(), k,
-                                 bound_window(k), out.data_ptr(), _stream())
+                                 bound_window(k),
+                                 *(None if t is None else t.data_ptr() for t in outs),
+                                 _stream())
     _build.check(rc, entry)
     wrapper.launches += 1
+
+
+def _moments_walk_launch(wrapper, entry: str, points: torch.Tensor,
+                         num_points: torch.Tensor, k: int,
+                         target: Optional[PrunedTarget]) -> torch.Tensor:
+    """[N,16] moment rows of the walk ``entry`` (K3 or K5), counted on
+    ``wrapper``."""
+    _build.require(points, "points", torch.float32, (None, 4))
+    _build.require(num_points, "num_points", torch.int32, ())
+    out = torch.empty((points.shape[0], 16), dtype=torch.float32, device=points.device)
+    _walk_launch(wrapper, entry, points, num_points, k, target, (out,))
     return out
 
 
@@ -274,6 +288,28 @@ def knn_moments_rows(points: torch.Tensor, num_points: torch.Tensor, k: int,
 
 
 knn_moments_rows.launches = 0
+
+
+def knn_normals_covs(points: torch.Tensor, num_points: torch.Tensor, k: int,
+                     need_normals: bool = True, need_covs: bool = True,
+                     target: Optional[PrunedTarget] = None):
+    """Kernel K3 with its epilogue, on CUDA: (normals [N,4], covs [N,3,3])
+    of ``ops/normals.py``, each None where not asked for, finished in the
+    launch that forms the moment rows — bit for bit what the torch epilogue
+    there (``normals._torch_epilogue``, the plain version) makes of K3's
+    rows on the card. Layout "t" only; counted as a launch of K3 on
+    ``knn_moments_rows``."""
+    _check_k(k)
+    if not (need_normals or need_covs):
+        raise ValueError("knn_normals_covs: ask for normals, covs or both")
+    _build.require(points, "points", torch.float32, (None, 4))
+    _build.require(num_points, "num_points", torch.int32, ())
+    n, dev = points.shape[0], points.device
+    normals = torch.empty((n, 4), dtype=torch.float32, device=dev) if need_normals else None
+    covs = torch.empty((n, 3, 3), dtype=torch.float32, device=dev) if need_covs else None
+    _walk_launch(knn_moments_rows, "sgt_knn_normals_covs", points, num_points, k, target,
+                 (normals, covs))
+    return normals, covs
 
 
 # ---------------------------------------------------------------- K4 ----

@@ -14,7 +14,12 @@ approximate Morton-banded self-search (``knn_window.knn_windowed``, cell
 ``window_cell``) and sums their moments as the second route does. A ``KdTree`` over the cloud's own points hands the kernels
 its kept Morton sort and boxes (``KdTree.pruned_target()``), so that
 ``preprocess_points`` and the align that follows sort each cloud once.
-Then:
+On the card, where the first route takes K3 (layout "t", at most 262,144
+rows), K3 also finishes the stage below in its own launch
+(``knn_normals_covs``), bit for bit as the torch epilogue here does it
+(``_torch_epilogue``), which every other route and the CPU take; the
+counters ``covs.fused_epilogue`` and ``covs.torch_epilogue`` say which, once
+a cloud. Then:
   * fewer than 5 neighbours → invalid: normal 0, covariance I;
   * cov = E[ddᵀ] − E[d]E[d]ᵀ over the query-centred offsets d (biased);
   * normal = smallest-eigenvalue eigenvector, flipped so normal·p ≤ 0;
@@ -26,9 +31,16 @@ from __future__ import annotations
 import torch
 
 from small_gicp_tpu_torch.point_cloud import PointCloud
-from small_gicp_tpu_torch.ops.cov_fused_cuda import MAX_K, MAX_ROWS, knn_moments
+from small_gicp_tpu_torch.ops.cov_fused_cuda import (
+    MAX_K,
+    MAX_ROWS,
+    auto_layout,
+    knn_moments,
+    knn_normals_covs,
+)
 from small_gicp_tpu_torch.ops.eigh3 import smallest_eigvec3x3
 from small_gicp_tpu_torch.ops.knn import KdTree
+from small_gicp_tpu_torch.utils.profiling import count
 
 # Squared distances above this are hits on padding rows: the neighbour
 # does not exist (cloud smaller than k).
@@ -67,17 +79,20 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
                    num_neighbors: int, need_normals: bool, need_covs: bool,
                    neighbor_mode: str = "exact", window_cell: float = 0.25, tree=None):
     n = points.shape[0]
-    dt, dev = points.dtype, points.device
-    xyz = points[:, :3]
-
+    dt = points.dtype
     fused_ok = dt == torch.float32 and num_neighbors <= MAX_K
     if neighbor_mode == "exact" and fused_ok and n <= MAX_ROWS:
         neighbor_mode = "fused"
     if neighbor_mode == "fused":
         if not fused_ok:
             raise ValueError("neighbor_mode='fused' needs f32 points and k<=64")
-        m1, m2, counts = knn_moments(points, num_points, num_neighbors,
-                                     target=_kept_sort(points, tree))
+        target = _kept_sort(points, tree)
+        if (points.device.type == "cuda" and auto_layout(n) == "t"
+                and (need_normals or need_covs)):
+            count("covs.fused_epilogue")
+            return knn_normals_covs(points, num_points, num_neighbors, need_normals,
+                                    need_covs, target=target)
+        m1, m2, counts = knn_moments(points, num_points, num_neighbors, target=target)
     elif neighbor_mode == "window":
         from small_gicp_tpu_torch.ops.knn_window import knn_windowed
 
@@ -88,6 +103,21 @@ def _estimate_impl(points: torch.Tensor, num_points: torch.Tensor,
     else:
         raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}; "
                          "have 'exact', 'window', 'fused'")
+    count("covs.torch_epilogue")
+    return _torch_epilogue(points, num_points, m1, m2, counts, need_normals, need_covs)
+
+
+def _torch_epilogue(points: torch.Tensor, num_points: torch.Tensor, m1: torch.Tensor,
+                    m2: torch.Tensor, counts: torch.Tensor, need_normals: bool,
+                    need_covs: bool):
+    """(normals [N,4], covs [N,3,3]) from the moments (Σd [N,3], Σddᵀ
+    [N,3,3], counts [N]) in torch ops: the path of the CPU, of layout "ti",
+    of the searched and windowed lists, and the plain version of
+    K3's epilogue (``cov_fused_cuda.knn_normals_covs``), which repeats its
+    float32 ops on the card bit for bit; a change here is a change there."""
+    n = points.shape[0]
+    dt, dev = points.dtype, points.device
+    xyz = points[:, :3]
     safe = torch.clamp(counts, min=1.0)
     mean = m1 / safe[:, None]
     cov = m2 / safe[:, None, None] - mean[:, :, None] * mean[:, None, :]
