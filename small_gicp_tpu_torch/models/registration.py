@@ -56,7 +56,9 @@ A target's searched rows are its first ``num_points`` live rows (w > 0.5,
 both routes search exactly those rows.
 The loop state lives on the device in one record (``ops/lm_step.LmState``),
 whose pose K1 reads in place; each iteration is K1 (or the unfused
-search), the step, and one host read of the stop flag (with ``verbose``,
+search, factors and packing: spans ``lm.search``, ``lm.factors``, ``lm.pack``
+inside ``lm.linearize``, counter ``lm_unfused_iterations``), the step, and
+one host read of the stop flag (with ``verbose``,
 the printed values ride in the same read). The result's tensors are views
 of that record.
 Parameters sit in the JAX package's positions; ``fused_route`` and
@@ -303,19 +305,25 @@ def align_impl(target: PointCloud, source: PointCloud, target_tree, init_T,
         def iterate():
             """The unfused search and factors, then the step on the packed
             corr rows."""
+            count("lm_unfused_iterations")
             with span("lm.linearize"):
-                corr, d2 = search_correspondences(
-                    registration_type, target, tree, source.points, source.num_points,
-                    source_covs, state.T, max_dist_sq)
-                H, b, _ = factors.linearize(corr, state.T, source.points, robust_kernel,
-                                            robust_c)
-                sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
-                                  corr.mask.sum().reshape(1).to(H.dtype)]).to(torch.float64)
+                with span("lm.search"):
+                    corr, d2 = search_correspondences(
+                        registration_type, target, tree, source.points,
+                        source.num_points, source_covs, state.T, max_dist_sq)
+                with span("lm.factors"):
+                    H, b, _ = factors.linearize(corr, state.T, source.points,
+                                                robust_kernel, robust_c)
+                    sums = torch.cat([H.reshape(36), b, H.new_zeros(1),
+                                      corr.mask.sum().reshape(1).to(H.dtype)]
+                                     ).to(torch.float64)
+                with span("lm.pack"):
+                    rows = pack_corr_rows(corr, d2)
             if group is not None:
                 dist.all_reduce(sums, group=group)
             with span("lm.step"):
-                step(state, sums, pack_corr_rows(corr, d2), source.points,
-                     source.num_points, robust_kernel, robust_c, solve_dtype)
+                step(state, sums, rows, source.points, source.num_points,
+                     robust_kernel, robust_c, solve_dtype)
 
     names = (("e", "gn_lambda") if optimizer == "gn" else ("e", "new_e", "lambda")) \
         + ("dr", "dt")

@@ -304,7 +304,9 @@ def _gvm_insert(vm: GaussianVoxelMap, points: torch.Tensor, covs: torch.Tensor,
     """The Gaussian insert of the JAX package's ``_gvm_insert``, step by step:
     per-run sums of the sorted scan by float64 prefix differences, the old
     rows of existing voxels folded in, stamps, eviction, allocation, the
-    head rows scattered at their slots, the directory sorted again."""
+    head rows scattered at their slots, the directory sorted again. Its
+    spans are the incremental insert's names for the same steps, and
+    ``insert.sums`` for the prefix sums only this map has."""
     V = vm.capacity
     n = points.shape[0]
     dt, dev = vm.payload.dtype, vm.device
@@ -313,49 +315,55 @@ def _gvm_insert(vm: GaussianVoxelMap, points: torch.Tensor, covs: torch.Tensor,
     nonempty = num_points > 0
     counter = torch.where(nonempty, vm.lru_counter + 1, vm.lru_counter)
 
-    keys = _scan_keys(points, vm.leaf_size, num_points)
-    k_s, order = torch.sort(keys, stable=True)
-    valid = k_s != INVALID_KEY
-    seg_first, pos, _, run_end = _runs(k_s, valid)
+    with span("insert.sort"):
+        keys = _scan_keys(points, vm.leaf_size, num_points)
+        k_s, order = torch.sort(keys, stable=True)
+        valid = k_s != INVALID_KEY
+        seg_first, pos, _, run_end = _runs(k_s, valid)
 
-    w = valid.to(dt)[:, None]
-    allc = torch.cat([points[order].to(dt) * w, covs[order].reshape(n, 9).to(dt) * w, w],
-                     dim=1)  # [n,14] = Σ points 4 | Σ covs 9 | count
-    # Exclusive prefix sums in float64 along the last dim of [14, n+1]; each
-    # run's sum is the difference of two, rounded once to the map's type.
-    pref = torch.zeros((14, n + 1), dtype=torch.float64, device=dev)
-    pref[:, 1:] = torch.cumsum(allc.to(torch.float64).T.contiguous(), dim=1)
-    end = torch.where(seg_first, run_end, pos)
-    u_sum = (pref[:, end] - pref[:, pos]).T.to(dt)  # zero off the head rows
+    with span("insert.sums"):
+        w = valid.to(dt)[:, None]
+        allc = torch.cat([points[order].to(dt) * w,
+                          covs[order].reshape(n, 9).to(dt) * w, w],
+                         dim=1)  # [n,14] = Σ points 4 | Σ covs 9 | count
+        # Exclusive prefix sums in float64 along the last dim of [14, n+1]; each
+        # run's sum is the difference of two, rounded once to the map's type.
+        pref = torch.zeros((14, n + 1), dtype=torch.float64, device=dev)
+        pref[:, 1:] = torch.cumsum(allc.to(torch.float64).T.contiguous(), dim=1)
+        end = torch.where(seg_first, run_end, pos)
+        u_sum = (pref[:, end] - pref[:, pos]).T.to(dt)  # zero off the head rows
 
-    hit, lo = _lookup(vm.dir_keys, k_s)
-    hit = hit & valid
-    slot_hit = torch.where(hit, vm.dir_vals[lo].to(torch.int64), 0)
-    orow = vm.payload[slot_hit]
-    old = torch.cat([orow[:, 0:13] * orow[:, 13:14], orow[:, 13:14]], dim=1)
-    u_sum = u_sum + torch.where((hit & seg_first)[:, None], old, 0.0)
+    with span("insert.lookup"):
+        hit, lo = _lookup(vm.dir_keys, k_s)
+        hit = hit & valid
+        slot_hit = torch.where(hit, vm.dir_vals[lo].to(torch.int64), 0)
+        orow = vm.payload[slot_hit]
+        old = torch.cat([orow[:, 0:13] * orow[:, 13:14], orow[:, 13:14]], dim=1)
+        u_sum = u_sum + torch.where((hit & seg_first)[:, None], old, 0.0)
 
-    # Stamps of the hit voxels, then eviction before allocation.
-    stamps_n = stamp.expand(n)
-    lru = _put(vm.lru, torch.where(hit & seg_first, slot_hit, V), stamps_n)
-    kill = _clear_cycle(vm, lru, nonempty, counter)
-    vox_keys0 = torch.where(kill, INVALID_KEY, vm.vox_keys)
+    with span("insert.evict"):
+        # Stamps of the hit voxels, then eviction before allocation.
+        stamps_n = stamp.expand(n)
+        lru = _put(vm.lru, torch.where(hit & seg_first, slot_hit, V), stamps_n)
+        kill = _clear_cycle(vm, lru, nonempty, counter)
+        vox_keys0 = torch.where(kill, INVALID_KEY, vm.vox_keys)
 
-    alloc = _allocate(vox_keys0, seg_first & ~hit)
-    slot_all = torch.where(hit, slot_hit, alloc)
-    write_head = seg_first & (slot_all < V)
+        alloc = _allocate(vox_keys0, seg_first & ~hit)
+        slot_all = torch.where(hit, slot_hit, alloc)
+        write_head = seg_first & (slot_all < V)
 
-    cnt = torch.clamp(u_sum[:, 13:14], min=1.0)
-    fin = torch.cat([u_sum[:, 0:13] / cnt, u_sum[:, 13:14]], dim=1)
-    tslot = torch.where(write_head, slot_all, V)
-    payload = _put(vm.payload, tslot, fin)
-    vox_keys = _put(vox_keys0, tslot, k_s)
-    lru = _put(lru, tslot, stamps_n)
-    dk, dv = _directory(vox_keys, torch.arange(V, dtype=torch.int32, device=dev))
-    return vm.replace(
-        dir_keys=dk, dir_vals=dv, vox_keys=vox_keys, payload=payload, lru=lru,
-        num_voxels=(vox_keys != INVALID_KEY).sum().to(torch.int32),
-        lru_counter=counter.to(torch.int32))
+    with span("insert.scatter"):
+        cnt = torch.clamp(u_sum[:, 13:14], min=1.0)
+        fin = torch.cat([u_sum[:, 0:13] / cnt, u_sum[:, 13:14]], dim=1)
+        tslot = torch.where(write_head, slot_all, V)
+        payload = _put(vm.payload, tslot, fin)
+        vox_keys = _put(vox_keys0, tslot, k_s)
+        lru = _put(lru, tslot, stamps_n)
+        dk, dv = _directory(vox_keys, torch.arange(V, dtype=torch.int32, device=dev))
+        return vm.replace(
+            dir_keys=dk, dir_vals=dv, vox_keys=vox_keys, payload=payload, lru=lru,
+            num_voxels=(vox_keys != INVALID_KEY).sum().to(torch.int32),
+            lru_counter=counter.to(torch.int32))
 
 
 def _gvm_nn(vm: GaussianVoxelMap, query_xyz: torch.Tensor):
